@@ -1,0 +1,15 @@
+from .bert import BertConfig, BertModel
+from .convert import flatten_params, flax_to_state_dict, load_params_npz
+from .flmr import (FLMRModelConfig, FLMRRetriever, l2_normalize,
+                   punctuation_skiplist_ids, skiplist_mask)
+from .mapping import MappingMLP, VisionMapping
+from .transformer import (EncoderConfig, EncoderLayer, MlpBlock,
+                          MultiHeadAttention, TransformerEncoder,
+                          attention_bias_from_mask, gelu)
+
+__all__ = ["BertConfig", "BertModel", "flatten_params", "flax_to_state_dict",
+           "load_params_npz", "FLMRModelConfig", "FLMRRetriever",
+           "l2_normalize", "punctuation_skiplist_ids", "skiplist_mask",
+           "MappingMLP", "VisionMapping", "EncoderConfig", "EncoderLayer",
+           "MlpBlock", "MultiHeadAttention", "TransformerEncoder",
+           "attention_bias_from_mask", "gelu"]

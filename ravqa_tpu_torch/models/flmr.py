@@ -1,0 +1,136 @@
+"""FLMR retriever towers (port of ravqa_tpu/models/flmr.py).
+
+- query(): BERT token embeddings -> bias-free Linear(hidden, dim) -> zero
+  the pad rows -> concat the mapping network's vision tokens -> L2
+  normalize (reference FLMR.py:73-99).
+- doc(): BERT -> linear -> pad/skiplist masking -> L2 normalize
+  (colbert.py:194-215).
+
+Ported for ``query_mode="text+vision"`` with pre-extracted image features.
+The in-graph ViT, multimodal docs, the PreFLMR transformer mapping, FLIPR
+and the training forward (losses) come later (ROADMAP.md A8, A11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import string
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from .bert import BertConfig, BertModel
+from .mapping import VisionMapping
+
+INIT_STD = 0.02  # BERT's initializer_range
+
+
+@dataclasses.dataclass(frozen=True)
+class FLMRModelConfig:
+    bert: BertConfig = dataclasses.field(default_factory=BertConfig)
+    dim: int = 128
+    vision_dim: int = 768               # CLIP CLS embedding size
+    prefix_len: int = 32                # mapping_network_prefix_length
+    separate_question_encoder: bool = False
+    pad_token_id: int = 0
+
+    @staticmethod
+    def tiny(**kw) -> "FLMRModelConfig":
+        base = dict(bert=BertConfig.tiny(), dim=16, vision_dim=24,
+                    prefix_len=4)
+        base.update(kw)
+        return FLMRModelConfig(**base)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """Rows whose squared norm is below `eps` become exactly zero; others
+    are divided by their norm (the JAX package's formula, not
+    F.normalize's max(norm, eps))."""
+    sq = (x * x).sum(dim=dim, keepdim=True)
+    is_zero = sq < eps
+    out = x * torch.rsqrt(torch.where(is_zero, torch.ones_like(sq), sq))
+    return torch.where(is_zero, torch.zeros_like(out), out)
+
+
+def punctuation_skiplist_ids(tokenizer) -> list[int]:
+    """Token ids of punctuation symbols (ColBERT skiplist,
+    colbert.py:38-41)."""
+    ids = set()
+    for symbol in string.punctuation:
+        enc = tokenizer.encode(symbol, add_special_tokens=False)
+        if enc:
+            ids.add(enc[0])
+    return sorted(ids)
+
+
+def skiplist_mask(input_ids: torch.Tensor, skip_ids: Optional[Sequence[int]],
+                  pad_token_id: int = 0) -> torch.Tensor:
+    """(B, T) -> float mask: 0 on pads and skiplisted (punctuation) tokens."""
+    keep = input_ids != pad_token_id
+    if skip_ids is not None and len(skip_ids) > 0:
+        skip = torch.as_tensor(list(skip_ids), dtype=input_ids.dtype,
+                               device=input_ids.device)
+        keep &= ~torch.isin(input_ids, skip)
+    return keep.float()
+
+
+class FLMRRetriever(nn.Module):
+    def __init__(self, cfg: FLMRModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.doc_encoder = BertModel(cfg.bert, device=device)
+        if cfg.separate_question_encoder:
+            self.query_encoder = BertModel(cfg.bert, device=device)
+        self.linear = nn.Linear(cfg.bert.hidden_size, cfg.dim, bias=False,
+                                device=device)
+        self.vision_projection = VisionMapping(
+            vision_dim=cfg.vision_dim, lm_dim=cfg.dim,
+            prefix_len=cfg.prefix_len, device=device)
+
+    @property
+    def query_bert(self) -> BertModel:
+        return (self.query_encoder if self.cfg.separate_question_encoder
+                else self.doc_encoder)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random init from `generator` (a CPU generator, so one seed gives
+        the same weights on every device): N(0, 0.02) weights and
+        embeddings, zero biases, unit LayerNorm scales."""
+        for module in self.modules():
+            if isinstance(module, nn.LayerNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+            elif isinstance(module, (nn.Linear, nn.Embedding)):
+                w = torch.randn(module.weight.shape, generator=generator)
+                module.weight.copy_(w * INIT_STD)
+                if getattr(module, "bias", None) is not None:
+                    module.bias.zero_()
+
+    def query(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+              image_features: torch.Tensor) -> torch.Tensor:
+        """Late-interaction query embeddings, L2-normalized.
+
+        image_features: (B, vision_dim) or (B, n_roi, vision_dim).
+        Returns (B, Lq + n_vision, dim) float32; pad text rows are zero."""
+        cfg = self.cfg
+        hidden = self.query_bert(input_ids, attention_mask)[0]
+        q = self.linear(hidden)
+        # query masking uses an empty skiplist: only pads zeroed (FLMR.py:80)
+        q = q * (input_ids != cfg.pad_token_id).to(q.dtype)[..., None]
+        v = self.vision_projection(image_features)
+        v = v.reshape(v.shape[0], -1, cfg.dim)
+        return l2_normalize(torch.cat([q, v.to(q.dtype)], dim=1).float())
+
+    def doc(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+            skip_mask: Optional[torch.Tensor] = None):
+        """-> (D (B, Ld, dim) L2-normalized float32, mask (B, Ld) float).
+
+        skip_mask: optional precomputed skiplist mask; None zeroes pads."""
+        d = self.linear(self.doc_encoder(input_ids, attention_mask)[0])
+        if skip_mask is None:
+            skip_mask = (input_ids != self.cfg.pad_token_id).float()
+        d = d * skip_mask[..., None].to(d.dtype)
+        return l2_normalize(d.float()), skip_mask

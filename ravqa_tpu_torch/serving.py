@@ -1,0 +1,247 @@
+"""Retrieval serving: dynamic micro-batching over encode -> search.
+
+Port of ravqa_tpu/serving.py (ServeConfig, ServerOverloaded,
+_MicroBatchServer, RetrievalServer, make_http_server). The VQA server
+comes with the generation stack (ROADMAP.md A12).
+
+- Batching window: the dispatcher thread collects up to `max_batch`
+  requests or waits at most `max_wait_ms`.
+- Load shedding: with `max_queue` set, a full queue rejects at admission
+  (ServerOverloaded, HTTP 503).
+- Host work off the hot path: tokenization happens on the caller's thread
+  at submit(); the dispatcher stacks arrays and runs device code. The query
+  embeddings stay on the device between encode and search; only the (B, k)
+  results come back to the host.
+- Batches run at their own size. The JAX server pads each batch to a
+  compiled shape bucket; eager PyTorch compiles nothing per shape, so
+  padding would only add work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 32        # most requests per dispatch
+    max_wait_ms: float = 2.0   # batching window at low load
+    k: int = 10                # top-k passages per query
+    max_queue: int = 0         # bounded request queue; 0 = unbounded. When
+    #   full, submit() raises ServerOverloaded immediately
+
+
+class ServerOverloaded(RuntimeError):
+    """Raised by submit() when the bounded request queue is full."""
+
+
+@dataclasses.dataclass
+class RetrievalResult:
+    pids: np.ndarray           # (k,) passage ids
+    scores: np.ndarray         # (k,) MaxSim scores
+    contents: Optional[list] = None
+
+
+class _MicroBatchServer:
+    """Bounded-window micro-batching dispatcher; subclasses implement
+    `_dispatch(batch)` where batch is a list of (payload..., future)."""
+
+    def __init__(self, config: Optional[ServeConfig] = None):
+        self.cfg = config if config is not None else ServeConfig()
+        self._q: queue.Queue = queue.Queue(maxsize=self.cfg.max_queue)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _enqueue(self, item) -> Future:
+        fut: Future = Future()
+        try:
+            self._q.put_nowait(item + (fut,))
+        except queue.Full:
+            raise ServerOverloaded(
+                f"request queue full ({self.cfg.max_queue})")
+        return fut
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        # fail queued-but-uncollected requests instead of leaving their
+        # futures pending
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            fut = item[-1]
+            if not fut.done():
+                fut.set_exception(RuntimeError("server stopped"))
+
+    def _collect(self):
+        """Block for the first request, then fill up to max_batch within
+        the max_wait_ms window."""
+        try:
+            first = self._q.get(timeout=0.1)
+        except queue.Empty:
+            return []
+        batch = [first]
+        deadline = time.perf_counter() + self.cfg.max_wait_ms / 1e3
+        while len(batch) < self.cfg.max_batch:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                break
+            try:
+                batch.append(self._q.get(timeout=left))
+            except queue.Empty:
+                break
+        return batch
+
+    def _loop(self):
+        while not self._stop.is_set():
+            batch = self._collect()
+            if not batch:
+                continue
+            try:
+                self._dispatch(batch)
+            except BaseException as e:          # deliver, don't kill loop
+                for *_, fut in batch:
+                    if not fut.done():
+                        fut.set_exception(e)
+
+    def _dispatch(self, batch):                 # pragma: no cover
+        raise NotImplementedError
+
+
+class RetrievalServer(_MicroBatchServer):
+    """Micro-batching server over (query tokenizer, FLMR executor,
+    LateInteractionSearcher).
+
+    serve = RetrievalServer(executor, searcher, query_tokenizer,
+                            image_feature_dim=768)
+    result = serve.submit("what is this?", image_features=feat).result()
+    """
+
+    def __init__(self, executor, searcher, query_tokenizer,
+                 image_feature_dim: int,
+                 id2content: Optional[dict] = None,
+                 config: Optional[ServeConfig] = None):
+        """id2content: optional {pid: text} map; results carry contents
+        when given. `dispatches` counts the batches run."""
+        self.ex = executor
+        self.searcher = searcher
+        self.qt = query_tokenizer
+        self.image_feature_dim = image_feature_dim
+        self.id2content = id2content
+        self.dispatches = 0
+        super().__init__(config)
+
+    # -- client side --------------------------------------------------------
+    def submit(self, text: str,
+               image_features: Optional[np.ndarray] = None) -> Future:
+        """Tokenize on the caller's thread, enqueue, return a Future.
+        Missing image features are zeros."""
+        ids, mask = self.qt.tensorize([text])
+        if image_features is None:
+            image_features = np.zeros((self.image_feature_dim,), np.float32)
+        return self._enqueue((np.asarray(ids)[0], np.asarray(mask)[0],
+                              np.asarray(image_features, np.float32)))
+
+    def search_batch(self, texts: Sequence[str],
+                     image_features: Optional[np.ndarray] = None
+                     ) -> list[RetrievalResult]:
+        """Blocking convenience wrapper."""
+        feats = ([None] * len(texts) if image_features is None
+                 else list(image_features))
+        futs = [self.submit(t, f) for t, f in zip(texts, feats)]
+        return [f.result() for f in futs]
+
+    @torch.inference_mode()
+    def warm_up(self) -> None:
+        """Run one zero query through encode and search, so the first
+        request does not pay for the kernel build and library set-up."""
+        ids, mask = self.qt.tensorize([""])
+        q = self.ex.encode_query(
+            ids, mask, np.zeros((1, self.image_feature_dim), np.float32))
+        self.searcher.search_device(q, self.cfg.k)[0].cpu()
+
+    # -- dispatcher ---------------------------------------------------------
+    @torch.inference_mode()
+    def _dispatch(self, batch):
+        self.dispatches += 1
+        q = self.ex.encode_query(np.stack([b[0] for b in batch]),
+                                 np.stack([b[1] for b in batch]),
+                                 np.stack([b[2] for b in batch]))
+        scores, rows = self.searcher.search_device(q, self.cfg.k)
+        scores = scores.cpu().numpy()
+        pids = self.searcher.index.pids[rows.cpu().numpy()]
+        for i, (*_, fut) in enumerate(batch):
+            fut.set_result(RetrievalResult(
+                pids=pids[i], scores=scores[i],
+                contents=([self.id2content.get(p, "")
+                           for p in pids[i].tolist()]
+                          if self.id2content is not None else None)))
+
+
+# ---------------------------------------------------------------------------
+# HTTP front end (stdlib only): GET /healthz; POST /search {"query": str,
+# "image_features": [float]?, "timeout_s": float?}.
+# ---------------------------------------------------------------------------
+
+def make_http_server(server: RetrievalServer, host: str = "0.0.0.0",
+                     port: int = 8080):
+    """Wrap a RetrievalServer in a ThreadingHTTPServer. Call
+    .serve_forever() (blocking) or run it on a thread and .shutdown()."""
+    import json
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):                    # quiet access log
+            pass
+
+        def _json(self, code: int, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json(200, {"ok": True, "mode": "retrieval"})
+            else:
+                self._json(404, {"error": "not found"})
+
+        def do_POST(self):
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+            except (ValueError, json.JSONDecodeError):
+                return self._json(400, {"error": "bad json"})
+            if self.path != "/search":
+                return self._json(404, {"error": "not found"})
+            try:
+                feats = req.get("image_features")
+                res = server.submit(
+                    req["query"],
+                    None if feats is None else np.asarray(feats, np.float32)
+                ).result(timeout=req.get("timeout_s", 60))
+                return self._json(200, {
+                    "pids": np.asarray(res.pids).tolist(),
+                    "scores": np.asarray(res.scores, np.float64).tolist(),
+                    "contents": res.contents})
+            except KeyError as e:
+                return self._json(400, {"error": f"missing field {e}"})
+            except ServerOverloaded as e:              # shed -> retry later
+                return self._json(503, {"error": str(e)})
+            except Exception as e:                     # surface, don't die
+                return self._json(500, {"error": str(e)})
+
+    return ThreadingHTTPServer((host, port), Handler)

@@ -1,0 +1,135 @@
+"""ravqa_tpu_torch.ops.maxsim against ravqa_tpu.ops.maxsim.
+
+The port's plain MaxSim (the CPU path, and the reference its CUDA kernel
+is checked against on the card) must equal the JAX package's XLA version
+and its Pallas kernel (run in TPU interpret mode, as tests/test_maxsim.py
+runs it) on the same numpy inputs.
+
+Tolerance: rtol 1e-5, atol 1e-4 * Lq. Both sides compute in float32 but
+sum the dim products and the Lq per-token maxima in different orders; each
+of the Lq terms carries a float32 rounding error well below 1e-4 at these
+magnitudes.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ravqa_tpu.ops import maxsim as jax_maxsim
+from ravqa_tpu_torch.ops import maxsim as torch_maxsim
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+CASES = ["random", "all_masked_docs", "zero_query_rows", "all_negative",
+         "ragged_n"]
+
+
+def make_case(case: str, seed: int = 0):
+    """(q (B, Lq, dim), tokens (N, Ld, dim), mask (N, Ld) int8) numpy."""
+    rng = np.random.default_rng(seed)
+    b, lq, n, ld, dim = 3, 6, 32, 9, 16
+    if case == "ragged_n":
+        n = 37                        # not a multiple of 16 (port side only)
+    q = rng.normal(size=(b, lq, dim)).astype(np.float32)
+    tok = rng.normal(size=(n, ld, dim)).astype(np.float32)
+    mask = (rng.random((n, ld)) > 0.3).astype(np.int8)
+    mask[:, 0] = 1
+    if case == "all_masked_docs":
+        mask[[0, 5, n - 1]] = 0
+    elif case == "zero_query_rows":
+        q[:, -2:] = 0.0
+    elif case == "all_negative":
+        # every q.d < 0: a max that starts at 0 would score 0, not < 0
+        q = np.abs(q)
+        tok = -np.abs(tok)
+    return q, tok, mask
+
+
+def tol(lq):
+    return dict(rtol=1e-5, atol=1e-4 * lq)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_search_matches_jax_xla(case):
+    q, tok, mask = make_case(case)
+    got = torch_maxsim.maxsim_search_torch(
+        torch.from_numpy(q), torch.from_numpy(tok), torch.from_numpy(mask))
+    want = np.asarray(jax_maxsim.maxsim_search_xla(
+        jnp.asarray(q), jnp.asarray(tok), jnp.asarray(mask)))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **tol(q.shape[1]))
+    if case == "all_masked_docs":
+        np.testing.assert_array_equal(got.numpy()[:, [0, 5]],
+                                      -9999.0 * q.shape[1])
+    if case == "all_negative":
+        assert (got.numpy() < 0).all()
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c != "ragged_n"])
+def test_plain_search_matches_jax_pallas_interpret(case):
+    from jax.experimental.pallas import tpu as pltpu
+    q, tok, mask = make_case(case)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_maxsim.maxsim_search_pallas(
+            jnp.asarray(q), jnp.asarray(tok), jnp.asarray(mask), tile_d=8))
+    got = torch_maxsim.maxsim_search_torch(
+        torch.from_numpy(q), torch.from_numpy(tok), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, **tol(q.shape[1]))
+
+
+@pytest.mark.parametrize("with_q_mask", [False, True])
+def test_maxsim_reduce_matches_jax(with_q_mask):
+    rng = np.random.default_rng(3)
+    scores = rng.normal(size=(4, 5, 7, 6)).astype(np.float32)  # (.., Ld, Lq)
+    d_mask = (rng.random((4, 5, 7)) > 0.4).astype(np.float32)
+    d_mask[1, 2] = 0.0                                         # all masked
+    q_mask = (rng.random((4, 5, 6)) > 0.3).astype(np.float32) \
+        if with_q_mask else None
+    want = np.asarray(jax_maxsim.maxsim_reduce(
+        jnp.asarray(scores), jnp.asarray(d_mask),
+        None if q_mask is None else jnp.asarray(q_mask)))
+    got = torch_maxsim.maxsim_reduce(
+        torch.from_numpy(scores), torch.from_numpy(d_mask),
+        None if q_mask is None else torch.from_numpy(q_mask))
+    np.testing.assert_allclose(got.numpy(), want, **tol(6))
+
+
+def test_chunking_does_not_change_scores():
+    q, tok, mask = (torch.from_numpy(a) for a in make_case("ragged_n", 5))
+    whole = torch_maxsim.maxsim_search_torch(q, tok, mask)
+    chunked = torch_maxsim.maxsim_search_torch(q, tok, mask,
+                                               max_chunk_elems=500)
+    torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
+
+
+def test_wrapper_takes_plain_version_on_cpu_only():
+    q, tok, mask = (torch.from_numpy(a) for a in make_case("random", 6))
+    before = torch_maxsim.maxsim_search.launches
+    got = torch_maxsim.maxsim_search(q, tok, mask)
+    torch.testing.assert_close(got, torch_maxsim.maxsim_search_torch(
+        q, tok, mask), rtol=0, atol=0)
+    assert torch_maxsim.maxsim_search.launches == before  # no kernel launch
+    with pytest.raises(ValueError, match="unsupported device"):
+        torch_maxsim.maxsim_search(q.to("meta"), tok.to("meta"),
+                                   mask.to("meta"))
+
+
+def test_kernel_arg_checks_reject_what_the_kernel_does_not_take():
+    q, tok, mask = (torch.from_numpy(a) for a in make_case("random", 7))
+    check = torch_maxsim._check_kernel_args
+    check(q, tok, mask)                                   # accepted
+    with pytest.raises(TypeError):
+        check(q.double(), tok, mask)
+    with pytest.raises(TypeError):
+        check(q, tok, mask.float())
+    with pytest.raises(ValueError):
+        check(q[:, :, :6], tok[:, :, :6].contiguous(), mask)  # dim % 4
+    with pytest.raises(ValueError):
+        check(q, tok.transpose(0, 1), mask.T)                 # layout
+    with pytest.raises(ValueError):
+        check(q, tok[:, :, :8], mask)                         # dim mismatch
