@@ -89,9 +89,14 @@ def build_executor(cfg: Config, device):
 
 def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     """RetrievalServer from a config: encode the corpus into an index on
-    `device`, build the exact searcher, wrap both in the micro-batcher.
+    `device`, build the searcher, wrap both in the micro-batcher.
     Loads `train.load_model_path` (or <log_dir>/ckpt/params.npz) when
-    present; `serve.*` keys set the micro-batching parameters."""
+    present. `model_config.search_mode` picks exact, two_stage or
+    hierarchical search (the pruned modes build summaries with
+    `serve.n_summary` and block summaries with `serve.block_size`);
+    `serve.*` keys set the micro-batching parameters and the searcher's
+    knobs (n_candidates, approx_topk, approx_recall, coarse_int8,
+    centroid_prune, coarse_query_len, stage1_kernel, preset)."""
     from .data import corpus_doc_batches
     from .retrieval import LateInteractionSearcher
     from .serving import RetrievalServer, ServeConfig
@@ -116,8 +121,20 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     corpus = data["passages"]["full_passages"]
     index = ex.build_index(
         corpus_doc_batches(corpus, data["doc_tokenizer"], batch_size=64))
+    mode = mc.get("search_mode", "exact")
+    if mode in ("two_stage", "hierarchical"):
+        index.build_summaries(n_summary=sv.get("n_summary", 8))
+    if mode == "hierarchical":
+        index.build_block_summaries(block_size=sv.get("block_size", 64))
     searcher = LateInteractionSearcher(
-        index, mode=mc.get("search_mode", "exact"),
+        index, mode=mode,
+        n_candidates=sv.get("n_candidates"),
+        approx_topk=sv.get("approx_topk"),
+        approx_recall=sv.get("approx_recall", 0.95),
+        coarse_int8=sv.get("coarse_int8"),
+        centroid_prune=sv.get("centroid_prune"),
+        coarse_query_len=sv.get("coarse_query_len"),
+        stage1_kernel=sv.get("stage1_kernel"),
         preset=sv.get("preset", "reference"))
     server = RetrievalServer(ex, searcher, data["query_tokenizer"],
                              image_feature_dim=mc.get("vision_embedding_size",

@@ -4,8 +4,8 @@ Each library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) from the
 ``.cu`` files under ``ravqa_tpu_torch/csrc/`` into a plain C ABI and loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds). The output
 goes to ``ravqa_tpu_torch/_build/<name>-<hash>/``, keyed on a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one does
-not. Nothing is built at import time: the first launch builds.
+sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one does not. Nothing is built at import time: the first launch builds.
 """
 
 from __future__ import annotations
@@ -41,8 +41,10 @@ def build_library(name: str, sources: tuple[str, ...]) -> tuple[str, str]:
     Returns (path of the library, compiler log). The log is empty when an
     up-to-date library already existed."""
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
+    headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                     if f.endswith(".cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}")

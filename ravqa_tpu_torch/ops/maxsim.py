@@ -11,6 +11,19 @@ the max), then sum over query tokens.
   hand-written Hopper kernel ``csrc/maxsim.cu`` (port of
   ``maxsim_search_pallas``) or raises; on a CPU tensor it runs
   ``maxsim_search_torch``.
+
+The pruned search modes' summary sweeps follow the same pattern:
+
+- ``coarse_sweep`` (``csrc/coarse_sweep.cu``, port of
+  ``coarse_sweep_pallas``): every query against every doc's S summary
+  vectors in slot-major (S, N, dim) layout, float (K2) or int8 (K3); plain
+  version ``coarse_sweep_torch``.
+- ``stage1_sweep`` (``csrc/stage1_sweep.cu``, port of
+  ``stage1_sweep_pallas``): each query against the summaries of its own
+  selected blocks in ``stage1_rows`` layout (K4); plain version
+  ``stage1_sweep_torch`` (port of ``stage1_sweep_xla``).
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -20,6 +33,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from .quant import quantize_queries_int8
 
 NEG_INF = -9999.0  # the reference's padding fill value (colbert.py:240)
 
@@ -61,23 +76,51 @@ def maxsim_search_torch(q: torch.Tensor, tokens: torch.Tensor,
     return out
 
 
+# library name -> (CUDA source, {C function: (pointer args, int args)})
+_LIBRARIES = {
+    "ravqa_maxsim": ("maxsim.cu", {"ravqa_maxsim_search": (4, 7)}),
+    "ravqa_coarse_sweep": ("coarse_sweep.cu", {
+        "ravqa_coarse_sweep": (4, 6), "ravqa_coarse_sweep_int8": (6, 5)}),
+    "ravqa_stage1_sweep": ("stage1_sweep.cu", {"ravqa_stage1_sweep": (4, 8)}),
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _library():
-    """Build and load csrc/maxsim.cu once per process."""
+def _library(name: str):
+    """Build and load one of the port's CUDA libraries once per process.
+    Returns ({C function name: ctypes function}, build seconds, log)."""
     from .cuda_build import load_library
-    lib, seconds, log = load_library("ravqa_maxsim", ("maxsim.cu",))
-    fn = lib.ravqa_maxsim_search
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    return fn, seconds, log
+    source, fns = _LIBRARIES[name]
+    lib, seconds, log = load_library(name, (source,))
+    out = {}
+    for fn_name, (n_ptr, n_int) in fns.items():
+        fn = getattr(lib, fn_name)
+        fn.restype = ctypes.c_int
+        # every C function ends with the stream
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        out[fn_name] = fn
+    return out, seconds, log
 
 
-def build_kernel() -> dict:
-    """Build (or find built) and load the kernel; returns the build time in
-    seconds and the compiler's log (registers, shared memory, spills)."""
-    _, seconds, log = _library()
-    return {"seconds": seconds, "log": log}
+def _launch(lib: str, fn_name: str, device, *args) -> None:
+    fn = _library(lib)[0][fn_name]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def build_kernels() -> dict:
+    """Build (or find built) and load every CUDA library of the port, the
+    nvcc runs side by side. Returns {library: {"seconds", "log"}}: the
+    build time and the compiler's log (registers, shared memory, spills)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(_LIBRARIES)) as pool:
+        built = dict(zip(_LIBRARIES, pool.map(_library, _LIBRARIES)))
+    return {name: {"seconds": b[1], "log": b[2]}
+            for name, b in built.items()}
 
 
 def _check_kernel_args(q, tokens, mask):
@@ -124,20 +167,299 @@ def maxsim_search(q: torch.Tensor, tokens: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"maxsim_search: unsupported device {q.device}")
     _check_kernel_args(q, tokens, mask)
-    fn = _library()[0]
     b, lq, dim = q.shape
     n, ld, _ = tokens.shape
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), tokens.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), b, lq, n, ld, dim,
-                 int(q.dtype == torch.bfloat16),
-                 int(tokens.dtype == torch.bfloat16), stream)
-    if err:
-        raise RuntimeError(f"maxsim kernel launch failed: CUDA error {err}")
+    _launch("ravqa_maxsim", "ravqa_maxsim_search", q.device, q.data_ptr(),
+            tokens.data_ptr(), mask.data_ptr(), out.data_ptr(), b, lq, n, ld,
+            dim, int(q.dtype == torch.bfloat16),
+            int(tokens.dtype == torch.bfloat16))
     maxsim_search.launches += 1
     return out
 
 
 maxsim_search.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Summary sweeps of the pruned search modes (K2, K3, K4)
+# ---------------------------------------------------------------------------
+
+def _check_cuda(where: str, **tensors) -> None:
+    """Every tensor on one CUDA device, contiguous and 16-byte aligned."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{where}: {name} is on {t.device}, not {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{where}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{where}: {name} must be 16-byte aligned")
+
+
+def _check_dim(where: str, dim: int, int8: bool) -> None:
+    step = 16 if int8 else 8
+    if dim % step or dim > _MAX_DIM:
+        raise ValueError(f"{where}: the kernel needs dim % {step} == 0 and "
+                         f"dim <= {_MAX_DIM}; got dim={dim}")
+
+
+def _valid_row(valid: Optional[torch.Tensor], n: int):
+    if valid is None:
+        return None
+    if tuple(valid.shape) != (n,):
+        raise ValueError(f"valid must have shape ({n},); got "
+                         f"{tuple(valid.shape)}")
+    return valid if valid.dtype == torch.int8 else (valid != 0).to(
+        torch.int8)
+
+
+def _slot_max(q2: torch.Tensor, slots, max_chunk_elems: int):
+    """max over s of q2 (R, dim) @ slots(s, lo, hi).T -> (R, N), in docs
+    chunks so the (R, n) score block stays bounded. slots is (S, N, dim);
+    every product in float32."""
+    s_, n, _ = slots.shape
+    out = torch.empty((q2.shape[0], n), dtype=torch.float32,
+                      device=q2.device)
+    step = max(1, max_chunk_elems // max(1, q2.shape[0]))
+    for lo in range(0, n, step):
+        m = None
+        for si in range(s_):
+            sc = q2 @ slots[si, lo:lo + step].float().T
+            m = sc if m is None else torch.maximum(m, sc)
+        out[:, lo:lo + step] = m
+    return out
+
+
+def coarse_sweep_int8_torch(q8: torch.Tensor, qscale: torch.Tensor,
+                            summaries_t: torch.Tensor, dscale: torch.Tensor,
+                            valid: Optional[torch.Tensor] = None,
+                            max_chunk_elems: int = 1 << 26) -> torch.Tensor:
+    """Plain int8 coarse sweep (K3's semantics): q8 (B, Lq, dim) int8 with
+    qscale (B, Lq), summaries_t (S, N, dim) int8 with dscale (N,) ->
+    (B, N) float32 = sum_t qscale * (dscale * max_s q8 . summ8), -9999 on
+    invalid docs. The int8 dot products are exact in float32 (|sum| <=
+    dim * 127^2 < 2^24 at dim <= 1024); on the card TF32 must be off."""
+    b, lq, dim = q8.shape
+    m = _slot_max(q8.reshape(b * lq, dim).float(), summaries_t,
+                  max_chunk_elems)                       # (B*Lq, N)
+    mf = m * dscale.float()[None, :]
+    out = (qscale.float().reshape(b * lq, 1) * mf).reshape(
+        b, lq, -1).sum(dim=1)
+    if valid is not None:
+        out = out.masked_fill(~valid.bool()[None, :], NEG_INF)
+    return out
+
+
+def coarse_sweep_torch(q: torch.Tensor, summaries_t: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None,
+                       dscale: Optional[torch.Tensor] = None,
+                       max_chunk_elems: int = 1 << 26) -> torch.Tensor:
+    """Plain coarse summary sweep (K2/K3's semantics, port of
+    coarse_sweep_pallas): q (B, Lq, dim) x slot-major summaries_t
+    (S, N, dim) -> (B, N) float32 approximate MaxSim, sum over query tokens
+    of the max over slots; docs with a falsy `valid` entry score exactly
+    -9999. Float summaries: q is cast to their dtype, products in float32.
+    int8 summaries need `dscale` (ops.quant.quantize_summaries_t_int8); q
+    is quantized per token from float32 (quantize_queries_int8)."""
+    if summaries_t.dtype == torch.int8:
+        if dscale is None:
+            raise ValueError("int8 summaries_t requires dscale")
+        q8, qs = quantize_queries_int8(q.float())
+        return coarse_sweep_int8_torch(q8, qs, summaries_t, dscale, valid,
+                                       max_chunk_elems)
+    b, lq, dim = q.shape
+    qf = q.to(summaries_t.dtype).float().reshape(b * lq, dim)
+    out = _slot_max(qf, summaries_t, max_chunk_elems).reshape(
+        b, lq, -1).sum(dim=1)
+    if valid is not None:
+        out = out.masked_fill(~valid.bool()[None, :], NEG_INF)
+    return out
+
+
+def coarse_sweep_int8(q8: torch.Tensor, qscale: torch.Tensor,
+                      summaries_t: torch.Tensor, dscale: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 coarse sweep (K3) on quantized queries: see
+    coarse_sweep_int8_torch. CUDA tensors launch csrc/coarse_sweep.cu's
+    int8 body (counted in ``coarse_sweep_int8.launches``); CPU tensors take
+    the plain version."""
+    if q8.device.type == "cpu":
+        return coarse_sweep_int8_torch(q8, qscale, summaries_t, dscale,
+                                       valid)
+    if q8.device.type != "cuda":
+        raise ValueError(f"coarse_sweep_int8: unsupported device {q8.device}")
+    b, lq, dim = q8.shape
+    s_, n, dim2 = summaries_t.shape
+    if dim != dim2 or tuple(qscale.shape) != (b, lq) \
+            or tuple(dscale.shape) != (n,):
+        raise ValueError(f"coarse_sweep_int8: shape mismatch q8 "
+                         f"{tuple(q8.shape)}, qscale {tuple(qscale.shape)}, "
+                         f"summaries_t {tuple(summaries_t.shape)}, dscale "
+                         f"{tuple(dscale.shape)}")
+    if q8.dtype != torch.int8 or summaries_t.dtype != torch.int8 \
+            or qscale.dtype != torch.float32 or dscale.dtype != torch.float32:
+        raise TypeError("coarse_sweep_int8: q8 and summaries_t must be int8, "
+                        "qscale and dscale float32")
+    if lq == 0:
+        raise ValueError("coarse_sweep_int8: Lq must be > 0")
+    _check_dim("coarse_sweep_int8", dim, int8=True)
+    v = _valid_row(valid, n)
+    _check_cuda("coarse_sweep_int8", q8=q8, qscale=qscale,
+                summaries_t=summaries_t, dscale=dscale,
+                **({} if v is None else {"valid": v}))
+    out = torch.empty((b, n), dtype=torch.float32, device=q8.device)
+    _launch("ravqa_coarse_sweep", "ravqa_coarse_sweep_int8", q8.device,
+            q8.data_ptr(), qscale.data_ptr(), summaries_t.data_ptr(),
+            dscale.data_ptr(), None if v is None else v.data_ptr(),
+            out.data_ptr(), b, lq, s_, n, dim)
+    coarse_sweep_int8.launches += 1
+    return out
+
+
+coarse_sweep_int8.launches = 0
+
+
+def coarse_sweep(q: torch.Tensor, summaries_t: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None,
+                 dscale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Coarse summary sweep (port of coarse_sweep_pallas): see
+    coarse_sweep_torch for the semantics. Float32 or bfloat16 summaries
+    launch the float body of csrc/coarse_sweep.cu on CUDA tensors (K2,
+    counted in ``coarse_sweep.launches``); int8 summaries quantize q and go
+    through ``coarse_sweep_int8`` (K3). CPU tensors take the plain
+    version."""
+    if summaries_t.dtype == torch.int8:
+        if dscale is None:
+            raise ValueError("int8 summaries_t requires dscale")
+        q8, qs = quantize_queries_int8(q.float())
+        return coarse_sweep_int8(q8, qs, summaries_t, dscale, valid)
+    if q.device.type == "cpu":
+        return coarse_sweep_torch(q, summaries_t, valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"coarse_sweep: unsupported device {q.device}")
+    if summaries_t.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"coarse_sweep: summaries_t must be float32, "
+                        f"bfloat16 or int8; got {summaries_t.dtype}")
+    if q.dim() != 3 or summaries_t.dim() != 3 \
+            or q.shape[2] != summaries_t.shape[2]:
+        raise ValueError(f"coarse_sweep: expected q (B, Lq, dim) and "
+                         f"summaries_t (S, N, dim); got {tuple(q.shape)}, "
+                         f"{tuple(summaries_t.shape)}")
+    b, lq, dim = q.shape
+    s_, n, _ = summaries_t.shape
+    if lq == 0:
+        raise ValueError("coarse_sweep: Lq must be > 0")
+    _check_dim("coarse_sweep", dim, int8=False)
+    qc = q.to(summaries_t.dtype).contiguous()
+    v = _valid_row(valid, n)
+    _check_cuda("coarse_sweep", q=qc, summaries_t=summaries_t,
+                **({} if v is None else {"valid": v}))
+    out = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    _launch("ravqa_coarse_sweep", "ravqa_coarse_sweep", q.device,
+            qc.data_ptr(), summaries_t.data_ptr(),
+            None if v is None else v.data_ptr(), out.data_ptr(), b, lq, s_,
+            n, dim, int(summaries_t.dtype == torch.bfloat16))
+    coarse_sweep.launches += 1
+    return out
+
+
+coarse_sweep.launches = 0
+
+
+def stage1_rows(summaries: torch.Tensor, block_size: int) -> torch.Tensor:
+    """(N, S, dim) doc summaries -> (N/bs, S, bs, dim) block-slot-major
+    rows for stage1_sweep (each block's slot-s summaries are one contiguous
+    (bs, dim) tile, as in the slot-major coarse-sweep layout)."""
+    n, s, d = summaries.shape
+    nb = n // block_size
+    return summaries.reshape(nb, block_size, s, d).transpose(
+        1, 2).contiguous()
+
+
+def _stage1_dtype(summ_rows: torch.Tensor) -> torch.dtype:
+    # the TPU kernel's cast: bfloat16 unless the rows are float32 (int8
+    # rows upcast to bfloat16 exactly)
+    return torch.float32 if summ_rows.dtype == torch.float32 \
+        else torch.bfloat16
+
+
+def _apply_dscale(out, dscale, blk, summ_rows):
+    nb, _, bs, _ = summ_rows.shape
+    scl = dscale.reshape(nb, bs)[blk]                    # (B, n_blocks, bs)
+    return out * scl.reshape(out.shape)
+
+
+def stage1_sweep_torch(q: torch.Tensor, summ_rows: torch.Tensor,
+                       blk: torch.Tensor,
+                       dscale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain gathered stage-1 sweep (port of stage1_sweep_xla, K4's
+    semantics): q (B, Lq, dim), summ_rows (NB, S, bs, dim) float32,
+    bfloat16 or int8 (stage1_rows layout), blk (B, n_blocks) selected
+    blocks -> (B, n_blocks * bs) float32 scores in gathered order: per doc
+    of each query's own blocks, the sum over query tokens of the max over
+    slots. q and the rows are cast to bfloat16 unless the rows are float32;
+    products in float32. dscale ((NB*bs,) per-doc scales, int8 rows)
+    multiplies the scores afterwards."""
+    b = q.shape[0]
+    cdt = _stage1_dtype(summ_rows)
+    qc = q.to(cdt).float()
+    sg = summ_rows[blk.long()]                       # (B, nbl, S, bs, d)
+    m = None
+    for si in range(summ_rows.shape[1]):
+        sc = torch.einsum("gnbd,gqd->gnbq", sg[:, :, si].to(cdt).float(), qc)
+        m = sc if m is None else torch.maximum(m, sc)
+    out = m.sum(dim=-1).reshape(b, -1)
+    if dscale is not None:
+        out = _apply_dscale(out, dscale, blk.long(), summ_rows)
+    return out
+
+
+def stage1_sweep(q: torch.Tensor, summ_rows: torch.Tensor, blk: torch.Tensor,
+                 tile_b: int = 8,
+                 dscale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gathered stage-1 sweep (port of stage1_sweep_pallas): see
+    stage1_sweep_torch for the semantics. CUDA tensors launch
+    csrc/stage1_sweep.cu (K4, counted in ``stage1_sweep.launches``), which
+    returns raw scores; dscale is applied after it. int8 rows require
+    dscale. `tile_b` is the TPU kernel's blocks-per-step knob, accepted
+    and unused: the CUDA kernel has no lane rule on n_blocks. CPU tensors
+    take the plain version."""
+    del tile_b
+    if summ_rows.dtype == torch.int8 and dscale is None:
+        raise ValueError("int8 summ_rows require dscale")
+    if q.device.type == "cpu":
+        return stage1_sweep_torch(q, summ_rows, blk, dscale)
+    if q.device.type != "cuda":
+        raise ValueError(f"stage1_sweep: unsupported device {q.device}")
+    if summ_rows.dtype not in _KERNEL_DTYPES + (torch.int8,):
+        raise TypeError(f"stage1_sweep: summ_rows must be float32, bfloat16 "
+                        f"or int8; got {summ_rows.dtype}")
+    if q.dim() != 3 or summ_rows.dim() != 4 or blk.dim() != 2 \
+            or q.shape[2] != summ_rows.shape[3] or blk.shape[0] != q.shape[0]:
+        raise ValueError(f"stage1_sweep: expected q (B, Lq, dim), summ_rows "
+                         f"(NB, S, bs, dim), blk (B, n_blocks); got "
+                         f"{tuple(q.shape)}, {tuple(summ_rows.shape)}, "
+                         f"{tuple(blk.shape)}")
+    b, lq, dim = q.shape
+    nb, s_, bs, _ = summ_rows.shape
+    nbl = blk.shape[1]
+    if lq == 0:
+        raise ValueError("stage1_sweep: Lq must be > 0")
+    _check_dim("stage1_sweep", dim, int8=summ_rows.dtype == torch.int8)
+    qc = q.to(_stage1_dtype(summ_rows)).contiguous()
+    blk32 = blk.to(torch.int32).contiguous()
+    _check_cuda("stage1_sweep", q=qc, summ_rows=summ_rows, blk=blk32)
+    out = torch.empty((b, nbl * bs), dtype=torch.float32, device=q.device)
+    rows_type = {torch.float32: 0, torch.bfloat16: 1,
+                 torch.int8: 2}[summ_rows.dtype]
+    _launch("ravqa_stage1_sweep", "ravqa_stage1_sweep", q.device,
+            qc.data_ptr(), summ_rows.data_ptr(), blk32.data_ptr(),
+            out.data_ptr(), b, lq, s_, bs, nbl, nb, dim, rows_type)
+    stage1_sweep.launches += 1
+    if dscale is not None:
+        out = _apply_dscale(out, dscale, blk.long(), summ_rows)
+    return out
+
+
+stage1_sweep.launches = 0

@@ -1,13 +1,15 @@
 """Device-resident late-interaction token index.
 
-Port of ravqa_tpu/retrieval/index.py, exact-search fields only:
+Port of ravqa_tpu/retrieval/index.py for one device and a token index:
 
-    tokens: (N_pad, Ld, dim)   float32 or bfloat16
-    mask:   (N_pad, Ld)        int8 (0 on padded doc tokens and padded docs)
-    pids:   (N_pad,)           int64 numpy, -1 on padded docs
+    tokens:          (N_pad, Ld, dim)     float32 or bfloat16
+    mask:            (N_pad, Ld)          int8 (0 on padded tokens and docs)
+    pids:            (N_pad,)             int64 numpy, -1 on padded docs
+    summaries:       (N_pad, S, dim)      two-stage / hierarchical search
+    block_summaries: (N_pad/bs, Sb, dim)  hierarchical search
 
-Summaries, the int8 and residual codecs, sharding and save/load come with
-the pruned search modes (ROADMAP.md, Queue A).
+The int8 and residual codecs, sharding and save/load are not ported yet
+(ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -27,6 +29,38 @@ class TokenIndex:
     pids: np.ndarray           # (N_pad,) int64 passage ids; -1 = pad
     num_docs: int              # real (unpadded) doc count
     meta: dict = dataclasses.field(default_factory=dict)
+    summaries: Optional[torch.Tensor] = None        # (N_pad, S, dim)
+    block_summaries: Optional[torch.Tensor] = None  # (N_pad / bs, Sb, dim)
+    block_size: int = 64
+
+    def build_summaries(self, n_summary: int = 8,
+                        iters: int = 4) -> "TokenIndex":
+        """Attach per-doc summary vectors (coarse.summarize_docs) in the
+        tokens' dtype, for two-stage and hierarchical search."""
+        from .coarse import summarize_docs
+        self.summaries = summarize_docs(self.tokens, self.mask,
+                                        n_summary=n_summary,
+                                        iters=iters).to(self.tokens.dtype)
+        return self
+
+    def build_block_summaries(self, block_size: int = 64,
+                              n_block_summary: int = 4,
+                              iters: int = 4) -> "TokenIndex":
+        """Second summary level for hierarchical search, over blocks of
+        `block_size` consecutive docs. For best recall, build the index
+        with cluster-ordered docs (coarse.cluster_order)."""
+        from .coarse import block_summaries
+        if self.summaries is None:
+            raise ValueError("build_summaries() first")
+        if self.n_pad % block_size:
+            raise ValueError(f"block_size {block_size} must divide the "
+                             f"padded doc count {self.n_pad}")
+        self.block_summaries = block_summaries(
+            self.summaries, block_size=block_size,
+            n_block_summary=n_block_summary,
+            iters=iters).to(self.summaries.dtype)
+        self.block_size = block_size
+        return self
 
     @property
     def n_pad(self) -> int:

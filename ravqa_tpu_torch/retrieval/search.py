@@ -1,58 +1,260 @@
-"""Exact late-interaction search over a TokenIndex on one device.
+"""Late-interaction search over a TokenIndex on one device.
 
-Port of ravqa_tpu/retrieval/search.py, ``mode="exact"`` on one device:
-score the query batch against every doc (``ops.maxsim_search``: the Hopper
-kernel on a CUDA index, plain PyTorch on a CPU index), then take the
-top-k. Zero query rows are scored like any other row, exactly as in
+Port of ravqa_tpu/retrieval/search.py for one device and a token index:
+``mode="exact"`` scores the query batch against every doc
+(``ops.maxsim_search``) and takes the top-k; ``"two_stage"`` and
+``"hierarchical"`` prune with summary vectors first (retrieval.coarse).
+Zero query rows are scored like any other row, exactly as in
 ``ravqa_tpu/retrieval/search.py::search_single_device``.
+
+``use_pallas`` picks the route, as in the JAX package: True builds the
+kernels' copies of the summaries (slot-major, int8, stage1_rows) and runs
+the sweeps through the hand-written kernels on a CUDA index (their plain
+versions on a CPU index); False runs the XLA route's math in plain
+PyTorch, on a CPU index only. None means True on a CUDA index.
 """
 
 from __future__ import annotations
 
+import math
+import warnings
 from typing import Optional
 
 import torch
 
-from ..ops.maxsim import maxsim_search
+from ..ops.maxsim import maxsim_search, stage1_rows
+from ..ops.quant import quantize_summaries_int8, quantize_summaries_t_int8
+from .coarse import (block_summaries_t, doc_validity, hierarchical_search,
+                     two_stage_search)
 from .index import TokenIndex
 
-_NOT_PORTED = ("is not ported yet: ravqa_tpu_torch serves exact search on "
-               "one device (see ROADMAP.md, Queue A: A3, A5, A10)")
+_NOT_PORTED = ("is not ported yet: ravqa_tpu_torch searches a token index "
+               "on one device (see ROADMAP.md, Queue A: A9, A10)")
+_MODES = ("exact", "two_stage", "hierarchical")
 
 
 def search_single_device(q: torch.Tensor, tokens: torch.Tensor,
                          mask: torch.Tensor, *, k: int):
     """Exact search on one device. Returns (scores (B, k), rows (B, k))."""
-    scores = maxsim_search(q, tokens, mask)
-    return torch.topk(scores, k, dim=1)
+    return torch.topk(maxsim_search(q, tokens, mask), k, dim=1)
+
+
+def _stage1_lane_rule(block_size: int) -> int:
+    # the TPU stage-1 kernel's output block is tb*bs lanes: n_blocks must
+    # be a multiple of 128/gcd(bs, 128) (ravqa_tpu stage1_sweep_pallas).
+    # The CUDA kernel has no such rule; the searcher keeps it so both
+    # packages search the same blocks.
+    return 128 // math.gcd(block_size, 128)
 
 
 class LateInteractionSearcher:
-    """Searcher over a TokenIndex: device dispatch and pid mapping.
+    """Searcher over a TokenIndex: mode dispatch, presets and pid mapping.
 
-    ``use_pallas``, ``tile_d``, ``approx_topk`` and ``preset`` are the JAX
-    searcher's TPU knobs and are no-ops here: the index's device decides the
-    kernel, and the top-k is always exact. ``mesh`` (sharded search) and the
-    pruned modes ("two_stage", "hierarchical") raise NotImplementedError."""
+    mode: "exact", "two_stage" (needs index.build_summaries()) or
+    "hierarchical" (also needs build_block_summaries()). preset
+    "reference" keeps the reference's quality-first candidate rule;
+    "fast" takes max(256, 4k) candidates, n_blocks covering them (>= 32),
+    int8 pruning-stage summaries and the gathered stage-1 kernel for
+    hierarchical indexes. Explicitly passed knobs win over the preset.
+    ``tile_d``, ``approx_topk``, ``approx_recall``, ``stage1_tile_b`` are
+    the JAX searcher's TPU knobs and are accepted as no-ops: every cut is
+    an exact top-k. ``group_size`` sets the fine stage's query-group
+    chunk. ``mesh`` (sharded search) and ``centroid_prune`` (residual
+    indexes) raise NotImplementedError."""
 
     def __init__(self, index: TokenIndex, mesh=None,
                  use_pallas: Optional[bool] = None,
                  tile_d: Optional[int] = None, mode: str = "exact",
+                 n_candidates: Optional[int] = None,
+                 n_blocks: Optional[int] = None,
+                 coarse_query_len: Optional[int] = None,
+                 group_size: int = 0,
                  approx_topk: Optional[bool] = None,
+                 approx_recall: float = 0.95,
+                 centroid_prune: Optional[int] = None,
+                 coarse_int8: Optional[bool] = None,
+                 stage1_kernel: Optional[bool] = None,
+                 stage1_tile_b: int = 8,
                  preset: str = "reference"):
+        del tile_d, approx_topk, approx_recall
         if preset not in ("reference", "fast"):
             raise ValueError(f"unknown preset {preset!r} "
                              "(expected 'reference' or 'fast')")
-        if mode != "exact":
-            raise NotImplementedError(f"search mode {mode!r} {_NOT_PORTED}")
+        if mode not in _MODES:
+            raise ValueError(f"unknown search mode {mode!r} "
+                             f"(expected one of {_MODES})")
         if mesh is not None:
             raise NotImplementedError(f"sharded search {_NOT_PORTED}")
+        if centroid_prune:
+            raise NotImplementedError(
+                f"centroid_prune (residual indexes) {_NOT_PORTED}")
+        on_cuda = index.tokens.device.type == "cuda"
+        if use_pallas is None:
+            use_pallas = on_cuda
+        if on_cuda and not use_pallas:
+            raise ValueError("use_pallas=False runs the plain versions of "
+                             "the kernels, which serve only a CPU index; a "
+                             "CUDA index searches through the kernels")
+        if mode == "two_stage" and index.summaries is None:
+            raise ValueError("call index.build_summaries() first")
+        if mode == "hierarchical" and (index.summaries is None
+                                       or index.block_summaries is None):
+            raise ValueError("call index.build_summaries()"
+                             ".build_block_summaries() first")
         self.index = index
+        self.mode = mode
+        self.preset = preset
+        self.use_pallas = use_pallas
+        self.n_candidates = n_candidates
+        self.n_blocks = n_blocks
+        self.coarse_query_len = coarse_query_len
+        self.group_size = group_size
+        self.stage1_tile_b = stage1_tile_b
+        summ = index.summaries
+        if preset == "fast":
+            if coarse_int8 is None:
+                coarse_int8 = summ is not None and (
+                    mode == "hierarchical"
+                    or (mode == "two_stage" and use_pallas))
+            if stage1_kernel is None:
+                stage1_kernel = (mode == "hierarchical" and summ is not None
+                                 and index.block_summaries is not None)
+                if stage1_kernel:
+                    # on a CPU index an implicit preset keeps the JAX
+                    # searcher's plain stage 1 where the lane rule cannot
+                    # be met (tiny indexes); a CUDA index always runs K4
+                    bs = index.block_size
+                    stage1_kernel = index.n_pad % bs == 0 and (
+                        on_cuda or index.n_pad // bs >= _stage1_lane_rule(bs))
+        self.coarse_int8 = coarse_int8 = bool(coarse_int8)
+        stage1_kernel = bool(stage1_kernel)
+        self._doc_valid = doc_validity(index.mask) if mode != "exact" \
+            else None
+
+        # two-stage coarse pass: one slot-major (S, N, dim) copy for the
+        # coarse sweep, bfloat16 (K2) or int8 with per-doc scales (K3)
+        self._summ_t = self._summ_t_scale = None
+        if mode == "two_stage" and use_pallas:
+            st = summ.transpose(0, 1)
+            if coarse_int8:
+                self._summ_t, self._summ_t_scale = \
+                    quantize_summaries_t_int8(st)
+            else:
+                self._summ_t = st.to(torch.bfloat16).contiguous()
+        # hierarchical stage 0: the block summaries' slot-major copy,
+        # zero-padded to a multiple of 1024 blocks
+        self._bsum_t = self._bsum_t_scale = None
+        if mode == "hierarchical" and use_pallas:
+            bsum = index.block_summaries
+            if coarse_int8:
+                self._bsum_t, self._bsum_t_scale = quantize_summaries_t_int8(
+                    block_summaries_t(bsum, pad_multiple=1024))
+            else:
+                self._bsum_t = block_summaries_t(bsum.to(torch.bfloat16),
+                                                 pad_multiple=1024)
+        # hierarchical stage 1: a doc-major int8 copy with per-doc scales
+        self._summ_i8 = self._summ_i8_scale = None
+        if mode == "hierarchical" and coarse_int8:
+            self._summ_i8, self._summ_i8_scale = quantize_summaries_int8(summ)
+        # the gathered stage-1 kernel's stage1_rows layout (bfloat16, or
+        # the int8 copy, which it then replaces)
+        self._summ_rows = self._summ_rows_scale = None
+        if stage1_kernel:
+            if mode != "hierarchical":
+                warnings.warn("stage1_kernel=True had no effect (hierarchical "
+                              "mode only)", stacklevel=2)
+            else:
+                src = self._summ_i8 if self._summ_i8 is not None \
+                    else summ.to(torch.bfloat16)
+                self._summ_rows = stage1_rows(src, index.block_size)
+                if self._summ_i8 is not None:
+                    self._summ_rows_scale = self._summ_i8_scale
+                    self._summ_i8 = self._summ_i8_scale = None
+        if coarse_int8 and self._summ_t_scale is None \
+                and self._bsum_t_scale is None and self._summ_i8 is None \
+                and self._summ_rows_scale is None:
+            warnings.warn(
+                "coarse_int8=True had no effect: the int8 paths exist on the "
+                "kernel route's two_stage coarse sweep and the hierarchical "
+                f"pruning stages (mode={mode!r}, use_pallas={use_pallas})",
+                stacklevel=2)
+
+    def resolve_candidates(self, k: int) -> int:
+        """Candidate count: explicit, else the preset's rule (reference:
+        1024 up to k = 100 and max(4k, 4096) above, the reference's ndocs
+        rule; fast: max(256, 4k))."""
+        if self.n_candidates is not None:
+            return self.n_candidates
+        if self.preset == "fast":
+            return max(256, 4 * k)
+        return 1024 if k <= 100 else max(4 * k, 4096)
+
+    def resolve_blocks(self, k: int) -> int:
+        """Selected-block count of hierarchical search: explicit, else the
+        preset's rule (reference: half the candidates; fast: enough blocks
+        to cover the candidates and k, at least 32)."""
+        if self.n_blocks is not None:
+            return self.n_blocks
+        c = self.resolve_candidates(k)
+        if self.preset == "fast":
+            bs = self.index.block_size
+            return max(32, -(-c // bs), -(-min(k, self.index.n_pad) // bs))
+        return max(c // 2, 1)
+
+    def _hierarchical(self, q: torch.Tensor, k: int):
+        idx = self.index
+        nb = idx.block_summaries.shape[0]
+        n_blocks = min(self.resolve_blocks(k), nb)
+        summ_rows = self._summ_rows
+        if summ_rows is not None:
+            # keep the TPU kernel's lane rule: align the selected-block
+            # count up (clamped to nb). Where no aligned count covers k
+            # docs, a CPU index runs the plain stage 1 over the summaries
+            # (as the JAX searcher does); K4 takes any count, so a CUDA
+            # index keeps it at the resolved n_blocks
+            bs = idx.block_size
+            req = _stage1_lane_rule(bs)
+            b_need = -(-min(k, idx.n_pad) // bs)
+            aligned = min(-(-n_blocks // req) * req, (nb // req) * req)
+            if nb >= req and aligned >= b_need:
+                n_blocks = aligned
+            elif idx.tokens.device.type != "cuda":
+                summ_rows = None
+        if summ_rows is None and self._summ_rows is not None:
+            summaries, summ_int8, summ_scale = idx.summaries, None, None
+        else:
+            summaries = idx.summaries if (self._summ_i8 is None
+                                          and summ_rows is None) else None
+            summ_int8 = self._summ_i8
+            summ_scale = (self._summ_rows_scale if summ_rows is not None
+                          else self._summ_i8_scale)
+        return hierarchical_search(
+            q, idx.tokens, idx.mask, summaries, idx.block_summaries, k=k,
+            n_blocks=n_blocks,
+            n_candidates=min(self.resolve_candidates(k), idx.n_pad),
+            block_size=idx.block_size,
+            coarse_query_len=self.coarse_query_len,
+            group_size=self.group_size,
+            block_summ_t=self._bsum_t,
+            block_summ_t_scale=self._bsum_t_scale,
+            summ_int8=summ_int8, summ_scale=summ_scale, summ_rows=summ_rows,
+            stage1_tile_b=self.stage1_tile_b, doc_valid=self._doc_valid)
 
     def search_device(self, q: torch.Tensor, k: int):
         """(B, Lq, dim) on the index's device -> (scores (B, k), padded-index
         rows (B, k)), both left on the device."""
         idx = self.index
+        if self.mode == "hierarchical":
+            return self._hierarchical(q, k)
+        if self.mode == "two_stage":
+            return two_stage_search(
+                q, idx.tokens, idx.mask, idx.summaries, k=k,
+                n_candidates=min(self.resolve_candidates(k), idx.n_pad),
+                coarse_query_len=self.coarse_query_len,
+                use_pallas_coarse=self.use_pallas,
+                group_size=self.group_size, summaries_t=self._summ_t,
+                summaries_t_scale=self._summ_t_scale,
+                doc_valid=self._doc_valid)
         return search_single_device(q, idx.tokens, idx.mask, k=k)
 
     def search(self, q, k: int):

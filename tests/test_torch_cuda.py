@@ -9,8 +9,11 @@ no jax, so it runs where only PyTorch is installed (`--noconftest` keeps
 tests/conftest.py, which imports jax, out).
 
 Tolerance: rtol 1e-5, atol 1e-4 * Lq. The kernel and the plain version get
-the same values (bf16 inputs are upcast exactly) and differ only in the
-order they sum products and per-token maxima in float32.
+the same values (bf16 and int8 inputs are upcast exactly) and differ only
+in the order they sum products and per-token maxima in float32. K3's int32
+maxima are exact: with unit query and doc scales its sums of integers
+equal the plain version's bit for bit. TF32 is off for the plain versions'
+float32 matmuls (the fixture below), as chip_smoke.py sets it.
 """
 
 import numpy as np
@@ -18,6 +21,9 @@ import pytest
 import torch
 
 from ravqa_tpu_torch.ops import maxsim
+from ravqa_tpu_torch.ops.quant import (quantize_queries_int8,
+                                       quantize_summaries_int8,
+                                       quantize_summaries_t_int8)
 from ravqa_tpu_torch.retrieval import (LateInteractionSearcher,
                                        build_index_from_embeddings)
 
@@ -102,3 +108,249 @@ def test_cuda_searcher_matches_cpu_searcher():
     gs, gp = gpu.search(q, k=5)
     np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-4 * 8)
     np.testing.assert_array_equal(gp, cp)
+
+
+# -- K2, K3, K4 ----------------------------------------------------------------
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+# (B, Lq, S, N, dim): N ragged against the 128-doc tile; several query
+# groups per block (Lq <= 64), one query over 64-128 columns (Lq=80) and
+# over two column steps (Lq=150); Lq=7 is a multiple of nothing; S=1..8
+SWEEP_SHAPES = [(3, 6, 3, 37, 16), (32, 32, 8, 1000, 128),
+                (2, 150, 2, 130, 64), (4, 80, 4, 129, 32),
+                (5, 7, 1, 300, 32), (1, 1, 4, 9, 16)]
+
+
+def make_sweep(shape, dtype, negative=False, seed=0, all_invalid=False):
+    b, lq, s, n, dim = shape
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, lq, dim)).astype(np.float32)
+    st = rng.normal(size=(s, n, dim)).astype(np.float32)
+    if negative:                     # every q.d < 0: catches a max from 0
+        q, st = np.abs(q), -np.abs(st)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    st /= np.linalg.norm(st, axis=-1, keepdims=True)
+    if lq > 1:
+        q[:, -1] = 0.0               # a zero query row
+    valid = np.ones(n, np.int8)
+    valid[::5] = 0                   # docs with no valid token
+    if all_invalid:
+        valid[:] = 0
+    return (torch.from_numpy(q).cuda(),
+            torch.from_numpy(st).cuda().to(dtype),
+            torch.from_numpy(valid).cuda())
+
+
+def _close(got, want, lq):
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * lq)
+
+
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("negative", [False, True])
+def test_coarse_sweep_kernel_matches_plain(shape, dtype, negative):
+    q, st, valid = make_sweep(shape, dtype, negative)
+    before = maxsim.coarse_sweep.launches
+    got = maxsim.coarse_sweep(q, st, valid)
+    torch.cuda.synchronize()
+    assert maxsim.coarse_sweep.launches == before + 1
+    _close(got, maxsim.coarse_sweep_torch(q, st, valid), shape[1])
+    assert torch.equal(got[:, ::5], torch.full_like(got[:, ::5], -9999.0))
+    if negative:
+        assert bool((got[:, 1::5] < 0).all())
+
+
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+@pytest.mark.parametrize("negative", [False, True])
+def test_coarse_sweep_int8_kernel_matches_plain(shape, negative):
+    q, st, valid = make_sweep(shape, torch.float32, negative, seed=1)
+    st8, dsc = quantize_summaries_t_int8(st)
+    q8, qs = quantize_queries_int8(q)
+    ones_q, ones_d = torch.ones_like(qs), torch.ones_like(dsc)
+    raw = maxsim.coarse_sweep_int8(q8, ones_q, st8, ones_d, valid)
+    assert torch.equal(raw, maxsim.coarse_sweep_int8_torch(
+        q8, ones_q, st8, ones_d, valid))
+    before = maxsim.coarse_sweep_int8.launches
+    got = maxsim.coarse_sweep(q, st8, valid, dscale=dsc)
+    torch.cuda.synchronize()
+    assert maxsim.coarse_sweep_int8.launches == before + 1
+    _close(got, maxsim.coarse_sweep_torch(q, st8, valid, dscale=dsc),
+           shape[1])
+    assert torch.equal(got[:, ::5], torch.full_like(got[:, ::5], -9999.0))
+
+
+def test_coarse_sweep_all_invalid_and_no_validity_row():
+    shape = SWEEP_SHAPES[1]
+    q, st, valid = make_sweep(shape, torch.bfloat16, all_invalid=True)
+    got = maxsim.coarse_sweep(q, st, valid)
+    assert torch.equal(got, torch.full_like(got, -9999.0))
+    _close(maxsim.coarse_sweep(q, st), maxsim.coarse_sweep_torch(q, st),
+           shape[1])
+
+
+# (B, Lq, S, bs, n_blocks, NB, dim): gathered docs per query below one
+# 128-row tile (72), ragged over tiles (300), the bench's 64 x 32
+STAGE1_SHAPES = [(3, 6, 3, 16, 5, 7, 16), (32, 32, 8, 64, 32, 40, 128),
+                 (2, 150, 2, 24, 3, 4, 64), (4, 7, 1, 100, 3, 5, 32),
+                 (1, 1, 4, 8, 1, 2, 16)]
+
+
+def make_stage1(shape, rows_dtype, negative=False, seed=2):
+    b, lq, s, bs, nbl, nb, dim = shape
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, lq, dim)).astype(np.float32)
+    summ = rng.normal(size=(nb * bs, s, dim)).astype(np.float32)
+    if negative:
+        q, summ = np.abs(q), -np.abs(summ)
+    if lq > 1:
+        q[:, -1] = 0.0               # a zero query row
+    summ = torch.from_numpy(summ).cuda()
+    dscale = None
+    if rows_dtype == torch.int8:
+        summ, dscale = quantize_summaries_int8(summ)
+    else:
+        summ = summ.to(rows_dtype)
+    rows = maxsim.stage1_rows(summ, bs)
+    blk = torch.from_numpy(rng.integers(0, nb, size=(b, nbl))).cuda()
+    return torch.from_numpy(q).cuda(), rows, blk, dscale
+
+
+@pytest.mark.parametrize("shape", STAGE1_SHAPES)
+@pytest.mark.parametrize("rows_dtype", [torch.float32, torch.bfloat16,
+                                        torch.int8])
+@pytest.mark.parametrize("negative", [False, True])
+def test_stage1_sweep_kernel_matches_plain(shape, rows_dtype, negative):
+    q, rows, blk, dscale = make_stage1(shape, rows_dtype, negative)
+    before = maxsim.stage1_sweep.launches
+    got = maxsim.stage1_sweep(q, rows, blk, dscale=dscale)
+    torch.cuda.synchronize()
+    assert maxsim.stage1_sweep.launches == before + 1
+    want = maxsim.stage1_sweep_torch(q, rows, blk, dscale=dscale)
+    assert got.shape == (shape[0], shape[4] * shape[3])
+    # unnormalized rows: scores ~ Lq * 10 (int8 codes ~ 127 before the
+    # scale); relative 1e-5 covers the summation order
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3 * shape[1])
+    if negative:
+        assert bool((got < 0).all())
+
+
+def test_sweep_kernels_are_deterministic():
+    q, st, valid = make_sweep(SWEEP_SHAPES[1], torch.bfloat16)
+    assert torch.equal(maxsim.coarse_sweep(q, st, valid),
+                       maxsim.coarse_sweep(q, st, valid))
+    st8, dsc = quantize_summaries_t_int8(st)
+    assert torch.equal(maxsim.coarse_sweep(q, st8, valid, dscale=dsc),
+                       maxsim.coarse_sweep(q, st8, valid, dscale=dsc))
+    q, rows, blk, _ = make_stage1(STAGE1_SHAPES[1], torch.bfloat16)
+    assert torch.equal(maxsim.stage1_sweep(q, rows, blk),
+                       maxsim.stage1_sweep(q, rows, blk))
+
+
+def test_sweep_wrappers_raise_on_bad_input():
+    q, st, valid = make_sweep(SWEEP_SHAPES[0], torch.float32)
+    with pytest.raises(TypeError):
+        maxsim.coarse_sweep(q, st.double(), valid)
+    with pytest.raises(ValueError):                  # dim % 8
+        maxsim.coarse_sweep(q[:, :, :12], st[:, :, :12].contiguous(), valid)
+    with pytest.raises(ValueError):                  # dim mismatch
+        maxsim.coarse_sweep(q, st[:, :, :8].contiguous(), valid)
+    with pytest.raises(ValueError):                  # device
+        maxsim.coarse_sweep(q, st.cpu(), valid)
+    with pytest.raises(ValueError):                  # valid's length
+        maxsim.coarse_sweep(q, st, valid[:-1])
+    st8, dsc = quantize_summaries_t_int8(st)
+    q8, qs = quantize_queries_int8(q)
+    with pytest.raises(TypeError):
+        maxsim.coarse_sweep_int8(q8.float(), qs, st8, dsc, valid)
+    with pytest.raises(ValueError):                  # int8 needs dim % 16
+        maxsim.coarse_sweep_int8(q8[:, :, :8].contiguous(), qs,
+                                 st8[:, :, :8].contiguous(), dsc, valid)
+    q, rows, blk, _ = make_stage1(STAGE1_SHAPES[0], torch.bfloat16)
+    with pytest.raises(ValueError):                  # blk's batch
+        maxsim.stage1_sweep(q, rows, blk[:1])
+    with pytest.raises(ValueError):                  # device
+        maxsim.stage1_sweep(q, rows, blk.cpu())
+    with pytest.raises(ValueError):                  # layout
+        maxsim.stage1_sweep(q, rows.transpose(1, 2), blk)
+    with pytest.raises(TypeError):
+        maxsim.stage1_sweep(q, rows.double(), blk)
+
+
+def _pruned_indexes(n=1024, block_size=16):
+    """The same clustered corpus on the CPU and on the card, with the
+    CPU's summaries copied to the card, so both prune from equal inputs."""
+    rng = np.random.default_rng(4)
+    ld, dim = 16, 64
+    topics = rng.normal(size=(16, dim))
+    embs = topics[np.sort(rng.integers(16, size=n))][:, None] \
+        + 0.35 * rng.normal(size=(n, ld, dim))
+    embs = (embs / np.linalg.norm(embs, axis=-1, keepdims=True)).astype(
+        np.float32)
+    masks = (rng.random((n, ld)) > 0.2).astype(np.float32)
+    q = embs[rng.integers(n, size=8), :12] + 0.1 * rng.normal(
+        size=(8, 12, dim))
+    q = (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+    cpu = build_index_from_embeddings(embs, masks, pad_multiple=8,
+                                      dtype=torch.float32)
+    cpu.build_summaries(n_summary=4).build_block_summaries(
+        block_size=block_size)
+    gpu = build_index_from_embeddings(embs, masks, pad_multiple=8,
+                                      dtype=torch.float32, device="cuda")
+    gpu.summaries = cpu.summaries.cuda()
+    gpu.block_summaries = cpu.block_summaries.cuda()
+    gpu.block_size = block_size
+    return cpu, gpu, q
+
+
+@pytest.mark.parametrize("mode,preset,kernels", [
+    ("two_stage", "reference", ("coarse_sweep",)),
+    ("two_stage", "fast", ("coarse_sweep_int8",)),
+    ("hierarchical", "reference", ("coarse_sweep",)),
+    ("hierarchical", "fast", ("coarse_sweep_int8", "stage1_sweep"))])
+def test_cuda_pruned_searcher_matches_cpu_searcher(mode, preset, kernels):
+    cpu_idx, gpu_idx, q = _pruned_indexes()
+    kw = dict(mode=mode, preset=preset, n_candidates=48)
+    cpu = LateInteractionSearcher(cpu_idx, use_pallas=True, **kw)
+    gpu = LateInteractionSearcher(gpu_idx, **kw)
+    assert gpu.use_pallas
+    before = {k: getattr(maxsim, k).launches for k in kernels}
+    gs, gp = gpu.search(q, k=5)
+    for k in kernels:
+        assert getattr(maxsim, k).launches == before[k] + 1, k
+    cs, cp = cpu.search(q, k=5)
+    np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-4 * 12)
+    np.testing.assert_array_equal(np.sort(gp, 1), np.sort(cp, 1))
+
+
+def test_cuda_index_refuses_the_plain_route():
+    _, gpu_idx, _ = _pruned_indexes()
+    for mode in ("exact", "two_stage", "hierarchical"):
+        with pytest.raises(ValueError, match="use_pallas=False"):
+            LateInteractionSearcher(gpu_idx, mode=mode, use_pallas=False)
+
+
+@pytest.mark.parametrize("n_docs,k", [(64, 5), (192, 150)])
+def test_cuda_fast_hierarchical_runs_k4_off_the_lane_rule(n_docs, k):
+    """Block size 16 would ask the TPU kernel for a multiple of 8 selected
+    blocks. 64 docs are 4 blocks, below that at construction; 192 docs are
+    12 blocks, and k=150 needs 10, more than the 8 aligned ones. A CPU
+    index runs the plain stage 1 there, as the JAX searcher does; a CUDA
+    index still runs K4, over every block. Every doc is then a candidate,
+    so the answer is exact search's."""
+    cpu_idx, gpu_idx, q = _pruned_indexes(n=n_docs)
+    gpu = LateInteractionSearcher(gpu_idx, mode="hierarchical",
+                                  preset="fast")
+    assert gpu._summ_rows is not None
+    before = maxsim.stage1_sweep.launches
+    gs, gp = gpu.search(q, k=k)
+    assert maxsim.stage1_sweep.launches == before + 1
+    es, ep = LateInteractionSearcher(cpu_idx).search(q, k=k)
+    np.testing.assert_allclose(gs, es, rtol=1e-5, atol=1e-4 * 12)
+    np.testing.assert_array_equal(np.sort(gp, 1), np.sort(ep, 1))

@@ -133,3 +133,56 @@ def test_kernel_arg_checks_reject_what_the_kernel_does_not_take():
         check(q, tok.transpose(0, 1), mask.T)                 # layout
     with pytest.raises(ValueError):
         check(q, tok[:, :, :8], mask)                         # dim mismatch
+
+
+# -- the summary sweeps' wrappers (their plain versions are held to the JAX
+# package in tests/test_torch_coarse.py) ------------------------------------
+
+def _sweep_inputs(seed=8):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(2, 5, 16)).astype(np.float32))
+    summ_t = torch.from_numpy(rng.normal(size=(3, 20, 16)).astype(
+        np.float32)).bfloat16()
+    valid = torch.from_numpy(rng.random(20) > 0.2)
+    rows = torch.from_numpy(rng.normal(size=(4, 3, 8, 16)).astype(
+        np.float32)).bfloat16()
+    blk = torch.from_numpy(rng.integers(0, 4, size=(2, 3)))
+    return q, summ_t, valid, rows, blk
+
+
+def test_sweep_wrappers_take_plain_versions_on_cpu_only():
+    from ravqa_tpu_torch.ops.quant import (quantize_summaries_int8,
+                                           quantize_summaries_t_int8)
+    q, summ_t, valid, rows, blk = _sweep_inputs()
+    counts = (torch_maxsim.coarse_sweep.launches,
+              torch_maxsim.coarse_sweep_int8.launches,
+              torch_maxsim.stage1_sweep.launches)
+    torch.testing.assert_close(
+        torch_maxsim.coarse_sweep(q, summ_t, valid),
+        torch_maxsim.coarse_sweep_torch(q, summ_t, valid), rtol=0, atol=0)
+    st8, dsc = quantize_summaries_t_int8(summ_t)
+    torch.testing.assert_close(
+        torch_maxsim.coarse_sweep(q, st8, valid, dscale=dsc),
+        torch_maxsim.coarse_sweep_torch(q, st8, valid, dscale=dsc),
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        torch_maxsim.stage1_sweep(q, rows, blk, tile_b=4),
+        torch_maxsim.stage1_sweep_torch(q, rows, blk), rtol=0, atol=0)
+    r8, rs = quantize_summaries_int8(rows.transpose(1, 2).reshape(32, 3, 16))
+    rows8 = torch_maxsim.stage1_rows(r8, 8)
+    torch.testing.assert_close(
+        torch_maxsim.stage1_sweep(q, rows8, blk, dscale=rs),
+        torch_maxsim.stage1_sweep_torch(q, rows8, blk, dscale=rs),
+        rtol=0, atol=0)
+    assert counts == (torch_maxsim.coarse_sweep.launches,
+                      torch_maxsim.coarse_sweep_int8.launches,
+                      torch_maxsim.stage1_sweep.launches)  # no kernel launch
+    with pytest.raises(ValueError, match="dscale"):
+        torch_maxsim.coarse_sweep(q, st8, valid)
+    with pytest.raises(ValueError, match="dscale"):
+        torch_maxsim.stage1_sweep(q, rows8, blk)
+    meta = [t.to("meta") for t in (q, summ_t, valid, rows, blk)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        torch_maxsim.coarse_sweep(*meta[:3])
+    with pytest.raises(ValueError, match="unsupported device"):
+        torch_maxsim.stage1_sweep(meta[0], meta[3], meta[4])

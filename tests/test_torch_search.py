@@ -115,10 +115,141 @@ def test_encode_corpus_matches_one_shot_build():
 def test_unported_modes_raise():
     embs, masks = _corpus(n=8)
     idx = build_index_from_embeddings(embs, masks, pad_multiple=8)
-    for kw in ({"mode": "two_stage"}, {"mode": "hierarchical"},
-               {"mesh": object()}):
+    for kw in ({"mesh": object()}, {"centroid_prune": 64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LateInteractionSearcher(idx, **kw)
     # TPU knobs are accepted as no-ops
     LateInteractionSearcher(idx, use_pallas=True, tile_d=16,
-                            approx_topk=True, preset="fast")
+                            approx_topk=True, approx_recall=0.9,
+                            stage1_tile_b=4, centroid_prune=0,
+                            preset="fast")
+
+
+# -- pruned modes ------------------------------------------------------------
+
+def _clustered(seed=0, n=384, ld=10, dim=32, n_topics=6, b=6, lq=6):
+    """A cluster-ordered corpus with masked tail tokens and a doc with no
+    token; queries are noisy copies of a doc's first tokens."""
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    rng = np.random.default_rng(seed)
+    topics = unit(rng.normal(size=(n_topics, dim)))
+    doc_topic = np.sort(rng.integers(n_topics, size=n))
+    embs = unit(topics[doc_topic][:, None]
+                + 0.35 * rng.normal(size=(n, ld, dim)))
+    masks = np.ones((n, ld), np.float32)
+    masks[:, -2:] = rng.random((n, 2)) > 0.5
+    masks[3] = 0
+    embs *= masks[..., None]
+    q = unit(embs[rng.integers(4, n, size=b), :lq]
+             + 0.1 * rng.normal(size=(b, lq, dim)))
+    q[:, -1] = 0.0
+    return embs, masks, q
+
+
+def _both_indexes(embs, masks, block_size=16):
+    jidx = jax_index.build_index_from_embeddings(embs, masks, pad_multiple=8,
+                                                 dtype=jnp.float32)
+    jidx.build_summaries(n_summary=4)
+    jidx.build_block_summaries(block_size=block_size)
+    tidx = build_index_from_embeddings(embs, masks, pad_multiple=8,
+                                       dtype=torch.float32)
+    tidx.build_summaries(n_summary=4)
+    tidx.build_block_summaries(block_size=block_size)
+    return jidx, tidx
+
+
+@pytest.fixture(scope="module")
+def pruned():
+    embs, masks, q = _clustered()
+    jidx, tidx = _both_indexes(embs, masks)
+    return jidx, tidx, q
+
+
+def test_summaries_match_jax(pruned):
+    jidx, tidx, _ = pruned
+    assert tidx.summaries.dtype == torch.float32 and tidx.block_size == 16
+    np.testing.assert_allclose(tidx.summaries.numpy(),
+                               np.asarray(jidx.summaries), atol=1e-5)
+    np.testing.assert_allclose(tidx.block_summaries.numpy(),
+                               np.asarray(jidx.block_summaries), atol=1e-5)
+
+
+# n_candidates / n_blocks small enough that every cut prunes; None lets
+# the preset decide (fast: 256 candidates over 32 of the 24 blocks)
+KNOBS = [dict(n_candidates=40, n_blocks=6), dict(n_candidates=40),
+         dict(n_candidates=None)]
+
+
+@pytest.mark.parametrize("knobs", range(len(KNOBS)))
+@pytest.mark.parametrize("preset", ["reference", "fast"])
+@pytest.mark.parametrize("mode", ["exact", "two_stage", "hierarchical"])
+def test_searcher_matches_jax(pruned, mode, preset, knobs):
+    """use_pallas=False on both sides: the XLA route in the JAX package,
+    its math in plain PyTorch in the port."""
+    jidx, tidx, q = pruned
+    kw = dict(mode=mode, preset=preset, **KNOBS[knobs])
+    if mode != "hierarchical":
+        kw.pop("n_blocks", None)
+    js = jax_search.LateInteractionSearcher(jidx, use_pallas=False,
+                                            approx_topk=False, **kw)
+    ts = LateInteractionSearcher(tidx, use_pallas=False, **kw)
+    want_s, want_p = js.search(q, k=5)
+    got_s, got_p = ts.search(q, k=5)
+    assert (ts._summ_rows is None) == (js._summ_rows is None)
+    assert (ts._summ_i8 is None) == (js._summ_i8 is None)
+    full = np.asarray(maxsim_search_xla(jnp.asarray(q), jidx.tokens,
+                                        jidx.mask))
+    assert_tie_aware(got_s, got_p, full, want_s, q.shape[1], jidx.pids)
+    np.testing.assert_array_equal(np.sort(got_p, 1), np.sort(want_p, 1))
+
+
+@pytest.mark.parametrize("mode", ["two_stage", "hierarchical"])
+def test_kernel_route_matches_jax_interpret(mode):
+    """use_pallas=True on both sides, preset fast: the JAX package runs
+    its Pallas kernels in interpret mode (K3, and K4's XLA twin off the
+    TPU), the port the kernels' plain versions on a CPU index."""
+    from jax.experimental.pallas import tpu as pltpu
+    embs, masks, q = _clustered(seed=1, n=256)
+    jidx, tidx = _both_indexes(embs, masks)
+    kw = dict(mode=mode, preset="fast", n_candidates=32)
+    with pltpu.force_tpu_interpret_mode():
+        js = jax_search.LateInteractionSearcher(jidx, use_pallas=True,
+                                                approx_topk=False, **kw)
+        want_s, want_p = js.search(q, k=5)
+    ts = LateInteractionSearcher(tidx, use_pallas=True, **kw)
+    got_s, got_p = ts.search(q, k=5)
+    for name in ("_summ_t", "_summ_t_scale", "_bsum_t", "_bsum_t_scale",
+                 "_summ_rows", "_summ_rows_scale"):
+        j, t = getattr(js, name), getattr(ts, name)
+        assert (j is None) == (t is None), name
+        if t is not None:
+            # the kernels' copies, contiguous; each package built its own
+            # summaries (k-means sums ~1e-7 apart), so an int8 code or a
+            # bf16 value may sit one step over a rounding edge (the
+            # quantizers are bit-equal on equal inputs: test_torch_quant.py)
+            assert t.is_contiguous(), name
+            step = {torch.int8: 1.0, torch.bfloat16: 2 ** -8}.get(t.dtype,
+                                                                  0.0)
+            np.testing.assert_allclose(t.float().numpy(),
+                                       np.asarray(j, np.float32),
+                                       rtol=1e-5, atol=step)
+    full = np.asarray(maxsim_search_xla(jnp.asarray(q), jidx.tokens,
+                                        jidx.mask))
+    assert_tie_aware(got_s, got_p, full, want_s, q.shape[1], jidx.pids)
+
+
+def test_pruned_modes_need_summaries():
+    embs, masks = _corpus(n=16)
+    idx = build_index_from_embeddings(embs, masks, pad_multiple=8)
+    with pytest.raises(ValueError, match="build_summaries"):
+        LateInteractionSearcher(idx, mode="two_stage")
+    idx.build_summaries(n_summary=2)
+    with pytest.raises(ValueError, match="build_block_summaries"):
+        LateInteractionSearcher(idx, mode="hierarchical")
+    with pytest.raises(ValueError, match="unknown search mode"):
+        LateInteractionSearcher(idx, mode="centroid")
+    with pytest.raises(ValueError, match="divide"):
+        idx.build_block_summaries(block_size=7)

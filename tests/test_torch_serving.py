@@ -33,6 +33,13 @@ from ravqa_tpu_torch.serving import (RetrievalServer, ServeConfig,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "synthetic_flmr.json")
+# the same tiny model over 512 passages, served by hierarchical search
+# under the fast preset: 64 blocks of 8, of which stage 0 keeps 32; stage 1
+# keeps 24 of their 256 docs (the int8 stage1_rows path)
+HIER_OPTS = ["data_pipeline.raw.setup_kwargs.n_docs=512",
+             "model_config.search_mode=hierarchical", "serve.preset=fast",
+             "serve.block_size=8", "serve.n_summary=4",
+             "serve.n_candidates=24"]
 
 
 @pytest.fixture(autouse=True)
@@ -60,6 +67,49 @@ def servers(tmp_path_factory):
     yield jserver, tserver, items
     jserver.stop()
     tserver.stop()
+
+
+@pytest.fixture(scope="module")
+def hier_servers(tmp_path_factory):
+    """Both packages' build_server on the hierarchical config, the port
+    loading the JAX executor's parameters."""
+    from ravqa_tpu import main as jax_main
+    from ravqa_tpu_torch import main as torch_main
+    tmp = tmp_path_factory.mktemp("serve_hier")
+    cfg = apply_overrides(load_config(CONFIG), HIER_OPTS)
+    jdata = jax_main.build_pipeline(cfg, cache_dir=None).get_data(
+        cfg.data_pipeline_output_node, explode=True)
+    jserver = jax_main.build_server(cfg, jdata, None, str(tmp / "jax"))
+    params = tmp / "params.npz"
+    np.savez(params, **flatten_params(
+        jax.device_get(jserver.ex.state.params)))
+    tcfg = apply_overrides(cfg, [f"train.load_model_path={params}"])
+    tdata = torch_main.build_pipeline(tcfg).get_data(
+        tcfg.data_pipeline_output_node, explode=True)
+    tserver = torch_main.build_server(tcfg, tdata, "cpu", str(tmp / "torch"))
+    yield jserver, tserver, jdata["train"].items[:12]
+    jserver.stop()
+    tserver.stop()
+
+
+def test_hierarchical_served_answers_match_jax(hier_servers):
+    jserver, tserver, items = hier_servers
+    js, ts = jserver.searcher, tserver.searcher
+    assert ts.mode == js.mode == "hierarchical"
+    assert ts.index.block_summaries.shape == (64, 4, 32)
+    assert ts.resolve_blocks(10) == js.resolve_blocks(10) == 32
+    assert ts._summ_rows is not None and js._summ_rows is not None
+    assert ts._summ_rows.dtype == torch.int8
+    lq = tserver.qt.query_maxlen + tserver.ex.model.cfg.prefix_len
+    tol = dict(rtol=1e-4, atol=1e-4 * lq)
+    jfuts = [jserver.submit(it["question"], it["image_features"])
+             for it in items]
+    tfuts = [tserver.submit(it["question"], it["image_features"])
+             for it in items]
+    for jf, tf in zip(jfuts, tfuts):
+        j, t = jf.result(timeout=120), tf.result(timeout=120)
+        assert t.pids.shape == t.scores.shape == (10,)
+        _tie_aware(t.pids, t.scores, j.pids, j.scores, tol)
 
 
 def _tie_aware(got_p, got_s, want_p, want_s, tol):
@@ -183,17 +233,21 @@ def test_bounded_queue_sheds_and_stop_fails_pending():
 
 
 def test_serve_slice_imports_no_jax():
+    """The exact and the hierarchical serve slices, in one process."""
     code = (
         "import sys, numpy as np\n"
-        "from ravqa_tpu.config import load_config\n"
+        "from ravqa_tpu.config import apply_overrides, load_config\n"
         "from ravqa_tpu_torch.main import build_pipeline, build_server\n"
-        f"cfg = load_config({CONFIG!r})\n"
-        "data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,"
-        " explode=True)\n"
-        "s = build_server(cfg, data, 'cpu')\n"
-        "r = s.submit('cat dog sky').result(timeout=120)\n"
-        "s.stop()\n"
-        "assert r.pids.shape == (10,)\n"
+        "import ravqa_tpu_torch.profile_serve\n"
+        f"for opts in ([], {HIER_OPTS!r}):\n"
+        f"    cfg = apply_overrides(load_config({CONFIG!r}), opts)\n"
+        "    data = build_pipeline(cfg).get_data(\n"
+        "        cfg.data_pipeline_output_node, explode=True)\n"
+        "    s = build_server(cfg, data, 'cpu')\n"
+        "    r = s.submit('cat dog sky').result(timeout=120)\n"
+        "    s.stop()\n"
+        "    assert r.pids.shape == (10,)\n"
+        "    assert s.searcher.mode == ('hierarchical' if opts else 'exact')\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -201,6 +255,26 @@ def test_serve_slice_imports_no_jax():
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("name,stage", [
+    ("void coarse_sweep_kernel<signed char, 8>(...)", "stage 0"),
+    ("void stage1_sweep_kernel<__nv_bfloat16, signed char>(...)", "stage 1"),
+    ("void maxsim_kernel<float, float>(...)", "exact"),
+    ("void at::native::sbtopk::gatherTopK<float, unsigned int, 2>", "top-k"),
+    ("void at::native::radixFindKthValues<float>", "top-k"),
+    ("sm90_xmma_gemm_f32f32_tf32f32_f32_nn", "plain fine stage")])
+def test_profile_serve_splits_kernels_by_stage(name, stage):
+    from ravqa_tpu_torch.profile_serve import _stage
+    assert _stage(name).startswith(stage)
+
+
+def test_profile_serve_needs_a_gpu():
+    from ravqa_tpu_torch.profile_serve import main
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a GPU")
+    with pytest.raises(SystemExit, match="CUDA GPU"):
+        main([CONFIG])
 
 
 @pytest.mark.parametrize("argv", [
