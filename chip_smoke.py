@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. environment: torch/CUDA versions, the card's name and power limit;
      TF32 off for float32 matmuls and convolutions. No GPU -> exit 1.
   2. build: every CUDA library of the port (csrc/maxsim.cu: K1,
-     csrc/coarse_sweep.cu: K2 + K3, csrc/stage1_sweep.cu: K4) from the
-     repo's sources, the nvcc runs side by side; ptxas registers/spills.
+     csrc/coarse_sweep.cu: K2 + K3, csrc/stage1_sweep.cu: K4,
+     csrc/maxsim_int8.cu: K5, csrc/residual_maxsim.cu: K6) from the repo's
+     sources, the nvcc runs side by side; ptxas registers/spills.
   3. K1 against its plain PyTorch version on the card, at the serve shape
      in float32 and a bf16 index shape: scores, tie-aware top-10, and both
      times (median of 10 after warm-up, CUDA events).
@@ -31,13 +32,38 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. the hierarchical slice: build_server on
      configs/synthetic_flmr_base_serve_hier.json (preset fast), 64
      requests from 4 threads, every answer checked against the same
-     search run by the plain versions on a CPU copy of the index; K3 and
+     search run by the plain versions on a CPU copy of the index, on the
+     query embeddings each dispatch searched; K3 and
      K4 launches at least the dispatches; recall@10 against exact search
      printed (not gated: the weights are random).
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+  8. K5 and K6 against their plain versions: K5 at B=32, Lq=32,
+     N=16,384, Ld 128 and 64; K6 at the 1M fine-stage shape (B=32, Lq=32,
+     C=256, Ld=64, dim 128) with a flat codec of 1,024 centroids and a
+     factored one of 64 x 128, nbits 2 and 4: max |err|, tie-aware top-10
+     and both times.
+  9. the 1M legs: 1,000,448 docs x 64 tokens x 128 dims, clustered over
+     8,192 topics and cluster-ordered (scripts/synth1m.py's recipe), made
+     on the card; S=4 summaries, block size 64; B=32, Lq=32 queries from
+     docs 0-31 plus 0.1 noise, k=10, preset fast. Legs: exact K1 on the
+     bf16 index (the oracle); the int8 index exact (K5) and hierarchical
+     (K3, K4); the residual index (nbits 2, factored 64 x 128 codec)
+     hierarchical (K3, K4, K6). Each: recall@10 against exact K1,
+     self-top-1, ms per batch, bytes on the card. Gates: recall >= 0.95
+     on both int8 legs, self-top-1 >= 0.95 on every leg, every kernel of
+     a leg launches.
+ 10. the compressed serve slice: phase 7's index copied into an int8 index
+     served in exact mode (K5) and a residual one (factored 64 x 128,
+     nbits 2) served hierarchical fast (K3, K4, K6), each behind
+     RetrievalServer; 64 requests from 4 threads, every answer checked
+     against the same search run by the plain versions on a CPU copy of
+     the compressed index, on the query embeddings each dispatch searched
+     (as in 7); each kernel launches at least once per dispatch;
+     then the search alone, ms per batch of 32.
+Every phase prints its seconds. The line before the last is the kernels'
+JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -64,8 +90,14 @@ SWEEP_ATOL = 1e-3
 K = 10
 
 
+_PHASE_START = [time.perf_counter()]
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    now = time.perf_counter()
+    print(f"(phase took {now - _PHASE_START[0]:.1f} s)\n== {name}",
+          flush=True)
+    _PHASE_START[0] = now
 
 
 def check_topk(got_full, want_full, k=K, atol=ATOL):
@@ -458,47 +490,359 @@ def _tie_aware(got_p, got_s, want_p, want_s, atol):
         and set(got_p[got_s > got_s[-1] + atol]) <= set(want_p)
 
 
-def hier_serve_slice(maxsim):
-    """The hierarchical serve slice (preset fast). Returns (launches of K3
-    and K4, dispatches, recall@10 vs exact)."""
+def cpu_copy(index):
+    """The index with every tensor moved to the CPU."""
     import torch
-    from ravqa_tpu_torch.retrieval import LateInteractionSearcher, TokenIndex
-    data, server, index = start_server(HIER_CONFIG, "cuda")
+    return dataclasses.replace(index, **{
+        f.name: getattr(index, f.name).cpu()
+        for f in dataclasses.fields(index)
+        if isinstance(getattr(index, f.name), torch.Tensor)})
+
+
+def record_searches(server):
+    """Keep every dispatch's query embeddings and search result: wraps the
+    server's searcher.search_device until check_served. Returns the list
+    that (q, scores, rows) go into."""
     s = server.searcher
-    reqs, scores, pids, launches, dispatches = drive_requests(
-        server, data, index, [maxsim.coarse_sweep_int8, maxsim.stage1_sweep])
-    q = encode_requests(server, data, reqs)
-    cpu_index = TokenIndex(
-        tokens=index.tokens.cpu(), mask=index.mask.cpu(), pids=index.pids,
-        num_docs=index.num_docs, meta=index.meta,
-        summaries=index.summaries.cpu(),
-        block_summaries=index.block_summaries.cpu(),
-        block_size=index.block_size)
+    search = s.search_device
+    record = []
+
+    def recording(q, k):
+        scores, rows = search(q, k)
+        record.append((q, scores, rows))
+        return scores, rows
+
+    s.search_device = recording
+    return record
+
+
+def check_served(server, index, record, scores, pids):
+    """Every served answer is one of the dispatches' search results, and
+    each of those agrees with the same search run by the plain versions on
+    a CPU copy of the index, on the query embeddings the dispatch searched.
+    (Encoding the requests again in other batches moves the embeddings by
+    ~1e-6, which flips the int8 or bf16 rounding of some query values and
+    moves a compressed index's scores by up to ~1e-3.) Returns (the
+    dispatches' query embeddings on the card, their result rows, max |score
+    error|)."""
+    import torch
+    from ravqa_tpu_torch.retrieval import LateInteractionSearcher
+    s = server.searcher
+    del s.search_device                          # drop record_searches' wrap
+    q = torch.cat([r[0] for r in record])
+    got_s = torch.cat([r[1] for r in record]).cpu().numpy()
+    got_r = torch.cat([r[2] for r in record]).cpu().numpy()
+    served = sorted((p.tolist(), v.tobytes()) for p, v in zip(pids, scores))
+    searched = sorted((index.pids[r].tolist(), v.tobytes())
+                      for r, v in zip(got_r, got_s))
+    if served != searched:
+        raise AssertionError("the served answers are not the dispatches' "
+                             "search results")
+    # a CUDA searcher takes the kernel route (use_pallas True), which the
+    # CPU copy runs through the kernels' plain versions
     cpu = LateInteractionSearcher(
-        cpu_index, use_pallas=True, mode=s.mode, preset=s.preset,
+        cpu_copy(index), use_pallas=s.use_pallas, mode=s.mode,
+        preset=s.preset,
         n_candidates=s.n_candidates, n_blocks=s.n_blocks,
         coarse_query_len=s.coarse_query_len, group_size=s.group_size,
-        coarse_int8=s.coarse_int8,
-        stage1_kernel=s._summ_rows is not None)
+        coarse_int8=s.coarse_int8, stage1_kernel=s._summ_rows is not None,
+        centroid_prune=s.centroid_prune)
     t0 = time.perf_counter()
     want_s, want_r = (t.numpy() for t in cpu.search_device(q.cpu(), K))
     print(f"plain search of a CPU copy of the index: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    bad = [i for i in range(len(reqs)) if not _tie_aware(
-        pids[i], scores[i], want_r[i], want_s[i], ATOL)]
-    err = float(np.abs(scores - want_s).max())
-    print(f"served answers vs the plain versions' search: max|score err| "
-          f"{err:.3g}, {len(bad)} of {len(reqs)} queries differ", flush=True)
+    bad = [i for i in range(len(q)) if not _tie_aware(
+        got_r[i], got_s[i], want_r[i], want_s[i], ATOL)]
+    err = float(np.abs(got_s - want_s).max())
+    print(f"served answers vs the plain versions' search on the same query "
+          f"embeddings: max|score err| {err:.3g}, {len(bad)} of {len(q)} "
+          f"queries differ", flush=True)
     if bad:
         raise AssertionError(f"served answers disagree with the plain "
                              f"versions' search on queries {bad}")
+    return q, torch.from_numpy(got_r), err
+
+
+def hier_serve_slice(maxsim):
+    """The hierarchical serve slice (preset fast). Returns (launches of K3
+    and K4, dispatches, recall@10 vs exact, max |score error|, (data,
+    server, index) for the compressed slice)."""
+    import torch
+    data, server, index = start_server(HIER_CONFIG, "cuda")
+    record = record_searches(server)
+    _, scores, pids, launches, dispatches = drive_requests(
+        server, data, index, [maxsim.coarse_sweep_int8, maxsim.stage1_sweep])
+    q, rows, err = check_served(server, index, record, scores, pids)
     with torch.inference_mode():
         exact = torch.topk(maxsim.maxsim_search(q, index.tokens,
                                                 index.mask), K, dim=1)[1]
-    recall = _recall(torch.from_numpy(pids), exact)
+    recall = _recall(rows, exact)
     print(f"recall@10 vs exact search (random weights, not gated): "
           f"{recall:.4f}", flush=True)
-    return launches, dispatches, recall, err
+    return launches, dispatches, recall, err, (data, server, index)
+
+
+def random_records(g, n, ld, dim, nbits, n_cent):
+    """Residual records of n docs with random codes below n_cent, bf16
+    scales in [0.5, 1.5), random residual bytes; about 30 % of the tokens
+    and every 997th doc masked. Returns (records, mask)."""
+    import torch
+    from ravqa_tpu_torch.ops.residual import pack_records
+    codes = torch.randint(n_cent, (n, ld), generator=g, device="cuda")
+    scales = 0.5 + torch.rand(n, ld, generator=g, device="cuda")
+    packed = torch.randint(256, (n, ld, dim * nbits // 8), generator=g,
+                           device="cuda").to(torch.uint8)
+    mask = (torch.rand(n, ld, generator=g, device="cuda") > 0.3).to(
+        torch.int8)
+    mask[::997] = 0
+    return pack_records(codes, scales, packed), mask
+
+
+def compressed_kernels():
+    """K5 and K6 against their plain versions. Returns {kernel: {"err",
+    "ms", "plain_ms", "shapes"}}: ms and plain_ms of the first shape."""
+    import torch
+    from ravqa_tpu_torch.ops import quant, residual
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, lq, dim = 32, 32, 128
+    q = _normed(g, b, lq, dim, dtype=torch.float32)
+    q[:, -2:] = 0                                  # zero query rows
+    out = {k: {"err": 0.0, "shapes": {}} for k in ("K5", "K6")}
+
+    def record(kernel, shape, got, want, fn, plain_fn):
+        err = _compare(f"{kernel} {shape}", got, want)
+        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
+        o = out[kernel]
+        o["err"] = max(o["err"], err)
+        o["shapes"][shape] = {"ms": ms, "plain_ms": plain_ms}
+        o.setdefault("ms", ms)
+        o.setdefault("plain_ms", plain_ms)
+        print(f"{kernel} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms", flush=True)
+
+    q8, qs = quant.quantize_queries_int8(q)
+    for ld in (128, 64):
+        n = 16384
+        tok = _normed(g, n, ld, dim, dtype=torch.float32)
+        mask = (torch.rand(n, ld, generator=g, device="cuda") > 0.3).to(
+            torch.int8)
+        mask[::997] = 0                            # docs with no tokens
+        t8, ds = quant.quantize_index_int8(tok, mask)
+        del tok
+        got = quant.maxsim_search_int8(q8, qs, t8, ds)
+        want = quant.maxsim_search_int8_q8_torch(q8, qs, t8, ds)
+        torch.cuda.synchronize()
+        empty = got[:, ::997]
+        if not torch.allclose(empty, (-9999.0 * qs.sum(1))[:, None]
+                              .expand_as(empty), rtol=1e-6, atol=0):
+            raise AssertionError("K5: a doc with no valid token must score "
+                                 "-9999 * sum of the query scales")
+        record("K5", f"N=16384 Ld={ld}", got, want,
+               lambda: quant.maxsim_search_int8(q8, qs, t8, ds),
+               lambda: quant.maxsim_search_int8_q8_torch(q8, qs, t8, ds))
+
+    # the 1M fine stage's shape: 256 candidates per query, 64 tokens
+    c, ld, n = 256, 64, 65536
+    cand = torch.randint(n, (b, c), generator=g, device="cuda")
+    cand[:, 0] = 0                                 # doc 0 has no valid token
+    for name, k1, k2 in (("factored 64x128", 64, 128),
+                         ("flat 1024", 1024, 0)):
+        if k2:
+            coarse = 0.3 * _normed(g, k1, dim, dtype=torch.float32)
+            fine = 0.1 * torch.randn(k2, dim, generator=g, device="cuda")
+            cent = (coarse[:, None] + fine[None]).reshape(-1, dim)
+        else:
+            coarse = fine = None
+            cent = _normed(g, k1, dim, dtype=torch.float32)
+        for nbits in (2, 4):
+            w = 0.05 * torch.randn(2 ** nbits, generator=g,
+                                   device="cuda").sort().values
+            records, mask = random_records(g, n, ld, dim, nbits,
+                                           cent.shape[0])
+            args = (q, records, cand, mask, cent, w)
+            kw = dict(nbits=nbits, coarse=coarse, fine=fine)
+            got = residual.maxsim_residual(*args, **kw)
+            want = residual.maxsim_residual_torch(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got[:, 0], torch.full_like(got[:, 0],
+                                                          -9999.0 * lq)):
+                raise AssertionError("K6: a doc with no valid token must "
+                                     "score -9999 * Lq")
+            record("K6", f"{name} nbits={nbits}", got, want,
+                   lambda: residual.maxsim_residual(*args, **kw),
+                   lambda: residual.maxsim_residual_torch(*args, **kw))
+    return out
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def synth_1m(n=1_000_448, ld=64, dim=128, n_topics=8192, slab=62_528, b=32,
+             lq=32):
+    """scripts/synth1m.py's corpus, made on the card slab by slab: doc i's
+    topic is floor(i * n_topics / n) (cluster-ordered runs of ~122 docs),
+    each token its topic plus 0.3 noise, normalized, stored bf16; queries
+    are docs 0-31's first Lq tokens plus 0.1 noise. Returns (tokens,
+    queries float32)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(7)
+    topics = _normed(g, n_topics, dim, dtype=torch.float32)
+    tok = torch.empty((n, ld, dim), dtype=torch.bfloat16, device="cuda")
+    for lo in range(0, n, slab):
+        idx = torch.arange(lo, min(lo + slab, n), device="cuda")
+        assign = (idx * n_topics // n).clamp_max(n_topics - 1)
+        t = topics[assign][:, None, :] + 0.3 * torch.randn(
+            len(idx), ld, dim, generator=g, device="cuda")
+        tok[lo:lo + slab] = t / t.norm(dim=-1, keepdim=True)
+    qt = tok[:b, :lq].float() + 0.1 * torch.randn(b, lq, dim, generator=g,
+                                                  device="cuda")
+    return tok, qt / qt.norm(dim=-1, keepdim=True)
+
+
+def one_million_legs(maxsim):
+    """The 1M legs (phase 9). Returns ({leg: {"recall", "self_top1", "ms",
+    "bytes"}}, {leg: {kernel: launches}})."""
+    import torch
+    from ravqa_tpu_torch.ops import quant, residual
+    from ravqa_tpu_torch.retrieval import (LateInteractionSearcher,
+                                           TokenIndex,
+                                           build_index_from_embeddings)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tok, q = synth_1m()
+    index = build_index_from_embeddings(
+        tok, torch.ones(tok.shape[:2], dtype=torch.int8, device="cuda"),
+        pad_multiple=128, dtype=torch.bfloat16)
+    del tok
+    index.build_summaries(n_summary=4, iters=2)
+    index.build_block_summaries(block_size=64)
+    torch.cuda.synchronize()
+    print(f"1M bf16 index {index.num_docs} docs x {index.doc_maxlen} "
+          f"tokens, summaries {tuple(index.summaries.shape)}, block "
+          f"summaries {tuple(index.block_summaries.shape)}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    b = q.shape[0]
+    self_rows = torch.arange(b, device="cuda")
+    wrappers = {"K1": maxsim.maxsim_search, "K3": maxsim.coarse_sweep_int8,
+                "K4": maxsim.stage1_sweep, "K5": quant.maxsim_search_int8,
+                "K6": residual.maxsim_residual}
+    out, launches = {}, {}
+    exact_rows = None
+
+    def leg(name, search, nbytes, kernels):
+        nonlocal exact_rows
+        for w in wrappers.values():
+            w.launches = 0
+        rows = search()[1]
+        torch.cuda.synchronize()
+        launches[name] = {k: wrappers[k].launches for k in kernels}
+        if min(launches[name].values()) == 0:
+            raise AssertionError(f"1M {name}: a kernel of the leg never "
+                                 f"launched: {launches[name]}")
+        if exact_rows is None:
+            exact_rows = rows
+        r = {"recall": _recall(rows, exact_rows),
+             "self_top1": float((rows[:, 0] == self_rows).float().mean()),
+             "ms": time_ms(search, iters=3, warmup=1), "bytes": nbytes}
+        out[name] = r
+        print(f"1M {name}: recall@10 vs exact {r['recall']:.4f}, self-top-1 "
+              f"{r['self_top1']:.4f}, {r['ms']:.3f} ms per batch of {b}, "
+              f"{nbytes} bytes on the card; launches {launches[name]}",
+              flush=True)
+
+    leg("exact bf16 (K1)",
+        lambda: torch.topk(maxsim.maxsim_search(q, index.tokens, index.mask),
+                           K, dim=1),
+        _nbytes(index.tokens, index.mask), ("K1",))
+
+    t0 = time.perf_counter()
+    t8, s8 = quant.quantize_index_int8(index.tokens, index.mask)
+    i8 = dataclasses.replace(index, tokens=t8, scales=s8)
+    del t8, s8
+    torch.cuda.synchronize()
+    print(f"int8 index: {time.perf_counter() - t0:.1f} s", flush=True)
+    nb8 = _nbytes(i8.tokens, i8.scales, i8.mask)
+    s = LateInteractionSearcher(i8, mode="exact")
+    leg("int8 exact (K5)", lambda: s.search_device(q, K), nb8, ("K5",))
+    s = LateInteractionSearcher(i8, mode="hierarchical", preset="fast")
+    leg("int8 hierarchical fast (K3, K4)", lambda: s.search_device(q, K),
+        nb8, ("K3", "K4"))
+    del s, i8
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = dataclasses.replace(index)
+    index.tokens = None
+    res.quantize_residual(n_centroids=(64, 128), nbits=2)
+    torch.cuda.synchronize()
+    print(f"residual index (factored 64 x 128, nbits 2; codec trained on "
+          f"the card): {time.perf_counter() - t0:.1f} s", flush=True)
+    s = LateInteractionSearcher(res, mode="hierarchical", preset="fast")
+    leg("residual hierarchical fast (K3, K4, K6)",
+        lambda: s.search_device(q, K),
+        _nbytes(res.records, res.mask, res.codec_centroids,
+                res.codec_weights, res.codec_coarse, res.codec_fine),
+        ("K3", "K4", "K6"))
+    print(f"summaries {_nbytes(res.summaries)} bytes, block summaries "
+          f"{_nbytes(res.block_summaries)} bytes (every leg)", flush=True)
+    del s, res, index
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        if r["self_top1"] < 0.95:
+            raise AssertionError(f"1M {name}: self-top-1 {r['self_top1']}")
+        if name.startswith("int8") and r["recall"] < 0.95:
+            raise AssertionError(f"1M {name}: recall@10 {r['recall']}")
+    return out, launches
+
+
+def compressed_serve_slice(maxsim, data, server, index):
+    """Phase 7's index as an int8 copy served in exact mode (K5) and a
+    residual copy (factored 64 x 128, nbits 2) served hierarchical fast
+    (K3, K4, K6), each behind RetrievalServer. Returns {slice: {"launches",
+    "dispatches", "err", "search_ms_b32"}}."""
+    from ravqa_tpu_torch.ops import quant, residual
+    from ravqa_tpu_torch.retrieval import LateInteractionSearcher
+    from ravqa_tpu_torch.serving import RetrievalServer
+    t0 = time.perf_counter()
+    i8 = dataclasses.replace(index, meta=dict(index.meta)).quantize_int8()
+    res = dataclasses.replace(index, meta=dict(index.meta)).quantize_residual(
+        n_centroids=(64, 128), nbits=2)
+    print(f"int8 and residual copies of the serve index: "
+          f"{time.perf_counter() - t0:.1f} s; bytes int8 "
+          f"{_nbytes(i8.tokens, i8.scales)}, residual "
+          f"{_nbytes(res.records)} (float32 "
+          f"{_nbytes(index.tokens)})", flush=True)
+    out = {}
+    for name, idx, kw, wrappers in (
+            ("int8 exact", i8, dict(mode="exact"),
+             [quant.maxsim_search_int8]),
+            ("residual hierarchical fast", res,
+             dict(mode="hierarchical", preset="fast"),
+             [maxsim.coarse_sweep_int8, maxsim.stage1_sweep,
+              residual.maxsim_residual])):
+        srv = RetrievalServer(server.ex, LateInteractionSearcher(idx, **kw),
+                              data["query_tokenizer"],
+                              image_feature_dim=server.image_feature_dim,
+                              id2content=server.id2content,
+                              config=server.cfg)
+        srv.warm_up()
+        print(f"-- {name}", flush=True)
+        record = record_searches(srv)
+        _, scores, pids, launches, dispatches = drive_requests(
+            srv, data, idx, wrappers)
+        if dispatches == 0 or min(launches) < dispatches:
+            raise AssertionError(f"{name}: launches {launches} for "
+                                 f"{dispatches} dispatches")
+        q, _, err = check_served(srv, idx, record, scores, pids)
+        ms = time_ms(lambda: srv.searcher.search_device(q[:32], K))
+        print(f"search alone: {ms:.3f} ms per batch of 32", flush=True)
+        out[name] = {"launches": dict(zip((w.__name__ for w in wrappers),
+                                          launches)),
+                     "dispatches": dispatches, "err": err,
+                     "search_ms_b32": ms}
+    return out
 
 
 def main():
@@ -554,11 +898,19 @@ def main():
     phase("6 pruned search at 112,640 docs")
     searches, pruned_launches = pruned_search(maxsim)
     phase("7 hierarchical serve slice")
-    (l3, l4), hier_dispatches, hier_recall, hier_serve_err = \
+    (l3, l4), hier_dispatches, hier_recall, hier_serve_err, served = \
         hier_serve_slice(maxsim)
     if min(l3, l4) < hier_dispatches or hier_dispatches == 0:
         raise AssertionError(f"K3/K4 launched {l3}/{l4} times for "
                              f"{hier_dispatches} dispatches")
+    phase("8 K5 and K6 vs plain")
+    compressed = compressed_kernels()
+    phase("9 the 1M legs")
+    legs_1m, launches_1m = one_million_legs(maxsim)
+    phase("10 compressed serve slice")
+    comp_serve = compressed_serve_slice(maxsim, *served)
+    del served
+    phase("report")
     src = "ravqa_tpu_torch/csrc/"
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (float)", "coarse_sweep.cu",
@@ -580,13 +932,32 @@ def main():
         "preset); the fast serve slice runs K3 and K4")
     kernels["K3"]["pruned_search_launches"] = pruned_launches["K3"]
     kernels["K4"]["pruned_search_launches"] = pruned_launches["K4"]
+    res_launches = comp_serve["residual hierarchical fast"]["launches"]
+    for key, name, source, replaces, launches in (
+            ("K5", "maxsim_search_int8", "maxsim_int8.cu",
+             "ravqa_tpu/ops/quant.py:138 (_maxsim_int8_kernel :113)",
+             comp_serve["int8 exact"]["launches"]["maxsim_search_int8"]),
+            ("K6", "maxsim_residual", "residual_maxsim.cu",
+             "ravqa_tpu/ops/residual.py:524 (_residual_maxsim_kernel :447)",
+             res_launches["maxsim_residual"])):
+        ck = compressed[key]
+        kernels[key] = {
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": ck["err"], "ms": ck["ms"],
+            "plain_ms": ck["plain_ms"], "shapes": ck["shapes"]}
+    kernels["K5"]["launches_1m"] = launches_1m["int8 exact (K5)"]["K5"]
+    kernels["K6"]["launches_1m"] = launches_1m[
+        "residual hierarchical fast (K3, K4, K6)"]["K6"]
     # the served answers' error against the same search by the plain
     # versions, apart from each kernel's own error above
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)],
                       "searches": searches,
                       "exact_serve_err": serve_err,
                       "hier_serve_err": hier_serve_err,
-                      "hier_serve_recall": hier_recall}), flush=True)
+                      "hier_serve_recall": hier_recall,
+                      "searches_1m": legs_1m,
+                      "compressed_serve": comp_serve}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

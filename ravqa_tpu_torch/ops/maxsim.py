@@ -34,9 +34,7 @@ from typing import Optional
 
 import torch
 
-from .quant import quantize_queries_int8
-
-NEG_INF = -9999.0  # the reference's padding fill value (colbert.py:240)
+from .quant import NEG_INF, quantize_queries_int8
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_DIM = 128                 # Qs + 2 Ds shared-memory tiles fit 227 KB
@@ -82,6 +80,10 @@ _LIBRARIES = {
     "ravqa_coarse_sweep": ("coarse_sweep.cu", {
         "ravqa_coarse_sweep": (4, 6), "ravqa_coarse_sweep_int8": (6, 5)}),
     "ravqa_stage1_sweep": ("stage1_sweep.cu", {"ravqa_stage1_sweep": (4, 8)}),
+    "ravqa_maxsim_int8": ("maxsim_int8.cu", {
+        "ravqa_maxsim_search_int8": (5, 5)}),
+    "ravqa_residual_maxsim": ("residual_maxsim.cu", {
+        "ravqa_residual_maxsim": (7, 10)}),
 }
 
 

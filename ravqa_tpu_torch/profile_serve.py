@@ -42,6 +42,9 @@ PROFILED_BATCHES = 8
 # einsum, max and sum, or the glue between the stages
 STAGES = (("stage 0: coarse_sweep (K2/K3)", ("coarse_sweep",)),
           ("stage 1: stage1_sweep (K4)", ("stage1_sweep",)),
+          ("residual fine stage: residual_maxsim (K6)",
+           ("residual_maxsim",)),
+          ("exact int8: maxsim_int8 (K5)", ("maxsim_int8",)),
           ("exact: maxsim (K1)", ("maxsim",)),
           ("top-k cuts", ("topk", "sort", "radix", "kth", "digitcumsum",
                           "withink")))

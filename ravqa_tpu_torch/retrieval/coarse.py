@@ -14,14 +14,19 @@ tensors the hand-written kernels (coarse_sweep: K2 float / K3 int8,
 stage1_sweep: K4), on CPU tensors their plain versions. Callers pick the
 route as the JAX package's `use_pallas` does: passing the slot-major copies
 (`summaries_t`, `block_summ_t`) or `summ_rows` selects the kernels;
-without them the XLA route's math runs in plain PyTorch. The fine stage
-(exact MaxSim over the gathered candidates' tokens) is plain PyTorch on
-both routes, as it is XLA in the JAX package; it runs in query groups so
-the gathered (g, C, Ld, dim) copy stays bounded.
+without them the XLA route's math runs in plain PyTorch. A token index's
+fine stage (exact MaxSim over the gathered candidates' tokens, times an
+int8 index's per-token `scales`) is plain PyTorch on both routes, as it is
+XLA in the JAX package; it runs in query groups so the gathered
+(g, C, Ld, dim) copy stays bounded. A residual
+index passes its packed `records` and codec tables instead of tokens: its
+fine stage (_fine_stage) decompresses and scores the candidates, through
+ops.residual.maxsim_residual (K6) on the kernel route, or the XLA route's
+decompress-to-bf16 math in plain PyTorch, optionally after the
+centroid-only `centroid_prune` cut.
 
 Every cut is an exact top-k: the JAX package's `approx_topk`
 (lax.approx_max_k) has no counterpart here and is accepted as a no-op.
-The residual codec's paths (records, centroid_prune) are not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.maxsim import NEG_INF, coarse_sweep, maxsim_search, stage1_sweep
+from ..ops.residual import decompress, maxsim_residual, split_records
 
 
 def summarize_docs(tokens: torch.Tensor, mask: torch.Tensor,
@@ -89,27 +95,98 @@ def _resolve_group(group_size: int, b: int) -> int:
 
 
 def _score_group_tokens(qi: torch.Tensor, cand_i: torch.Tensor,
-                        tokens: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
+                        tokens: torch.Tensor, mask: torch.Tensor,
+                        scales: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """(g, Lq, dim) float32 queries x (g, C) candidate rows -> (g, C) exact
-    MaxSim over the gathered token rows."""
+    MaxSim over the gathered token rows (an int8 index's values times its
+    per-token `scales`)."""
     tok = tokens[cand_i].float()                         # (g, C, Ld, dim)
     s = torch.einsum("gcld,gqd->gclq", tok, qi)
+    if scales is not None:
+        s = s * scales[cand_i].float()[..., None]
     s = s.masked_fill(~mask[cand_i].bool()[..., None], NEG_INF)
     return s.amax(dim=2).sum(dim=-1)
 
 
-def _fine_stage(q: torch.Tensor, cand: torch.Tensor, tokens: torch.Tensor,
-                mask: torch.Tensor, *, k: int, group_size: int = 0):
+def _centroid_prune(q: torch.Tensor, cand: torch.Tensor,
+                    records: torch.Tensor, mask: torch.Tensor,
+                    centroids: torch.Tensor, keep: int,
+                    group: int) -> torch.Tensor:
+    """PLAID-style cut of a residual fine stage: score each candidate from
+    its centroid ids alone, tok ~ centroid[code], in bf16 as the JAX
+    package (a (B, K, Lq) q . centroids table rounded to bf16, times the
+    bf16 record scales, -9999 on masked tokens, max over Ld, float32 sum
+    over Lq), and keep each query's top `keep` candidates."""
+    ld = mask.shape[1]
+    table = torch.einsum("bqd,kd->bkq", q.float(),
+                         centroids.float()).to(torch.bfloat16)
+    out = []
+    for lo in range(0, q.shape[0], group):
+        ci = cand[lo:lo + group]
+        codes, scl, _ = split_records(records[ci], ld)
+        row = torch.arange(ci.shape[0], device=q.device)[:, None, None]
+        s = table[lo:lo + group][row, codes.long()] \
+            * scl.to(torch.bfloat16)[..., None]           # (g, C, Ld, Lq)
+        s = s.masked_fill(~mask[ci].bool()[..., None], NEG_INF)
+        sc = s.amax(dim=2).float().sum(dim=-1)
+        out.append(torch.gather(ci, 1, torch.topk(sc, keep, dim=1)[1]))
+    return torch.cat(out)
+
+
+def _fine_stage(q: torch.Tensor, cand: torch.Tensor,
+                tokens: Optional[torch.Tensor], mask: torch.Tensor, *,
+                k: int, group_size: int = 0,
+                scales: Optional[torch.Tensor] = None,
+                records: Optional[torch.Tensor] = None,
+                centroids: Optional[torch.Tensor] = None,
+                bucket_weights: Optional[torch.Tensor] = None,
+                nbits: int = 0, use_pallas_residual: bool = False,
+                centroid_prune: int = 0,
+                codec_coarse: Optional[torch.Tensor] = None,
+                codec_fine: Optional[torch.Tensor] = None):
     """Exact re-score of per-query candidate sets -> (scores (B, k), rows
-    (B, k)), in query groups of _resolve_group(group_size, B)."""
+    (B, k)), in query groups of _resolve_group(group_size, B).
+
+    A token index (float, or int8 with `scales`) scores the gathered token
+    rows. A residual index passes `records` with its codec (centroids,
+    bucket_weights, nbits, and codec_coarse / codec_fine when factored):
+    centroid_prune first cuts each query's candidates to that many by
+    centroid-only scores (_centroid_prune); then use_pallas_residual runs
+    ops.residual.maxsim_residual (K6) where the JAX package runs its fused
+    kernel, for a factored codec or a flat one of at most 1024 centroids
+    (the TPU kernel's gate, kept for parity); otherwise the candidates are
+    decompressed to bf16 and scored against the bf16 query, products
+    summed in float32, times the reconstruction-norm scales."""
     b = q.shape[0]
     g = _resolve_group(group_size, b)
+    if records is not None:
+        cp = min(centroid_prune, cand.shape[1]) if centroid_prune else 0
+        if cp and cp < cand.shape[1]:
+            cand = _centroid_prune(q, cand, records, mask, centroids, cp, g)
+        if use_pallas_residual and (codec_coarse is not None
+                                    or centroids.shape[0] <= 1024):
+            sc = maxsim_residual(q, records, cand, mask, centroids,
+                                 bucket_weights, nbits=nbits,
+                                 coarse=codec_coarse, fine=codec_fine)
+            s, sel = torch.topk(sc, k, dim=1)
+            return s, torch.gather(cand, 1, sel)
     qf = q.float()
     top_s, top_r = [], []
     for lo in range(0, b, g):
         cand_i = cand[lo:lo + g]
-        sc = _score_group_tokens(qf[lo:lo + g], cand_i, tokens, mask)
+        if records is None:
+            sc = _score_group_tokens(qf[lo:lo + g], cand_i, tokens, mask,
+                                     scales)
+        else:
+            codes, scl, packed = split_records(records[cand_i],
+                                               mask.shape[1])
+            tok = decompress(codes, packed, centroids, bucket_weights, nbits)
+            s = torch.einsum("gcld,gqd->gclq", tok.float(),
+                             q[lo:lo + g].to(torch.bfloat16).float())
+            s = (s * scl[..., None]).masked_fill(
+                ~mask[cand_i].bool()[..., None], NEG_INF)
+            sc = s.amax(dim=2).sum(dim=-1)
         s, sel = torch.topk(sc, k, dim=1)
         top_s.append(s)
         top_r.append(torch.gather(cand_i, 1, sel))
@@ -121,7 +198,7 @@ def doc_validity(mask: torch.Tensor) -> torch.Tensor:
     return (mask != 0).any(dim=1).to(torch.int8)
 
 
-def two_stage_search(q: torch.Tensor, tokens: torch.Tensor,
+def two_stage_search(q: torch.Tensor, tokens: Optional[torch.Tensor],
                      mask: torch.Tensor, summaries: Optional[torch.Tensor],
                      *, k: int, n_candidates: int = 1024,
                      coarse_query_len: Optional[int] = None,
@@ -129,9 +206,13 @@ def two_stage_search(q: torch.Tensor, tokens: torch.Tensor,
                      summaries_t: Optional[torch.Tensor] = None,
                      approx_topk: bool = False, approx_recall: float = 0.95,
                      summaries_t_scale: Optional[torch.Tensor] = None,
-                     doc_valid: Optional[torch.Tensor] = None):
+                     doc_valid: Optional[torch.Tensor] = None, **fine):
     """Returns (scores (B, k), rows (B, k)): exact scores of the coarse
-    stage's top `n_candidates` docs.
+    stage's top `n_candidates` docs. `fine`: the index's codec for the
+    fine stage (scales of an int8 index; records, centroids,
+    bucket_weights, nbits, codec_coarse, codec_fine of a residual one,
+    whose tokens are None), use_pallas_residual and centroid_prune: see
+    _fine_stage.
 
     use_pallas_coarse with `summaries_t` (the slot-major (S, N, dim) copy,
     bfloat16 or int8 with `summaries_t_scale`) runs the coarse pass through
@@ -158,7 +239,8 @@ def two_stage_search(q: torch.Tensor, tokens: torch.Tensor,
             approx = coarse_scores(qc, summaries)
         approx = approx.masked_fill(~doc_valid.bool()[None, :], NEG_INF)
     _, cand = torch.topk(approx, n_candidates, dim=1)
-    return _fine_stage(q, cand, tokens, mask, k=k, group_size=group_size)
+    return _fine_stage(q, cand, tokens, mask, k=k, group_size=group_size,
+                       **fine)
 
 
 def block_summaries(summaries: torch.Tensor, block_size: int = 64,
@@ -194,7 +276,7 @@ def _cand_rows(blk: torch.Tensor, loc: torch.Tensor, block_size: int):
         + loc % block_size
 
 
-def hierarchical_search(q: torch.Tensor, tokens: torch.Tensor,
+def hierarchical_search(q: torch.Tensor, tokens: Optional[torch.Tensor],
                         mask: torch.Tensor,
                         summaries: Optional[torch.Tensor],
                         block_summ: torch.Tensor, *, k: int,
@@ -209,7 +291,7 @@ def hierarchical_search(q: torch.Tensor, tokens: torch.Tensor,
                         summ_scale: Optional[torch.Tensor] = None,
                         summ_rows: Optional[torch.Tensor] = None,
                         stage1_tile_b: int = 8,
-                        doc_valid: Optional[torch.Tensor] = None):
+                        doc_valid: Optional[torch.Tensor] = None, **fine):
     """3-stage search: block summaries -> doc summaries -> exact MaxSim.
 
     Stage 0 scores the (NB, Sb, dim) block summaries densely: through
@@ -222,9 +304,11 @@ def hierarchical_search(q: torch.Tensor, tokens: torch.Tensor,
     (doc-major int8 copy) or the float `summaries` in plain PyTorch. Docs
     with no valid token score -9999. The top `n_candidates` docs are
     re-scored exactly (full query). coarse_query_len: only the first L
-    query tokens drive stages 0 and 1. Returns (scores (B, k), rows
-    (B, k)). approx_topk, approx_recall and stage1_tile_b are accepted;
-    the cuts are exact."""
+    query tokens drive stages 0 and 1. `fine`: the index's codec for the
+    fine stage, as in two_stage_search; a residual index scores every
+    query's stage-1 candidates in one fine stage. Returns (scores (B, k),
+    rows (B, k)). approx_topk, approx_recall and stage1_tile_b are
+    accepted; the cuts are exact."""
     del approx_topk, approx_recall
     if summ_rows is not None:
         nb, _, bs_, _ = summ_rows.shape
@@ -274,13 +358,14 @@ def hierarchical_search(q: torch.Tensor, tokens: torch.Tensor,
                                            dscale=summ_scale), blk)
         _, loc = torch.topk(approx, n_candidates, dim=1)
         return _fine_stage(q, _cand_rows(blk, loc, block_size), tokens,
-                           mask, k=k, group_size=group_size)
+                           mask, k=k, group_size=group_size, **fine)
 
-    # plain stage 1 and the fine stage, per query group, so the gathered
-    # summaries and tokens stay bounded
+    # plain stage 1 and the token fine stage, per query group, so the
+    # gathered summaries and tokens stay bounded; a residual index collects
+    # every group's candidates for one fine stage
     g = _resolve_group(group_size, b)
     qf = q.float()
-    top_s, top_r = [], []
+    top_s, top_r, cands = [], [], []
     for lo in range(0, b, g):
         blk_i = blk[lo:lo + g]
         qci = qf[lo:lo + g] if coarse_query_len is None \
@@ -300,10 +385,17 @@ def hierarchical_search(q: torch.Tensor, tokens: torch.Tensor,
         approx = stage1_valid(approx.reshape(blk_i.shape[0], -1), blk_i)
         _, loc = torch.topk(approx, n_candidates, dim=1)
         cand_i = _cand_rows(blk_i, loc, block_size)
-        sc = _score_group_tokens(qf[lo:lo + g], cand_i, tokens, mask)
+        if fine.get("records") is not None:
+            cands.append(cand_i)
+            continue
+        sc = _score_group_tokens(qf[lo:lo + g], cand_i, tokens, mask,
+                                 fine.get("scales"))
         s, sel = torch.topk(sc, k, dim=1)
         top_s.append(s)
         top_r.append(torch.gather(cand_i, 1, sel))
+    if cands:
+        return _fine_stage(q, torch.cat(cands), tokens, mask, k=k,
+                           group_size=group_size, **fine)
     return torch.cat(top_s), torch.cat(top_r)
 
 

@@ -1,17 +1,21 @@
 """Late-interaction search over a TokenIndex on one device.
 
-Port of ravqa_tpu/retrieval/search.py for one device and a token index:
-``mode="exact"`` scores the query batch against every doc
-(``ops.maxsim_search``) and takes the top-k; ``"two_stage"`` and
-``"hierarchical"`` prune with summary vectors first (retrieval.coarse).
+Port of ravqa_tpu/retrieval/search.py for one device: ``mode="exact"``
+scores the query batch against every doc and takes the top-k;
+``"two_stage"`` and ``"hierarchical"`` prune with summary vectors first
+(retrieval.coarse). A float index searches exactly through
+``ops.maxsim_search`` (K1), an int8 index through ``ops.maxsim_search_int8``
+(K5, on quantized queries); a residual index has no tokens and searches in
+the pruned modes only, its fine stage decompressing the candidates (K6).
 Zero query rows are scored like any other row, exactly as in
 ``ravqa_tpu/retrieval/search.py::search_single_device``.
 
 ``use_pallas`` picks the route, as in the JAX package: True builds the
 kernels' copies of the summaries (slot-major, int8, stage1_rows) and runs
-the sweeps through the hand-written kernels on a CUDA index (their plain
-versions on a CPU index); False runs the XLA route's math in plain
-PyTorch, on a CPU index only. None means True on a CUDA index.
+the sweeps, the int8 exact search and the residual fine stage through the
+hand-written kernels on a CUDA index (their plain versions on a CPU
+index); False runs the XLA route's math in plain PyTorch, on a CPU index
+only. None means True on a CUDA index.
 """
 
 from __future__ import annotations
@@ -23,20 +27,36 @@ from typing import Optional
 import torch
 
 from ..ops.maxsim import maxsim_search, stage1_rows
-from ..ops.quant import quantize_summaries_int8, quantize_summaries_t_int8
+from ..ops.quant import (maxsim_search_int8, maxsim_search_int8_torch,
+                         quantize_queries_int8, quantize_summaries_int8,
+                         quantize_summaries_t_int8)
 from .coarse import (block_summaries_t, doc_validity, hierarchical_search,
                      two_stage_search)
 from .index import TokenIndex
 
-_NOT_PORTED = ("is not ported yet: ravqa_tpu_torch searches a token index "
-               "on one device (see ROADMAP.md, Queue A: A9, A10)")
+_NOT_PORTED = ("is not ported yet: ravqa_tpu_torch searches an index on "
+               "one device (see ROADMAP.md, Queue A: A10)")
 _MODES = ("exact", "two_stage", "hierarchical")
 
 
 def search_single_device(q: torch.Tensor, tokens: torch.Tensor,
-                         mask: torch.Tensor, *, k: int):
-    """Exact search on one device. Returns (scores (B, k), rows (B, k))."""
-    return torch.topk(maxsim_search(q, tokens, mask), k, dim=1)
+                         mask: torch.Tensor,
+                         scales: Optional[torch.Tensor] = None, *, k: int,
+                         use_pallas: bool = True):
+    """Exact search on one device. Returns (scores (B, k), rows (B, k)).
+
+    A float index runs ops.maxsim_search (K1). An int8 index (`scales`
+    given) runs, with use_pallas, K5 on queries quantized per token
+    (ops.maxsim_search_int8), else the float-query XLA route's math
+    (maxsim_search_int8_torch)."""
+    if scales is None:
+        scores = maxsim_search(q, tokens, mask)
+    elif use_pallas:
+        q8, qs = quantize_queries_int8(q.float())
+        scores = maxsim_search_int8(q8, qs, tokens, scales)
+    else:
+        scores = maxsim_search_int8_torch(q, tokens, scales, mask)
+    return torch.topk(scores, k, dim=1)
 
 
 def _stage1_lane_rule(block_size: int) -> int:
@@ -59,8 +79,9 @@ class LateInteractionSearcher:
     ``tile_d``, ``approx_topk``, ``approx_recall``, ``stage1_tile_b`` are
     the JAX searcher's TPU knobs and are accepted as no-ops: every cut is
     an exact top-k. ``group_size`` sets the fine stage's query-group
-    chunk. ``mesh`` (sharded search) and ``centroid_prune`` (residual
-    indexes) raise NotImplementedError."""
+    chunk. ``centroid_prune`` sets a residual index's centroid-only cut
+    (resolve_centroid_prune). ``mesh`` (sharded search) raises
+    NotImplementedError."""
 
     def __init__(self, index: TokenIndex, mesh=None,
                  use_pallas: Optional[bool] = None,
@@ -85,10 +106,11 @@ class LateInteractionSearcher:
                              f"(expected one of {_MODES})")
         if mesh is not None:
             raise NotImplementedError(f"sharded search {_NOT_PORTED}")
-        if centroid_prune:
-            raise NotImplementedError(
-                f"centroid_prune (residual indexes) {_NOT_PORTED}")
-        on_cuda = index.tokens.device.type == "cuda"
+        if index.tokens is None and mode == "exact":
+            raise ValueError("a residual-compressed index has no "
+                             "full-precision tokens; use a pruned search "
+                             "mode (two_stage or hierarchical)")
+        on_cuda = index.device.type == "cuda"
         if use_pallas is None:
             use_pallas = on_cuda
         if on_cuda and not use_pallas:
@@ -110,6 +132,7 @@ class LateInteractionSearcher:
         self.coarse_query_len = coarse_query_len
         self.group_size = group_size
         self.stage1_tile_b = stage1_tile_b
+        self.centroid_prune = centroid_prune
         summ = index.summaries
         if preset == "fast":
             if coarse_int8 is None:
@@ -201,6 +224,31 @@ class LateInteractionSearcher:
             return max(32, -(-c // bs), -(-min(k, self.index.n_pad) // bs))
         return max(c // 2, 1)
 
+    def resolve_centroid_prune(self, k: int, n_candidates: int) -> int:
+        """The residual fine stage's centroid-only cut (0 = off): the
+        explicit `centroid_prune`, clamped to the candidates and off where
+        it would not cut; off on other indexes and when not set (the JAX
+        package's auto setting, measured slower on its chip at C <= 1024).
+        k is accepted for the JAX signature."""
+        del k
+        cp = self.centroid_prune
+        if self.index.nbits == 0 or cp is None:
+            return 0
+        cp = min(cp, n_candidates)
+        return 0 if cp >= n_candidates else cp
+
+    def _fine_kwargs(self, k: int, n_candidates: int) -> dict:
+        """The index's codec arguments of the fine stage."""
+        idx = self.index
+        return dict(scales=idx.scales, records=idx.records,
+                    centroids=idx.codec_centroids,
+                    bucket_weights=idx.codec_weights, nbits=idx.nbits,
+                    use_pallas_residual=self.use_pallas,
+                    centroid_prune=self.resolve_centroid_prune(
+                        k, n_candidates),
+                    codec_coarse=idx.codec_coarse,
+                    codec_fine=idx.codec_fine)
+
     def _hierarchical(self, q: torch.Tensor, k: int):
         idx = self.index
         nb = idx.block_summaries.shape[0]
@@ -218,7 +266,7 @@ class LateInteractionSearcher:
             aligned = min(-(-n_blocks // req) * req, (nb // req) * req)
             if nb >= req and aligned >= b_need:
                 n_blocks = aligned
-            elif idx.tokens.device.type != "cuda":
+            elif idx.device.type != "cuda":
                 summ_rows = None
         if summ_rows is None and self._summ_rows is not None:
             summaries, summ_int8, summ_scale = idx.summaries, None, None
@@ -228,17 +276,18 @@ class LateInteractionSearcher:
             summ_int8 = self._summ_i8
             summ_scale = (self._summ_rows_scale if summ_rows is not None
                           else self._summ_i8_scale)
+        n_cand = min(self.resolve_candidates(k), idx.n_pad)
         return hierarchical_search(
             q, idx.tokens, idx.mask, summaries, idx.block_summaries, k=k,
-            n_blocks=n_blocks,
-            n_candidates=min(self.resolve_candidates(k), idx.n_pad),
+            n_blocks=n_blocks, n_candidates=n_cand,
             block_size=idx.block_size,
             coarse_query_len=self.coarse_query_len,
             group_size=self.group_size,
             block_summ_t=self._bsum_t,
             block_summ_t_scale=self._bsum_t_scale,
             summ_int8=summ_int8, summ_scale=summ_scale, summ_rows=summ_rows,
-            stage1_tile_b=self.stage1_tile_b, doc_valid=self._doc_valid)
+            stage1_tile_b=self.stage1_tile_b, doc_valid=self._doc_valid,
+            **self._fine_kwargs(k, n_cand))
 
     def search_device(self, q: torch.Tensor, k: int):
         """(B, Lq, dim) on the index's device -> (scores (B, k), padded-index
@@ -247,21 +296,23 @@ class LateInteractionSearcher:
         if self.mode == "hierarchical":
             return self._hierarchical(q, k)
         if self.mode == "two_stage":
+            n_cand = min(self.resolve_candidates(k), idx.n_pad)
             return two_stage_search(
                 q, idx.tokens, idx.mask, idx.summaries, k=k,
-                n_candidates=min(self.resolve_candidates(k), idx.n_pad),
+                n_candidates=n_cand,
                 coarse_query_len=self.coarse_query_len,
                 use_pallas_coarse=self.use_pallas,
                 group_size=self.group_size, summaries_t=self._summ_t,
                 summaries_t_scale=self._summ_t_scale,
-                doc_valid=self._doc_valid)
-        return search_single_device(q, idx.tokens, idx.mask, k=k)
+                doc_valid=self._doc_valid, **self._fine_kwargs(k, n_cand))
+        return search_single_device(q, idx.tokens, idx.mask, idx.scales,
+                                    k=k, use_pallas=self.use_pallas)
 
     def search(self, q, k: int):
         """Host-facing search: returns (scores (B, k) np, pids (B, k) np).
 
         Padded rows (pid -1) score -9999*Lq and only appear when
         k > num_docs."""
-        q = torch.as_tensor(q, device=self.index.tokens.device)
+        q = torch.as_tensor(q, device=self.index.device)
         scores, rows = self.search_device(q, k)
         return scores.cpu().numpy(), self.index.pids[rows.cpu().numpy()]

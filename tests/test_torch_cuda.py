@@ -20,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from ravqa_tpu_torch.ops import maxsim
-from ravqa_tpu_torch.ops.quant import (quantize_queries_int8,
+from ravqa_tpu_torch.ops import maxsim, quant, residual
+from ravqa_tpu_torch.ops.quant import (quantize_index_int8,
+                                       quantize_queries_int8,
                                        quantize_summaries_int8,
                                        quantize_summaries_t_int8)
 from ravqa_tpu_torch.retrieval import (LateInteractionSearcher,
@@ -354,3 +355,209 @@ def test_cuda_fast_hierarchical_runs_k4_off_the_lane_rule(n_docs, k):
     es, ep = LateInteractionSearcher(cpu_idx).search(q, k=k)
     np.testing.assert_allclose(gs, es, rtol=1e-5, atol=1e-4 * 12)
     np.testing.assert_array_equal(np.sort(gp, 1), np.sort(ep, 1))
+
+
+# -- K5 (int8 exact search) and K6 (fused residual decompress + MaxSim) --------
+
+# (B, Lq, N, Ld, dim): N off the 8-doc tile; Ld 64 (the 64-row tile), 220
+# and 150 (two 128-row steps, ragged), 9 and 1; one query over 64-128
+# columns (Lq=80) and over two column steps (Lq=200)
+INT8_SHAPES = [(3, 6, 37, 9, 16), (2, 80, 21, 150, 128),
+               (32, 32, 203, 64, 128), (5, 32, 19, 220, 64),
+               (3, 200, 11, 70, 32), (7, 1, 9, 1, 16)]
+
+
+def make_int8(shape, negative=False, seed=5):
+    b, lq, n, ld, dim = shape
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, lq, dim)).astype(np.float32)
+    tok = rng.normal(size=(n, ld, dim)).astype(np.float32)
+    if negative:                     # every q.d < 0: catches a max from 0
+        q, tok = np.abs(q), -np.abs(tok)
+    mask = (rng.random((n, ld)) > 0.3).astype(np.int8)
+    mask[::5] = 0                    # docs with no valid token
+    if lq > 1:
+        q[:, -1] = 0.0               # a zero query row
+    tok8, ds = quantize_index_int8(torch.from_numpy(tok).cuda(),
+                                   torch.from_numpy(mask).cuda())
+    q8, qs = quantize_queries_int8(torch.from_numpy(q).cuda())
+    return q8, qs, tok8, ds
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+@pytest.mark.parametrize("negative", [False, True])
+def test_maxsim_int8_kernel_matches_plain(shape, negative):
+    """int32 dot products and their scaled values are equal on both sides;
+    the float32 sums over Lq run in another order."""
+    q8, qs, tok8, ds = make_int8(shape, negative)
+    before = quant.maxsim_search_int8.launches
+    got = quant.maxsim_search_int8(q8, qs, tok8, ds)
+    torch.cuda.synchronize()
+    assert quant.maxsim_search_int8.launches == before + 1
+    want = quant.maxsim_search_int8_q8_torch(q8, qs, tok8, ds)
+    _close(got, want, shape[1])
+    torch.testing.assert_close(got[:, ::5], (-9999.0 * qs.sum(1))[:, None]
+                               .expand_as(got[:, ::5]), rtol=1e-6, atol=0)
+    assert torch.equal(got, quant.maxsim_search_int8(q8, qs, tok8, ds))
+    if negative:
+        assert bool((got[:, 1::5] < 0).all())
+
+
+def test_maxsim_int8_wrapper_raises_on_bad_input():
+    q8, qs, tok8, ds = make_int8(INT8_SHAPES[0])
+    with pytest.raises(TypeError):
+        quant.maxsim_search_int8(q8.float(), qs, tok8, ds)
+    with pytest.raises(ValueError):                   # dim % 16
+        quant.maxsim_search_int8(q8[:, :, :8].contiguous(), qs,
+                                 tok8[:, :, :8].contiguous(), ds)
+    with pytest.raises(ValueError):                   # shapes
+        quant.maxsim_search_int8(q8, qs[:, :-1].contiguous(), tok8, ds)
+    with pytest.raises(ValueError):                   # device
+        quant.maxsim_search_int8(q8, qs, tok8.cpu(), ds)
+
+
+# (B, Lq, C, N, Ld, dim): C off any tile (13, 37), the 1M fine-stage shape
+# (B=32, Lq=32, C=256, Ld=64, dim=128), Ld 220 across two tiles with
+# Lq=64, Lq > 64 (the 8 x 8 tile), one token and one query token
+RES_SHAPES = [(2, 5, 13, 40, 9, 16), (32, 32, 256, 600, 64, 128),
+              (3, 64, 37, 100, 220, 128), (2, 100, 20, 50, 30, 64),
+              (1, 1, 1, 5, 1, 8)]
+
+
+def make_residual(shape, nbits, factored, negative=False, seed=6):
+    """Random records of N docs for a random codec (flat: 64 centroids;
+    factored: 8 x 16), candidates with repeats and docs with no valid
+    token. negative: every centroid and weight > 0 and every query value
+    < 0, so every token score is negative."""
+    b, lq, c, n, ld, dim = shape
+    rng = np.random.default_rng(seed)
+    if factored:
+        coarse = rng.normal(size=(8, dim)).astype(np.float32) * 0.3
+        fine = rng.normal(size=(16, dim)).astype(np.float32) * 0.1
+        if negative:
+            coarse, fine = np.abs(coarse), np.abs(fine)
+        cent = (coarse[:, None] + fine[None]).reshape(-1, dim)
+    else:
+        coarse = fine = None
+        cent = rng.normal(size=(64, dim)).astype(np.float32) * 0.3
+        if negative:
+            cent = np.abs(cent)
+    w = np.sort(rng.normal(size=2 ** nbits)).astype(np.float32) * 0.05
+    if negative:
+        w = np.abs(w) + 0.01
+    q = rng.normal(size=(b, lq, dim)).astype(np.float32)
+    q = -np.abs(q) if negative else q
+    codes = rng.integers(0, len(cent), size=(n, ld))
+    scales = rng.uniform(0.5, 1.5, size=(n, ld)).astype(np.float32)
+    packed = rng.integers(0, 256, size=(n, ld, dim * nbits // 8)).astype(
+        np.uint8)
+    mask = (rng.random((n, ld)) > 0.3).astype(np.int8)
+    mask[::5] = 0                    # docs with no valid token
+    cand = rng.integers(0, n, size=(b, c))
+    cand[:, 0] = 0                   # doc 0 has no valid token
+    t = lambda x: None if x is None else torch.from_numpy(x).cuda()
+    records = residual.pack_records(t(codes), t(scales), t(packed))
+    return dict(q=t(q), records=records, cand=t(cand), mask=t(mask),
+                centroids=t(cent), bucket_weights=t(w), nbits=nbits,
+                coarse=t(coarse), fine=t(fine))
+
+
+@pytest.mark.parametrize("shape", RES_SHAPES)
+@pytest.mark.parametrize("nbits", [2, 4, 8])
+@pytest.mark.parametrize("factored", [False, True])
+def test_residual_kernel_matches_plain(shape, nbits, factored):
+    """The same bf16 products on both sides, float32 sums in another
+    order."""
+    a = make_residual(shape, nbits, factored)
+    before = residual.maxsim_residual.launches
+    got = residual.maxsim_residual(**a)
+    torch.cuda.synchronize()
+    assert residual.maxsim_residual.launches == before + 1
+    want = residual.maxsim_residual_torch(**a)
+    _close(got, want, shape[1])
+    assert torch.equal(got[:, 0], torch.full_like(got[:, 0],
+                                                  -9999.0 * shape[1]))
+    assert torch.equal(got, residual.maxsim_residual(**a))
+
+
+@pytest.mark.parametrize("factored", [False, True])
+def test_residual_kernel_keeps_negative_maxima(factored):
+    a = make_residual(RES_SHAPES[2], 2, factored, negative=True)
+    got = residual.maxsim_residual(**a)
+    _close(got, residual.maxsim_residual_torch(**a), RES_SHAPES[2][1])
+    valid = (a["mask"][a["cand"]] != 0).any(-1)
+    assert bool((got[valid] < 0).all()) and bool(valid.any())
+
+
+def test_residual_kernel_flat_table_of_1024_at_lq_64():
+    """The largest flat table the fused stage sends to the kernel."""
+    a = make_residual((4, 64, 40, 60, 64, 128), 2, False)
+    rng = np.random.default_rng(7)
+    a["centroids"] = torch.from_numpy(
+        rng.normal(size=(1024, 128)).astype(np.float32) * 0.3).cuda()
+    codes = torch.from_numpy(rng.integers(0, 1024, size=(60, 64))).cuda()
+    _, scl, pck = residual.split_records(a["records"], 64)
+    a["records"] = residual.pack_records(codes, scl, pck)
+    _close(residual.maxsim_residual(**a), residual.maxsim_residual_torch(**a),
+           64)
+
+
+def test_residual_wrapper_raises_on_bad_input():
+    a = make_residual(RES_SHAPES[0], 2, True)
+    with pytest.raises(ValueError):                   # nbits
+        residual.maxsim_residual(**dict(a, nbits=3))
+    with pytest.raises(ValueError):                   # records' width
+        residual.maxsim_residual(**dict(a, nbits=4))
+    with pytest.raises(ValueError):                   # factors' sizes
+        residual.maxsim_residual(**dict(a, fine=a["fine"][:3]))
+    with pytest.raises(TypeError):
+        residual.maxsim_residual(**dict(a, mask=a["mask"].bool()))
+    with pytest.raises(ValueError):                   # device
+        residual.maxsim_residual(**dict(a, cand=a["cand"].cpu()))
+    big = dict(a, centroids=torch.randn(40000, 16, device="cuda"),
+               coarse=None, fine=None)
+    with pytest.raises(RuntimeError):                 # table > shared memory
+        residual.maxsim_residual(**big)
+
+
+def _compressed_indexes(codec, n=1024):
+    """The clustered corpus of _pruned_indexes, compressed on the CPU and
+    copied to the card, so both sides search equal data."""
+    cpu, gpu, q = _pruned_indexes(n=n)
+    if codec == "int8":
+        cpu.quantize_int8()
+    else:
+        cpu.quantize_residual(n_centroids=(8, 16) if codec == "factored"
+                              else 64, nbits=2)
+    gpu.tokens = None if cpu.tokens is None else cpu.tokens.cuda()
+    for name in ("scales", "records", "codec_centroids", "codec_weights",
+                 "codec_coarse", "codec_fine"):
+        v = getattr(cpu, name)
+        setattr(gpu, name, None if v is None else v.cuda())
+    gpu.nbits = cpu.nbits
+    return cpu, gpu, q
+
+
+@pytest.mark.parametrize("codec,mode,kernels", [
+    ("int8", "exact", ("maxsim_search_int8",)),
+    ("int8", "hierarchical", ("coarse_sweep_int8", "stage1_sweep")),
+    ("flat", "two_stage", ("maxsim_residual",)),
+    ("flat", "hierarchical", ("maxsim_residual", "stage1_sweep")),
+    ("factored", "hierarchical", ("maxsim_residual", "coarse_sweep_int8",
+                                  "stage1_sweep"))])
+def test_cuda_compressed_searcher_matches_cpu_searcher(codec, mode, kernels):
+    cpu_idx, gpu_idx, q = _compressed_indexes(codec)
+    kw = dict(mode=mode, preset="fast", n_candidates=48)
+    cpu = LateInteractionSearcher(cpu_idx, use_pallas=True, **kw)
+    gpu = LateInteractionSearcher(gpu_idx, **kw)
+    wrappers = {"maxsim_search_int8": quant.maxsim_search_int8,
+                "maxsim_residual": residual.maxsim_residual,
+                "coarse_sweep_int8": maxsim.coarse_sweep_int8,
+                "stage1_sweep": maxsim.stage1_sweep}
+    before = {k: wrappers[k].launches for k in kernels}
+    gs, gp = gpu.search(q, k=5)
+    for k in kernels:
+        assert wrappers[k].launches == before[k] + 1, k
+    cs, cp = cpu.search(q, k=5)
+    np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-4 * 12)
+    np.testing.assert_array_equal(np.sort(gp, 1), np.sort(cp, 1))

@@ -79,3 +79,73 @@ def test_quantize_queries_int8_bit_equal():
     assert (got[0][2, -3:] == 0).all()
     # round half to even: 2.5 -> 2, 3.5 -> 4, -2.5 -> -2, -0.5 -> 0
     assert got[0][0, 0, :6].tolist() == [127, 2, 4, -2, 0, 126]
+
+
+# -- the int8 token index and its exact search (K5) --------------------------
+
+def _index(dtype, seed=1, n=32, ld=12, dim=16):
+    rng = np.random.default_rng(seed)
+    tok = _inputs((n, ld, dim), dtype, seed)
+    mask = (rng.random((n, ld)) > 0.3).astype(np.float32)
+    mask[5] = 0                                        # a doc with no token
+    return tok, mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_index_int8_bit_equal(dtype):
+    tok, mask = _index(dtype)
+    want = jax_quant.quantize_index_int8(jnp.asarray(tok), jnp.asarray(mask))
+    got = torch_quant.quantize_index_int8(_torch(tok), torch.from_numpy(mask),
+                                          chunk=7)       # ragged chunks
+    _assert_bit_equal(got, want)
+    assert (got[0][5] == 0).all() and (got[1][5] == 0).all()
+    np.testing.assert_array_equal(
+        torch_quant.dequantize_int8(*got).numpy(),
+        np.asarray(jax_quant.dequantize_int8(*want)))
+
+
+def _int8_search_inputs(seed=2, b=3, lq=5):
+    tok, mask = _index("float32", seed)
+    tok /= np.maximum(np.linalg.norm(tok, axis=-1, keepdims=True), 1e-6)
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, lq, tok.shape[-1])).astype(np.float32)
+    q[1, -1] = 0.0                                     # a zero query row
+    q[2] = -np.abs(q[2])                               # mostly negative
+    d8, ds = jax_quant.quantize_index_int8(jnp.asarray(tok),
+                                           jnp.asarray(mask))
+    return q, mask, d8, ds
+
+
+def test_maxsim_search_int8_plain_matches_pallas_interpret():
+    """K5's plain version (quantized queries) against the TPU kernel in
+    interpret mode. Both take the same int32 dot products, exact in
+    float32; rtol 1e-6 covers the float32 sum over Lq in another order."""
+    from jax.experimental.pallas import tpu as pltpu
+    q, _, d8, ds = _int8_search_inputs()
+    q8, qs = jax.jit(jax_quant.quantize_queries_int8)(jnp.asarray(q))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_quant.maxsim_search_int8_pallas(q8, qs, d8, ds,
+                                                              tile_d=8))
+    args = [torch.from_numpy(np.array(x)) for x in (q8, qs, d8, ds)]
+    before = torch_quant.maxsim_search_int8.launches
+    got = torch_quant.maxsim_search_int8(*args)
+    assert torch_quant.maxsim_search_int8.launches == before   # CPU: plain
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+    # the doc with no valid token: -9999 times each query token's scale
+    np.testing.assert_allclose(got.numpy()[:, 5],
+                               -9999.0 * np.asarray(qs).sum(1), rtol=1e-6)
+
+
+def test_maxsim_search_int8_torch_matches_xla():
+    """The float-query twin against maxsim_search_int8_xla: float32
+    products of the same values, summed in another order (rtol 1e-5,
+    atol 1e-4 * Lq)."""
+    q, mask, d8, ds = _int8_search_inputs(seed=3)
+    want = np.asarray(jax_quant.maxsim_search_int8_xla(
+        jnp.asarray(q), d8, ds, jnp.asarray(mask)))
+    got = torch_quant.maxsim_search_int8_torch(
+        torch.from_numpy(q), torch.from_numpy(np.array(d8)),
+        torch.from_numpy(np.array(ds)), torch.from_numpy(mask),
+        max_chunk_elems=500)                           # several doc chunks
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-4 * q.shape[1])

@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from ravqa_tpu.ops import residual as jax_residual
 from ravqa_tpu.ops.maxsim import maxsim_search_xla
 from ravqa_tpu.retrieval import index as jax_index
 from ravqa_tpu.retrieval import search as jax_search
+from ravqa_tpu_torch.ops import residual as torch_residual
 from ravqa_tpu_torch.retrieval import (LateInteractionSearcher,
                                        build_index_from_embeddings,
                                        encode_corpus)
@@ -115,9 +117,8 @@ def test_encode_corpus_matches_one_shot_build():
 def test_unported_modes_raise():
     embs, masks = _corpus(n=8)
     idx = build_index_from_embeddings(embs, masks, pad_multiple=8)
-    for kw in ({"mesh": object()}, {"centroid_prune": 64}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LateInteractionSearcher(idx, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LateInteractionSearcher(idx, mesh=object())
     # TPU knobs are accepted as no-ops
     LateInteractionSearcher(idx, use_pallas=True, tile_d=16,
                             approx_topk=True, approx_recall=0.9,
@@ -253,3 +254,145 @@ def test_pruned_modes_need_summaries():
         LateInteractionSearcher(idx, mode="centroid")
     with pytest.raises(ValueError, match="divide"):
         idx.build_block_summaries(block_size=7)
+
+
+# -- compressed indexes: int8 and residual ------------------------------------
+
+def _carried(jc):
+    """A JAX-trained residual codec carried into the port."""
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x))
+    return torch_residual.ResidualCodec(
+        centroids=t(jc.centroids), bucket_cutoffs=t(jc.bucket_cutoffs),
+        bucket_weights=t(jc.bucket_weights), nbits=jc.nbits,
+        coarse=t(jc.coarse), fine=t(jc.fine))
+
+
+def _compress(jidx, tidx, codec):
+    """int8, or a residual codec trained by the JAX package on the float
+    tokens and carried into the port, so both index the same records."""
+    if codec == "int8":
+        jidx.quantize_int8()
+        tidx.quantize_int8()
+        return
+    toks, msk = np.asarray(jidx.tokens), np.asarray(jidx.mask)
+    jc = (jax_residual.train_codec(toks, msk, n_centroids=32, nbits=2)
+          if codec == "flat" else
+          jax_residual.train_codec_factored(toks, msk, k_coarse=4, k_fine=8,
+                                            nbits=2))
+    jidx.quantize_residual(codec=jc)
+    tidx.quantize_residual(codec=_carried(jc))
+
+
+@pytest.fixture(scope="module")
+def compressed():
+    embs, masks, q = _clustered(seed=2)
+    out = {}
+    for codec in ("int8", "flat", "factored"):
+        jidx, tidx = _both_indexes(embs, masks)
+        _compress(jidx, tidx, codec)
+        out[codec] = (jidx, tidx)
+    return out, q
+
+
+def _exact_scores(jidx, q):
+    """The JAX package's exact scores of every doc under the index's own
+    codec (int8: dequantized tokens; residual: the bf16 fine stage)."""
+    if jidx.tokens is not None:
+        from ravqa_tpu.ops.quant import maxsim_search_int8_xla
+        return np.asarray(maxsim_search_int8_xla(
+            jnp.asarray(q), jidx.tokens, jidx.scales, jidx.mask))
+    from ravqa_tpu.retrieval.coarse import _fine_stage
+    n = jidx.n_pad
+    cand = jnp.broadcast_to(jnp.arange(n), (q.shape[0], n))
+    s, r = _fine_stage(jnp.asarray(q), cand, None, jidx.mask, k=n,
+                       records=jidx.records, centroids=jidx.codec_centroids,
+                       bucket_weights=jidx.codec_weights, nbits=jidx.nbits)
+    full = np.empty((q.shape[0], n), np.float32)
+    np.put_along_axis(full, np.asarray(r), np.asarray(s), axis=1)
+    return full
+
+
+@pytest.mark.parametrize("preset", ["reference", "fast"])
+@pytest.mark.parametrize("mode", ["exact", "two_stage", "hierarchical"])
+@pytest.mark.parametrize("codec", ["int8", "flat", "factored"])
+def test_compressed_searcher_matches_jax(compressed, codec, mode, preset):
+    """use_pallas=False on both sides (the XLA route, in plain PyTorch in
+    the port), with pruning cuts that bite; a residual index has no exact
+    mode."""
+    indexes, q = compressed
+    jidx, tidx = indexes[codec]
+    kw = dict(mode=mode, preset=preset, n_candidates=40)
+    if mode == "hierarchical":
+        kw["n_blocks"] = 6
+    if codec != "int8" and mode == "exact":
+        with pytest.raises(ValueError, match="pruned search mode"):
+            LateInteractionSearcher(tidx, use_pallas=False, **kw)
+        return
+    js = jax_search.LateInteractionSearcher(jidx, use_pallas=False,
+                                            approx_topk=False, **kw)
+    ts = LateInteractionSearcher(tidx, use_pallas=False, **kw)
+    want_s, want_p = js.search(q, k=5)
+    got_s, got_p = ts.search(q, k=5)
+    assert_tie_aware(got_s, got_p, _exact_scores(jidx, q), want_s,
+                     q.shape[1], jidx.pids)
+
+
+@pytest.mark.parametrize("codec,mode", [("int8", "exact"),
+                                        ("int8", "hierarchical"),
+                                        ("flat", "two_stage"),
+                                        ("flat", "hierarchical"),
+                                        ("factored", "hierarchical")])
+def test_compressed_kernel_route_matches_jax_interpret(compressed, codec,
+                                                       mode):
+    """use_pallas=True on both sides, preset fast: the JAX package's
+    Pallas kernels in interpret mode (K5 in exact mode, K6 in the residual
+    fine stage), the kernels' plain versions on a CPU index in the port."""
+    from jax.experimental.pallas import tpu as pltpu
+    indexes, q = compressed
+    jidx, tidx = indexes[codec]
+    kw = dict(mode=mode, preset="fast", n_candidates=32)
+    with pltpu.force_tpu_interpret_mode():
+        js = jax_search.LateInteractionSearcher(jidx, use_pallas=True,
+                                                approx_topk=False, **kw)
+        want_s, want_p = js.search(q, k=5)
+    got_s, got_p = LateInteractionSearcher(tidx, use_pallas=True,
+                                           **kw).search(q, k=5)
+    if codec == "int8" and mode == "exact":
+        # K5 scores quantized queries: compare with the JAX kernel's
+        # scores, not the float-query ones
+        from ravqa_tpu.ops.quant import (maxsim_search_int8_pallas,
+                                         quantize_queries_int8)
+        q8, qs = quantize_queries_int8(jnp.asarray(q))
+        with pltpu.force_tpu_interpret_mode():
+            full = np.asarray(maxsim_search_int8_pallas(
+                q8, qs, jidx.tokens, jidx.scales, tile_d=8))
+    else:
+        full = None
+    if full is None:
+        np.testing.assert_allclose(got_s, want_s, rtol=1e-5,
+                                   atol=1e-4 * q.shape[1])
+        np.testing.assert_array_equal(np.sort(got_p, 1), np.sort(want_p, 1))
+    else:
+        assert_tie_aware(got_s, got_p, full, want_s, q.shape[1], jidx.pids)
+
+
+@pytest.mark.parametrize("mode", ["two_stage", "hierarchical"])
+def test_centroid_prune_matches_jax(compressed, mode):
+    indexes, q = compressed
+    jidx, tidx = indexes["flat"]
+    kw = dict(mode=mode, n_candidates=40, centroid_prune=12)
+    js = jax_search.LateInteractionSearcher(jidx, use_pallas=False,
+                                            approx_topk=False, **kw)
+    ts = LateInteractionSearcher(tidx, use_pallas=False, **kw)
+    assert ts.resolve_centroid_prune(5, 40) == js.resolve_centroid_prune(
+        5, 40) == 12
+    assert ts.resolve_centroid_prune(5, 12) == 0      # would not cut
+    want_s, _ = js.search(q, k=5)
+    got_s, got_p = ts.search(q, k=5)
+    assert_tie_aware(got_s, got_p, _exact_scores(jidx, q), want_s,
+                     q.shape[1], jidx.pids)
+    # a token index ignores the knob, as in the JAX package
+    assert LateInteractionSearcher(indexes["int8"][1], centroid_prune=12,
+                                   mode=mode).resolve_centroid_prune(5, 40) \
+        == 0

@@ -233,12 +233,14 @@ def test_bounded_queue_sheds_and_stop_fails_pending():
 
 
 def test_serve_slice_imports_no_jax():
-    """The exact and the hierarchical serve slices, in one process."""
+    """The exact and the hierarchical serve slices and the residual codec,
+    in one process."""
     code = (
         "import sys, numpy as np\n"
         "from ravqa_tpu.config import apply_overrides, load_config\n"
         "from ravqa_tpu_torch.main import build_pipeline, build_server\n"
         "import ravqa_tpu_torch.profile_serve\n"
+        "import ravqa_tpu_torch.ops.residual\n"
         f"for opts in ([], {HIER_OPTS!r}):\n"
         f"    cfg = apply_overrides(load_config({CONFIG!r}), opts)\n"
         "    data = build_pipeline(cfg).get_data(\n"
@@ -261,6 +263,8 @@ def test_serve_slice_imports_no_jax():
     ("void coarse_sweep_kernel<signed char, 8>(...)", "stage 0"),
     ("void stage1_sweep_kernel<__nv_bfloat16, signed char>(...)", "stage 1"),
     ("void maxsim_kernel<float, float>(...)", "exact"),
+    ("void maxsim_int8_kernel<4>(...)", "exact int8"),
+    ("void residual_maxsim_kernel<1>(...)", "residual fine stage"),
     ("void at::native::sbtopk::gatherTopK<float, unsigned int, 2>", "top-k"),
     ("void at::native::radixFindKthValues<float>", "top-k"),
     ("sm90_xmma_gemm_f32f32_tf32f32_f32_nn", "plain fine stage")])
