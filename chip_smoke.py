@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      TF32 off for float32 matmuls and convolutions. No GPU -> exit 1.
   2. build: every CUDA library of the port (csrc/maxsim.cu: K1,
      csrc/coarse_sweep.cu: K2 + K3, csrc/stage1_sweep.cu: K4,
-     csrc/maxsim_int8.cu: K5, csrc/residual_maxsim.cu: K6) from the repo's
-     sources, the nvcc runs side by side; ptxas registers/spills.
+     csrc/maxsim_int8.cu: K5, csrc/residual_maxsim.cu: K6,
+     csrc/residual_lut_maxsim.cu: X1, csrc/candidate_maxsim.cu: X2 and X3)
+     from the repo's sources, the nvcc runs side by side; ptxas
+     registers/spills.
   3. K1 against its plain PyTorch version on the card, at the serve shape
      in float32 and a bf16 index shape: scores, tie-aware top-10, and both
      times (median of 10 after warm-up, CUDA events).
@@ -59,8 +61,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      the compressed index, on the query embeddings each dispatch searched
      (as in 7); each kernel launches at least once per dispatch;
      then the search alone, ms per batch of 32.
+ 11. X1, X2, X3 against their plain versions at the stage-2 experiment's
+     shape (B=32, Lq=32, Ld=64, dim 128) at C = 1,024, 256 and 200 (a
+     multiple of neither the TPU tiles' 32 nor 128), ~30 % of the tokens
+     masked and one candidate of every query with none: max |err| and
+     tie-aware top-10 at 1e-3; X2 batched, X3 the same kernel once per
+     query (B launches of B = 1); both times (median of 10, CUDA events).
+ 12. the residual stage-2 experiment: ravqa_tpu_torch.scripts.
+     exp_residual_stage2.run() with every round at the script's full
+     widths (N = 200,064, then 1,000,448 docs of records made on the card,
+     about 2.3 GB), every variant's ms per batch and rel-err line printed.
+     Gates: each kernel route against its plain twin on the same inputs to
+     1e-3; the launches of X1 (fused_lut_maxsim), X2 and X3
+     (candidate_maxsim batched and once per query, B a batch) equal what
+     the run called; no round raises.
 Every phase prints its seconds. The line before the last is the kernels'
-JSON record; the last line is {"ok": true, "device": {...}}.
+JSON record: each kernel's launches on its path, its error against its
+plain version, its time and its plain version's, and its bound, the least
+time the card could take for the same work (the larger of the bytes it
+must move over 3.35 TB/s and its operations over the data sheet's peak for
+their type), at the shape its "ms" was taken; library_ms is null, since
+no single PyTorch call computes any of these functions. The last line is
+{"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -132,6 +154,40 @@ def time_ms(fn, iters=10, warmup=2):
     return float(np.median(times))
 
 
+# NVIDIA H100 SXM data sheet, dense: device memory rate and peak operation
+# rates by the type the operations take (float32 on the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+
+
+def bound(nbytes, ops, kind):
+    """The least time the card could take for a kernel's work: bytes it
+    must move (each input read once, each output written once) over the
+    memory rate, or its operations over the peak rate of their type,
+    whichever is larger. Returns {"bound_ms", "bound_by", "bytes", "ops"}."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "ops_type": kind}
+
+
+def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd):
+    """Time a kernel's wrapper and its plain version (median of 10, CUDA
+    events) and keep them, its error and its bound in out[kernel]: under
+    "shapes" for each shape, and the first shape's at the top."""
+    ms, plain_ms = time_ms(fn), time_ms(plain_fn)
+    o = out[kernel]
+    o["err"] = max(o["err"], err)
+    o["shapes"][shape] = {"ms": ms, "plain_ms": plain_ms, **bnd}
+    for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                   ("bound_ms", bnd["bound_ms"]),
+                   ("bound_by", bnd["bound_by"])):
+        o.setdefault(key, v)                       # the first shape's
+    print(f"{kernel} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+
+
 def kernel_shape(name, b, lq, n, ld, dim, dtype, maxsim):
     import torch
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -156,11 +212,13 @@ def kernel_shape(name, b, lq, n, ld, dim, dtype, maxsim):
     ms = time_ms(lambda: maxsim.maxsim_search(q, tok, mask))
     plain_ms = time_ms(lambda: maxsim.maxsim_search_torch(q, tok, mask))
     flop = 2.0 * b * lq * n * ld * dim
+    bnd = bound(_nbytes(q, tok, mask) + 4 * b * n, flop,
+                "f32" if dtype == torch.float32 else "bf16")
     print(f"{name}: B={b} Lq={lq} N={n} Ld={ld} dim={dim} {dtype}: "
           f"max|err| {err:.3g}; kernel {ms:.3f} ms "
-          f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms",
-          flush=True)
-    return err, ms, plain_ms
+          f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+          f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']})", flush=True)
+    return err, ms, plain_ms, bnd
 
 
 def check_towers(ex, data, reqs):
@@ -324,15 +382,8 @@ def sweep_kernels(maxsim):
     q[:, -2:] = 0                                  # zero query rows
     out = {k: {"err": 0.0, "shapes": {}} for k in ("K2", "K3", "K4")}
 
-    def record(kernel, shape, err, fn, plain_fn):
-        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-        o = out[kernel]
-        o["err"] = max(o["err"], err)
-        o["shapes"][shape] = {"ms": ms, "plain_ms": plain_ms}
-        o.setdefault("ms", ms)                     # the first shape's
-        o.setdefault("plain_ms", plain_ms)
-        print(f"{kernel} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-              f"ms", flush=True)
+    def record(kernel, shape, err, fn, plain_fn, bnd):
+        record_kernel(out, kernel, shape, err, fn, plain_fn, bnd)
 
     summ_docs = None
     # two-stage coarse pass: 112,640 docs x 8 summaries; hierarchical
@@ -354,8 +405,10 @@ def sweep_kernels(maxsim):
         if not bool((got[:, invalid] == -9999.0).all()):
             raise AssertionError("K2: an invalid doc must score -9999")
         err = _compare(f"K2 bf16 {shape}", got, want)
+        ops = 2.0 * b * lq * s_ * n * dim
         record("K2", shape, err, lambda: maxsim.coarse_sweep(q, summ_t, valid),
-               lambda: maxsim.coarse_sweep_torch(q, summ_t, valid))
+               lambda: maxsim.coarse_sweep_torch(q, summ_t, valid),
+               bound(_nbytes(q, summ_t, valid, got), ops, "bf16"))
 
         st8, dsc = quantize_summaries_t_int8(summ_t)
         q8, qs = quantize_queries_int8(q)
@@ -376,7 +429,8 @@ def sweep_kernels(maxsim):
         err = _compare(f"K3 int8 {shape}", got, want)
         record("K3", shape, err,
                lambda: maxsim.coarse_sweep(q, st8, valid, dscale=dsc),
-               lambda: maxsim.coarse_sweep_torch(q, st8, valid, dscale=dsc))
+               lambda: maxsim.coarse_sweep_torch(q, st8, valid, dscale=dsc),
+               bound(_nbytes(q, st8, dsc, valid, got), ops, "int8"))
 
     # hierarchical stage 1 over the docs' summaries: 1,760 blocks of 64
     rows = maxsim.stage1_rows(summ_docs, bs)
@@ -391,10 +445,18 @@ def sweep_kernels(maxsim):
             got = maxsim.stage1_sweep(q, r, blk, dscale=dscale)
             want = maxsim.stage1_sweep_torch(q, r, blk, dscale=dscale)
             err = _compare(f"K4 {shape}", got, want)
+            # the rows of the blocks some query selected, each read once;
+            # int8 rows are products in bf16 (the TPU kernel's cast)
+            used = torch.unique(blk).numel()
+            nbytes = (_nbytes(q, blk, got) + used * r[0].numel()
+                      * r.element_size()
+                      + (0 if dscale is None else used * bs * 4))
             record("K4", shape, err,
                    lambda: maxsim.stage1_sweep(q, r, blk, dscale=dscale),
                    lambda: maxsim.stage1_sweep_torch(q, r, blk,
-                                                     dscale=dscale))
+                                                     dscale=dscale),
+                   bound(nbytes, 2.0 * b * lq * nbl * r.shape[1] * bs * dim,
+                         "bf16"))
     return out
 
 
@@ -609,16 +671,9 @@ def compressed_kernels():
     q[:, -2:] = 0                                  # zero query rows
     out = {k: {"err": 0.0, "shapes": {}} for k in ("K5", "K6")}
 
-    def record(kernel, shape, got, want, fn, plain_fn):
-        err = _compare(f"{kernel} {shape}", got, want)
-        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-        o = out[kernel]
-        o["err"] = max(o["err"], err)
-        o["shapes"][shape] = {"ms": ms, "plain_ms": plain_ms}
-        o.setdefault("ms", ms)
-        o.setdefault("plain_ms", plain_ms)
-        print(f"{kernel} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-              f"ms", flush=True)
+    def record(kernel, shape, got, want, fn, plain_fn, bnd):
+        record_kernel(out, kernel, shape, _compare(f"{kernel} {shape}", got,
+                                                   want), fn, plain_fn, bnd)
 
     q8, qs = quant.quantize_queries_int8(q)
     for ld in (128, 64):
@@ -639,7 +694,9 @@ def compressed_kernels():
                                  "-9999 * sum of the query scales")
         record("K5", f"N=16384 Ld={ld}", got, want,
                lambda: quant.maxsim_search_int8(q8, qs, t8, ds),
-               lambda: quant.maxsim_search_int8_q8_torch(q8, qs, t8, ds))
+               lambda: quant.maxsim_search_int8_q8_torch(q8, qs, t8, ds),
+               bound(_nbytes(q8, qs, t8, ds, got),
+                     2.0 * b * lq * n * ld * dim, "int8"))
 
     # the 1M fine stage's shape: 256 candidates per query, 64 tokens
     c, ld, n = 256, 64, 65536
@@ -668,9 +725,18 @@ def compressed_kernels():
                                                           -9999.0 * lq)):
                 raise AssertionError("K6: a doc with no valid token must "
                                      "score -9999 * Lq")
+            # the candidates' record and mask rows, each read once; the
+            # residual dots and the centroid-score table, in bf16
+            used = torch.unique(cand).numel()
+            rows = k1 + k2 if k2 else k1
+            nbytes = (_nbytes(q, cand, w, coarse, fine, got)
+                      + (0 if k2 else _nbytes(cent))
+                      + used * (records.shape[1] + mask.shape[1]))
+            ops = 2.0 * b * lq * dim * (c * ld + rows)
             record("K6", f"{name} nbits={nbits}", got, want,
                    lambda: residual.maxsim_residual(*args, **kw),
-                   lambda: residual.maxsim_residual_torch(*args, **kw))
+                   lambda: residual.maxsim_residual_torch(*args, **kw),
+                   bound(nbytes, ops, "bf16"))
     return out
 
 
@@ -845,6 +911,105 @@ def compressed_serve_slice(maxsim, data, server, index):
     return out
 
 
+def stage2_kernels():
+    """X1, X2 and X3 against their plain versions at the stage-2
+    experiment's shape (phase 11): B=32, Lq=32, Ld=64, dim 128, C = 1,024,
+    256 and 200 (a multiple of neither of the TPU tiles, 32 and 128); ~30 %
+    of the tokens masked and candidate 1 of every query with none. Returns
+    {kernel: {"err", "ms", "plain_ms", "bound_ms", "bound_by", "shapes"}}:
+    the first shape's times and bound at the top."""
+    import torch
+    from ravqa_tpu_torch.ops import stage2
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, lq, ld, dim = 32, 32, 64, 128
+    q = _normed(g, b, lq, dim, dtype=torch.float32)
+    qb = q.bfloat16()
+    w = torch.tensor([-0.05, -0.01, 0.01, 0.05], device="cuda")
+    out = {k: {"err": 0.0, "shapes": {}} for k in ("X1", "X2", "X3")}
+
+    def per_query(mask, tok):
+        return torch.cat([stage2.candidate_maxsim(qb[i:i + 1], tok[i:i + 1],
+                                                  mask[i:i + 1])
+                          for i in range(b)])
+
+    def check(kernel, shape, got, want, fn, plain_fn, bnd):
+        torch.cuda.synchronize()
+        if not torch.equal(got[:, 1], torch.full_like(got[:, 1],
+                                                      -9999.0 * lq)):
+            raise AssertionError(f"{kernel}: a candidate with no valid token "
+                                 f"must score -9999 * Lq")
+        record_kernel(out, kernel, shape, _compare(f"{kernel} {shape}", got,
+                                                   want), fn, plain_fn, bnd)
+
+    for c in (1024, 256, 200):
+        shape = f"C={c}"
+        mask = (torch.rand(b, c, ld, generator=g, device="cuda") > 0.3).to(
+            torch.int8)
+        mask[:, 1] = 0
+        flop = 2.0 * b * lq * c * ld * dim
+        # X1: pre-gathered centroid scores (dot products of unit vectors,
+        # here 0.1 N(0, 1)), 2-bit bucket ids, scales near 1
+        x1 = dict(q=q, cqg=0.1 * torch.randn(b, c, ld, lq, generator=g,
+                                             device="cuda"),
+                  bits=torch.randint(4, (b, c, ld, dim), generator=g,
+                                     device="cuda", dtype=torch.uint8),
+                  sg=1.0 + 0.01 * torch.randn(b, c, ld, generator=g,
+                                              device="cuda"),
+                  mg=mask, weights=w)
+        got = stage2.fused_lut_maxsim(**x1)
+        check("X1", shape, got, stage2.fused_lut_maxsim_torch(**x1),
+              lambda: stage2.fused_lut_maxsim(**x1),
+              lambda: stage2.fused_lut_maxsim_torch(**x1),
+              bound(_nbytes(got, *x1.values()), flop, "f32"))
+        del x1
+        # X2 batched, X3 the same kernel once per query (B launches)
+        tok = _normed(g, b, c, ld, dim, dtype=torch.bfloat16)
+        want = stage2.candidate_maxsim_torch(qb, tok, mask)
+        got = stage2.candidate_maxsim(qb, tok, mask)
+        bnd = bound(_nbytes(qb, tok, mask, got), flop, "bf16")
+        check("X2", shape, got, want,
+              lambda: stage2.candidate_maxsim(qb, tok, mask),
+              lambda: stage2.candidate_maxsim_torch(qb, tok, mask), bnd)
+        check("X3", shape, per_query(mask, tok), want,
+              lambda: per_query(mask, tok),
+              lambda: stage2.candidate_maxsim_torch(qb, tok, mask), bnd)
+        del tok, want, got
+    return out
+
+
+def stage2_experiment():
+    """The residual stage-2 experiment (phase 12): every round of
+    ravqa_tpu_torch.scripts.exp_residual_stage2.run() at the script's full
+    widths, with the launch counts set to 0 just before. Returns its report
+    and {kernel: launches} as the wrappers counted them."""
+    import torch
+    from ravqa_tpu_torch.ops import stage2
+    from ravqa_tpu_torch.scripts import exp_residual_stage2 as exp
+    torch.cuda.empty_cache()
+    fused, cand = stage2.fused_lut_maxsim, stage2.candidate_maxsim
+    fused.launches = cand.launches = 0
+    report = exp.run()
+    torch.cuda.synchronize()
+    routes, want = report["launches"], report["expected_launches"]
+    if routes != want or min(want.values()) == 0 \
+            or fused.launches != routes["X1"] \
+            or cand.launches != routes["X2"] + routes["X3"]:
+        raise AssertionError(f"stage-2 launches: routes {routes}, expected "
+                             f"{want}, counted X1 {fused.launches}, X2 + X3 "
+                             f"{cand.launches}")
+    twin = report["twin_err"]
+    if set(twin) != {"X1", "X2", "X3"} or max(twin.values()) > SWEEP_ATOL:
+        raise AssertionError(f"stage-2 kernel routes against their plain "
+                             f"twins: {twin}")
+    bad = [k for k, v in {**report["times"], **report["rel_err"]}.items()
+           if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"stage-2 experiment: not finite: {bad}")
+    print(f"launches {routes} (expected {want}); plain twins max |err| "
+          f"{twin}", flush=True)
+    return report
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "ravqa_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the repo")
@@ -876,10 +1041,10 @@ def main():
     print(f"all libraries: {time.perf_counter() - t0:.2f} s", flush=True)
 
     phase("3 K1 vs plain")
-    err_a, ms_a, plain_a = kernel_shape("serve f32", 32, 64, 16387, 220,
-                                        128, torch.float32, maxsim)
-    err_b, ms_b, plain_b = kernel_shape("index bf16", 32, 32, 16384, 128,
-                                        128, torch.bfloat16, maxsim)
+    err_a, ms_a, plain_a, bound_a = kernel_shape(
+        "serve f32", 32, 64, 16387, 220, 128, torch.float32, maxsim)
+    err_b, ms_b, plain_b, _ = kernel_shape(
+        "index bf16", 32, 32, 16384, 128, 128, torch.bfloat16, maxsim)
     phase("4 exact serve slice")
     launches, dispatches, serve_err = serve_slice(CONFIG, "cuda", maxsim)
     if launches < dispatches or launches == 0:
@@ -890,7 +1055,8 @@ def main():
         "source": "ravqa_tpu_torch/csrc/maxsim.cu",
         "replaces": "ravqa_tpu/ops/maxsim.py:196",
         "launches": launches, "max_abs_err": max(err_a, err_b),
-        "ms": ms_a, "plain_ms": plain_a, "bf16_ms": ms_b,
+        "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a["bound_ms"],
+        "bound_by": bound_a["bound_by"], "bf16_ms": ms_b,
         "bf16_plain_ms": plain_b}}
 
     phase("5 K2, K3, K4 vs plain at the bench shape")
@@ -910,8 +1076,22 @@ def main():
     phase("10 compressed serve slice")
     comp_serve = compressed_serve_slice(maxsim, *served)
     del served
+    phase("11 X1, X2, X3 vs plain")
+    stage2_k = stage2_kernels()
+    phase("12 the residual stage-2 experiment")
+    experiment = stage2_experiment()
     phase("report")
-    src = "ravqa_tpu_torch/csrc/"
+
+    def entry(name, source, replaces, launches, measured):
+        return {"name": name, "route": "cuda",
+                "source": "ravqa_tpu_torch/csrc/" + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": measured["err"], "ms": measured["ms"],
+                "plain_ms": measured["plain_ms"],
+                "bound_ms": measured["bound_ms"],
+                "bound_by": measured["bound_by"],
+                "shapes": measured["shapes"]}
+
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (float)", "coarse_sweep.cu",
              "ravqa_tpu/ops/maxsim.py:336 (_coarse_sweep_kernel :252)",
@@ -921,12 +1101,7 @@ def main():
              ":293)", l3),
             ("K4", "stage1_sweep", "stage1_sweep.cu",
              "ravqa_tpu/ops/maxsim.py:510", l4)):
-        sw = sweeps[key]
-        kernels[key] = {
-            "name": name, "route": "cuda", "source": src + source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": sw["err"], "ms": sw["ms"],
-            "plain_ms": sw["plain_ms"], "shapes": sw["shapes"]}
+        kernels[key] = entry(name, source, replaces, launches, sweeps[key])
     kernels["K2"]["launches_note"] = (
         "phase 6 (hierarchical and two-stage search under the reference "
         "preset); the fast serve slice runs K3 and K4")
@@ -940,15 +1115,30 @@ def main():
             ("K6", "maxsim_residual", "residual_maxsim.cu",
              "ravqa_tpu/ops/residual.py:524 (_residual_maxsim_kernel :447)",
              res_launches["maxsim_residual"])):
-        ck = compressed[key]
-        kernels[key] = {
-            "name": name, "route": "cuda", "source": src + source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": ck["err"], "ms": ck["ms"],
-            "plain_ms": ck["plain_ms"], "shapes": ck["shapes"]}
+        kernels[key] = entry(name, source, replaces, launches,
+                             compressed[key])
     kernels["K5"]["launches_1m"] = launches_1m["int8 exact (K5)"]["K5"]
     kernels["K6"]["launches_1m"] = launches_1m[
         "residual hierarchical fast (K3, K4, K6)"]["K6"]
+    script = "scripts/exp_residual_stage2.py"
+    for key, name, source, replaces in (
+            ("X1", "fused_lut_maxsim", "residual_lut_maxsim.cu",
+             f"{script}:189 (v_pallas :173, _fused_kernel :151)"),
+            ("X2", "candidate_maxsim (batched)", "candidate_maxsim.cu",
+             f"{script}:268 (maxsim_candidates_pallas :261, _cand_kernel "
+             f":251)"),
+            ("X3", "candidate_maxsim (once per query)", "candidate_maxsim.cu",
+             f"{script}:405 (v_record_perq_pallas :388, _perq_kernel "
+             f":379)")):
+        x = dict(stage2_k[key])
+        x["err"] = max(x["err"], experiment["twin_err"][key])
+        kernels[key] = entry(name, source, replaces,
+                             experiment["launches"][key], x)
+    kernels["X3"]["ms_note"] = ("the batch's B launches of B = 1, as "
+                                "v_record_perq runs them")
+    for k in kernels.values():
+        # no single PyTorch call computes any of these functions
+        k["library_ms"] = None
     # the served answers' error against the same search by the plain
     # versions, apart from each kernel's own error above
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)],
@@ -957,7 +1147,8 @@ def main():
                       "hier_serve_err": hier_serve_err,
                       "hier_serve_recall": hier_recall,
                       "searches_1m": legs_1m,
-                      "compressed_serve": comp_serve}), flush=True)
+                      "compressed_serve": comp_serve,
+                      "stage2_experiment": experiment}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterator
 
-from ravqa_tpu.tokenization import DocTokenizer
+from ..tokenization import DocTokenizer
 
 
 @dataclasses.dataclass

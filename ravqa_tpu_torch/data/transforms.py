@@ -17,9 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ravqa_tpu.tokenization import (DocTokenizer, QueryTokenizer,
-                                    WordPieceTokenizer, make_tiny_vocab)
-
+from ..tokenization import (DocTokenizer, QueryTokenizer,
+                            WordPieceTokenizer, make_tiny_vocab)
 from .datasets import PassageCorpus
 from .pipeline import BaseTransform, register_transform
 

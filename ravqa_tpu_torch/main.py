@@ -20,8 +20,8 @@ from typing import Optional
 import torch
 
 # load_config is re-exported: callers of the port (chip_smoke.py) load a
-# config through this module and never import the JAX package themselves
-from ravqa_tpu.config import Config, apply_overrides, load_config
+# config through this module
+from .config import Config, apply_overrides, load_config
 
 _NOT_PORTED = "is not ported yet to ravqa_tpu_torch (see ROADMAP.md, Queue A)"
 

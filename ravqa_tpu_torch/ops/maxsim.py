@@ -84,6 +84,11 @@ _LIBRARIES = {
         "ravqa_maxsim_search_int8": (5, 5)}),
     "ravqa_residual_maxsim": ("residual_maxsim.cu", {
         "ravqa_residual_maxsim": (7, 10)}),
+    # the stage-2 experiment's scorers (ops/stage2.py): X1, and X2/X3
+    "ravqa_residual_lut_maxsim": ("residual_lut_maxsim.cu", {
+        "ravqa_residual_lut_maxsim": (7, 5)}),
+    "ravqa_candidate_maxsim": ("candidate_maxsim.cu", {
+        "ravqa_candidate_maxsim": (4, 5)}),
 }
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from ravqa_tpu_torch.ops import maxsim, quant, residual
+from ravqa_tpu_torch.ops import maxsim, quant, residual, stage2
 from ravqa_tpu_torch.ops.quant import (quantize_index_int8,
                                        quantize_queries_int8,
                                        quantize_summaries_int8,
@@ -561,3 +561,167 @@ def test_cuda_compressed_searcher_matches_cpu_searcher(codec, mode, kernels):
     cs, cp = cpu.search(q, k=5)
     np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-4 * 12)
     np.testing.assert_array_equal(np.sort(gp, 1), np.sort(cp, 1))
+
+
+# -- X1, X2/X3: the stage-2 experiment's scorers -----------------------------
+
+# (C, Ld): C a multiple of 128, of neither 32 nor 128 (200), and the
+# experiment's 1,024; Ld the experiment's 64 (several candidates a tile) and
+# 220 (a candidate across tiles); B=4, Lq=32, dim=128
+STAGE2_SHAPES = [(c, ld) for c in (128, 200, 1024) for ld in (64, 220)]
+# Lq of each register-tile width (<= 32, <= 64, <= 128) and its edges
+STAGE2_LQ = [1, 5, 32, 33, 64, 100, 128]
+
+
+def make_x1(c, ld, b=4, lq=32, dim=128, negative=False, seed=8):
+    """X1's inputs made on the card: ids 0-3, random centroid scores,
+    scales in [0.5, 1.5), ~30 % of the tokens masked and candidate 1 of
+    every query with none. negative: every weight > 0 and every query
+    value and centroid score < 0, so that every token score is
+    negative."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, lq, dim, generator=g, device="cuda")
+    cqg = torch.randn(b, c, ld, lq, generator=g, device="cuda")
+    w = torch.tensor([-0.05, -0.01, 0.01, 0.05], device="cuda")
+    if negative:
+        q, cqg, w = -q.abs(), -cqg.abs(), w + 0.06
+    mg = (torch.rand(b, c, ld, generator=g, device="cuda") > 0.3).to(
+        torch.int8)
+    mg[:, 1] = 0
+    return dict(q=q, cqg=cqg,
+                bits=torch.randint(4, (b, c, ld, dim), generator=g,
+                                   device="cuda", dtype=torch.uint8),
+                sg=0.5 + torch.rand(b, c, ld, generator=g, device="cuda"),
+                mg=mg, weights=w)
+
+
+def make_x2(c, ld, b=4, lq=32, dim=128, negative=False, seed=9):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, lq, dim, generator=g, device="cuda")
+    tok = torch.randn(b, c, ld, dim, generator=g, device="cuda")
+    if negative:
+        q, tok = q.abs(), -tok.abs()
+    mask = (torch.rand(b, c, ld, generator=g, device="cuda") > 0.3).to(
+        torch.int8)
+    mask[:, 1] = 0
+    return q.bfloat16(), tok.bfloat16(), mask
+
+
+@pytest.mark.parametrize("c,ld", STAGE2_SHAPES)
+def test_fused_lut_kernel_matches_plain(c, ld):
+    """The same float32 products on both sides, summed in another order."""
+    a = make_x1(c, ld)
+    before = stage2.fused_lut_maxsim.launches
+    got = stage2.fused_lut_maxsim(**a)
+    torch.cuda.synchronize()
+    assert stage2.fused_lut_maxsim.launches == before + 1
+    _close(got, stage2.fused_lut_maxsim_torch(**a), 32)
+    assert torch.equal(got[:, 1], torch.full_like(got[:, 1], -9999.0 * 32))
+    assert torch.equal(got, stage2.fused_lut_maxsim(**a))
+
+
+@pytest.mark.parametrize("lq", STAGE2_LQ)
+def test_fused_lut_kernel_every_tile_width(lq):
+    a = make_x1(37, 9, b=3, lq=lq, dim=64)
+    _close(stage2.fused_lut_maxsim(**a), stage2.fused_lut_maxsim_torch(**a),
+           lq)
+
+
+def test_fused_lut_kernel_keeps_negative_maxima():
+    a = make_x1(200, 64, negative=True)
+    got = stage2.fused_lut_maxsim(**a)
+    _close(got, stage2.fused_lut_maxsim_torch(**a), 32)
+    valid = (a["mg"] != 0).any(-1)
+    assert bool((got[valid] < 0).all()) and bool(valid.any())
+
+
+def test_fused_lut_wrapper_raises_on_bad_input():
+    a = make_x1(16, 8, b=2)
+    with pytest.raises(ValueError):                   # nbits
+        stage2.fused_lut_maxsim(**a, nbits=4)
+    with pytest.raises(TypeError):                    # int32 ids
+        stage2.fused_lut_maxsim(**dict(a, bits=a["bits"].int()))
+    with pytest.raises(TypeError):                    # int32 mask
+        stage2.fused_lut_maxsim(**dict(a, mg=a["mg"].int()))
+    with pytest.raises(TypeError):                    # bf16 query
+        stage2.fused_lut_maxsim(**dict(a, q=a["q"].bfloat16()))
+    with pytest.raises(ValueError):                   # weights padded
+        stage2.fused_lut_maxsim(**dict(a, weights=torch.zeros(
+            128, device="cuda")))
+    with pytest.raises(ValueError):                   # device
+        stage2.fused_lut_maxsim(**dict(a, cqg=a["cqg"].cpu()))
+    with pytest.raises(ValueError):                   # Lq > 128
+        stage2.fused_lut_maxsim(**make_x1(4, 4, b=1, lq=129, dim=8))
+
+
+@pytest.mark.parametrize("c,ld", STAGE2_SHAPES)
+def test_candidate_kernel_matches_plain(c, ld):
+    """X2: bf16 products are exact in float32; only the sums' order
+    differs."""
+    q, tok, mask = make_x2(c, ld)
+    before = stage2.candidate_maxsim.launches
+    got = stage2.candidate_maxsim(q, tok, mask)
+    torch.cuda.synchronize()
+    assert stage2.candidate_maxsim.launches == before + 1
+    _close(got, stage2.candidate_maxsim_torch(q, tok, mask), 32)
+    assert torch.equal(got[:, 1], torch.full_like(got[:, 1], -9999.0 * 32))
+    assert torch.equal(got, stage2.candidate_maxsim(q, tok, mask))
+
+
+@pytest.mark.parametrize("c,ld", STAGE2_SHAPES)
+def test_candidate_kernel_per_query_route(c, ld):
+    """X3: the same kernel launched once per query with B = 1, as
+    v_record_perq does, equals the batched plain version."""
+    q, tok, mask = make_x2(c, ld, seed=10)
+    before = stage2.candidate_maxsim.launches
+    got = torch.cat([stage2.candidate_maxsim(q[i:i + 1], tok[i:i + 1],
+                                             mask[i:i + 1])
+                     for i in range(q.shape[0])])
+    torch.cuda.synchronize()
+    assert stage2.candidate_maxsim.launches == before + q.shape[0]
+    _close(got, stage2.candidate_maxsim_torch(q, tok, mask), 32)
+
+
+@pytest.mark.parametrize("lq", STAGE2_LQ)
+def test_candidate_kernel_every_tile_width(lq):
+    q, tok, mask = make_x2(37, 9, b=3, lq=lq, dim=64)
+    _close(stage2.candidate_maxsim(q, tok, mask),
+           stage2.candidate_maxsim_torch(q, tok, mask), lq)
+
+
+def test_candidate_kernel_keeps_negative_maxima():
+    q, tok, mask = make_x2(200, 64, negative=True)
+    got = stage2.candidate_maxsim(q, tok, mask)
+    _close(got, stage2.candidate_maxsim_torch(q, tok, mask), 32)
+    valid = (mask != 0).any(-1)
+    assert bool((got[valid] < 0).all()) and bool(valid.any())
+
+
+def test_candidate_wrapper_raises_on_bad_input():
+    q, tok, mask = make_x2(16, 8, b=2)
+    with pytest.raises(TypeError):                    # float32 tokens
+        stage2.candidate_maxsim(q, tok.float(), mask)
+    with pytest.raises(TypeError):                    # float mask
+        stage2.candidate_maxsim(q, tok, mask.float())
+    with pytest.raises(ValueError):                   # shapes
+        stage2.candidate_maxsim(q, tok, mask[:, :-1].contiguous())
+    with pytest.raises(ValueError):                   # device
+        stage2.candidate_maxsim(q, tok.cpu(), mask)
+    with pytest.raises(ValueError):                   # dim % 8
+        stage2.candidate_maxsim(q[..., :4].contiguous(),
+                                tok[..., :4].contiguous(), mask)
+
+
+def test_stage2_experiment_rounds_on_the_card():
+    """Every round of the experiment at a small size on the card: each
+    kernel route equals its plain twin, and the launches are the calls."""
+    from ravqa_tpu_torch.scripts import exp_residual_stage2 as exp
+    fused, cand = stage2.fused_lut_maxsim, stage2.candidate_maxsim
+    fused.launches = cand.launches = 0
+    r = exp.run(n=4096, ld=16, dim=64, b=8, lq=32, n_cent=256,
+                cands=(40, 128), n_big=8192, iters=2, device="cuda")
+    assert r["launches"] == r["expected_launches"]
+    assert r["expected_launches"] == {"X1": 7, "X2": 7, "X3": 7 * 8}
+    assert fused.launches == r["launches"]["X1"]
+    assert cand.launches == r["launches"]["X2"] + r["launches"]["X3"]
+    assert max(r["twin_err"].values()) <= 1e-3

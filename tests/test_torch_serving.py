@@ -26,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
-from ravqa_tpu.config import apply_overrides, load_config
+from ravqa_tpu.config import apply_overrides as jax_apply_overrides
+from ravqa_tpu.config import load_config as jax_load_config
+from ravqa_tpu_torch.config import apply_overrides, load_config
 from ravqa_tpu_torch.models import flatten_params
 from ravqa_tpu_torch.serving import (RetrievalServer, ServeConfig,
                                      ServerOverloaded, make_http_server)
@@ -52,14 +54,15 @@ def servers(tmp_path_factory):
     from ravqa_tpu import main as jax_main
     from ravqa_tpu_torch import main as torch_main
     tmp = tmp_path_factory.mktemp("serve")
-    cfg = load_config(CONFIG)
+    cfg = jax_load_config(CONFIG)
     jdata = jax_main.build_pipeline(cfg, cache_dir=None).get_data(
         cfg.data_pipeline_output_node, explode=True)
     jserver = jax_main.build_server(cfg, jdata, None, str(tmp / "jax"))
     params = tmp / "params.npz"
     np.savez(params, **flatten_params(
         jax.device_get(jserver.ex.state.params)))
-    tcfg = apply_overrides(cfg, [f"train.load_model_path={params}"])
+    tcfg = apply_overrides(load_config(CONFIG),
+                           [f"train.load_model_path={params}"])
     tdata = torch_main.build_pipeline(tcfg).get_data(
         tcfg.data_pipeline_output_node, explode=True)
     tserver = torch_main.build_server(tcfg, tdata, "cpu", str(tmp / "torch"))
@@ -76,14 +79,15 @@ def hier_servers(tmp_path_factory):
     from ravqa_tpu import main as jax_main
     from ravqa_tpu_torch import main as torch_main
     tmp = tmp_path_factory.mktemp("serve_hier")
-    cfg = apply_overrides(load_config(CONFIG), HIER_OPTS)
+    cfg = jax_apply_overrides(jax_load_config(CONFIG), HIER_OPTS)
     jdata = jax_main.build_pipeline(cfg, cache_dir=None).get_data(
         cfg.data_pipeline_output_node, explode=True)
     jserver = jax_main.build_server(cfg, jdata, None, str(tmp / "jax"))
     params = tmp / "params.npz"
     np.savez(params, **flatten_params(
         jax.device_get(jserver.ex.state.params)))
-    tcfg = apply_overrides(cfg, [f"train.load_model_path={params}"])
+    tcfg = apply_overrides(load_config(CONFIG), HIER_OPTS + [
+        f"train.load_model_path={params}"])
     tdata = torch_main.build_pipeline(tcfg).get_data(
         tcfg.data_pipeline_output_node, explode=True)
     tserver = torch_main.build_server(tcfg, tdata, "cpu", str(tmp / "torch"))
@@ -233,14 +237,17 @@ def test_bounded_queue_sheds_and_stop_fails_pending():
 
 
 def test_serve_slice_imports_no_jax():
-    """The exact and the hierarchical serve slices and the residual codec,
-    in one process."""
+    """The exact and the hierarchical serve slices, the residual codec, the
+    stage-2 kernels' module and the stage-2 experiment, in one process:
+    nothing of the JAX package (ravqa_tpu) or of jax/jaxlib/flax loads."""
     code = (
         "import sys, numpy as np\n"
-        "from ravqa_tpu.config import apply_overrides, load_config\n"
+        "from ravqa_tpu_torch.config import apply_overrides, load_config\n"
         "from ravqa_tpu_torch.main import build_pipeline, build_server\n"
         "import ravqa_tpu_torch.profile_serve\n"
         "import ravqa_tpu_torch.ops.residual\n"
+        "import ravqa_tpu_torch.ops.stage2\n"
+        "import ravqa_tpu_torch.scripts.exp_residual_stage2\n"
         f"for opts in ([], {HIER_OPTS!r}):\n"
         f"    cfg = apply_overrides(load_config({CONFIG!r}), opts)\n"
         "    data = build_pipeline(cfg).get_data(\n"
@@ -250,8 +257,8 @@ def test_serve_slice_imports_no_jax():
         "    s.stop()\n"
         "    assert r.pids.shape == (10,)\n"
         "    assert s.searcher.mode == ('hierarchical' if opts else 'exact')\n"
-        "print(sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax')))\n")
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('ravqa_tpu', 'jax', 'jaxlib', 'flax')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
@@ -309,9 +316,12 @@ def test_prepare_data_mode(capsys):
 
 
 def test_punctuation_skiplist_matches_jax():
+    from ravqa_tpu import tokenization as jax_tok
     from ravqa_tpu.models.flmr import punctuation_skiplist_ids as jax_ids
-    from ravqa_tpu.tokenization import WordPieceTokenizer, make_tiny_vocab
     from ravqa_tpu_torch.models import punctuation_skiplist_ids
+    from ravqa_tpu_torch.tokenization import (WordPieceTokenizer,
+                                              make_tiny_vocab)
     tok = WordPieceTokenizer(make_tiny_vocab(["cat"]))
-    assert punctuation_skiplist_ids(tok) == jax_ids(tok)
+    assert punctuation_skiplist_ids(tok) == jax_ids(
+        jax_tok.WordPieceTokenizer(jax_tok.make_tiny_vocab(["cat"])))
     assert punctuation_skiplist_ids(tok)          # the tiny vocab has . , ?
