@@ -6,15 +6,19 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. environment: torch/CUDA versions, the card's name and power limit;
      TF32 off for float32 matmuls and convolutions. No GPU -> exit 1.
-  2. build: every CUDA library of the port (csrc/maxsim.cu: K1,
-     csrc/coarse_sweep.cu: K2 + K3, csrc/stage1_sweep.cu: K4,
+  2. build: every CUDA library of the port (csrc/maxsim.cu: K1 on a
+     float32 index, csrc/maxsim_mma.cu: K1 on a bf16 index, on the tensor
+     cores, csrc/coarse_sweep.cu: K2 + K3, csrc/stage1_sweep.cu: K4,
      csrc/maxsim_int8.cu: K5, csrc/residual_maxsim.cu: K6,
      csrc/residual_lut_maxsim.cu: X1, csrc/candidate_maxsim.cu: X2 and X3)
      from the repo's sources, the nvcc runs side by side; ptxas
      registers/spills.
-  3. K1 against its plain PyTorch version on the card, at the serve shape
-     in float32 and a bf16 index shape: scores, tie-aware top-10, and both
-     times (median of 10 after warm-up, CUDA events).
+  3. K1 against its plain PyTorch version on the card: the MMA route
+     ("K1") on a bf16 index with a bf16 query (Ld=128) and with a float32
+     query split in two bf16 parts (Ld=64), the SIMT route ("K1-f32") at
+     the float32 serve shape: scores, tie-aware top-10, an all-masked doc
+     at exactly -9999 x Lq, both times (median of 10 after warm-up, CUDA
+     events), TFLOP/s and the bound.
   4. the exact slice: build_server on configs/synthetic_flmr_base_serve.json
      (FLMR at BERT-base width, 16,384 passages encoded on the card), 64
      requests from 4 threads, every answer checked against a plain search
@@ -29,8 +33,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      docs x 128 tokens made on the card (bench.py's recipe), summaries and
      block summaries, then LateInteractionSearcher in hierarchical (fast,
      reference) and two_stage (fast, reference) mode: recall@10 against
-     exact search (K1) and ms per batch of 32; hierarchical fast must
-     reach recall 0.95, and K2, K3 and K4 must each launch.
+     exact search (K1, which must take the MMA route) and ms per batch of
+     32, the exact search's beside its bound; hierarchical fast must reach
+     recall 0.95, and K2, K3 and K4 must each launch.
   7. the hierarchical slice: build_server on
      configs/synthetic_flmr_base_serve_hier.json (preset fast), 64
      requests from 4 threads, every answer checked against the same
@@ -38,11 +43,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      query embeddings each dispatch searched; K3 and
      K4 launches at least the dispatches; recall@10 against exact search
      printed (not gated: the weights are random).
-  8. K5 and K6 against their plain versions: K5 at B=32, Lq=32,
-     N=16,384, Ld 128 and 64; K6 at the 1M fine-stage shape (B=32, Lq=32,
-     C=256, Ld=64, dim 128) with a flat codec of 1,024 centroids and a
-     factored one of 64 x 128, nbits 2 and 4: max |err|, tie-aware top-10
-     and both times.
+  8. K5 and K6 against their plain versions: K5 at B=32, N=16,384, Lq=32
+     with Ld 128 and 64, and Lq=64 with Ld 220 (TOP/s beside each); K6
+     at the 1M fine-stage shape (B=32, Lq=32, C=256, Ld=64, dim 128) with
+     a flat codec of 1,024 centroids and a factored one of 64 x 128,
+     nbits 2 and 4: max |err|, tie-aware top-10 and both times.
   9. the 1M legs: 1,000,448 docs x 64 tokens x 128 dims, clustered over
      8,192 topics and cluster-ordered (scripts/synth1m.py's recipe), made
      on the card; S=4 summaries, block size 64; B=32, Lq=32 queries from
@@ -50,9 +55,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      bf16 index (the oracle); the int8 index exact (K5) and hierarchical
      (K3, K4); the residual index (nbits 2, factored 64 x 128 codec)
      hierarchical (K3, K4, K6). Each: recall@10 against exact K1,
-     self-top-1, ms per batch, bytes on the card. Gates: recall >= 0.95
-     on both int8 legs, self-top-1 >= 0.95 on every leg, every kernel of
-     a leg launches.
+     self-top-1, ms per batch, bytes on the card; the exact K1 and K5
+     legs beside their bounds (K1's counts the bf16 operations of both
+     parts of the float32 query). Gates: recall >= 0.95 on both int8
+     legs, self-top-1 >= 0.95 on every leg, every kernel of a leg
+     launches, the exact leg's K1 on the MMA route.
  10. the compressed serve slice: phase 7's index copied into an int8 index
      served in exact mode (K5) and a residual one (factored 64 x 128,
      nbits 2) served hierarchical fast (K3, K4, K6), each behind
@@ -172,14 +179,17 @@ def bound(nbytes, ops, kind):
             "bytes": nbytes, "ops": ops, "ops_type": kind}
 
 
-def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd):
+def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd, ops=None):
     """Time a kernel's wrapper and its plain version (median of 10, CUDA
     events) and keep them, its error and its bound in out[kernel]: under
-    "shapes" for each shape, and the first shape's at the top."""
+    "shapes" for each shape, and the first shape's at the top. `ops`, the
+    function's operations, adds the rate reached (tera_ops_per_s)."""
     ms, plain_ms = time_ms(fn), time_ms(plain_fn)
     o = out[kernel]
     o["err"] = max(o["err"], err)
     o["shapes"][shape] = {"ms": ms, "plain_ms": plain_ms, **bnd}
+    if ops is not None:
+        o["shapes"][shape]["tera_ops_per_s"] = ops / ms / 1e9
     for key, v in (("ms", ms), ("plain_ms", plain_ms),
                    ("bound_ms", bnd["bound_ms"]),
                    ("bound_by", bnd["bound_by"])):
@@ -188,17 +198,37 @@ def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd):
           f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
 
 
-def kernel_shape(name, b, lq, n, ld, dim, dtype, maxsim):
+def maxsim_bound(maxsim, q, tok, mask):
+    """K1's bound for q against tok: float32 operations on the SIMT route;
+    bf16 operations of every query part on the MMA route (a float32 query
+    is split in two parts, each multiplied in full), with a note saying
+    so. Returns (bound dict, the function's FLOP)."""
+    b, lq, dim = q.shape
+    n, ld, _ = tok.shape
+    flop = 2.0 * b * lq * n * ld * dim
+    route, parts = maxsim.maxsim_route(q.dtype, tok.dtype)
+    bnd = bound(_nbytes(q, tok, mask) + 4 * b * n, flop * max(parts, 1),
+                "f32" if route == "simt" else "bf16")
+    if parts > 1:
+        bnd["bound_note"] = (f"bf16 operations of all {parts} bf16 parts of "
+                             f"the float32 query")
+    return bnd, flop
+
+
+def kernel_shape(out, key, shape, b, lq, n, ld, dim, q_dtype, t_dtype,
+                 maxsim):
+    """K1 against its plain version at one shape, kept in out[key] by
+    record_kernel; an all-masked doc must score exactly -9999 * Lq."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    def normed(*shape):
+    def normed(*shape, dtype):
         x = torch.randn(*shape, generator=g, device="cuda")
         return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
 
-    q = normed(b, lq, dim)
+    q = normed(b, lq, dim, dtype=q_dtype)
     q[:, -2:] = 0                                  # zero query rows
-    tok = normed(n, ld, dim)
+    tok = normed(n, ld, dim, dtype=t_dtype)
     mask = (torch.rand(n, ld, generator=g, device="cuda") > 0.3).to(
         torch.int8)
     mask[::997] = 0                                # docs with no tokens
@@ -209,16 +239,15 @@ def kernel_shape(name, b, lq, n, ld, dim, dtype, maxsim):
     if not torch.equal(empty, torch.full_like(empty, -9999.0 * lq)):
         raise AssertionError("an all-masked doc must score -9999 * Lq")
     err = check_topk(got, want)
-    ms = time_ms(lambda: maxsim.maxsim_search(q, tok, mask))
-    plain_ms = time_ms(lambda: maxsim.maxsim_search_torch(q, tok, mask))
-    flop = 2.0 * b * lq * n * ld * dim
-    bnd = bound(_nbytes(q, tok, mask) + 4 * b * n, flop,
-                "f32" if dtype == torch.float32 else "bf16")
-    print(f"{name}: B={b} Lq={lq} N={n} Ld={ld} dim={dim} {dtype}: "
-          f"max|err| {err:.3g}; kernel {ms:.3f} ms "
-          f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-          f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']})", flush=True)
-    return err, ms, plain_ms, bnd
+    print(f"{key} {shape}: route {maxsim.maxsim_route(q_dtype, t_dtype)}, "
+          f"max|err| {err:.3g}", flush=True)
+    bnd, flop = maxsim_bound(maxsim, q, tok, mask)
+    record_kernel(out, key, shape, err,
+                  lambda: maxsim.maxsim_search(q, tok, mask),
+                  lambda: maxsim.maxsim_search_torch(q, tok, mask), bnd,
+                  ops=flop)
+    print(f"  {out[key]['shapes'][shape]['tera_ops_per_s']:.1f} TFLOP/s",
+          flush=True)
 
 
 def check_towers(ex, data, reqs):
@@ -508,8 +537,13 @@ def pruned_search(maxsim):
           f"bf16, summaries {tuple(index.summaries.shape)}, block summaries "
           f"{tuple(index.block_summaries.shape)}: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    maxsim.maxsim_search.mma_launches = 0
     exact = maxsim.maxsim_search(q, index.tokens, index.mask)
     exact_rows = torch.topk(exact, K, dim=1).indices
+    torch.cuda.synchronize()
+    oracle_mma = maxsim.maxsim_search.mma_launches
+    if oracle_mma == 0:
+        raise AssertionError("the exact oracle did not run K1's MMA route")
     modes = [("hierarchical", "fast"), ("hierarchical", "reference"),
              ("two_stage", "fast"), ("two_stage", "reference")]
     searchers = {f"{m} {p}": LateInteractionSearcher(index, mode=m, preset=p)
@@ -534,9 +568,14 @@ def pruned_search(maxsim):
               f"(n_candidates {s.resolve_candidates(K)}"
               + (f", n_blocks {s.resolve_blocks(K)}"
                  if s.mode == "hierarchical" else "") + ")", flush=True)
+    bnd, _ = maxsim_bound(maxsim, q, index.tokens, index.mask)
     out["exact"] = {"recall": 1.0, "ms": time_ms(
-        lambda: maxsim.maxsim_search(q, index.tokens, index.mask))}
-    print(f"exact (K1): {out['exact']['ms']:.3f} ms per batch", flush=True)
+        lambda: maxsim.maxsim_search(q, index.tokens, index.mask)),
+        "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]}
+    print(f"exact (K1, MMA route, {oracle_mma} launch): "
+          f"{out['exact']['ms']:.3f} ms per batch, bound "
+          f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']})", flush=True)
+    launches["K1_mma"] = oracle_mma
     if out["hierarchical fast"]["recall"] < 0.95:
         raise AssertionError("hierarchical fast search: recall@10 "
                              f"{out['hierarchical fast']['recall']} < 0.95")
@@ -675,9 +714,14 @@ def compressed_kernels():
         record_kernel(out, kernel, shape, _compare(f"{kernel} {shape}", got,
                                                    want), fn, plain_fn, bnd)
 
-    q8, qs = quant.quantize_queries_int8(q)
-    for ld in (128, 64):
+    for lq_k5, ld in ((lq, 128), (lq, 64), (64, 220)):
         n = 16384
+        if lq_k5 == lq:
+            q8, qs = quant.quantize_queries_int8(q)
+        else:                                      # the serve query length
+            q64 = _normed(g, b, lq_k5, dim, dtype=torch.float32)
+            q64[:, -2:] = 0
+            q8, qs = quant.quantize_queries_int8(q64)
         tok = _normed(g, n, ld, dim, dtype=torch.float32)
         mask = (torch.rand(n, ld, generator=g, device="cuda") > 0.3).to(
             torch.int8)
@@ -692,11 +736,17 @@ def compressed_kernels():
                               .expand_as(empty), rtol=1e-6, atol=0):
             raise AssertionError("K5: a doc with no valid token must score "
                                  "-9999 * sum of the query scales")
-        record("K5", f"N=16384 Ld={ld}", got, want,
-               lambda: quant.maxsim_search_int8(q8, qs, t8, ds),
-               lambda: quant.maxsim_search_int8_q8_torch(q8, qs, t8, ds),
-               bound(_nbytes(q8, qs, t8, ds, got),
-                     2.0 * b * lq * n * ld * dim, "int8"))
+        ops = 2.0 * b * lq_k5 * n * ld * dim
+        shape = f"Lq={lq_k5} N=16384 Ld={ld}"
+        record_kernel(out, "K5", shape, _compare(f"K5 {shape}", got, want),
+                      lambda: quant.maxsim_search_int8(q8, qs, t8, ds),
+                      lambda: quant.maxsim_search_int8_q8_torch(q8, qs, t8,
+                                                                ds),
+                      bound(_nbytes(q8, qs, t8, ds, got), ops, "int8"),
+                      ops=ops)
+        print(f"  {out['K5']['shapes'][shape]['tera_ops_per_s']:.1f} TOP/s",
+              flush=True)
+        del t8, ds, got, want
 
     # the 1M fine stage's shape: 256 candidates per query, 64 tokens
     c, ld, n = 256, 64, 65536
@@ -797,13 +847,16 @@ def one_million_legs(maxsim):
     out, launches = {}, {}
     exact_rows = None
 
-    def leg(name, search, nbytes, kernels):
+    def leg(name, search, nbytes, kernels, bnd=None):
         nonlocal exact_rows
         for w in wrappers.values():
             w.launches = 0
+        maxsim.maxsim_search.mma_launches = 0
         rows = search()[1]
         torch.cuda.synchronize()
         launches[name] = {k: wrappers[k].launches for k in kernels}
+        if "K1" in kernels:                        # the MMA route ran
+            launches[name]["K1_mma"] = maxsim.maxsim_search.mma_launches
         if min(launches[name].values()) == 0:
             raise AssertionError(f"1M {name}: a kernel of the leg never "
                                  f"launched: {launches[name]}")
@@ -812,16 +865,26 @@ def one_million_legs(maxsim):
         r = {"recall": _recall(rows, exact_rows),
              "self_top1": float((rows[:, 0] == self_rows).float().mean()),
              "ms": time_ms(search, iters=3, warmup=1), "bytes": nbytes}
+        if bnd is not None:
+            r.update({k: v for k, v in bnd.items()
+                      if k in ("bound_ms", "bound_by", "bound_note")})
+            print(f"1M {name}: {r['ms']:.3f} ms per batch against a bound of "
+                  f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}"
+                  + (f"; {bnd['bound_note']}" if "bound_note" in bnd else "")
+                  + ")", flush=True)
         out[name] = r
         print(f"1M {name}: recall@10 vs exact {r['recall']:.4f}, self-top-1 "
               f"{r['self_top1']:.4f}, {r['ms']:.3f} ms per batch of {b}, "
               f"{nbytes} bytes on the card; launches {launches[name]}",
               flush=True)
 
+    k1_bound, k1_flop = maxsim_bound(maxsim, q, index.tokens, index.mask)
+    one_part = bound(k1_bound["bytes"], k1_flop, "bf16")["bound_ms"]
+    k1_bound["bound_note"] += f" (one part: {one_part:.3f} ms)"
     leg("exact bf16 (K1)",
         lambda: torch.topk(maxsim.maxsim_search(q, index.tokens, index.mask),
                            K, dim=1),
-        _nbytes(index.tokens, index.mask), ("K1",))
+        _nbytes(index.tokens, index.mask), ("K1",), k1_bound)
 
     t0 = time.perf_counter()
     t8, s8 = quant.quantize_index_int8(index.tokens, index.mask)
@@ -831,7 +894,12 @@ def one_million_legs(maxsim):
     print(f"int8 index: {time.perf_counter() - t0:.1f} s", flush=True)
     nb8 = _nbytes(i8.tokens, i8.scales, i8.mask)
     s = LateInteractionSearcher(i8, mode="exact")
-    leg("int8 exact (K5)", lambda: s.search_device(q, K), nb8, ("K5",))
+    n_, ld_, dim_ = i8.tokens.shape
+    lq_ = q.shape[1]
+    # codes and scales of the index, the int8 query and its scales, out
+    leg("int8 exact (K5)", lambda: s.search_device(q, K), nb8, ("K5",),
+        bound(_nbytes(i8.tokens, i8.scales) + b * lq_ * (dim_ + 4)
+              + 4 * b * n_, 2.0 * b * lq_ * n_ * ld_ * dim_, "int8"))
     s = LateInteractionSearcher(i8, mode="hierarchical", preset="fast")
     leg("int8 hierarchical fast (K3, K4)", lambda: s.search_device(q, K),
         nb8, ("K3", "K4"))
@@ -1041,23 +1109,23 @@ def main():
     print(f"all libraries: {time.perf_counter() - t0:.2f} s", flush=True)
 
     phase("3 K1 vs plain")
-    err_a, ms_a, plain_a, bound_a = kernel_shape(
-        "serve f32", 32, 64, 16387, 220, 128, torch.float32, maxsim)
-    err_b, ms_b, plain_b, _ = kernel_shape(
-        "index bf16", 32, 32, 16384, 128, 128, torch.bfloat16, maxsim)
+    # K1 has two kernels: a bf16 index takes the tensor cores (MMA route,
+    # "K1"), a float32 one the CUDA cores ("K1-f32")
+    k1 = {k: {"err": 0.0, "shapes": {}} for k in ("K1", "K1-f32")}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for key, shape, args in (
+            ("K1", "bf16 B=32 Lq=32 N=16384 Ld=128",
+             (32, 32, 16384, 128, 128, bf16, bf16)),
+            ("K1", "f32 query x bf16 index B=32 Lq=32 N=16384 Ld=64",
+             (32, 32, 16384, 64, 128, f32, bf16)),
+            ("K1-f32", "serve f32 B=32 Lq=64 N=16387 Ld=220",
+             (32, 64, 16387, 220, 128, f32, f32))):
+        kernel_shape(k1, key, shape, *args, maxsim)
     phase("4 exact serve slice")
     launches, dispatches, serve_err = serve_slice(CONFIG, "cuda", maxsim)
     if launches < dispatches or launches == 0:
         raise AssertionError(f"maxsim kernel launched {launches} times "
                              f"for {dispatches} dispatches")
-    kernels = {"K1": {
-        "name": "maxsim_search", "route": "cuda",
-        "source": "ravqa_tpu_torch/csrc/maxsim.cu",
-        "replaces": "ravqa_tpu/ops/maxsim.py:196",
-        "launches": launches, "max_abs_err": max(err_a, err_b),
-        "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a["bound_ms"],
-        "bound_by": bound_a["bound_by"], "bf16_ms": ms_b,
-        "bf16_plain_ms": plain_b}}
 
     phase("5 K2, K3, K4 vs plain at the bench shape")
     sweeps = sweep_kernels(maxsim)
@@ -1091,6 +1159,19 @@ def main():
                 "bound_ms": measured["bound_ms"],
                 "bound_by": measured["bound_by"],
                 "shapes": measured["shapes"]}
+
+    k1_replaces = "ravqa_tpu/ops/maxsim.py:196 (_maxsim_kernel :162)"
+    kernels = {
+        "K1": entry("maxsim_search (bf16 index, tensor cores)",
+                    "maxsim_mma.cu", k1_replaces, pruned_launches["K1_mma"],
+                    k1["K1"]),
+        "K1-f32": entry("maxsim_search (float32 index, CUDA cores)",
+                        "maxsim.cu", k1_replaces, launches, k1["K1-f32"])}
+    kernels["K1"]["launches_note"] = (
+        "phase 6's exact oracle (bf16 query); the exact serve slice's "
+        "float32 index runs K1-f32")
+    kernels["K1"]["launches_1m"] = launches_1m["exact bf16 (K1)"]["K1_mma"]
+    kernels["K1-f32"]["launches_note"] = "phase 4, the exact serve slice"
 
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (float)", "coarse_sweep.cu",

@@ -1,7 +1,9 @@
-// Exhaustive late-interaction (MaxSim) search on Hopper.
+// Exhaustive late-interaction (MaxSim) search over a float32 index on
+// Hopper's CUDA cores (K1, float32 route).
 //
 // Replaces ravqa_tpu/ops/maxsim.py::maxsim_search_pallas (body
-// _maxsim_kernel). Computes, directly in (B, N) layout,
+// _maxsim_kernel) for a float32 query and index; a bfloat16 index takes the
+// tensor-core kernel of maxsim_mma.cu. Computes, directly in (B, N) layout,
 //
 //   out[b, n] = sum_q max_l s(b, q, n, l)
 //   s(b, q, n, l) = q[b, q, :] . tok[n, l, :]   if mask[n, l] != 0
@@ -12,10 +14,11 @@
 // at -inf (never 0): an all-negative query token keeps its negative maximum.
 //
 // What bounds it on this card: at the serve shape (B=32, Lq=64, dim=128)
-// every index byte feeds B*Lq*2/elem_bytes FLOPs: about 2k in bf16 and 1k
-// in f32, far above the H100's ridge of about 295 FLOP/byte. The kernel is
-// bound by compute, not bytes, and computes in f32 on the CUDA cores (the
-// f32 index must keep f32 products). The design keeps the FMA pipes fed:
+// every index byte feeds B*Lq/2 FLOPs (1k), far above the H100's ridge of
+// about 295 FLOP/byte. The kernel is bound by compute, not bytes, and
+// computes in f32 on the CUDA cores (the f32 index must keep f32 products:
+// TF32 tensor cores would move scores past the 1e-3 serve checks). The
+// design keeps the FMA pipes fed:
 //  - one block per (group of queries, tile of 8 docs): the group's query
 //    tokens, up to 128 columns, are staged once in shared memory
 //    (transposed: a thread reads 4 columns as one float4);
@@ -29,15 +32,12 @@
 //    too, and their products never enter the max;
 //  - blocks of one doc tile are numbered next to each other, so the blocks
 //    that read the same doc rows run together and share them in L2.
-// A tensor-core version (wgmma on bf16, TMA-fed tiles) is later work.
 //
-// Inputs: q (B, Lq, dim) and tok (N, Ld, dim), f32 x f32, f32 x bf16 or
-// bf16 x bf16 (a bf16 query with an f32 index is refused); mask
-// (N, Ld) int8; out (B, N) f32. All contiguous, dim % 8 == 0, dim <= 128,
+// Inputs: q (B, Lq, dim) and tok (N, Ld, dim) f32; mask (N, Ld) int8;
+// out (B, N) f32. All contiguous, dim % 8 == 0, dim <= 128,
 // q and tok 16-byte aligned (checked by the Python wrapper). Sums are taken
 // in f32 in a fixed order, so results repeat bit for bit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,19 +49,11 @@ constexpr int kCols = 128;         // query-token columns per step
 constexpr int kDocsPerBlock = 8;
 constexpr int kMaxDim = 128;
 constexpr int kQsLd = kCols + 4;   // Qs[k][c] row stride (floats)
+constexpr int kDsPad = 4;          // Ds row padding (floats): 16 bytes
 constexpr float kNegFill = -9999.0f;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -78,26 +70,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename TD>
-__host__ __device__ constexpr int ds_pad() {
-  return 16 / static_cast<int>(sizeof(TD));
-}
-
-template <typename TD>
 size_t smem_bytes(int dim) {
-  const size_t ds_ld = dim + ds_pad<TD>();
+  const size_t ds_ld = dim + kDsPad;
   return sizeof(float) * (static_cast<size_t>(dim) * kQsLd  // Qs
                           + 16 * kCols                      // red
                           + kCols                           // colmax
-                          + kDocsPerBlock * kCols)          // acc
-         + sizeof(TD) * 2 * kRows * ds_ld;                  // Ds x 2
+                          + kDocsPerBlock * kCols           // acc
+                          + 2 * kRows * ds_ld);             // Ds x 2
 }
 
 // s[i][4h + j] += sum_k D[ty + 16 i][k] * Qs[k][64 h + 4 tx + j] for h < H.
 // All 8 rows, also those past the doc's end (their products are never
 // read): the loads stay ahead of the FMAs without branches.
-template <int H, typename TD>
-__device__ __forceinline__ void tile_product(const float* Qs, const TD* D,
+template <int H>
+__device__ __forceinline__ void tile_product(const float* Qs, const float* D,
                                              int ds_ld, int dim, int tx,
                                              int ty, float (&s)[8][8]) {
   for (int k = 0; k < dim; k += 4) {
@@ -128,19 +114,18 @@ __device__ __forceinline__ void tile_product(const float* Qs, const TD* D,
   }
 }
 
-template <typename TQ, typename TD>
 __global__ void __launch_bounds__(kThreads, 1)
-maxsim_kernel(const TQ* __restrict__ q, const TD* __restrict__ tok,
+maxsim_kernel(const float* __restrict__ q, const float* __restrict__ tok,
               const int8_t* __restrict__ mask, float* __restrict__ out,
               int B, int Lq, int N, int Ld, int dim, int G) {
   extern __shared__ float4 smem4[];
-  const int ds_ld = dim + ds_pad<TD>();
+  const int ds_ld = dim + kDsPad;
   float* Qs = reinterpret_cast<float*>(smem4);      // [dim][kQsLd]
   float* red = Qs + dim * kQsLd;                    // [16][kCols]
   float* colmax = red + 16 * kCols;                 // [kCols]
   float* acc = colmax + kCols;                      // [kDocsPerBlock][G]
   // [2][kRows][ds_ld]
-  TD* Ds = reinterpret_cast<TD*>(acc + kDocsPerBlock * kCols);
+  float* Ds = acc + kDocsPerBlock * kCols;
 
   const int n_groups = (B + G - 1) / G;
   const int b0 = (blockIdx.x % n_groups) * G;
@@ -153,7 +138,7 @@ maxsim_kernel(const TQ* __restrict__ q, const TD* __restrict__ tok,
   const int steps = (Ld + kRows - 1) / kRows;
   const int n_tiles = n_docs * steps;
   const int cols_total = g_here * Lq;      // this block's query columns
-  const int chunks_per_row = dim * static_cast<int>(sizeof(TD)) / 16;
+  const int chunks_per_row = dim / 4;
   const float neg_inf = __int_as_float(0xff800000);
 
   for (int i = tid; i < kDocsPerBlock * G; i += kThreads) acc[i] = 0.f;
@@ -167,8 +152,10 @@ maxsim_kernel(const TQ* __restrict__ q, const TD* __restrict__ tok,
     char* dst = reinterpret_cast<char*>(Ds + (t & 1) * kRows * ds_ld);
     for (int i = tid; i < nr * chunks_per_row; i += kThreads) {
       const int r = i / chunks_per_row, c = i % chunks_per_row;
-      cp_async16(dst + (static_cast<size_t>(r) * ds_ld) * sizeof(TD) + c * 16,
-                 src + (static_cast<size_t>(r) * dim) * sizeof(TD) + c * 16);
+      cp_async16(dst + (static_cast<size_t>(r) * ds_ld) * sizeof(float) +
+                     c * 16,
+                 src + (static_cast<size_t>(r) * dim) * sizeof(float) +
+                     c * 16);
     }
     cp_async_commit();
   };
@@ -209,7 +196,7 @@ maxsim_kernel(const TQ* __restrict__ q, const TD* __restrict__ tok,
       for (int i = 0; i < 8; ++i)
         valid[i] = i < n_i ? (mrow[ty + 16 * i] != 0) : 0;
 
-      const TD* D = Ds + (t & 1) * kRows * ds_ld;
+      const float* D = Ds + (t & 1) * kRows * ds_ld;
       float s[8][8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -262,13 +249,12 @@ maxsim_kernel(const TQ* __restrict__ q, const TD* __restrict__ tok,
   }
 }
 
-template <typename TQ, typename TD>
 int launch(const void* q, const void* tok, const void* mask, void* out,
            int B, int Lq, int N, int Ld, int dim, cudaStream_t stream) {
   if (dim % 8 || dim > kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<TD>(dim);
+  const size_t smem = smem_bytes(dim);
   cudaError_t err = cudaFuncSetAttribute(
-      maxsim_kernel<TQ, TD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      maxsim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // queries per block: as many whole queries as fit in kCols columns
@@ -277,9 +263,8 @@ int launch(const void* q, const void* tok, const void* mask, void* out,
   const long long tiles = (N + kDocsPerBlock - 1) / kDocsPerBlock;
   const long long blocks = tiles * groups;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  maxsim_kernel<TQ, TD><<<static_cast<unsigned>(blocks), kThreads, smem,
-                          stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TD*>(tok),
+  maxsim_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(tok),
       static_cast<const int8_t*>(mask), static_cast<float*>(out), B, Lq, N,
       Ld, dim, G);
   return static_cast<int>(cudaGetLastError());
@@ -287,15 +272,13 @@ int launch(const void* q, const void* tok, const void* mask, void* out,
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes). q_bf16 / tok_bf16 select the
-// element type of q and tok (0: float32, 1: bfloat16); q_bf16 needs
-// tok_bf16. Returns the CUDA
-// error code of the launch (0 on success); launches nothing when B or N is
-// 0, and writes zeros when Lq is 0.
+// Plain C interface (loaded with ctypes), float32 q and tok. Returns the
+// CUDA error code of the launch (0 on success); launches nothing when B or
+// N is 0, and writes zeros when Lq is 0.
 extern "C" int ravqa_maxsim_search(const void* q, const void* tok,
                                    const void* mask, void* out, int B,
                                    int Lq, int N, int Ld, int dim,
-                                   int q_bf16, int tok_bf16, void* stream) {
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || N <= 0) return 0;
   if (Lq <= 0) {
@@ -303,12 +286,5 @@ extern "C" int ravqa_maxsim_search(const void* q, const void* tok,
         out, 0, sizeof(float) * static_cast<size_t>(B) * N, s));
   }
   if (Ld <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (q_bf16 && tok_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, tok, mask, out, B, Lq, N,
-                                                Ld, dim, s);
-  if (q_bf16) return static_cast<int>(cudaErrorInvalidValue);
-  if (tok_bf16)
-    return launch<float, __nv_bfloat16>(q, tok, mask, out, B, Lq, N, Ld,
-                                        dim, s);
-  return launch<float, float>(q, tok, mask, out, B, Lq, N, Ld, dim, s);
+  return launch(q, tok, mask, out, B, Lq, N, Ld, dim, s);
 }

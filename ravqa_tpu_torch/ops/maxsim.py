@@ -7,10 +7,13 @@ the max), then sum over query tokens.
 - ``maxsim_reduce`` / ``maxsim_search_torch``: plain PyTorch. The CPU path
   and the tests use them; on the card they are the reference the kernel is
   checked against.
-- ``maxsim_search``: the serving entry. On a CUDA tensor it launches the
-  hand-written Hopper kernel ``csrc/maxsim.cu`` (port of
-  ``maxsim_search_pallas``) or raises; on a CPU tensor it runs
-  ``maxsim_search_torch``.
+- ``maxsim_search``: the serving entry (K1, port of ``maxsim_search_pallas``).
+  On CUDA tensors it launches a hand-written Hopper kernel or raises: a
+  bfloat16 index goes to the tensor-core kernel ``csrc/maxsim_mma.cu``
+  (the MMA route; a float32 query is split into bfloat16 parts by
+  ``split_query_bf16``), a float32 index to the SIMT kernel
+  ``csrc/maxsim.cu`` (``maxsim_route`` says which). On a CPU tensor it runs
+  ``maxsim_search_torch``. ``mma_tile_plan`` is the MMA route's tiling.
 
 The pruned search modes' summary sweeps follow the same pattern:
 
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,6 +41,7 @@ from .quant import NEG_INF, quantize_queries_int8
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_DIM = 128                 # Qs + 2 Ds shared-memory tiles fit 227 KB
+_MMA_PARTS_F32 = 2             # bf16 parts of a float32 query (see below)
 
 
 def maxsim_reduce(scores: torch.Tensor, d_mask: torch.Tensor,
@@ -76,12 +80,13 @@ def maxsim_search_torch(q: torch.Tensor, tokens: torch.Tensor,
 
 # library name -> (CUDA source, {C function: (pointer args, int args)})
 _LIBRARIES = {
-    "ravqa_maxsim": ("maxsim.cu", {"ravqa_maxsim_search": (4, 7)}),
+    "ravqa_maxsim": ("maxsim.cu", {"ravqa_maxsim_search": (4, 5)}),
+    "ravqa_maxsim_mma": ("maxsim_mma.cu", {"ravqa_maxsim_mma": (4, 11)}),
     "ravqa_coarse_sweep": ("coarse_sweep.cu", {
         "ravqa_coarse_sweep": (4, 6), "ravqa_coarse_sweep_int8": (6, 5)}),
     "ravqa_stage1_sweep": ("stage1_sweep.cu", {"ravqa_stage1_sweep": (4, 8)}),
     "ravqa_maxsim_int8": ("maxsim_int8.cu", {
-        "ravqa_maxsim_search_int8": (5, 5)}),
+        "ravqa_maxsim_search_int8": (5, 10)}),
     "ravqa_residual_maxsim": ("residual_maxsim.cu", {
         "ravqa_residual_maxsim": (7, 10)}),
     # the stage-2 experiment's scorers (ops/stage2.py): X1, and X2/X3
@@ -130,6 +135,101 @@ def build_kernels() -> dict:
             for name, b in built.items()}
 
 
+# ---------------------------------------------------------------------------
+# The MMA route (csrc/mma_tile.cuh): K1 on a bf16 index and K5
+# ---------------------------------------------------------------------------
+
+_TILE_ROWS = 256               # doc tokens (MMA columns) per tile
+_TILE_DOCS = 8                 # docs per tile (per-row maxima in smem)
+_TILES_PER_BLOCK = 16          # most tiles one block sweeps
+
+
+class MmaPlan(NamedTuple):
+    """How the MMA route tiles a search; the kernels take these ints.
+
+    A tile holds `docs_per_tile` whole docs, each padded to `doc_cols`
+    columns (Ld rounded up to 8, so an 8-column MMA slab never straddles two
+    docs), or part of one doc longer than 256 tokens, which spans
+    `tiles_per_doc` tiles. A block sweeps `tiles_per_block` consecutive
+    tiles for `queries_per_block` whole queries."""
+    docs_per_tile: int
+    doc_cols: int
+    tiles_per_doc: int
+    tiles_per_block: int
+    queries_per_block: int
+
+
+def mma_tile_plan(ld: int, n: int, b: int, lq: int, block_rows: int,
+                  sm_count: int = 132) -> MmaPlan:
+    """The MMA route's tiling of N docs of Ld tokens against B queries of
+    Lq tokens, for a kernel whose block holds `block_rows` query rows.
+
+    Doc tile: floor(256 / doc_cols) docs (at most 8) for Ld <= 256, else
+    one doc's tokens over ceil(Ld / 256) tiles of equal width. Queries: as
+    many whole queries as fit the block's rows (one query over several row
+    chunks when Lq is longer). Tiles per block: at most 16, fewer when the
+    grid would give the card's `sm_count` SMs less than four blocks each;
+    always whole docs."""
+    if ld <= _TILE_ROWS:
+        tiles_per_doc = 1
+        doc_cols = -(-ld // 8) * 8
+        docs_per_tile = min(_TILE_DOCS, _TILE_ROWS // doc_cols)
+    else:
+        tiles_per_doc = -(-ld // _TILE_ROWS)
+        doc_cols = -(-ld // (8 * tiles_per_doc)) * 8
+        docs_per_tile = 1
+    g = max(1, min(b, block_rows // max(lq, 1)))
+    groups = -(-b // g)
+    doc_groups = -(-n // docs_per_tile)
+    per_block = min(max(1, _TILES_PER_BLOCK // tiles_per_doc),
+                    max(1, doc_groups * groups // (4 * sm_count)))
+    return MmaPlan(docs_per_tile, doc_cols, tiles_per_doc,
+                   per_block * tiles_per_doc, g)
+
+
+def split_query_bf16(q: torch.Tensor, parts: int) -> torch.Tensor:
+    """(B, Lq, dim) query -> (parts, B, Lq, dim) bfloat16 parts whose sum
+    approximates q in float32: part i = bf16(q - the earlier parts). One
+    part of a bfloat16 query is the query; two keep ~16 of float32's 24
+    bits (|q - hi - lo| <= 2^-16 |q|), three all of them. The MMA route
+    multiplies each part with the same bfloat16 doc values into one float32
+    accumulator: every such product is exact in float32."""
+    r = q.float()
+    out = []
+    for _ in range(parts):
+        h = r.to(torch.bfloat16)
+        out.append(h)
+        r = r - h.float()
+    return torch.stack(out)
+
+
+def maxsim_route(q_dtype: torch.dtype, tokens_dtype: torch.dtype
+                 ) -> tuple[str, int]:
+    """Which CUDA kernel ``maxsim_search`` launches: ("mma", parts) for a
+    bfloat16 index (csrc/maxsim_mma.cu; 1 part for a bfloat16 query, 2 for
+    a float32 one), ("simt", 0) for float32 x float32 (csrc/maxsim.cu)."""
+    if tokens_dtype == torch.bfloat16:
+        return "mma", 1 if q_dtype == torch.bfloat16 else _MMA_PARTS_F32
+    return "simt", 0
+
+
+# query rows per block of the MMA kernels, by query parts (maxsim_mma.cu);
+# K5 (maxsim_int8.cu) holds 256
+MMA_BLOCK_ROWS = {1: 256, 2: 128}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_plan(device, ld: int, n: int, b: int, lq: int,
+                block_rows: int) -> MmaPlan:
+    """mma_tile_plan for the card `device` is on."""
+    return mma_tile_plan(ld, n, b, lq, block_rows,
+                         _sm_count(torch.device(device).index or 0))
+
+
 def _check_kernel_args(q, tokens, mask):
     if q.dim() != 3 or tokens.dim() != 3 or mask.dim() != 2:
         raise ValueError("expected q (B, Lq, dim), tokens (N, Ld, dim), "
@@ -165,10 +265,12 @@ def maxsim_search(q: torch.Tensor, tokens: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Score a query batch against every doc of an index: (B, N) float32.
 
-    q (B, Lq, dim) and tokens (N, Ld, dim) float32 or bfloat16 (the kernel
-    takes f32 x f32, f32 x bf16 and bf16 x bf16), mask (N, Ld) int8. CUDA tensors launch the Hopper kernel on the current
-    stream (no synchronisation) and count the launch in
-    ``maxsim_search.launches``; CPU tensors take ``maxsim_search_torch``."""
+    q (B, Lq, dim) and tokens (N, Ld, dim) float32 or bfloat16 (f32 x f32,
+    f32 x bf16 and bf16 x bf16), mask (N, Ld) int8. CUDA tensors launch a
+    Hopper kernel on the current stream (no synchronisation), chosen by
+    ``maxsim_route``, and count the launch in ``maxsim_search.launches``,
+    the tensor-core route's also in ``maxsim_search.mma_launches``; CPU
+    tensors take ``maxsim_search_torch``."""
     if q.device.type == "cpu":
         return maxsim_search_torch(q, tokens, mask)
     if q.device.type != "cuda":
@@ -177,15 +279,26 @@ def maxsim_search(q: torch.Tensor, tokens: torch.Tensor,
     b, lq, dim = q.shape
     n, ld, _ = tokens.shape
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    _launch("ravqa_maxsim", "ravqa_maxsim_search", q.device, q.data_ptr(),
-            tokens.data_ptr(), mask.data_ptr(), out.data_ptr(), b, lq, n, ld,
-            dim, int(q.dtype == torch.bfloat16),
-            int(tokens.dtype == torch.bfloat16))
+    route, parts = maxsim_route(q.dtype, tokens.dtype)
+    if route == "simt":
+        _launch("ravqa_maxsim", "ravqa_maxsim_search", q.device,
+                q.data_ptr(), tokens.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), b, lq, n, ld, dim)
+    else:
+        qp = split_query_bf16(q, parts)
+        plan = launch_plan(q.device, ld, n, b, lq, MMA_BLOCK_ROWS[parts])
+        _launch("ravqa_maxsim_mma", "ravqa_maxsim_mma", q.device,
+                qp.data_ptr(), tokens.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), b, lq, n, ld, dim, parts,
+                plan.docs_per_tile, plan.doc_cols, plan.tiles_per_doc,
+                plan.tiles_per_block, plan.queries_per_block)
+        maxsim_search.mma_launches += 1
     maxsim_search.launches += 1
     return out
 
 
 maxsim_search.launches = 0
+maxsim_search.mma_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,9 @@ tokens) is searched exactly in two ways, as in the JAX package:
 - ``maxsim_search_int8_torch``: the XLA route's math (maxsim_search_int8_xla)
   with float queries, in plain PyTorch;
 - ``maxsim_search_int8``: the kernel route. On a CUDA tensor it launches
-  ``csrc/maxsim_int8.cu`` (K5, port of maxsim_search_int8_pallas) on
-  quantized queries and counts the launch in ``maxsim_search_int8.launches``;
+  ``csrc/maxsim_int8.cu`` (K5, port of maxsim_search_int8_pallas, on the
+  tensor cores, tiled by ``ops.maxsim.mma_tile_plan``) on quantized queries
+  and counts the launch in ``maxsim_search_int8.launches``;
   on a CPU tensor it runs ``maxsim_search_int8_q8_torch``, K5's semantics
   in plain PyTorch.
 """
@@ -28,6 +29,7 @@ import torch
 
 _EPS = 1e-8
 NEG_INF = -9999.0  # the reference's padding fill value (colbert.py:240)
+_K5_BLOCK_ROWS = 256   # query rows per block of csrc/maxsim_int8.cu
 
 
 def _quantize(x: torch.Tensor, reduce_dims) -> tuple[torch.Tensor,
@@ -155,7 +157,7 @@ def maxsim_search_int8(q8: torch.Tensor, q_scales: torch.Tensor,
     if q8.device.type != "cuda":
         raise ValueError(f"maxsim_search_int8: unsupported device "
                          f"{q8.device}")
-    from .maxsim import _MAX_DIM, _check_cuda, _launch
+    from .maxsim import _MAX_DIM, _check_cuda, _launch, launch_plan
     if q8.dim() != 3 or tokens_i8.dim() != 3:
         raise ValueError(f"maxsim_search_int8: expected q8 (B, Lq, dim) and "
                          f"tokens_i8 (N, Ld, dim); got {tuple(q8.shape)}, "
@@ -181,9 +183,12 @@ def maxsim_search_int8(q8: torch.Tensor, q_scales: torch.Tensor,
     _check_cuda("maxsim_search_int8", q8=q8, q_scales=q_scales,
                 tokens_i8=tokens_i8, d_scales=d_scales)
     out = torch.empty((b, n), dtype=torch.float32, device=q8.device)
+    plan = launch_plan(q8.device, ld, n, b, lq, _K5_BLOCK_ROWS)
     _launch("ravqa_maxsim_int8", "ravqa_maxsim_search_int8", q8.device,
             q8.data_ptr(), q_scales.data_ptr(), tokens_i8.data_ptr(),
-            d_scales.data_ptr(), out.data_ptr(), b, lq, n, ld, dim)
+            d_scales.data_ptr(), out.data_ptr(), b, lq, n, ld, dim,
+            plan.docs_per_tile, plan.doc_cols, plan.tiles_per_doc,
+            plan.tiles_per_block, plan.queries_per_block)
     maxsim_search_int8.launches += 1
     return out
 

@@ -111,6 +111,48 @@ def test_cuda_searcher_matches_cpu_searcher():
     np.testing.assert_array_equal(gp, cp)
 
 
+# -- K1's MMA route (bf16 index: csrc/maxsim_mma.cu) --------------------------
+
+# the serve shapes: Lq=64 over 220-token docs, and 64-token docs (4 per
+# tile) at an N that is a multiple of nothing
+MMA_SERVE_SHAPES = [(32, 64, 203, 220, 128), (32, 32, 16387, 64, 128)]
+
+
+@pytest.mark.parametrize("shape", MMA_SERVE_SHAPES)
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_maxsim_mma_route_at_serve_shapes(shape, q_dtype):
+    q, tok, mask = make(shape, q_dtype, torch.bfloat16)
+    before = maxsim.maxsim_search.mma_launches
+    got = maxsim.maxsim_search(q, tok, mask)
+    torch.cuda.synchronize()
+    assert maxsim.maxsim_search.mma_launches == before + 1
+    lq = shape[1]
+    torch.testing.assert_close(got, maxsim.maxsim_search_torch(q, tok, mask),
+                               rtol=1e-5, atol=1e-4 * lq)
+    assert torch.equal(got[:, ::5], torch.full_like(got[:, ::5],
+                                                    -9999.0 * lq))
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_maxsim_mma_route_repeats_bit_for_bit(q_dtype):
+    q, tok, mask = make(MMA_SERVE_SHAPES[0], q_dtype, torch.bfloat16)
+    a = maxsim.maxsim_search(q, tok, mask)
+    assert torch.equal(a, maxsim.maxsim_search(q, tok, mask))
+
+
+def test_maxsim_mma_launches_count_the_bf16_index_route_only():
+    q, tok, mask = make(SHAPES[0], torch.float32, torch.float32)
+    launches = maxsim.maxsim_search.launches
+    mma = maxsim.maxsim_search.mma_launches
+    maxsim.maxsim_search(q, tok, mask)                    # f32 x f32: SIMT
+    assert maxsim.maxsim_search.launches == launches + 1
+    assert maxsim.maxsim_search.mma_launches == mma
+    maxsim.maxsim_search(q, tok.bfloat16(), mask)         # f32 x bf16
+    maxsim.maxsim_search(q.bfloat16(), tok.bfloat16(), mask)
+    assert maxsim.maxsim_search.launches == launches + 3
+    assert maxsim.maxsim_search.mma_launches == mma + 2
+
+
 # -- K2, K3, K4 ----------------------------------------------------------------
 
 @pytest.fixture(autouse=True)
@@ -414,6 +456,31 @@ def test_maxsim_int8_wrapper_raises_on_bad_input():
         quant.maxsim_search_int8(q8, qs[:, :-1].contiguous(), tok8, ds)
     with pytest.raises(ValueError):                   # device
         quant.maxsim_search_int8(q8, qs, tok8.cpu(), ds)
+
+
+@pytest.mark.parametrize("shape", MMA_SERVE_SHAPES)
+def test_maxsim_int8_kernel_at_serve_shapes(shape):
+    q8, qs, tok8, ds = make_int8(shape)
+    got = quant.maxsim_search_int8(q8, qs, tok8, ds)
+    _close(got, quant.maxsim_search_int8_q8_torch(q8, qs, tok8, ds),
+           shape[1])
+    torch.testing.assert_close(got[:, ::5], (-9999.0 * qs.sum(1))[:, None]
+                               .expand_as(got[:, ::5]), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES + MMA_SERVE_SHAPES[:1])
+@pytest.mark.parametrize("negative", [False, True])
+def test_maxsim_int8_unit_scales_equal_plain_exactly(shape, negative):
+    """With unit query and doc scales (0 kept on invalid tokens) every
+    maximum is an int32 dot product or -9999, and every partial sum an
+    integer below 2^24: any summation order gives the plain version's
+    float32 bit for bit, as K3's pre-scale sums do."""
+    q8, qs, tok8, ds = make_int8(shape, negative)
+    ones_q, unit_d = torch.ones_like(qs), (ds > 0).float()
+    got = quant.maxsim_search_int8(q8, ones_q, tok8, unit_d)
+    want = quant.maxsim_search_int8_q8_torch(q8, ones_q, tok8, unit_d)
+    assert float(want.abs().max()) < 2 ** 24
+    assert torch.equal(got, want)
 
 
 # (B, Lq, C, N, Ld, dim): C off any tile (13, 37), the 1M fine-stage shape

@@ -186,3 +186,117 @@ def test_sweep_wrappers_take_plain_versions_on_cpu_only():
         torch_maxsim.coarse_sweep(*meta[:3])
     with pytest.raises(ValueError, match="unsupported device"):
         torch_maxsim.stage1_sweep(meta[0], meta[3], meta[4])
+
+
+# -- the MMA route of K1 (bf16 index): its Python side, checkable here -------
+
+# tests/test_torch_cuda.py's SHAPES: (B, Lq, N, Ld, dim)
+CARD_SHAPES = [(3, 6, 37, 9, 16), (2, 80, 21, 150, 128), (5, 32, 64, 64, 8),
+               (32, 64, 200, 220, 128), (3, 200, 19, 300, 64),
+               (7, 1, 9, 1, 8)]
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_split_query_bf16_sums_back_to_the_query(parts):
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.normal(size=(4, 7, 32)).astype(np.float32))
+    split = torch_maxsim.split_query_bf16(q, parts)
+    assert split.dtype == torch.bfloat16 and split.shape == (parts, 4, 7, 32)
+    total = split.double().sum(0)
+    rel = ((total - q.double()).abs() / q.double().abs()).max().item()
+    if parts == 1:
+        assert torch.equal(split[0], q.bfloat16())
+        assert rel <= 2.0 ** -8
+    elif parts == 2:
+        assert rel <= 2.0 ** -16
+    else:                                   # every float32 bit kept
+        assert torch.equal(total.float(), q)
+    # a bfloat16 query is its own single part
+    assert torch.equal(torch_maxsim.split_query_bf16(q.bfloat16(), 1)[0],
+                       q.bfloat16())
+
+
+def _parts_maxsim(parts, tokens, mask):
+    """The MMA route's arithmetic in plain PyTorch: each bf16 query part
+    times the bf16 doc values, summed into one float32 score before the
+    max over doc tokens."""
+    tf = tokens.float()
+    sc = sum(torch.einsum("nld,bqd->nlbq", tf, p.float()) for p in parts)
+    sc = sc.masked_fill(~mask.bool()[:, :, None, None], -9999.0)
+    return sc.amax(dim=1).sum(dim=-1).T
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("negative", [False, True])
+def test_two_bf16_parts_hold_the_card_tolerance(shape, negative):
+    """A float32 query against a bf16 index, as the card tests make it:
+    two bf16 parts keep the MMA route within their tolerance (rtol 1e-5,
+    atol 1e-4 * Lq) of the plain float32 MaxSim, one part (the query
+    rounded to bf16) does not."""
+    b, lq, n, ld, dim = shape
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(b, lq, dim)).astype(np.float32)
+    tok = rng.normal(size=(n, ld, dim)).astype(np.float32)
+    if negative:
+        q, tok = np.abs(q), -np.abs(tok)
+    mask = (rng.random((n, ld)) > 0.3).astype(np.int8)
+    mask[::5] = 0
+    q[:, -1] = 0.0
+    q, mask = torch.from_numpy(q), torch.from_numpy(mask)
+    tok = torch.from_numpy(tok).bfloat16()
+    want = torch_maxsim.maxsim_search_torch(q, tok, mask)
+    route, parts = torch_maxsim.maxsim_route(q.dtype, tok.dtype)
+    assert (route, parts) == ("mma", 2)
+    got = _parts_maxsim(torch_maxsim.split_query_bf16(q, parts), tok, mask)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * lq)
+    if lq > 1 and dim >= 64:
+        rounded = _parts_maxsim(torch_maxsim.split_query_bf16(q, 1), tok,
+                                mask)
+        assert not torch.allclose(rounded, want, rtol=1e-5, atol=1e-4 * lq)
+
+
+@pytest.mark.parametrize("ld", [1, 9, 64, 128, 150, 220, 300])
+@pytest.mark.parametrize("block_rows", [128, 256])
+def test_mma_tile_plan_covers_every_doc_row_once(ld, block_rows):
+    """Walk the tiles as csrc/mma_tile.cuh does: tile t of the grid holds
+    docs (t // tpd) * dpt + d, d < dpt, at columns d * doc_cols + r, rows
+    (t % tpd) * doc_cols + r of each; every (doc, row) is covered once."""
+    n, b, lq = 37, 9, 32
+    plan = torch_maxsim.mma_tile_plan(ld, n, b, lq, block_rows)
+    dpt, dc, tpd, tpb, g = plan
+    assert dc % 8 == 0 and 8 <= dc * dpt <= 256 and dpt <= 8
+    assert tpb % tpd == 0 and (tpd == 1 or dpt == 1)
+    assert g * lq <= block_rows or g == 1
+    n_tiles = -(-n // dpt) * tpd
+    seen = []
+    for t in range(n_tiles):
+        dg, part = divmod(t, tpd)
+        for d in range(min(dpt, n - dg * dpt)):
+            for r in range(dc):
+                row = part * dc + r
+                if row < ld:
+                    seen.append((dg * dpt + d, row))
+    assert sorted(seen) == [(i, r) for i in range(n) for r in range(ld)]
+
+
+def test_mma_tile_plan_fills_the_card():
+    """16 tiles per block at the phase-3 shape; fewer when the grid would
+    leave the SMs short of blocks; whole docs per block when a doc spans
+    tiles."""
+    big = torch_maxsim.mma_tile_plan(128, 16384, 32, 32, 256)
+    assert big == (2, 128, 1, 16, 8)
+    small = torch_maxsim.mma_tile_plan(64, 200, 32, 32, 256)
+    assert small.tiles_per_block == 1
+    long_docs = torch_maxsim.mma_tile_plan(600, 100000, 32, 32, 256)
+    assert long_docs.tiles_per_doc == 3 and long_docs.tiles_per_block == 15
+    assert torch_maxsim.mma_tile_plan(64, 99, 3, 200, 128).queries_per_block \
+        == 1
+
+
+@pytest.mark.parametrize("q_dtype,t_dtype,route", [
+    (torch.float32, torch.float32, ("simt", 0)),
+    (torch.bfloat16, torch.bfloat16, ("mma", 1)),
+    (torch.float32, torch.bfloat16, ("mma", 2))])
+def test_maxsim_route_by_dtype(q_dtype, t_dtype, route):
+    assert torch_maxsim.maxsim_route(q_dtype, t_dtype) == route
+    assert route[0] == "simt" or route[1] in torch_maxsim.MMA_BLOCK_ROWS

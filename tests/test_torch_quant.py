@@ -149,3 +149,37 @@ def test_maxsim_search_int8_torch_matches_xla():
         max_chunk_elems=500)                           # several doc chunks
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
                                atol=1e-4 * q.shape[1])
+
+
+def test_k5_epilogue_converts_int32_exactly_with_adds():
+    """csrc/maxsim_int8.cu turns each int32 dot product s into a float as
+    bits(s + 0x4B400000) - 1.5 * 2^23 (two full-rate adds, no conversion
+    instruction). Exact for |s| < 2^22, which holds: |s| <= dim * 128^2
+    = 2^21 at dim 128."""
+    rng = np.random.default_rng(4)
+    s = np.concatenate([np.arange(-2 ** 21, 2 ** 21 + 1, 4099),
+                        [-2 ** 22, -2 ** 21, -1, 0, 1, 2 ** 21, 2 ** 22 - 1],
+                        rng.integers(-2 ** 22, 2 ** 22, 10_000)]).astype(
+        np.int32)
+    conv = (s + np.int32(0x4B400000)).view(np.float32) \
+        - np.float32(12582912.0)
+    np.testing.assert_array_equal(conv, s.astype(np.float32))
+
+
+def test_maxsim_search_int8_unit_scales_equal_pallas_exactly():
+    """With unit query and doc scales (0 kept on masked tokens) the plain K5
+    sums int32 maxima, all below 2^24: it equals the TPU kernel in
+    interpret mode bit for bit, as the card test holds the CUDA kernel to
+    the plain version."""
+    from jax.experimental.pallas import tpu as pltpu
+    q, _, d8, ds = _int8_search_inputs(seed=5)
+    q8, qs = jax.jit(jax_quant.quantize_queries_int8)(jnp.asarray(q))
+    ones_q = jnp.ones_like(qs)
+    unit_d = (ds > 0).astype(jnp.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_quant.maxsim_search_int8_pallas(
+            q8, ones_q, d8, unit_d, tile_d=8))
+    got = torch_quant.maxsim_search_int8(
+        *[torch.from_numpy(np.array(x)) for x in (q8, ones_q, d8, unit_d)])
+    assert np.abs(want).max() < 2 ** 24
+    np.testing.assert_array_equal(got.numpy(), want)
