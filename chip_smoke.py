@@ -6,25 +6,29 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. environment: torch/CUDA versions, the card's name and power limit;
      TF32 off for float32 matmuls and convolutions. No GPU -> exit 1.
-  2. build: every CUDA library of the port (csrc/maxsim.cu: K1 on a
-     float32 index, csrc/maxsim_mma.cu: K1 on a bf16 index, on the tensor
-     cores, csrc/coarse_sweep.cu: K2 + K3, csrc/stage1_sweep.cu: K4,
+  2. build: every CUDA library of the port (csrc/maxsim_mma.cu: K1 on the
+     tensor cores, a bf16 index or a float32 one as two bf16 planes,
+     csrc/coarse_sweep.cu: K2 + K3, csrc/stage1_sweep.cu: K4,
      csrc/maxsim_int8.cu: K5, csrc/residual_maxsim.cu: K6,
      csrc/residual_lut_maxsim.cu: X1, csrc/candidate_maxsim.cu: X2 and X3)
      from the repo's sources, the nvcc runs side by side; ptxas
      registers/spills.
-  3. K1 against its plain PyTorch version on the card: the MMA route
-     ("K1") on a bf16 index with a bf16 query (Ld=128) and with a float32
-     query split in two bf16 parts (Ld=64), the SIMT route ("K1-f32") at
-     the float32 serve shape: scores, tie-aware top-10, an all-masked doc
-     at exactly -9999 x Lq, both times (median of 10 after warm-up, CUDA
-     events), TFLOP/s and the bound.
+  3. K1 against its plain PyTorch version on the card: a bf16 index
+     ("K1") with a bf16 query (Ld=128) and with a float32 query split in
+     two bf16 parts (Ld=64); a float32 index ("K1-f32") at the float32
+     serve shape, read as two bf16 planes (hi.hi + lo.hi + hi.lo; the run
+     fails unless that split route launched): scores, tie-aware top-10,
+     an all-masked doc at exactly -9999 x Lq, both times (median of 10
+     after warm-up, CUDA events), TFLOP/s and the bound (bf16 operations
+     of every product the split takes; the CUDA cores' float32 bound
+     beside it).
   4. the exact slice: build_server on configs/synthetic_flmr_base_serve.json
      (FLMR at BERT-base width, 16,384 passages encoded on the card), 64
      requests from 4 threads, every answer checked against a plain search
      of the same index with the executor's own query embeddings, K1's
-     launch count checked against the dispatches, and the towers on the
-     card checked against the same module run on the CPU.
+     launch count checked against the dispatches (every one on the float32
+     index's split route), the planes' bytes beside the index's, and the
+     towers on the card checked against the same module run on the CPU.
   5. K2, K3 and K4 against their plain versions at the bench.py shape
      (B=32, Lq=32, dim=128; 112,640 docs x 8 summaries; 1,760 x 4 block
      summaries padded to 2,048; bs=64, n_blocks 16 and 32): scores,
@@ -45,9 +49,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      printed (not gated: the weights are random).
   8. K5 and K6 against their plain versions: K5 at B=32, N=16,384, Lq=32
      with Ld 128 and 64, and Lq=64 with Ld 220 (TOP/s beside each); K6
-     at the 1M fine-stage shape (B=32, Lq=32, C=256, Ld=64, dim 128) with
-     a flat codec of 1,024 centroids and a factored one of 64 x 128,
-     nbits 2 and 4: max |err|, tie-aware top-10 and both times.
+     (on the tensor cores) at the 1M fine-stage shape (B=32, Lq=32,
+     C=256, Ld=64, dim 128) with a flat codec of 1,024 centroids and a
+     factored one of 64 x 128, nbits 2 and 4, and at the residual serve's
+     shape (Lq=64, Ld=220, C=256, factored, nbits 2): max |err|, tie-aware
+     top-10 and both times.
   9. the 1M legs: 1,000,448 docs x 64 tokens x 128 dims, clustered over
      8,192 topics and cluster-ordered (scripts/synth1m.py's recipe), made
      on the card; S=4 summaries, block size 64; B=32, Lq=32 queries from
@@ -199,19 +205,24 @@ def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd, ops=None):
 
 
 def maxsim_bound(maxsim, q, tok, mask):
-    """K1's bound for q against tok: float32 operations on the SIMT route;
-    bf16 operations of every query part on the MMA route (a float32 query
-    is split in two parts, each multiplied in full), with a note saying
-    so. Returns (bound dict, the function's FLOP)."""
+    """K1's bound for q against tok: the bf16 operations of every product
+    the route takes (a float32 query in two parts, a float32 index in two
+    planes: hi.hi + lo.hi + hi.lo), with a note saying so; for a float32
+    index also the CUDA cores' float32 bound of the same function
+    ("f32_bound_ms"). Returns (bound dict, the function's FLOP)."""
     b, lq, dim = q.shape
     n, ld, _ = tok.shape
     flop = 2.0 * b * lq * n * ld * dim
-    route, parts = maxsim.maxsim_route(q.dtype, tok.dtype)
-    bnd = bound(_nbytes(q, tok, mask) + 4 * b * n, flop * max(parts, 1),
-                "f32" if route == "simt" else "bf16")
-    if parts > 1:
-        bnd["bound_note"] = (f"bf16 operations of all {parts} bf16 parts of "
-                             f"the float32 query")
+    route = maxsim.maxsim_route(q.dtype, tok.dtype)
+    products = maxsim.route_products(route)
+    nbytes = _nbytes(q, tok, mask) + 4 * b * n
+    bnd = bound(nbytes, flop * products, "bf16")
+    if products > 1:
+        bnd["bound_note"] = (f"bf16 operations of the {products} products "
+                             f"of {route.parts} query parts and "
+                             f"{route.planes} index planes")
+    if route.planes > 1:
+        bnd["f32_bound_ms"] = bound(nbytes, flop, "f32")["bound_ms"]
     return bnd, flop
 
 
@@ -232,22 +243,30 @@ def kernel_shape(out, key, shape, b, lq, n, ld, dim, q_dtype, t_dtype,
     mask = (torch.rand(n, ld, generator=g, device="cuda") > 0.3).to(
         torch.int8)
     mask[::997] = 0                                # docs with no tokens
-    got = maxsim.maxsim_search(q, tok, mask)
+    route = maxsim.maxsim_route(q_dtype, t_dtype)
+    # a float32 index's planes, made once as the searcher keeps them
+    planes = (maxsim.split_index_bf16(tok, route.planes)
+              if route.planes > 1 else None)
+    split0 = maxsim.maxsim_search.split_launches
+    got = maxsim.maxsim_search(q, tok, mask, planes=planes)
     want = maxsim.maxsim_search_torch(q, tok, mask)
     torch.cuda.synchronize()
+    if (maxsim.maxsim_search.split_launches - split0) != (route.planes > 1):
+        raise AssertionError(f"{key}: K1 did not take the route {route}")
     empty = got[:, ::997]
     if not torch.equal(empty, torch.full_like(empty, -9999.0 * lq)):
         raise AssertionError("an all-masked doc must score -9999 * Lq")
     err = check_topk(got, want)
-    print(f"{key} {shape}: route {maxsim.maxsim_route(q_dtype, t_dtype)}, "
-          f"max|err| {err:.3g}", flush=True)
+    print(f"{key} {shape}: route {tuple(route)}, max|err| {err:.3g}",
+          flush=True)
     bnd, flop = maxsim_bound(maxsim, q, tok, mask)
     record_kernel(out, key, shape, err,
-                  lambda: maxsim.maxsim_search(q, tok, mask),
+                  lambda: maxsim.maxsim_search(q, tok, mask, planes=planes),
                   lambda: maxsim.maxsim_search_torch(q, tok, mask), bnd,
                   ops=flop)
-    print(f"  {out[key]['shapes'][shape]['tera_ops_per_s']:.1f} TFLOP/s",
-          flush=True)
+    print(f"  {out[key]['shapes'][shape]['tera_ops_per_s']:.1f} TFLOP/s"
+          + (f"; the CUDA cores' float32 bound {bnd['f32_bound_ms']:.3f} ms"
+             if "f32_bound_ms" in bnd else ""), flush=True)
 
 
 def check_towers(ex, data, reqs):
@@ -365,9 +384,18 @@ def serve_slice(config_path, device, maxsim):
     Returns (kernel launches, dispatches, max |score error|)."""
     import torch
     data, server, index = start_server(config_path, device)
+    planes = index.token_planes()          # made by the warm-up's search
+    print(f"index planes (bf16 hi | lo, made by the searcher's first "
+          f"search): {_nbytes(planes)} bytes, {tuple(planes.shape)}",
+          flush=True)
+    maxsim.maxsim_search.split_launches = 0
     reqs, scores, pids, launches, dispatches = drive_requests(
         server, data, index, [maxsim.maxsim_search])
     launches = launches[0]
+    if maxsim.maxsim_search.split_launches != launches:
+        raise AssertionError(f"{maxsim.maxsim_search.split_launches} of "
+                             f"{launches} K1 launches took the float32 "
+                             f"index's split route")
     q = encode_requests(server, data, reqs)
     with torch.inference_mode():
         want = maxsim.maxsim_search_torch(q, index.tokens, index.mask)
@@ -537,13 +565,13 @@ def pruned_search(maxsim):
           f"bf16, summaries {tuple(index.summaries.shape)}, block summaries "
           f"{tuple(index.block_summaries.shape)}: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    maxsim.maxsim_search.mma_launches = 0
+    maxsim.maxsim_search.launches = 0
     exact = maxsim.maxsim_search(q, index.tokens, index.mask)
     exact_rows = torch.topk(exact, K, dim=1).indices
     torch.cuda.synchronize()
-    oracle_mma = maxsim.maxsim_search.mma_launches
-    if oracle_mma == 0:
-        raise AssertionError("the exact oracle did not run K1's MMA route")
+    oracle_launches = maxsim.maxsim_search.launches
+    if oracle_launches == 0:
+        raise AssertionError("the exact oracle did not launch K1")
     modes = [("hierarchical", "fast"), ("hierarchical", "reference"),
              ("two_stage", "fast"), ("two_stage", "reference")]
     searchers = {f"{m} {p}": LateInteractionSearcher(index, mode=m, preset=p)
@@ -572,10 +600,10 @@ def pruned_search(maxsim):
     out["exact"] = {"recall": 1.0, "ms": time_ms(
         lambda: maxsim.maxsim_search(q, index.tokens, index.mask)),
         "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]}
-    print(f"exact (K1, MMA route, {oracle_mma} launch): "
+    print(f"exact (K1, bf16 index, {oracle_launches} launch): "
           f"{out['exact']['ms']:.3f} ms per batch, bound "
           f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']})", flush=True)
-    launches["K1_mma"] = oracle_mma
+    launches["K1"] = oracle_launches
     if out["hierarchical fast"]["recall"] < 0.95:
         raise AssertionError("hierarchical fast search: recall@10 "
                              f"{out['hierarchical fast']['recall']} < 0.95")
@@ -748,12 +776,12 @@ def compressed_kernels():
               flush=True)
         del t8, ds, got, want
 
-    # the 1M fine stage's shape: 256 candidates per query, 64 tokens
-    c, ld, n = 256, 64, 65536
-    cand = torch.randint(n, (b, c), generator=g, device="cuda")
-    cand[:, 0] = 0                                 # doc 0 has no valid token
-    for name, k1, k2 in (("factored 64x128", 64, 128),
-                         ("flat 1024", 1024, 0)):
+    def k6(shape, q, ld, n, k1, k2, nbits, c=256):
+        """K6 at one shape: C random candidates per query over n docs of
+        ld tokens, candidate 0 with no valid token."""
+        b, lq, dim = q.shape
+        cand = torch.randint(n, (b, c), generator=g, device="cuda")
+        cand[:, 0] = 0                             # doc 0 has no valid token
         if k2:
             coarse = 0.3 * _normed(g, k1, dim, dtype=torch.float32)
             fine = 0.1 * torch.randn(k2, dim, generator=g, device="cuda")
@@ -761,32 +789,50 @@ def compressed_kernels():
         else:
             coarse = fine = None
             cent = _normed(g, k1, dim, dtype=torch.float32)
+        w = 0.05 * torch.randn(2 ** nbits, generator=g,
+                               device="cuda").sort().values
+        records, mask = random_records(g, n, ld, dim, nbits, cent.shape[0])
+        args = (q, records, cand, mask, cent, w)
+        kw = dict(nbits=nbits, coarse=coarse, fine=fine)
+        got = residual.maxsim_residual(*args, **kw)
+        want = residual.maxsim_residual_torch(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got[:, 0], torch.full_like(got[:, 0],
+                                                      -9999.0 * lq)):
+            raise AssertionError("K6: a doc with no valid token must "
+                                 "score -9999 * Lq")
+        # the candidates' record and mask rows, each read once; the
+        # residual dots and the centroid-score table, in bf16
+        used = torch.unique(cand).numel()
+        rows = k1 + k2 if k2 else k1
+        nbytes = (_nbytes(q, cand, w, coarse, fine, got)
+                  + (0 if k2 else _nbytes(cent))
+                  + used * (records.shape[1] + mask.shape[1]))
+        ops = 2.0 * b * lq * dim * (c * ld + rows)
+        record("K6", shape, got, want,
+               lambda: residual.maxsim_residual(*args, **kw),
+               lambda: residual.maxsim_residual_torch(*args, **kw),
+               bound(nbytes, ops, "bf16"))
+        # the kernel alone, without the wrapper's table and casts
+        prep = (q.bfloat16().contiguous(),
+                residual.centroid_scores(q, cent, coarse, fine).contiguous(),
+                records, cand.to(torch.int32).contiguous(), mask,
+                w.bfloat16().float().contiguous())
+        kms = time_ms(lambda: residual.launch_residual_kernel(
+            *prep, nbits=nbits, k1=k1 if k2 else 0, k2=k2))
+        out["K6"]["shapes"][shape]["kernel_ms"] = kms
+        print(f"  K6 {shape}: the kernel alone {kms:.4f} ms", flush=True)
+
+    # the 1M fine stage's shape: 256 candidates per query, 64 tokens
+    for name, k1, k2 in (("factored 64x128", 64, 128),
+                         ("flat 1024", 1024, 0)):
         for nbits in (2, 4):
-            w = 0.05 * torch.randn(2 ** nbits, generator=g,
-                                   device="cuda").sort().values
-            records, mask = random_records(g, n, ld, dim, nbits,
-                                           cent.shape[0])
-            args = (q, records, cand, mask, cent, w)
-            kw = dict(nbits=nbits, coarse=coarse, fine=fine)
-            got = residual.maxsim_residual(*args, **kw)
-            want = residual.maxsim_residual_torch(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(got[:, 0], torch.full_like(got[:, 0],
-                                                          -9999.0 * lq)):
-                raise AssertionError("K6: a doc with no valid token must "
-                                     "score -9999 * Lq")
-            # the candidates' record and mask rows, each read once; the
-            # residual dots and the centroid-score table, in bf16
-            used = torch.unique(cand).numel()
-            rows = k1 + k2 if k2 else k1
-            nbytes = (_nbytes(q, cand, w, coarse, fine, got)
-                      + (0 if k2 else _nbytes(cent))
-                      + used * (records.shape[1] + mask.shape[1]))
-            ops = 2.0 * b * lq * dim * (c * ld + rows)
-            record("K6", f"{name} nbits={nbits}", got, want,
-                   lambda: residual.maxsim_residual(*args, **kw),
-                   lambda: residual.maxsim_residual_torch(*args, **kw),
-                   bound(nbytes, ops, "bf16"))
+            k6(f"{name} nbits={nbits}", q, 64, 65536, k1, k2, nbits)
+    # the residual serve's: Lq = 64, 220-token docs, factored, nbits 2
+    q64 = _normed(g, b, 64, dim, dtype=torch.float32)
+    q64[:, -2:] = 0
+    k6("serve factored 64x128 nbits=2 Lq=64 Ld=220", q64, 220, 16384, 64,
+       128, 2)
     return out
 
 
@@ -851,12 +897,9 @@ def one_million_legs(maxsim):
         nonlocal exact_rows
         for w in wrappers.values():
             w.launches = 0
-        maxsim.maxsim_search.mma_launches = 0
         rows = search()[1]
         torch.cuda.synchronize()
         launches[name] = {k: wrappers[k].launches for k in kernels}
-        if "K1" in kernels:                        # the MMA route ran
-            launches[name]["K1_mma"] = maxsim.maxsim_search.mma_launches
         if min(launches[name].values()) == 0:
             raise AssertionError(f"1M {name}: a kernel of the leg never "
                                  f"launched: {launches[name]}")
@@ -1109,8 +1152,8 @@ def main():
     print(f"all libraries: {time.perf_counter() - t0:.2f} s", flush=True)
 
     phase("3 K1 vs plain")
-    # K1 has two kernels: a bf16 index takes the tensor cores (MMA route,
-    # "K1"), a float32 one the CUDA cores ("K1-f32")
+    # K1 on a bf16 index ("K1") and on a float32 one, read as two bf16
+    # planes ("K1-f32"): the same tensor-core kernel, two rows
     k1 = {k: {"err": 0.0, "shapes": {}} for k in ("K1", "K1-f32")}
     f32, bf16 = torch.float32, torch.bfloat16
     for key, shape, args in (
@@ -1163,15 +1206,18 @@ def main():
     k1_replaces = "ravqa_tpu/ops/maxsim.py:196 (_maxsim_kernel :162)"
     kernels = {
         "K1": entry("maxsim_search (bf16 index, tensor cores)",
-                    "maxsim_mma.cu", k1_replaces, pruned_launches["K1_mma"],
+                    "maxsim_mma.cu", k1_replaces, pruned_launches["K1"],
                     k1["K1"]),
-        "K1-f32": entry("maxsim_search (float32 index, CUDA cores)",
-                        "maxsim.cu", k1_replaces, launches, k1["K1-f32"])}
+        "K1-f32": entry("maxsim_search (float32 index as two bf16 planes, "
+                        "tensor cores)", "maxsim_mma.cu", k1_replaces,
+                        launches, k1["K1-f32"])}
     kernels["K1"]["launches_note"] = (
         "phase 6's exact oracle (bf16 query); the exact serve slice's "
         "float32 index runs K1-f32")
-    kernels["K1"]["launches_1m"] = launches_1m["exact bf16 (K1)"]["K1_mma"]
+    kernels["K1"]["launches_1m"] = launches_1m["exact bf16 (K1)"]["K1"]
     kernels["K1-f32"]["launches_note"] = "phase 4, the exact serve slice"
+    kernels["K1-f32"]["f32_bound_ms"] = k1["K1-f32"]["shapes"][
+        next(iter(k1["K1-f32"]["shapes"]))]["f32_bound_ms"]
 
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (float)", "coarse_sweep.cu",

@@ -99,7 +99,7 @@ template <int KS>
 __global__ void __launch_bounds__(mma_tile::kThreads, 1)
 maxsim_int8_mma_kernel(const mma_tile::Args a,
                   const __grid_constant__ CUtensorMap map) {
-  mma_tile::sweep<Int8Op, 2, 1, KS>(a, map);
+  mma_tile::sweep<Int8Op, 2, 1, KS, 1, 256>(a, map);
 }
 
 }  // namespace
@@ -118,18 +118,21 @@ extern "C" int ravqa_maxsim_search_int8(const void* q8, const void* qscale,
   if (Lq <= 0 || Ld <= 0 || dim % 16 || dim > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   const mma_tile::Args a{q8, static_cast<const float*>(qscale), tok8, dscale,
-                         static_cast<float*>(out), B, Lq, N, Ld, dim, G,
+                         static_cast<float*>(out), B, Lq, N, Ld, dim, dim, G,
                          docs_per_tile, doc_cols, tiles_per_doc,
                          tiles_per_block};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int rows = mma_tile::block_rows<2>();
   switch (mma_tile::k_steps(dim)) {
     case 1:
-      return mma_tile::launch(maxsim_int8_mma_kernel<1>, a, rows, 1, 1, s);
+      return mma_tile::launch(maxsim_int8_mma_kernel<1>, a, rows, 256, 1,
+                              1, s);
     case 2:
-      return mma_tile::launch(maxsim_int8_mma_kernel<2>, a, rows, 2, 1, s);
+      return mma_tile::launch(maxsim_int8_mma_kernel<2>, a, rows, 256, 2,
+                              1, s);
     case 4:
-      return mma_tile::launch(maxsim_int8_mma_kernel<4>, a, rows, 4, 1, s);
+      return mma_tile::launch(maxsim_int8_mma_kernel<4>, a, rows, 256, 4,
+                              1, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,6 @@
-// Exhaustive MaxSim on Hopper's tensor cores: the sweep shared by K1's
-// bf16-index route (maxsim_mma.cu) and K5 (maxsim_int8.cu).
+// Exhaustive MaxSim on Hopper's tensor cores: the sweep shared by K1
+// (maxsim_mma.cu: a bf16 index, or a float32 one read as two bf16 planes)
+// and K5 (maxsim_int8.cu).
 //
 //   out[b, n] = sum_t w[b, t] * max_l s(b, t, n, l)
 //
@@ -27,7 +28,15 @@
 // for the block's whole sweep (wgmma's A from registers), so the stationary
 // operand costs no shared-memory traffic; B, the doc tokens, is read by the
 // tensor cores from shared memory through wgmma descriptors, 64 columns per
-// instruction (m64n64k16 bf16, m64n64k32 s8). Each warpgroup keeps two
+// instruction (m64n64k16 bf16, m64n64k32 s8).
+//
+// Split operands: the query may come as P parts and the index as X planes
+// of one token row ([plane 0 | plane 1], each plane KS k-steps wide), whose
+// sums approximate float32 values. Part p times plane x goes into the same
+// accumulator when p + x < max(P, X): hi.hi, lo.hi and hi.lo for two of
+// each; the dropped lo.lo is below float32's rounding of the sum. The
+// A fragments of each part serve every plane, so a split index costs no
+// registers, only the planes' k-steps in the ring. Each warpgroup keeps two
 // 64-column chunks in flight: the next chunk's wgmmas run while this one's
 // maxima are taken, and the other warpgroup fills the gaps: at these
 // shapes the epilogue, not the MMA, is the larger part of the work. A
@@ -37,25 +46,26 @@
 // other, so the query groups that read the same doc rows run together and
 // the index is read from HBM about once.
 //
-// Doc tiles follow Ld (ops/maxsim.py::mma_tile_plan): a tile holds
-// docs_per_tile whole docs, each padded to doc_cols = Ld rounded up to 8
-// columns, so an 8-column slab never straddles two docs; a doc longer than
-// 256 tokens spans tiles_per_doc tiles and its running max carries across
-// them. Columns past a doc's tokens or past the last doc are never maxed.
-// Every tile runs its four 64-column chunks; those past its last slab
-// multiply stale rows whose products are dropped, so no wgmma sits in a
-// branch (the compiler would serialize them).
+// Doc tiles follow Ld (ops/maxsim.py::mma_tile_plan): a tile of TR columns
+// (256, or 128 for a split index, whose planes double a stage's bytes)
+// holds docs_per_tile whole docs, each padded to doc_cols = Ld rounded up
+// to 8 columns, so an 8-column slab never straddles two docs; a doc longer
+// than TR tokens spans tiles_per_doc tiles and its running max carries
+// across them. Columns past a doc's tokens or past the last doc are never
+// maxed. Every tile runs all its TR / 64 chunks of 64 columns; those past
+// its last slab multiply stale rows whose products are dropped, so no
+// wgmma sits in a branch (the compiler would serialize them).
 //
 // Copies: one thread asks the TMA for each doc's rows of a tile (a box of
 // doc_cols rows x 128 bytes per k-panel, from a tensor map of the index as
-// (N * Ld) x dim that the host encodes per call) into a 3-stage ring with
-// an mbarrier per stage, so tile t + 2 loads while tile t multiplies and
-// no other thread spends an instruction on copies. The TMA writes wgmma's
-// K-major 128-byte-swizzle layout: 128-byte k-panels of 256 rows, 16-byte
-// chunk c of row r at chunk (c ^ r) & 7 of its row. Columns past dim (dim
-// < 64 bf16 or 128 int8) are out of the map's bounds and arrive as zeros;
-// rows past a doc's end are the next doc's, or zeros past the index, and
-// are never maxed. The index is never copied or padded.
+// (N * Ld) x tok_dim that the host encodes per call) into a 3-stage ring
+// with an mbarrier per stage, so tile t + 2 loads while tile t multiplies
+// and no other thread spends an instruction on copies. The TMA writes
+// wgmma's K-major 128-byte-swizzle layout: 128-byte k-panels of TR rows,
+// 16-byte chunk c of row r at chunk (c ^ r) & 7 of its row. Columns past
+// the row (dim < 64 bf16 or 128 int8) are out of the map's bounds and
+// arrive as zeros; rows past a doc's end are the next doc's, or zeros past
+// the index, and are never maxed. The index is never copied or padded.
 
 #pragma once
 
@@ -73,25 +83,29 @@ namespace mma_tile {
 constexpr int kWarps = 8;        // two warpgroups
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 3;
-constexpr int kTileRows = 256;   // doc tokens (MMA columns) per tile
+constexpr int kMaxTileRows = 256;  // doc tokens (MMA columns) per tile, most
 constexpr int kMaxDocs = 8;      // docs per tile (per-row maxima staged)
-constexpr int kPanelBytes = kTileRows * 128;   // one 128-byte k-panel
 constexpr float kNegFill = -9999.0f;
 
 struct Args {
   const void* q;          // (P, B * Lq, dim) query parts / (B * Lq, dim)
   const float* qscale;    // (B * Lq) query-token scales, or null
-  const void* tok;        // (N * Ld, dim) doc tokens
+  const void* tok;        // (N * Ld, tok_dim) doc tokens (all planes)
   const void* fill;       // (N * Ld) int8 mask or float doc-token scales
   float* out;             // (B, N)
   int B, Lq, N, Ld, dim;
+  int tok_dim;            // values per index row: dim, or X planes' width
   int G;                  // queries per block
   int docs_per_tile, doc_cols, tiles_per_doc, tiles_per_block;
 };
 
-// bytes of one ring stage of tiles whose MMAs run KS k-steps of 32 bytes
-__host__ __device__ constexpr int stage_bytes(int ks) {
-  return (2 * ks + 7) / 8 * kPanelBytes;
+// one 128-byte k-panel of a tile of tr rows
+__host__ __device__ constexpr int panel_bytes(int tr) { return tr * 128; }
+
+// bytes of one ring stage of tr-row tiles whose MMAs read ks k-steps of 32
+// bytes (every plane's)
+__host__ __device__ constexpr int stage_bytes(int ks, int tr) {
+  return (2 * ks + 7) / 8 * panel_bytes(tr);
 }
 
 // the k-steps a kernel is built for: the fewest of 1, 2, 4, 8 that cover a
@@ -165,6 +179,32 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
+// d (64 x 64 f32, this thread's 32) += a (64 x 16 bf16, registers) x the
+// 16 x 64 bf16 tile at desc (K-major, 128-byte swizzle); scale_d 0
+// overwrites d
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
 // pin an accumulator register at this point of the program: the compiler
 // does not know that wgmma writes its registers late, so every read of an
 // accumulator must follow a fence placed after the wait
@@ -176,16 +216,20 @@ __device__ __forceinline__ void fence_operand(int& r) {
   asm volatile("" : "+r"(r) :: "memory");
 }
 
-// The sweep, its MMAs over KS k-steps of 32 bytes (the token row, zero
-// past dim). Op provides: Acc (accumulator type), kElemBytes, wgmma(acc,
-// a, desc, scale_d) for an m64 x n64 x 32-byte product, Col (8 bytes: what
-// a column needs to score), column(fill, i, in_tile) -> Col, score(acc,
-// col) -> the product's value, -9999 for an invalid token, -inf off the
-// tile; term(qscale, row, max).
-template <class Op, int MT, int P, int KS>
+// The sweep, its MMAs over KS k-steps of 32 bytes per query part and index
+// plane (a plane's row, zero past dim), P query parts, X index planes,
+// tiles of TR columns. Op provides: Acc (accumulator type), kElemBytes,
+// wgmma(acc, a, desc, scale_d) for an m64 x n64 x 32-byte product, Col (8
+// bytes: what a column needs to score), column(fill, i, in_tile) -> Col,
+// score(acc, col) -> the product's value, -9999 for an invalid token, -inf
+// off the tile; term(qscale, row, max).
+template <class Op, int MT, int P, int KS, int X, int TR>
 __device__ __forceinline__ void sweep(const Args& a, const CUtensorMap& map) {
   constexpr int MB = block_rows<MT>();  // query rows per block
-  constexpr int SB = stage_bytes(KS);
+  constexpr int SB = stage_bytes(X * KS, TR);
+  constexpr int kPanelBytes = panel_bytes(TR);
+  constexpr int NC = TR / 64;           // 64-column chunks per tile
+  static_assert(NC == 2 || NC == 4, "tiles of 128 or 256 columns");
   using Acc = typename Op::Acc;
   using Col = typename Op::Col;
   extern __shared__ unsigned char smem_raw[];
@@ -194,12 +238,12 @@ __device__ __forceinline__ void sweep(const Args& a, const CUtensorMap& map) {
       ((1024 - (static_cast<unsigned>(__cvta_generic_to_shared(smem_raw)) &
                 1023)) & 1023);
   float* rowmax = reinterpret_cast<float*>(ring + kStages * SB);
-  // [2][kTileRows]: the columns of tiles t and t + 1
+  // [2][TR]: the columns of tiles t and t + 1
   Col* colbuf = reinterpret_cast<Col*>(rowmax + 2 * kMaxDocs * MB);
   static_assert(sizeof(Col) == 8, "a column's facts take 8 bytes");
   // [kStages]: the TMA's barrier of each ring stage
   const uint32_t bars = static_cast<uint32_t>(
-      __cvta_generic_to_shared(colbuf + 2 * kTileRows));
+      __cvta_generic_to_shared(colbuf + 2 * TR));
   const uint32_t ring_addr =
       static_cast<uint32_t>(__cvta_generic_to_shared(ring));
 
@@ -257,10 +301,10 @@ __device__ __forceinline__ void sweep(const Args& a, const CUtensorMap& map) {
   // what each of tile t's columns needs to score, into colbuf[t & 1]: one
   // column per thread
   auto columns = [&](int t) {
-    if (t >= T) return;
+    if (t >= T || tid >= TR) return;
     const Tile x = tile_at(t);
     const int d = tid / dc, row = x.part * dc + tid - d * dc;
-    colbuf[(t & 1) * kTileRows + tid] = Op::column(
+    colbuf[(t & 1) * TR + tid] = Op::column(
         a.fill, static_cast<size_t>(x.doc0 + d) * a.Ld + row,
         d < x.docs && row < a.Ld);
   };
@@ -345,24 +389,31 @@ __device__ __forceinline__ void sweep(const Args& a, const CUtensorMap& map) {
       const Tile x = tile_at(t);
       const uint32_t st = ring_addr + (q % kStages) * SB;
       float* rm = rowmax + (t & 1) * kMaxDocs * MB;
-      const int n_slabs = x.docs * dc / 8;   // <= 32
-      const Col* cb = colbuf + (t & 1) * kTileRows;
+      const int n_slabs = x.docs * dc / 8;   // <= TR / 8
+      const Col* cb = colbuf + (t & 1) * TR;
 
       // chunk ci (columns 64 ci .. 64 ci + 63) into accumulator buffer B:
-      // the wgmmas of every k-step and query part
+      // the wgmmas of every k-step, index plane and query part, part p of
+      // plane x where p + x < max(P, X) (all compile-time: straight code)
       auto start = [&](int ci, auto buf) {
         constexpr int B = decltype(buf)::value;
+        constexpr int PX = P > X ? P : X;
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const uint64_t desc = sw128_desc(st + (ks >> 2) * kPanelBytes +
-                                           ci * 64 * 128 + (ks & 3) * 32);
+        for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-          for (int p = 0; p < P; ++p)
+          for (int xp = 0; xp < X; ++xp) {
+            const int kk = xp * KS + ks;      // k-step in the token row
+            const uint64_t desc = sw128_desc(st + (kk >> 2) * kPanelBytes +
+                                             ci * 64 * 128 + (kk & 3) * 32);
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-              Op::wgmma(acc[B][mt], A[p][mt][ks], desc, ks + p > 0);
-        }
+            for (int p = 0; p < P; ++p)
+              if (p + xp < PX)
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+                  Op::wgmma(acc[B][mt], A[p][mt][ks], desc,
+                            ks + xp + p > 0);
+          }
         wgmma_commit();
       };
 
@@ -408,7 +459,7 @@ __device__ __forceinline__ void sweep(const Args& a, const CUtensorMap& map) {
       };
 
       // two chunks in flight: chunk ci + 1's wgmmas run while chunk ci's
-      // maxima are taken. Every tile runs all 4 chunks of its 256 rows
+      // maxima are taken. Every tile runs all NC chunks of its TR rows
       // (those past the last slab multiply stale rows, dropped) in straight
       // code: a wgmma in a branch, or in flight across a loop's back edge,
       // makes the compiler serialize them
@@ -418,14 +469,19 @@ __device__ __forceinline__ void sweep(const Args& a, const CUtensorMap& map) {
       start(1, Buf1());
       wgmma_wait<1>();
       finish(0, Buf0());
-      start(2, Buf0());
-      wgmma_wait<1>();
-      finish(1, Buf1());
-      start(3, Buf1());
-      wgmma_wait<1>();
-      finish(2, Buf0());
-      wgmma_wait<0>();
-      finish(3, Buf1());
+      if constexpr (NC == 4) {
+        start(2, Buf0());
+        wgmma_wait<1>();
+        finish(1, Buf1());
+        start(3, Buf1());
+        wgmma_wait<1>();
+        finish(2, Buf0());
+        wgmma_wait<0>();
+        finish(3, Buf1());
+      } else {
+        wgmma_wait<0>();
+        finish(1, Buf1());
+      }
     }
     __syncthreads();
     sum_rows(T - 1, c0);
@@ -433,8 +489,9 @@ __device__ __forceinline__ void sweep(const Args& a, const CUtensorMap& map) {
   }
 }
 
-// The tensor map of the index tok as (N * Ld) x dim elements of elem_bytes
-// (2: bf16, 1: int8), in boxes of one 128-byte k-panel x doc_cols rows,
+// The tensor map of the index tok as (N * Ld) x tok_dim elements of
+// elem_bytes (2: bf16, 1: int8), in boxes of one 128-byte k-panel x
+// doc_cols rows,
 // 128-byte swizzle, zeros out of bounds. cuTensorMapEncodeTiled lives in
 // libcuda: it is reached through the runtime's entry-point query, so the
 // library links against the runtime only.
@@ -450,9 +507,10 @@ inline int encode_tok_map(CUtensorMap* map, const Args& a, int elem_bytes) {
       return static_cast<int>(cudaErrorSymbolNotFound);
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.dim),
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.tok_dim),
                               static_cast<cuuint64_t>(a.N) * a.Ld};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.dim) * elem_bytes};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.tok_dim) *
+                                 elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
                              static_cast<cuuint32_t>(a.doc_cols)};
   const cuuint32_t elem_strides[2] = {1, 1};
@@ -466,16 +524,17 @@ inline int encode_tok_map(CUtensorMap* map, const Args& a, int elem_bytes) {
 }
 
 // Checks a launch's plan against the kernel (block_rows query rows per
-// block, ks k-steps, elem_bytes per index value), encodes the index's
-// tensor map, sizes the shared memory and launches the kernel on `stream`.
-// Returns the CUDA error code (0 on success).
+// block, tiles of tile_rows columns, ks k-steps of every plane, elem_bytes
+// per index value), encodes the index's tensor map, sizes the shared
+// memory and launches the kernel on `stream`. Returns the CUDA error code
+// (0 on success).
 inline int launch(void (*kernel)(Args, CUtensorMap), const Args& a,
-                  int block_rows, int ks, int elem_bytes,
+                  int block_rows, int tile_rows, int ks, int elem_bytes,
                   cudaStream_t stream) {
   const int dpt = a.docs_per_tile, dc = a.doc_cols, tpd = a.tiles_per_doc,
             tpb = a.tiles_per_block;
   if (a.G < 1 || (a.G > 1 && a.G * a.Lq > block_rows) || dpt < 1 ||
-      dpt > kMaxDocs || dc < 8 || dc % 8 || dpt * dc > kTileRows ||
+      dpt > kMaxDocs || dc < 8 || dc % 8 || dpt * dc > tile_rows ||
       tpd < 1 || static_cast<long long>(dc) * tpd < a.Ld ||
       (tpd > 1 && dpt != 1) || tpb < 1 || tpb % tpd)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -486,14 +545,14 @@ inline int launch(void (*kernel)(Args, CUtensorMap), const Args& a,
       ((n_tiles + tpb - 1) / tpb);
   // tile, TMA row and tile-sequence numbers stay below 2^31
   if (n_tiles + tpb > INT_MAX || blocks > INT_MAX ||
-      static_cast<long long>(a.N) * a.Ld + kTileRows > INT_MAX)
+      static_cast<long long>(a.N) * a.Ld + kMaxTileRows > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map;
   int err = encode_tok_map(&map, a, elem_bytes);
   if (err) return err;
   const size_t smem =
-      1024 + static_cast<size_t>(kStages) * stage_bytes(ks) +
-      sizeof(float) * 2 * kMaxDocs * block_rows + 2 * 8 * kTileRows +
+      1024 + static_cast<size_t>(kStages) * stage_bytes(ks, tile_rows) +
+      sizeof(float) * 2 * kMaxDocs * block_rows + 2 * 8 * tile_rows +
       8 * kStages;
   err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -6,8 +6,8 @@
 // per doc and slot), columns are query tokens staged transposed in shared
 // memory. Each thread owns an 8 x 8 micro-tile: rows ty + 16 i, columns
 // 4 tx + j and 64 + 4 tx + j (H = 2), or only the first four columns when a
-// tile has at most 64 query columns (H = 1). The same scheme as the MaxSim
-// kernel (maxsim.cu), which streams doc tokens instead of summaries.
+// tile has at most 64 query columns (H = 1). The stage-2 candidate sweep
+// (candidate_tile.cuh) streams doc tokens through the same scheme.
 
 #pragma once
 

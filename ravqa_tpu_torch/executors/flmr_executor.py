@@ -16,9 +16,13 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.convert import load_params_npz
+from ..models.convert import load_params
 from ..models.flmr import FLMRRetriever, skiplist_mask
 from ..retrieval.index import TokenIndex, encode_corpus
+
+
+# a checkpoint directory's params file, in the order load_checkpoint looks
+CHECKPOINT_FILES = ("params.msgpack", "params.npz")
 
 
 class FLMRExecutor:
@@ -37,11 +41,18 @@ class FLMRExecutor:
 
     # -- checkpoints ---------------------------------------------------------
     def load_checkpoint(self, path: str) -> None:
-        """Load a params .npz (flattened Flax keys, models.convert), or a
-        directory holding params.npz, into the model."""
+        """Load parameters into the model: a params file (the JAX package's
+        flax msgpack, or a flattened-key .npz; models.convert.load_params),
+        or a checkpoint directory holding params.msgpack (the JAX package's
+        save_checkpoint) or params.npz, in that order."""
         if os.path.isdir(path):
-            path = os.path.join(path, "params.npz")
-        self.model.load_state_dict(load_params_npz(path), strict=True)
+            found = [os.path.join(path, f) for f in CHECKPOINT_FILES
+                     if os.path.exists(os.path.join(path, f))]
+            if not found:
+                raise FileNotFoundError(f"{path} holds none of "
+                                        f"{CHECKPOINT_FILES}")
+            path = found[0]
+        self.model.load_state_dict(load_params(path), strict=True)
 
     def prepare_for_serving(self) -> None:
         """No-op: this executor never holds training-only state."""

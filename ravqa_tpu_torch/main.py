@@ -90,14 +90,17 @@ def build_executor(cfg: Config, device):
 def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     """RetrievalServer from a config: encode the corpus into an index on
     `device`, build the searcher, wrap both in the micro-batcher.
-    Loads `train.load_model_path` (or <log_dir>/ckpt/params.npz) when
-    present. `model_config.search_mode` picks exact, two_stage or
+    Loads `train.load_model_path` (a params file or a checkpoint
+    directory), else <log_dir>/ckpt/params.msgpack (the JAX package's
+    checkpoint) or <log_dir>/ckpt/params.npz, when present.
+    `model_config.search_mode` picks exact, two_stage or
     hierarchical search (the pruned modes build summaries with
     `serve.n_summary` and block summaries with `serve.block_size`);
     `serve.*` keys set the micro-batching parameters and the searcher's
     knobs (n_candidates, approx_topk, approx_recall, coarse_int8,
     centroid_prune, coarse_query_len, stage1_kernel, preset)."""
     from .data import corpus_doc_batches
+    from .executors.flmr_executor import CHECKPOINT_FILES
     from .retrieval import LateInteractionSearcher
     from .serving import RetrievalServer, ServeConfig
 
@@ -109,11 +112,12 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     mc = cfg.model_config
     ex = build_executor(cfg, device)
     explicit = cfg.get("train", Config()).get("load_model_path")
-    auto = os.path.join(log_dir, "ckpt", "params.npz") if log_dir else None
+    ckpt = os.path.join(log_dir, "ckpt") if log_dir else None
     if explicit:
         ex.load_checkpoint(explicit)             # raises on a bad path
-    elif auto and os.path.exists(auto):
-        ex.load_checkpoint(auto)
+    elif ckpt and any(os.path.exists(os.path.join(ckpt, f))
+                      for f in CHECKPOINT_FILES):
+        ex.load_checkpoint(ckpt)
     else:
         print("serve: no checkpoint found (set train.load_model_path) "
               "— serving randomly initialized weights", flush=True)

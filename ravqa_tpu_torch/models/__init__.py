@@ -1,5 +1,6 @@
 from .bert import BertConfig, BertModel
-from .convert import flatten_params, flax_to_state_dict, load_params_npz
+from .convert import (flatten_params, flax_to_state_dict, load_params,
+                      load_params_npz, read_flax_msgpack)
 from .flmr import (FLMRModelConfig, FLMRRetriever, l2_normalize,
                    punctuation_skiplist_ids, skiplist_mask)
 from .mapping import MappingMLP, VisionMapping
@@ -8,7 +9,8 @@ from .transformer import (EncoderConfig, EncoderLayer, MlpBlock,
                           attention_bias_from_mask, gelu)
 
 __all__ = ["BertConfig", "BertModel", "flatten_params", "flax_to_state_dict",
-           "load_params_npz", "FLMRModelConfig", "FLMRRetriever",
+           "load_params", "load_params_npz", "read_flax_msgpack",
+           "FLMRModelConfig", "FLMRRetriever",
            "l2_normalize", "punctuation_skiplist_ids", "skiplist_mask",
            "MappingMLP", "VisionMapping", "EncoderConfig", "EncoderLayer",
            "MlpBlock", "MultiHeadAttention", "TransformerEncoder",

@@ -8,12 +8,13 @@ the max), then sum over query tokens.
   and the tests use them; on the card they are the reference the kernel is
   checked against.
 - ``maxsim_search``: the serving entry (K1, port of ``maxsim_search_pallas``).
-  On CUDA tensors it launches a hand-written Hopper kernel or raises: a
-  bfloat16 index goes to the tensor-core kernel ``csrc/maxsim_mma.cu``
-  (the MMA route; a float32 query is split into bfloat16 parts by
-  ``split_query_bf16``), a float32 index to the SIMT kernel
-  ``csrc/maxsim.cu`` (``maxsim_route`` says which). On a CPU tensor it runs
-  ``maxsim_search_torch``. ``mma_tile_plan`` is the MMA route's tiling.
+  On CUDA tensors it launches the hand-written Hopper tensor-core kernel
+  ``csrc/maxsim_mma.cu`` or raises. A bfloat16 index is read as it is; a
+  float32 index as two bfloat16 planes (``split_index_bf16``, made once per
+  index by ``TokenIndex.token_planes``); a float32 query is split into
+  bfloat16 parts (``split_query_bf16``). ``maxsim_route`` says how a call
+  splits. On a CPU tensor it runs ``maxsim_search_torch``.
+  ``mma_tile_plan`` is the kernel's tiling.
 
 The pruned search modes' summary sweeps follow the same pattern:
 
@@ -40,7 +41,7 @@ import torch
 from .quant import NEG_INF, quantize_queries_int8
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_MAX_DIM = 128                 # Qs + 2 Ds shared-memory tiles fit 227 KB
+_MAX_DIM = 128                 # the kernels' k-steps cover 128 values
 _MMA_PARTS_F32 = 2             # bf16 parts of a float32 query (see below)
 
 
@@ -80,15 +81,14 @@ def maxsim_search_torch(q: torch.Tensor, tokens: torch.Tensor,
 
 # library name -> (CUDA source, {C function: (pointer args, int args)})
 _LIBRARIES = {
-    "ravqa_maxsim": ("maxsim.cu", {"ravqa_maxsim_search": (4, 5)}),
-    "ravqa_maxsim_mma": ("maxsim_mma.cu", {"ravqa_maxsim_mma": (4, 11)}),
+    "ravqa_maxsim_mma": ("maxsim_mma.cu", {"ravqa_maxsim_mma": (4, 12)}),
     "ravqa_coarse_sweep": ("coarse_sweep.cu", {
         "ravqa_coarse_sweep": (4, 6), "ravqa_coarse_sweep_int8": (6, 5)}),
     "ravqa_stage1_sweep": ("stage1_sweep.cu", {"ravqa_stage1_sweep": (4, 8)}),
     "ravqa_maxsim_int8": ("maxsim_int8.cu", {
         "ravqa_maxsim_search_int8": (5, 10)}),
     "ravqa_residual_maxsim": ("residual_maxsim.cu", {
-        "ravqa_residual_maxsim": (7, 10)}),
+        "ravqa_residual_maxsim": (7, 11)}),
     # the stage-2 experiment's scorers (ops/stage2.py): X1, and X2/X3
     "ravqa_residual_lut_maxsim": ("residual_lut_maxsim.cu", {
         "ravqa_residual_lut_maxsim": (7, 5)}),
@@ -136,12 +136,16 @@ def build_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The MMA route (csrc/mma_tile.cuh): K1 on a bf16 index and K5
+# The MMA route (csrc/mma_tile.cuh): K1 and K5
 # ---------------------------------------------------------------------------
 
 _TILE_ROWS = 256               # doc tokens (MMA columns) per tile
 _TILE_DOCS = 8                 # docs per tile (per-row maxima in smem)
 _TILES_PER_BLOCK = 16          # most tiles one block sweeps
+# doc tokens per tile by index planes: two planes double a ring stage's
+# bytes, so a split float32 index takes tiles of 128 columns (3 stages of
+# 64 KB at dim 128 fit the 227 KB of shared memory)
+TILE_ROWS = {1: _TILE_ROWS, 2: 128}
 
 
 class MmaPlan(NamedTuple):
@@ -160,22 +164,24 @@ class MmaPlan(NamedTuple):
 
 
 def mma_tile_plan(ld: int, n: int, b: int, lq: int, block_rows: int,
-                  sm_count: int = 132) -> MmaPlan:
+                  sm_count: int = 132, tile_rows: int = _TILE_ROWS
+                  ) -> MmaPlan:
     """The MMA route's tiling of N docs of Ld tokens against B queries of
-    Lq tokens, for a kernel whose block holds `block_rows` query rows.
+    Lq tokens, for a kernel whose block holds `block_rows` query rows and
+    whose tiles hold `tile_rows` doc tokens (TILE_ROWS).
 
-    Doc tile: floor(256 / doc_cols) docs (at most 8) for Ld <= 256, else
-    one doc's tokens over ceil(Ld / 256) tiles of equal width. Queries: as
-    many whole queries as fit the block's rows (one query over several row
-    chunks when Lq is longer). Tiles per block: at most 16, fewer when the
-    grid would give the card's `sm_count` SMs less than four blocks each;
-    always whole docs."""
-    if ld <= _TILE_ROWS:
+    Doc tile: floor(tile_rows / doc_cols) docs (at most 8) for Ld <=
+    tile_rows, else one doc's tokens over ceil(Ld / tile_rows) tiles of
+    equal width. Queries: as many whole queries as fit the block's rows
+    (one query over several row chunks when Lq is longer). Tiles per block:
+    at most 16, fewer when the grid would give the card's `sm_count` SMs
+    less than four blocks each; always whole docs."""
+    if ld <= tile_rows:
         tiles_per_doc = 1
         doc_cols = -(-ld // 8) * 8
-        docs_per_tile = min(_TILE_DOCS, _TILE_ROWS // doc_cols)
+        docs_per_tile = min(_TILE_DOCS, tile_rows // doc_cols)
     else:
-        tiles_per_doc = -(-ld // _TILE_ROWS)
+        tiles_per_doc = -(-ld // tile_rows)
         doc_cols = -(-ld // (8 * tiles_per_doc)) * 8
         docs_per_tile = 1
     g = max(1, min(b, block_rows // max(lq, 1)))
@@ -203,14 +209,60 @@ def split_query_bf16(q: torch.Tensor, parts: int) -> torch.Tensor:
     return torch.stack(out)
 
 
-def maxsim_route(q_dtype: torch.dtype, tokens_dtype: torch.dtype
-                 ) -> tuple[str, int]:
-    """Which CUDA kernel ``maxsim_search`` launches: ("mma", parts) for a
-    bfloat16 index (csrc/maxsim_mma.cu; 1 part for a bfloat16 query, 2 for
-    a float32 one), ("simt", 0) for float32 x float32 (csrc/maxsim.cu)."""
-    if tokens_dtype == torch.bfloat16:
-        return "mma", 1 if q_dtype == torch.bfloat16 else _MMA_PARTS_F32
-    return "simt", 0
+def index_plane_dim(dim: int) -> int:
+    """Values per bfloat16 plane of a split index row: dim rounded up to
+    the kernel's k-steps of 16 values (1, 2, 4 or 8 of them), so plane 1
+    starts on a k-step."""
+    ks = 1
+    while 16 * ks < dim:
+        ks *= 2
+    return 16 * ks
+
+
+def split_index_bf16(tokens: torch.Tensor, parts: int = 2,
+                     max_chunk_elems: int = 1 << 26) -> torch.Tensor:
+    """(N, Ld, dim) float32 index -> (N, Ld, parts * dp) bfloat16 planes
+    [part 0 | part 1 | ...], each part split_query_bf16's rule (part i =
+    bf16(x - the earlier parts)) and zero-padded to dp = index_plane_dim
+    values. Two parts take the float32 index's bytes at dim 128. Made in
+    doc chunks of `max_chunk_elems` values, so the float32 temporaries stay
+    bounded."""
+    n, ld, dim = tokens.shape
+    dp = index_plane_dim(dim)
+    out = torch.zeros((n, ld, parts, dp), dtype=torch.bfloat16,
+                      device=tokens.device)
+    step = max(1, max_chunk_elems // max(1, ld * dim))
+    for s in range(0, n, step):
+        out[s:s + step, :, :, :dim] = split_query_bf16(
+            tokens[s:s + step], parts).permute(1, 2, 0, 3)
+    return out.reshape(n, ld, parts * dp)
+
+
+class Route(NamedTuple):
+    """How ``maxsim_search`` multiplies: `parts` bfloat16 parts of the
+    query times `planes` bfloat16 planes of the index, the products whose
+    part + plane < max(parts, planes) summed into one float32 accumulator
+    (the terms below that order are smaller than float32's rounding)."""
+    kernel: str
+    parts: int
+    planes: int
+
+
+def maxsim_route(q_dtype: torch.dtype, tokens_dtype: torch.dtype) -> Route:
+    """The split ``maxsim_search`` takes on the card (csrc/maxsim_mma.cu):
+    bf16 x bf16 one product; a float32 query against a bf16 index two
+    parts (2 products); float32 x float32 two parts against the index's
+    two planes (hi.hi + lo.hi + hi.lo, 3 products)."""
+    parts = 1 if q_dtype == torch.bfloat16 else _MMA_PARTS_F32
+    planes = 1 if tokens_dtype == torch.bfloat16 else _MMA_PARTS_F32
+    return Route("mma", parts, planes)
+
+
+def route_products(route: Route) -> int:
+    """The bf16 products per (query token, doc token) of a route."""
+    top = max(route.parts, route.planes)
+    return sum(1 for p in range(route.parts) for x in range(route.planes)
+               if p + x < top)
 
 
 # query rows per block of the MMA kernels, by query parts (maxsim_mma.cu);
@@ -224,10 +276,11 @@ def _sm_count(index: int) -> int:
 
 
 def launch_plan(device, ld: int, n: int, b: int, lq: int,
-                block_rows: int) -> MmaPlan:
+                block_rows: int, tile_rows: int = _TILE_ROWS) -> MmaPlan:
     """mma_tile_plan for the card `device` is on."""
     return mma_tile_plan(ld, n, b, lq, block_rows,
-                         _sm_count(torch.device(device).index or 0))
+                         _sm_count(torch.device(device).index or 0),
+                         tile_rows)
 
 
 def _check_kernel_args(q, tokens, mask):
@@ -262,14 +315,18 @@ def _check_kernel_args(q, tokens, mask):
 
 
 def maxsim_search(q: torch.Tensor, tokens: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor,
+                  planes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Score a query batch against every doc of an index: (B, N) float32.
 
     q (B, Lq, dim) and tokens (N, Ld, dim) float32 or bfloat16 (f32 x f32,
-    f32 x bf16 and bf16 x bf16), mask (N, Ld) int8. CUDA tensors launch a
-    Hopper kernel on the current stream (no synchronisation), chosen by
-    ``maxsim_route``, and count the launch in ``maxsim_search.launches``,
-    the tensor-core route's also in ``maxsim_search.mma_launches``; CPU
+    f32 x bf16 and bf16 x bf16), mask (N, Ld) int8. CUDA tensors launch
+    csrc/maxsim_mma.cu on the current stream (no synchronisation), split
+    as ``maxsim_route`` says, and count the launch in
+    ``maxsim_search.launches``, a float32 index's also in
+    ``maxsim_search.split_launches``. A float32 index is read as its bf16
+    planes: `planes` (split_index_bf16 of `tokens`, as
+    TokenIndex.token_planes keeps them), else split in this call. CPU
     tensors take ``maxsim_search_torch``."""
     if q.device.type == "cpu":
         return maxsim_search_torch(q, tokens, mask)
@@ -278,27 +335,34 @@ def maxsim_search(q: torch.Tensor, tokens: torch.Tensor,
     _check_kernel_args(q, tokens, mask)
     b, lq, dim = q.shape
     n, ld, _ = tokens.shape
+    route = maxsim_route(q.dtype, tokens.dtype)
+    idx = tokens
+    if route.planes > 1:
+        idx = split_index_bf16(tokens, route.planes) if planes is None \
+            else planes
+        want = (n, ld, route.planes * index_plane_dim(dim))
+        if tuple(idx.shape) != want or idx.dtype != torch.bfloat16:
+            raise ValueError(f"planes must be bf16 {want} (split_index_bf16 "
+                             f"of the tokens); got {idx.dtype} "
+                             f"{tuple(idx.shape)}")
+        _check_cuda("maxsim_search", tokens=tokens, planes=idx)
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    route, parts = maxsim_route(q.dtype, tokens.dtype)
-    if route == "simt":
-        _launch("ravqa_maxsim", "ravqa_maxsim_search", q.device,
-                q.data_ptr(), tokens.data_ptr(), mask.data_ptr(),
-                out.data_ptr(), b, lq, n, ld, dim)
-    else:
-        qp = split_query_bf16(q, parts)
-        plan = launch_plan(q.device, ld, n, b, lq, MMA_BLOCK_ROWS[parts])
-        _launch("ravqa_maxsim_mma", "ravqa_maxsim_mma", q.device,
-                qp.data_ptr(), tokens.data_ptr(), mask.data_ptr(),
-                out.data_ptr(), b, lq, n, ld, dim, parts,
-                plan.docs_per_tile, plan.doc_cols, plan.tiles_per_doc,
-                plan.tiles_per_block, plan.queries_per_block)
-        maxsim_search.mma_launches += 1
+    qp = split_query_bf16(q, route.parts)
+    plan = launch_plan(q.device, ld, n, b, lq, MMA_BLOCK_ROWS[route.parts],
+                       TILE_ROWS[route.planes])
+    _launch("ravqa_maxsim_mma", "ravqa_maxsim_mma", q.device,
+            qp.data_ptr(), idx.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            b, lq, n, ld, dim, route.parts, route.planes,
+            plan.docs_per_tile, plan.doc_cols, plan.tiles_per_doc,
+            plan.tiles_per_block, plan.queries_per_block)
     maxsim_search.launches += 1
+    if route.planes > 1:
+        maxsim_search.split_launches += 1
     return out
 
 
 maxsim_search.launches = 0
-maxsim_search.mma_launches = 0
+maxsim_search.split_launches = 0
 
 
 # ---------------------------------------------------------------------------

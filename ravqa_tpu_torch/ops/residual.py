@@ -20,9 +20,10 @@ little-endian as ``lax.bitcast_convert_type`` lays them out.
 Training (k-means, quantiles) and compression are plain PyTorch on the
 device the caller names, as they are XLA in the JAX package. The fine
 stage's fused decompress + MaxSim is ``maxsim_residual``: on CUDA tensors
-the hand-written kernel ``csrc/residual_maxsim.cu`` (K6, port of
-maxsim_residual_pallas), counted in ``maxsim_residual.launches``; on CPU
-tensors its plain version ``maxsim_residual_torch``.
+the hand-written tensor-core kernel ``csrc/residual_maxsim.cu`` (K6, port
+of maxsim_residual_pallas), counted in ``maxsim_residual.launches``, its
+blocks planned by ``residual_plan``; on CPU tensors its plain version
+``maxsim_residual_torch``.
 """
 
 from __future__ import annotations
@@ -416,6 +417,23 @@ def maxsim_residual_torch(q: torch.Tensor, records: torch.Tensor,
     return out
 
 
+_MAX_CANDS = 64                # candidates per K6 block, most
+
+
+def residual_plan(b: int, c: int, sm_count: int = 132) -> int:
+    """Candidates per run of K6 (csrc/residual_maxsim.cu), a run being one
+    warpgroup's share: run i scores query i // splits, candidates
+    (i % splits) * cands .. + cands - 1 (fewer in the last), splits =
+    ceil(C / cands); a block holds two consecutive runs of one query where
+    shared memory allows. Each query's candidates go to about
+    4 * sm_count / B runs, so every SM gets about four (a run's chunks go
+    one after another), but no more than ceil(C / 8) (each run stages the
+    query once), and a run holds at most 64."""
+    want = max(1, -(-4 * sm_count // max(b, 1)))
+    splits = max(1, min(want, -(-c // 8)))
+    return max(1, min(_MAX_CANDS, -(-c // splits)))
+
+
 def maxsim_residual(q: torch.Tensor, records: torch.Tensor,
                     cand: torch.Tensor, mask: torch.Tensor,
                     centroids: torch.Tensor, bucket_weights: torch.Tensor,
@@ -425,19 +443,20 @@ def maxsim_residual(q: torch.Tensor, records: torch.Tensor,
     of maxsim_residual_pallas): see maxsim_residual_torch for the
     semantics. CUDA tensors launch csrc/residual_maxsim.cu (K6) on the
     current stream, counted in ``maxsim_residual.launches``: the kernel
-    reads each candidate's record and mask row by id (no gathered copy)
-    and looks centroid scores up by code in shared memory. The table
-    (rows x Lq bf16; rows = K flat, k1 + k2 factored) must fit there
-    beside the tiles, about 150 KB at Lq <= 64 (a flat codec of 1,024
-    centroids at Lq = 64 fits); a larger one is refused. Any C works (no
-    TPU tile rule). CPU tensors take the plain version."""
+    reads each candidate's record and mask row by id (no gathered copy),
+    multiplies the decoded residuals on the tensor cores and looks
+    centroid scores up by code in shared memory. The table (rows x Lq
+    bf16; rows = K flat, k1 + k2 factored) must fit there beside the
+    buffers, about 160 KB at Lq <= 64 (a flat codec of 1,024 centroids at
+    Lq = 64 fits); a larger one is refused. Any C works (no TPU tile
+    rule). CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return maxsim_residual_torch(q, records, cand, mask, centroids,
                                      bucket_weights, nbits=nbits,
                                      coarse=coarse, fine=fine)
     if q.device.type != "cuda":
         raise ValueError(f"maxsim_residual: unsupported device {q.device}")
-    from .maxsim import _check_cuda, _launch
+    from .maxsim import _check_cuda
     _check_codec(centroids, coarse, fine)
     if nbits not in (2, 4, 8):
         raise ValueError(f"maxsim_residual: nbits must be 2, 4 or 8; got "
@@ -470,13 +489,29 @@ def maxsim_residual(q: torch.Tensor, records: torch.Tensor,
     cand32 = cand.to(torch.int32).contiguous()
     _check_cuda("maxsim_residual", q=qb, cs=cs, records=records,
                 cand=cand32, mask=mask, weights=w)
-    out = torch.empty((b, c), dtype=torch.float32, device=q.device)
     k1 = coarse.shape[0] if coarse is not None else 0
     k2 = fine.shape[0] if fine is not None else 0
-    _launch("ravqa_residual_maxsim", "ravqa_residual_maxsim", q.device,
+    return launch_residual_kernel(qb, cs, records, cand32, mask, w,
+                                  nbits=nbits, k1=k1, k2=k2)
+
+
+def launch_residual_kernel(qb, cs, records, cand32, mask, w, *, nbits: int,
+                           k1: int, k2: int) -> torch.Tensor:
+    """K6's launch alone, on the inputs maxsim_residual prepares and checks
+    (q in bf16, the centroid-score table, cand int32, the bf16 bucket
+    weights as float32; k1 = k2 = 0 for a flat codec): (B, C) float32,
+    counted in ``maxsim_residual.launches``. Timing this call times the
+    kernel without the wrapper's table and casts."""
+    from .maxsim import _launch, _sm_count
+    b, lq, dim = qb.shape
+    n, ld = mask.shape
+    c = cand32.shape[1]
+    out = torch.empty((b, c), dtype=torch.float32, device=qb.device)
+    cands = residual_plan(b, c, _sm_count(qb.device.index or 0))
+    _launch("ravqa_residual_maxsim", "ravqa_residual_maxsim", qb.device,
             qb.data_ptr(), cs.data_ptr(), records.data_ptr(),
             cand32.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
-            b, lq, c, n, ld, dim, nbits, cs.shape[1], k1, k2)
+            b, lq, c, n, ld, dim, nbits, cs.shape[1], k1, k2, cands)
     maxsim_residual.launches += 1
     return out
 

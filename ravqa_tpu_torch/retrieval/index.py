@@ -16,8 +16,11 @@ Port of ravqa_tpu/retrieval/index.py for one device:
 
 Save format (save_index / load_index): the JAX package's index.npz plus
 metadata.json, so an index saved by either package loads in the other.
-Sharding and encode_corpus's resume_dir are not ported (ROADMAP.md,
-Queue A).
+The functions keep the JAX package's argument positions, `mesh` and
+`axis` included; sharding (a given mesh raises NotImplementedError) and
+encode_corpus's resume_dir are not ported (ROADMAP.md, Queue A).
+A float32 index searched exactly on the card also keeps its bf16 planes
+(token_planes), made on first use and never saved.
 """
 
 from __future__ import annotations
@@ -25,10 +28,19 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import weakref
 from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+
+_NO_SHARDING = ("is not ported yet: ravqa_tpu_torch keeps an index on one "
+                "device (see ROADMAP.md, Queue A: A4)")
+
+
+def _no_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"sharded {what} {_NO_SHARDING}")
 
 
 @dataclasses.dataclass
@@ -103,9 +115,11 @@ class TokenIndex:
             raise ValueError("the index is already int8")
         self.tokens, self.scales = quantize_index_int8(self.tokens,
                                                        self.mask)
+        self._planes = None
         return self
 
     def quantize_residual(self, n_centroids=256, nbits: int = 2,
+                          mesh=None, axis: str = "index",
                           seed: int = 0, sample: int = 2 ** 16,
                           heldout: int = 2 ** 14,
                           codec=None) -> "TokenIndex":
@@ -123,6 +137,7 @@ class TokenIndex:
         from ..ops.residual import (compress_blocks, pack_records,
                                     record_bytes, train_codec,
                                     train_codec_factored)
+        _no_mesh(mesh, "residual compression")
         if self.tokens is None:
             raise ValueError("the index is already residual-compressed")
         if self.summaries is None:
@@ -161,7 +176,20 @@ class TokenIndex:
         self.nbits = codec.nbits
         self.meta["dim"] = int(dim)
         self.tokens = None
+        self._planes = None
         return self
+
+    def token_planes(self) -> torch.Tensor:
+        """The float32 tokens as K1's split route reads them
+        (ops.maxsim.split_index_bf16: (N_pad, Ld, 2 * dp) bf16, the same
+        bytes as the tokens), made on first use and kept until `tokens`
+        changes. Not saved: save_index writes the tokens."""
+        from ..ops.maxsim import split_index_bf16
+        cached = getattr(self, "_planes", None)
+        if cached is None or cached[0]() is not self.tokens:
+            self._planes = (weakref.ref(self.tokens),
+                            split_index_bf16(self.tokens))
+        return self._planes[1]
 
     def gather_tokens(self, rows: torch.Tensor) -> torch.Tensor:
         """Token embeddings of the given padded-index rows, (..., Ld, dim)
@@ -212,6 +240,9 @@ def build_index_from_embeddings(
     pids: Optional[Sequence[int]] = None,
     pad_multiple: int = 128,
     dtype: torch.dtype = torch.bfloat16,
+    mesh=None,
+    axis: str = "index",
+    *,
     device=None,
 ) -> TokenIndex:
     """Assemble an index from per-doc token embeddings.
@@ -221,6 +252,7 @@ def build_index_from_embeddings(
     masks: the matching validity masks. N is padded to a multiple of
     `pad_multiple` with masked docs whose pid is -1. device: where the index
     lives (None: where `embs` is, the CPU for numpy input)."""
+    _no_mesh(mesh, "index")
     if isinstance(embs, (list, tuple)):
         n = len(embs)
         ld = max(e.shape[0] for e in embs)
@@ -336,14 +368,15 @@ def save_index(index: TokenIndex, path: str) -> None:
                    **extra, **index.meta}, f)
 
 
-def load_index(path: str, dtype: torch.dtype = torch.bfloat16,
-               device=None) -> TokenIndex:
+def load_index(path: str, dtype: torch.dtype = torch.bfloat16, mesh=None,
+               axis: str = "index", *, device=None) -> TokenIndex:
     """Load an index saved by save_index here or in the JAX package, onto
     `device` (default CPU). Float tokens and a residual index's summaries
     come back in `dtype`. A residual save with the legacy separate
     codes / residuals / scales arrays is repacked into record rows; one
     with a bit-pack layout other than planar is refused."""
     from ..ops.residual import pack_records
+    _no_mesh(mesh, "index")
     with open(os.path.join(path, "metadata.json")) as f:
         meta = json.load(f)
     z = np.load(os.path.join(path, "index.npz"))

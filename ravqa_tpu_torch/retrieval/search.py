@@ -42,15 +42,17 @@ _MODES = ("exact", "two_stage", "hierarchical")
 def search_single_device(q: torch.Tensor, tokens: torch.Tensor,
                          mask: torch.Tensor,
                          scales: Optional[torch.Tensor] = None, *, k: int,
-                         use_pallas: bool = True):
+                         use_pallas: bool = False,
+                         planes: Optional[torch.Tensor] = None):
     """Exact search on one device. Returns (scores (B, k), rows (B, k)).
 
-    A float index runs ops.maxsim_search (K1). An int8 index (`scales`
-    given) runs, with use_pallas, K5 on queries quantized per token
-    (ops.maxsim_search_int8), else the float-query XLA route's math
-    (maxsim_search_int8_torch)."""
+    A float index runs ops.maxsim_search (K1; `planes`, a float32 index's
+    TokenIndex.token_planes(), spare a CUDA call the split). An int8 index
+    (`scales` given) runs, with use_pallas, K5 on queries quantized per
+    token (ops.maxsim_search_int8), else the float-query XLA route's math
+    (maxsim_search_int8_torch), the JAX function's default."""
     if scales is None:
-        scores = maxsim_search(q, tokens, mask)
+        scores = maxsim_search(q, tokens, mask, planes=planes)
     elif use_pallas:
         q8, qs = quantize_queries_int8(q.float())
         scores = maxsim_search_int8(q8, qs, tokens, scales)
@@ -80,10 +82,11 @@ class LateInteractionSearcher:
     the JAX searcher's TPU knobs and are accepted as no-ops: every cut is
     an exact top-k. ``group_size`` sets the fine stage's query-group
     chunk. ``centroid_prune`` sets a residual index's centroid-only cut
-    (resolve_centroid_prune). ``mesh`` (sharded search) raises
+    (resolve_centroid_prune). The arguments keep the JAX searcher's
+    positions; a ``mesh`` (sharded search over its ``axis``) raises
     NotImplementedError."""
 
-    def __init__(self, index: TokenIndex, mesh=None,
+    def __init__(self, index: TokenIndex, mesh=None, axis: str = "index",
                  use_pallas: Optional[bool] = None,
                  tile_d: Optional[int] = None, mode: str = "exact",
                  n_candidates: Optional[int] = None,
@@ -95,9 +98,9 @@ class LateInteractionSearcher:
                  centroid_prune: Optional[int] = None,
                  coarse_int8: Optional[bool] = None,
                  stage1_kernel: Optional[bool] = None,
-                 stage1_tile_b: int = 8,
-                 preset: str = "reference"):
-        del tile_d, approx_topk, approx_recall
+                 preset: str = "reference",
+                 stage1_tile_b: int = 8):
+        del axis, tile_d, approx_topk, approx_recall
         if preset not in ("reference", "fast"):
             raise ValueError(f"unknown preset {preset!r} "
                              "(expected 'reference' or 'fast')")
@@ -305,8 +308,13 @@ class LateInteractionSearcher:
                 group_size=self.group_size, summaries_t=self._summ_t,
                 summaries_t_scale=self._summ_t_scale,
                 doc_valid=self._doc_valid, **self._fine_kwargs(k, n_cand))
+        planes = None
+        if idx.scales is None and idx.device.type == "cuda" \
+                and idx.tokens.dtype == torch.float32:
+            planes = idx.token_planes()       # made once, on first search
         return search_single_device(q, idx.tokens, idx.mask, idx.scales,
-                                    k=k, use_pallas=self.use_pallas)
+                                    k=k, use_pallas=self.use_pallas,
+                                    planes=planes)
 
     def search(self, q, k: int):
         """Host-facing search: returns (scores (B, k) np, pids (B, k) np).

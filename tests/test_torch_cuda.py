@@ -122,10 +122,10 @@ MMA_SERVE_SHAPES = [(32, 64, 203, 220, 128), (32, 32, 16387, 64, 128)]
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 def test_maxsim_mma_route_at_serve_shapes(shape, q_dtype):
     q, tok, mask = make(shape, q_dtype, torch.bfloat16)
-    before = maxsim.maxsim_search.mma_launches
+    before = maxsim.maxsim_search.launches
     got = maxsim.maxsim_search(q, tok, mask)
     torch.cuda.synchronize()
-    assert maxsim.maxsim_search.mma_launches == before + 1
+    assert maxsim.maxsim_search.launches == before + 1
     lq = shape[1]
     torch.testing.assert_close(got, maxsim.maxsim_search_torch(q, tok, mask),
                                rtol=1e-5, atol=1e-4 * lq)
@@ -141,16 +141,70 @@ def test_maxsim_mma_route_repeats_bit_for_bit(q_dtype):
 
 
 def test_maxsim_mma_launches_count_the_bf16_index_route_only():
+    """Every call launches the tensor-core kernel; split_launches counts
+    the float32 index's split route only."""
     q, tok, mask = make(SHAPES[0], torch.float32, torch.float32)
     launches = maxsim.maxsim_search.launches
-    mma = maxsim.maxsim_search.mma_launches
-    maxsim.maxsim_search(q, tok, mask)                    # f32 x f32: SIMT
+    split = maxsim.maxsim_search.split_launches
+    maxsim.maxsim_search(q, tok, mask)                    # f32 x f32: planes
     assert maxsim.maxsim_search.launches == launches + 1
-    assert maxsim.maxsim_search.mma_launches == mma
+    assert maxsim.maxsim_search.split_launches == split + 1
     maxsim.maxsim_search(q, tok.bfloat16(), mask)         # f32 x bf16
     maxsim.maxsim_search(q.bfloat16(), tok.bfloat16(), mask)
     assert maxsim.maxsim_search.launches == launches + 3
-    assert maxsim.maxsim_search.mma_launches == mma + 2
+    assert maxsim.maxsim_search.split_launches == split + 1
+
+
+# -- K1 on a float32 index: two bf16 planes, three products --------------------
+
+# the float32 serve's shape at a small N (Ld=220 over two 112-column tiles),
+# 64-token docs (two a tile), and N a multiple of nothing
+SPLIT_SHAPES = [(32, 64, 203, 220, 128), (32, 32, 1031, 64, 128),
+                (4, 64, 57, 100, 64)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("negative", [False, True])
+def test_maxsim_split_route_matches_plain(shape, negative):
+    """A float32 index read as its bf16 planes, made once
+    (split_index_bf16) or by the call: the plain float32 MaxSim to the card
+    tolerance, an all-masked doc at exactly -9999 * Lq."""
+    q, tok, mask = make(shape, torch.float32, torch.float32,
+                        negative=negative)
+    planes = maxsim.split_index_bf16(tok)
+    before = maxsim.maxsim_search.split_launches
+    got = maxsim.maxsim_search(q, tok, mask, planes=planes)
+    torch.cuda.synchronize()
+    assert maxsim.maxsim_search.split_launches == before + 1
+    lq = shape[1]
+    torch.testing.assert_close(got, maxsim.maxsim_search_torch(q, tok, mask),
+                               rtol=1e-5, atol=1e-4 * lq)
+    assert torch.equal(got[:, ::5], torch.full_like(got[:, ::5],
+                                                    -9999.0 * lq))
+    assert torch.equal(got, maxsim.maxsim_search(q, tok, mask))
+
+
+def test_maxsim_split_route_refuses_wrong_planes():
+    q, tok, mask = make(SPLIT_SHAPES[0], torch.float32, torch.float32)
+    with pytest.raises(ValueError, match="planes"):
+        maxsim.maxsim_search(q, tok, mask, planes=tok.bfloat16())
+
+
+def test_cuda_searcher_keeps_the_planes_of_a_float32_index():
+    rng = np.random.default_rng(4)
+    embs = rng.normal(size=(40, 20, 64)).astype(np.float32)
+    embs /= np.linalg.norm(embs, axis=-1, keepdims=True)
+    masks = (rng.random((40, 20)) > 0.2).astype(np.float32)
+    idx = build_index_from_embeddings(embs, masks, pad_multiple=8,
+                                      dtype=torch.float32, device="cuda")
+    s = LateInteractionSearcher(idx)
+    q = torch.from_numpy(rng.normal(size=(3, 16, 64)).astype(
+        np.float32)).cuda()
+    s.search_device(q, 5)
+    planes = idx.token_planes()
+    s.search_device(q, 5)
+    assert idx.token_planes() is planes               # made once
+    assert planes.shape == (40, 20, 128) and planes.dtype == torch.bfloat16
 
 
 # -- K2, K3, K4 ----------------------------------------------------------------
@@ -554,6 +608,20 @@ def test_residual_kernel_keeps_negative_maxima(factored):
     _close(got, residual.maxsim_residual_torch(**a), RES_SHAPES[2][1])
     valid = (a["mask"][a["cand"]] != 0).any(-1)
     assert bool((got[valid] < 0).all()) and bool(valid.any())
+
+
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("nbits", [2, 4])
+def test_residual_kernel_at_serve_shapes(factored, nbits):
+    """The 1M fine stage's shape (B=32, Lq=32, C=256, Ld=64) and the
+    residual serve's (Lq=64, Ld=220): every block of ~29 candidates,
+    candidates over several chunks, the 8-byte decode."""
+    for shape in ((32, 32, 256, 600, 64, 128), (32, 64, 256, 300, 220, 128)):
+        a = make_residual(shape, nbits, factored)
+        got = residual.maxsim_residual(**a)
+        _close(got, residual.maxsim_residual_torch(**a), shape[1])
+        assert torch.equal(got[:, 0], torch.full_like(got[:, 0],
+                                                      -9999.0 * shape[1]))
 
 
 def test_residual_kernel_flat_table_of_1024_at_lq_64():

@@ -324,3 +324,46 @@ def test_bf16_scales_save_as_uint16_bits(tmp_path):
     jl = jax_index.load_index(str(tmp_path))
     np.testing.assert_array_equal(np.asarray(jl.scales, np.float32),
                                   t.scales.float().numpy())
+
+
+# -- the JAX argument positions: mesh and axis --------------------------------
+
+def test_positional_calls_bind_as_in_jax(tmp_path):
+    """mesh and axis sit where the JAX package has them, so positional
+    calls written for it bind the same parameters: the searcher's third
+    argument is the axis (not use_pallas), load_index's third the mesh
+    (not the device), quantize_residual's fifth the seed."""
+    embs, masks, q = corpus(seed=6, n=64)
+    j, t = both(embs, masks, None)
+    s = LateInteractionSearcher(t, None, "index")
+    assert s.use_pallas is False                  # a CPU index's default
+    want = jax_search.LateInteractionSearcher(j, None, "index", False,
+                                              approx_topk=False).search(q, 5)
+    assert_search_equal(s.search(q, 5), want, q.shape[1])
+
+    save_index(t, str(tmp_path))
+    tl = load_index(str(tmp_path), torch.float32, None, "index")
+    jl = jax_index.load_index(str(tmp_path), jnp.float32, None, "index")
+    assert tl.tokens.dtype == torch.float32 and tl.device.type == "cpu"
+    np.testing.assert_array_equal(tl.tokens.numpy(), np.asarray(jl.tokens))
+
+    by_pos = t.quantize_residual(16, 2, None, "index", 1)
+    _, by_kw = both(embs, masks, None)
+    by_kw.quantize_residual(n_centroids=16, nbits=2, seed=1)
+    assert torch.equal(by_pos.records, by_kw.records)
+
+
+def test_a_given_mesh_raises_until_sharding_is_ported(tmp_path):
+    embs, masks, _ = corpus(seed=7, n=32)
+    _, t = both(embs, masks, None)
+    save_index(t, str(tmp_path))
+    mesh = object()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LateInteractionSearcher(t, mesh, "index")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_index(str(tmp_path), torch.float32, mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t.quantize_residual(16, 2, mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_index_from_embeddings(embs, masks, None, 8, torch.float32,
+                                    mesh)

@@ -245,9 +245,10 @@ def test_two_bf16_parts_hold_the_card_tolerance(shape, negative):
     q, mask = torch.from_numpy(q), torch.from_numpy(mask)
     tok = torch.from_numpy(tok).bfloat16()
     want = torch_maxsim.maxsim_search_torch(q, tok, mask)
-    route, parts = torch_maxsim.maxsim_route(q.dtype, tok.dtype)
-    assert (route, parts) == ("mma", 2)
-    got = _parts_maxsim(torch_maxsim.split_query_bf16(q, parts), tok, mask)
+    route = torch_maxsim.maxsim_route(q.dtype, tok.dtype)
+    assert route == ("mma", 2, 1)
+    got = _parts_maxsim(torch_maxsim.split_query_bf16(q, route.parts), tok,
+                        mask)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * lq)
     if lq > 1 and dim >= 64:
         rounded = _parts_maxsim(torch_maxsim.split_query_bf16(q, 1), tok,
@@ -294,9 +295,129 @@ def test_mma_tile_plan_fills_the_card():
 
 
 @pytest.mark.parametrize("q_dtype,t_dtype,route", [
-    (torch.float32, torch.float32, ("simt", 0)),
-    (torch.bfloat16, torch.bfloat16, ("mma", 1)),
-    (torch.float32, torch.bfloat16, ("mma", 2))])
+    (torch.float32, torch.float32, ("mma", 2, 2)),
+    (torch.bfloat16, torch.bfloat16, ("mma", 1, 1)),
+    (torch.float32, torch.bfloat16, ("mma", 2, 1))])
 def test_maxsim_route_by_dtype(q_dtype, t_dtype, route):
-    assert torch_maxsim.maxsim_route(q_dtype, t_dtype) == route
-    assert route[0] == "simt" or route[1] in torch_maxsim.MMA_BLOCK_ROWS
+    """Every dtype pair runs the tensor-core kernel; a float32 index as two
+    bf16 planes against two query parts: hi.hi + lo.hi + hi.lo."""
+    got = torch_maxsim.maxsim_route(q_dtype, t_dtype)
+    assert got == route
+    assert got.parts in torch_maxsim.MMA_BLOCK_ROWS
+    assert got.planes in torch_maxsim.TILE_ROWS
+    assert torch_maxsim.route_products(got) == {1: 1, 2: 2, 4: 3}[
+        got.parts * got.planes]
+
+
+# -- K1 on a float32 index: both sides split into bf16 parts ------------------
+
+def _split_maxsim(q, tok, mask, parts):
+    """The float32-index route's arithmetic in plain PyTorch: query and
+    index each split into `parts` bf16 parts (split_query_bf16's rule), the
+    products of part p and plane x with p + x < parts summed in float32
+    before the mask, max and sum; float64 products of bf16 values are exact
+    and the sums stay within float32's rounding."""
+    qp = torch_maxsim.split_query_bf16(q, parts).double()
+    tp = torch_maxsim.split_query_bf16(tok, parts).double()
+    sc = sum(torch.einsum("nld,bqd->nlbq", tp[x], qp[p])
+             for p in range(parts) for x in range(parts) if p + x < parts)
+    sc = sc.float().masked_fill(~mask.bool()[:, :, None, None], -9999.0)
+    return sc.amax(dim=1).sum(dim=-1).T
+
+
+def _serve_geometry(negative, seed=0, b=4, lq=64, n=96, ld=220, dim=128):
+    """The float32 serve's geometry: L2-normalized float32 query and doc
+    tokens (scores of both signs), Lq = 64, Ld = 220, dim 128, ~30 % of
+    the doc tokens masked, a doc with none and a zero query row.
+    negative: every score < 0."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, lq, dim))
+    tok = rng.normal(size=(n, ld, dim))
+    if negative:
+        q, tok = np.abs(q), -np.abs(tok)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    tok /= np.linalg.norm(tok, axis=-1, keepdims=True)
+    mask = (rng.random((n, ld)) > 0.3).astype(np.int8)
+    mask[7] = 0
+    q[:, -1] = 0.0
+    return (torch.from_numpy(q.astype(np.float32)),
+            torch.from_numpy(tok.astype(np.float32)), torch.from_numpy(mask))
+
+
+# the margin: the card checks hold K1 to 1e-3 max abs (chip_smoke.py) and
+# to rtol 1e-5, atol 1e-4 * Lq (tests/test_torch_cuda.py); the split's own
+# error must stay ten times inside the first, at 1e-4
+SPLIT_MARGIN = 1e-4
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("negative", [False, True])
+def test_two_sided_split_holds_the_card_tolerance(parts, negative):
+    """Two bf16 parts per side (three products) keep the float32 serve's
+    MaxSim within SPLIT_MARGIN of the plain float32 version, and the
+    top-10 with it; three parts (six products) keep it closer still. The
+    kernel takes two (csrc/maxsim_mma.cu)."""
+    q, tok, mask = _serve_geometry(negative)
+    want = torch_maxsim.maxsim_search_torch(q, tok, mask)
+    got = _split_maxsim(q, tok, mask, parts)
+    err = (got - want).abs().max().item()
+    assert err <= SPLIT_MARGIN
+    if parts == 3:
+        assert err <= SPLIT_MARGIN / 10
+    assert torch.equal(got[:, 7], torch.full_like(got[:, 7], -9999.0 * 64))
+    gv, gi = torch.topk(got, 10, dim=1)
+    wv, _ = torch.topk(want, 10, dim=1)
+    assert (gv - wv).abs().max().item() <= SPLIT_MARGIN
+    assert (want.gather(1, gi) - gv).abs().max().item() <= SPLIT_MARGIN
+    if negative:
+        assert bool((got < 0).all())
+    else:
+        assert bool((got < 0).any()) and bool((got > 0).any())
+
+
+@pytest.mark.parametrize("dim", [8, 24, 64, 128])
+def test_split_index_planes_sum_back_to_the_index(dim):
+    """split_index_bf16: (N, Ld, 2 * dp) bf16, plane 0 the tokens rounded
+    to bf16, plane 1 the remainder, zeros past dim; chunking changes
+    nothing; at dim 128 the planes take the float32 index's bytes."""
+    rng = np.random.default_rng(12)
+    tok = torch.from_numpy(rng.normal(size=(9, 5, dim)).astype(np.float32))
+    planes = torch_maxsim.split_index_bf16(tok)
+    dp = torch_maxsim.index_plane_dim(dim)
+    assert dp % 16 == 0 and dp >= dim and dp < 2 * max(dim, 16)
+    assert planes.dtype == torch.bfloat16 and planes.shape == (9, 5, 2 * dp)
+    hi, lo = planes[..., :dim], planes[..., dp:dp + dim]
+    assert torch.equal(hi, tok.bfloat16())
+    assert not planes[..., dim:dp].any() and not planes[..., dp + dim:].any()
+    total = hi.double() + lo.double()
+    rel = ((total - tok.double()).abs() / tok.double().abs()).max().item()
+    assert rel <= 2.0 ** -16
+    assert torch.equal(torch_maxsim.split_index_bf16(tok,
+                                                     max_chunk_elems=7),
+                       planes)
+    if dim == 128:
+        assert planes.numel() * 2 == tok.numel() * 4
+
+
+@pytest.mark.parametrize("ld", [1, 9, 64, 100, 128, 150, 220, 300])
+def test_mma_tile_plan_at_128_columns_covers_every_doc_row_once(ld):
+    """The float32-index route's tiles (TILE_ROWS[2] = 128 columns): the
+    walk of test_mma_tile_plan_covers_every_doc_row_once; Ld = 220 spans
+    two tiles of 112 columns."""
+    n, b, lq = 37, 9, 64
+    tr = torch_maxsim.TILE_ROWS[2]
+    plan = torch_maxsim.mma_tile_plan(ld, n, b, lq, 128, tile_rows=tr)
+    dpt, dc, tpd, tpb, g = plan
+    assert dc % 8 == 0 and 8 <= dc * dpt <= tr and dpt <= 8
+    assert tpb % tpd == 0 and (tpd == 1 or dpt == 1)
+    if ld == 220:
+        assert (tpd, dc) == (2, 112)
+    seen = []
+    for t in range(-(-n // dpt) * tpd):
+        dg, part = divmod(t, tpd)
+        for d in range(min(dpt, n - dg * dpt)):
+            for r in range(dc):
+                row = part * dc + r
+                if row < ld:
+                    seen.append((dg * dpt + d, row))
+    assert sorted(seen) == [(i, r) for i in range(n) for r in range(ld)]

@@ -311,3 +311,34 @@ def test_flat_codec_gate_keeps_large_codebooks_on_the_plain_stage(
         nbits=2, use_pallas_residual=True)
     assert not called and r.shape == (2, 3)
     assert (r[:, 0] == torch.arange(2)).all()
+
+
+@pytest.mark.parametrize("b,c,sm", [(32, 256, 132), (1, 256, 132),
+                                    (2, 13, 132), (32, 1024, 132),
+                                    (5, 37, 8), (64, 1, 132), (3, 200, 132)])
+def test_residual_plan_covers_every_candidate_once(b, c, sm):
+    """K6's runs, walked as csrc/residual_maxsim.cu walks them (a block
+    holds runs 2x and 2x + 1, or one): run i scores query i // splits,
+    candidates (i % splits) * cands .. + cands, cut at C; every (query,
+    candidate) is scored by exactly one run, a run holds at most 64
+    candidates, and the SMs get at least two runs each where the
+    candidates allow."""
+    cands = tr.residual_plan(b, c, sm)
+    assert 1 <= cands <= 64
+    splits = -(-c // cands)
+    seen = []
+    for wgs in (1, 2):
+        per_query = -(-splits // wgs)
+        for block in range(b * per_query):
+            for wg in range(wgs):
+                q = block // per_query
+                c0 = ((block % per_query) * wgs + wg) * cands
+                seen += [(q, c0 + j) for j in range(min(cands, c - c0))]
+        if wgs == 1:
+            assert sorted(seen) == [(q, j) for q in range(b)
+                                    for j in range(c)]
+            seen = []
+    assert sorted(seen) == [(q, j) for q in range(b) for j in range(c)]
+    if c >= 8 * 2 * sm // b:
+        assert b * splits >= 2 * sm or cands == 64
+    assert splits <= -(-c // 8)

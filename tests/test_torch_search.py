@@ -396,3 +396,29 @@ def test_centroid_prune_matches_jax(compressed, mode):
     assert LateInteractionSearcher(indexes["int8"][1], centroid_prune=12,
                                    mode=mode).resolve_centroid_prune(5, 40) \
         == 0
+
+
+@pytest.mark.parametrize("index_kind", ["float", "int8"])
+def test_search_single_device_defaults_match_jax(index_kind):
+    """Called with its defaults, the port's search_single_device takes the
+    JAX function's route: on an int8 index the float query is scored by
+    the XLA route's math, not quantized (use_pallas=False)."""
+    from ravqa_tpu_torch.retrieval import search_single_device
+    embs, masks = _corpus(seed=4)
+    q = _normed(np.random.default_rng(5), (3, 6, 16))
+    jidx = jax_index.build_index_from_embeddings(embs, masks, pad_multiple=8,
+                                                 dtype=jnp.float32)
+    tidx = build_index_from_embeddings(embs, masks, pad_multiple=8,
+                                       dtype=torch.float32)
+    if index_kind == "int8":
+        jidx.quantize_int8()
+        tidx.quantize_int8()
+    want_s, want_r = (np.asarray(x) for x in jax_search.search_single_device(
+        jnp.asarray(q), jidx.tokens, jidx.mask, jidx.scales, k=5))
+    got_s, got_r = (x.numpy() for x in search_single_device(
+        torch.from_numpy(q), tidx.tokens, tidx.mask, tidx.scales, k=5))
+    atol = 1e-4 * q.shape[1]
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=atol)
+    for b in range(q.shape[0]):
+        assert set(want_r[b][want_s[b] > want_s[b, -1] + atol]) \
+            <= set(got_r[b])
