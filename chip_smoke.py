@@ -8,7 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      TF32 off for float32 matmuls and convolutions. No GPU -> exit 1.
   2. build: every CUDA library of the port (csrc/maxsim_mma.cu: K1 on the
      tensor cores, a bf16 index or a float32 one as two bf16 planes,
-     csrc/coarse_sweep.cu: K2 + K3, csrc/stage1_sweep.cu: K4,
+     csrc/coarse_sweep.cu: K2 + K3 (K3 on the tensor cores,
+     csrc/summary_tile.cuh), csrc/stage1_sweep.cu: K4 (bf16 and int8 rows
+     on the same tensor-core sweep, float32 rows on the CUDA cores),
      csrc/maxsim_int8.cu: K5, csrc/residual_maxsim.cu: K6,
      csrc/residual_lut_maxsim.cu: X1, csrc/candidate_maxsim.cu: X2 and X3)
      from the repo's sources, the nvcc runs side by side; ptxas
@@ -31,8 +33,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      towers on the card checked against the same module run on the CPU.
   5. K2, K3 and K4 against their plain versions at the bench.py shape
      (B=32, Lq=32, dim=128; 112,640 docs x 8 summaries; 1,760 x 4 block
-     summaries padded to 2,048; bs=64, n_blocks 16 and 32): scores,
-     tie-aware top-10, K3's pre-scale sums exactly, both times.
+     summaries padded to 2,048; bs=64, n_blocks 16 and 32) and K3 and K4
+     at the hierarchical serve's (Lq=64; 256 of 1,024 padded blocks x 4
+     summaries; int8 rows, n_blocks 32 of 256 blocks x 8 summaries):
+     scores, tie-aware top-10, K3's pre-scale sums exactly, invalid docs at
+     exactly -9999, the wrapper's and the plain version's times, K3's and
+     K4's launch alone beside them ("kernel_ms", CUDA events) and the
+     kernel's device time from torch.profiler's trace ("device_ms").
   6. pruned search at the bench scale: a clustered bf16 index of 112,640
      docs x 128 tokens made on the card (bench.py's recipe), summaries and
      block summaries, then LateInteractionSearcher in hierarchical (fast,
@@ -53,7 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      C=256, Ld=64, dim 128) with a flat codec of 1,024 centroids and a
      factored one of 64 x 128, nbits 2 and 4, and at the residual serve's
      shape (Lq=64, Ld=220, C=256, factored, nbits 2): max |err|, tie-aware
-     top-10 and both times.
+     top-10 and both times; K6's launch alone ("kernel_ms") and its device
+     time ("device_ms").
   9. the 1M legs: 1,000,448 docs x 64 tokens x 128 dims, clustered over
      8,192 topics and cluster-ordered (scripts/synth1m.py's recipe), made
      on the card; S=4 summaries, block size 64; B=32, Lq=32 queries from
@@ -202,6 +210,19 @@ def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd, ops=None):
         o.setdefault(key, v)                       # the first shape's
     print(f"{kernel} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+
+
+def device_ms(fn, pattern):
+    """The device time per call of the kernels whose lowercased name holds
+    `pattern`, from torch.profiler's trace of 10 calls: the kernel's own
+    time, where CUDA events around a small launch also count the host's
+    enqueue."""
+    from ravqa_tpu_torch.profile_serve import kernel_times
+    hit = [v for k, v in kernel_times(fn, n=10).items()
+           if pattern in k.lower()]
+    if not hit:
+        raise AssertionError(f"the profiler saw no kernel like {pattern!r}")
+    return sum(hit)
 
 
 def maxsim_bound(maxsim, q, tok, mask):
@@ -427,26 +448,46 @@ def _compare(name, got, want, atol=SWEEP_ATOL):
 
 
 def sweep_kernels(maxsim):
-    """K2, K3 and K4 against their plain versions at the bench.py shape.
-    Returns {kernel: {"err", "ms", "plain_ms", "shapes": {...}}}."""
+    """K2, K3 and K4 against their plain versions at the bench.py shapes
+    and, for K3 and K4, at the hierarchical serve's. K3 and K4 also time
+    the kernel alone ("kernel_ms", launch_coarse_int8 / launch_stage1 on
+    the inputs the wrapper prepares). Returns {kernel: {"err", "ms",
+    "plain_ms", "shapes": {...}}}."""
     import torch
     from ravqa_tpu_torch.ops.quant import (quantize_queries_int8,
                                            quantize_summaries_int8,
                                            quantize_summaries_t_int8)
     g = torch.Generator(device="cuda").manual_seed(1)
-    b, lq, dim, bs = 32, 32, 128, 64
-    q = _normed(g, b, lq, dim, dtype=torch.float32)
-    q[:, -2:] = 0                                  # zero query rows
+    b, dim, bs = 32, 128, 64
+    queries = {}
+    for lq in (32, 64):
+        queries[lq] = _normed(g, b, lq, dim, dtype=torch.float32)
+        queries[lq][:, -2:] = 0                    # zero query rows
     out = {k: {"err": 0.0, "shapes": {}} for k in ("K2", "K3", "K4")}
 
-    def record(kernel, shape, err, fn, plain_fn, bnd):
+    # the tensor-core sweep's instances, by their Op's name
+    ops_name = {"K3": "coarseint8op", "K4": "stage1op"}
+
+    def record(kernel, shape, err, fn, plain_fn, bnd, kernel_fn=None):
         record_kernel(out, kernel, shape, err, fn, plain_fn, bnd)
+        if kernel_fn is not None:
+            o = out[kernel]["shapes"][shape]
+            o["kernel_ms"] = time_ms(kernel_fn)
+            o["device_ms"] = device_ms(kernel_fn, ops_name[kernel])
+            print(f"  {kernel} {shape}: the launch alone "
+                  f"{o['kernel_ms']:.4f} ms, the kernel's device time "
+                  f"{o['device_ms']:.4f} ms", flush=True)
 
     summ_docs = None
     # two-stage coarse pass: 112,640 docs x 8 summaries; hierarchical
-    # stage 0: 1,760 blocks x 4 summaries, zero-padded to 2,048
-    for shape, s_, n, n_valid in (("docs S=8 N=112640", 8, 112640, None),
-                                  ("blocks S=4 N=2048", 4, 2048, 1760)):
+    # stage 0: 1,760 blocks x 4 summaries, zero-padded to 2,048; the
+    # hierarchical serve's stage 0 (K3 only): 256 blocks padded to 1,024,
+    # Lq = 64 (32 text + 32 mapping tokens)
+    for shape, s_, n, n_valid, lq in (
+            ("docs S=8 N=112640", 8, 112640, None, 32),
+            ("blocks S=4 N=2048", 4, 2048, 1760, 32),
+            ("serve blocks Lq=64 S=4 N=1024", 4, 1024, 256, 64)):
+        q = queries[lq]
         summ_t = _normed(g, s_, n, dim, dtype=torch.bfloat16)
         valid = torch.ones(n, dtype=torch.int8, device="cuda")
         if n_valid is None:
@@ -456,16 +497,18 @@ def sweep_kernels(maxsim):
             valid[n_valid:] = 0
             summ_t[:, n_valid:] = 0
         invalid = valid == 0
-        got = maxsim.coarse_sweep(q, summ_t, valid)
-        want = maxsim.coarse_sweep_torch(q, summ_t, valid)
-        torch.cuda.synchronize()
-        if not bool((got[:, invalid] == -9999.0).all()):
-            raise AssertionError("K2: an invalid doc must score -9999")
-        err = _compare(f"K2 bf16 {shape}", got, want)
         ops = 2.0 * b * lq * s_ * n * dim
-        record("K2", shape, err, lambda: maxsim.coarse_sweep(q, summ_t, valid),
-               lambda: maxsim.coarse_sweep_torch(q, summ_t, valid),
-               bound(_nbytes(q, summ_t, valid, got), ops, "bf16"))
+        if lq == 32:
+            got = maxsim.coarse_sweep(q, summ_t, valid)
+            want = maxsim.coarse_sweep_torch(q, summ_t, valid)
+            torch.cuda.synchronize()
+            if not bool((got[:, invalid] == -9999.0).all()):
+                raise AssertionError("K2: an invalid doc must score -9999")
+            err = _compare(f"K2 bf16 {shape}", got, want)
+            record("K2", shape, err,
+                   lambda: maxsim.coarse_sweep(q, summ_t, valid),
+                   lambda: maxsim.coarse_sweep_torch(q, summ_t, valid),
+                   bound(_nbytes(q, summ_t, valid, got), ops, "bf16"))
 
         st8, dsc = quantize_summaries_t_int8(summ_t)
         q8, qs = quantize_queries_int8(q)
@@ -483,37 +526,51 @@ def sweep_kernels(maxsim):
               flush=True)
         got = maxsim.coarse_sweep(q, st8, valid, dscale=dsc)
         want = maxsim.coarse_sweep_torch(q, st8, valid, dscale=dsc)
+        torch.cuda.synchronize()
+        if not bool((got[:, invalid] == -9999.0).all()):
+            raise AssertionError("K3: an invalid doc must score -9999")
         err = _compare(f"K3 int8 {shape}", got, want)
         record("K3", shape, err,
                lambda: maxsim.coarse_sweep(q, st8, valid, dscale=dsc),
                lambda: maxsim.coarse_sweep_torch(q, st8, valid, dscale=dsc),
-               bound(_nbytes(q, st8, dsc, valid, got), ops, "int8"))
+               bound(_nbytes(q, st8, dsc, valid, got), ops, "int8"),
+               lambda: maxsim.launch_coarse_int8(q8, qs, st8, dsc, valid))
 
-    # hierarchical stage 1 over the docs' summaries: 1,760 blocks of 64
+    # hierarchical stage 1 over the docs' summaries: 1,760 blocks of 64,
+    # and the serve's 256 blocks of 64 docs x 8 summaries at Lq = 64
     rows = maxsim.stage1_rows(summ_docs, bs)
     si8, ssc = quantize_summaries_int8(summ_docs)
     rows8 = maxsim.stage1_rows(si8, bs)
-    nb = rows.shape[0]
-    for nbl in (32, 16):
+    serve_docs = _normed(g, 256 * bs, 8, dim, dtype=torch.float32)
+    serve_i8, serve_sc = quantize_summaries_int8(serve_docs)
+    serve_rows8 = maxsim.stage1_rows(serve_i8, bs)
+    cases = [(f"{label} rows n_blocks={nbl}", 32, nbl, r, dscale)
+             for nbl in (32, 16)
+             for label, r, dscale in (("int8", rows8, ssc),
+                                      ("bf16", rows, None))]
+    cases.append(("serve int8 rows Lq=64 n_blocks=32 of 256", 64, 32,
+                  serve_rows8, serve_sc))
+    for shape, lq, nbl, r, dscale in cases:
+        q = queries[lq]
+        nb = r.shape[0]
         blk = torch.rand(b, nb, generator=g, device="cuda").argsort(
             dim=1)[:, :nbl]
-        for label, r, dscale in (("int8", rows8, ssc), ("bf16", rows, None)):
-            shape = f"{label} rows n_blocks={nbl}"
-            got = maxsim.stage1_sweep(q, r, blk, dscale=dscale)
-            want = maxsim.stage1_sweep_torch(q, r, blk, dscale=dscale)
-            err = _compare(f"K4 {shape}", got, want)
-            # the rows of the blocks some query selected, each read once;
-            # int8 rows are products in bf16 (the TPU kernel's cast)
-            used = torch.unique(blk).numel()
-            nbytes = (_nbytes(q, blk, got) + used * r[0].numel()
-                      * r.element_size()
-                      + (0 if dscale is None else used * bs * 4))
-            record("K4", shape, err,
-                   lambda: maxsim.stage1_sweep(q, r, blk, dscale=dscale),
-                   lambda: maxsim.stage1_sweep_torch(q, r, blk,
-                                                     dscale=dscale),
-                   bound(nbytes, 2.0 * b * lq * nbl * r.shape[1] * bs * dim,
-                         "bf16"))
+        got = maxsim.stage1_sweep(q, r, blk, dscale=dscale)
+        want = maxsim.stage1_sweep_torch(q, r, blk, dscale=dscale)
+        err = _compare(f"K4 {shape}", got, want)
+        # the rows of the blocks some query selected, each read once;
+        # int8 rows are products in bf16 (the TPU kernel's cast)
+        used = torch.unique(blk).numel()
+        nbytes = (_nbytes(q, blk, got) + used * r[0].numel()
+                  * r.element_size()
+                  + (0 if dscale is None else used * bs * 4))
+        qc, blk32 = q.bfloat16(), blk.to(torch.int32).contiguous()
+        record("K4", shape, err,
+               lambda: maxsim.stage1_sweep(q, r, blk, dscale=dscale),
+               lambda: maxsim.stage1_sweep_torch(q, r, blk, dscale=dscale),
+               bound(nbytes, 2.0 * b * lq * nbl * r.shape[1] * bs * dim,
+                     "bf16"),
+               lambda: maxsim.launch_stage1(qc, r, blk32, dscale))
     return out
 
 
@@ -818,10 +875,14 @@ def compressed_kernels():
                 residual.centroid_scores(q, cent, coarse, fine).contiguous(),
                 records, cand.to(torch.int32).contiguous(), mask,
                 w.bfloat16().float().contiguous())
-        kms = time_ms(lambda: residual.launch_residual_kernel(
-            *prep, nbits=nbits, k1=k1 if k2 else 0, k2=k2))
-        out["K6"]["shapes"][shape]["kernel_ms"] = kms
-        print(f"  K6 {shape}: the kernel alone {kms:.4f} ms", flush=True)
+        def alone():
+            return residual.launch_residual_kernel(
+                *prep, nbits=nbits, k1=k1 if k2 else 0, k2=k2)
+        o = out["K6"]["shapes"][shape]
+        o["kernel_ms"] = time_ms(alone)
+        o["device_ms"] = device_ms(alone, "residual_maxsim_kernel")
+        print(f"  K6 {shape}: the kernel alone {o['kernel_ms']:.4f} ms, "
+              f"its device time {o['device_ms']:.4f} ms", flush=True)
 
     # the 1M fine stage's shape: 256 candidates per query, 64 tokens
     for name, k1, k2 in (("factored 64x128", 64, 128),
@@ -1170,7 +1231,7 @@ def main():
         raise AssertionError(f"maxsim kernel launched {launches} times "
                              f"for {dispatches} dispatches")
 
-    phase("5 K2, K3, K4 vs plain at the bench shape")
+    phase("5 K2, K3, K4 vs plain at the bench and serve shapes")
     sweeps = sweep_kernels(maxsim)
     phase("6 pruned search at 112,640 docs")
     searches, pruned_launches = pruned_search(maxsim)

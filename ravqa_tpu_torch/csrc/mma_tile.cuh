@@ -489,13 +489,14 @@ __device__ __forceinline__ void sweep(const Args& a, const CUtensorMap& map) {
   }
 }
 
-// The tensor map of the index tok as (N * Ld) x tok_dim elements of
-// elem_bytes (2: bf16, 1: int8), in boxes of one 128-byte k-panel x
-// doc_cols rows,
-// 128-byte swizzle, zeros out of bounds. cuTensorMapEncodeTiled lives in
-// libcuda: it is reached through the runtime's entry-point query, so the
-// library links against the runtime only.
-inline int encode_tok_map(CUtensorMap* map, const Args& a, int elem_bytes) {
+// The tensor map of a row-major rows x cols matrix at ptr of elem_bytes
+// values (2: bf16, 1: int8), in boxes of one 128-byte k-panel x box_rows
+// rows, 128-byte swizzle, zeros out of bounds. cuTensorMapEncodeTiled
+// lives in libcuda: it is reached through the runtime's entry-point query,
+// so the library links against the runtime only.
+inline int encode_map_2d(CUtensorMap* map, const void* ptr, int elem_bytes,
+                         unsigned long long cols, unsigned long long rows,
+                         int box_rows) {
   static PFN_cuTensorMapEncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -507,20 +508,26 @@ inline int encode_tok_map(CUtensorMap* map, const Args& a, int elem_bytes) {
       return static_cast<int>(cudaErrorSymbolNotFound);
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.tok_dim),
-                              static_cast<cuuint64_t>(a.N) * a.Ld};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.tok_dim) *
-                                 elem_bytes};
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
-                             static_cast<cuuint32_t>(a.doc_cols)};
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult r = encode(
       map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                            : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-      2, const_cast<void*>(a.tok), dims, strides, box, elem_strides,
+      2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the tensor map of the index tok as (N * Ld) x tok_dim values, in boxes
+// of one 128-byte k-panel x doc_cols rows
+inline int encode_tok_map(CUtensorMap* map, const Args& a, int elem_bytes) {
+  return encode_map_2d(map, a.tok, elem_bytes, a.tok_dim,
+                       static_cast<unsigned long long>(a.N) * a.Ld,
+                       a.doc_cols);
 }
 
 // Checks a launch's plan against the kernel (block_rows query rows per

@@ -1,5 +1,7 @@
-// Register-tiled building blocks of the summary sweeps (coarse_sweep.cu,
-// stage1_sweep.cu) on Hopper.
+// Register-tiled building blocks of the CUDA-core summary sweeps on Hopper:
+// K2's float body (coarse_sweep.cu) and K4's float32 rows
+// (stage1_sweep.cu). K3 and K4's bf16 and int8 rows run on the tensor
+// cores (summary_tile.cuh).
 //
 // A block of 256 threads (16 x 16) computes a 128-row x 128-column tile of
 // dot products: rows are summary vectors staged in shared memory (one row
@@ -37,12 +39,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// four int8 values, exactly, as floats
-__device__ __forceinline__ float4 load4(const int8_t* p) {
-  const char4 v = *reinterpret_cast<const char4*>(p);
-  return make_float4(v.x, v.y, v.z, v.w);
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -65,10 +61,9 @@ __host__ __device__ constexpr int row_ld(int dim) {
 }
 
 // s[i][4h + j] += sum_k D[ty + 16 i][k] * Qs[k][64 h + 4 tx + j], h < H,
-// float products (float, bfloat16 or int8 rows; the int8 values and their
-// products are exact in float32). All 8 rows, also those past the data's
-// end: their products are computed and never read, so the loads run ahead
-// of the FMAs without branches.
+// float products (float or bfloat16 rows). All 8 rows, also those past the
+// data's end: their products are computed and never read, so the loads run
+// ahead of the FMAs without branches.
 template <int H, typename TD>
 __device__ __forceinline__ void tile_product(const float* Qs, const TD* D,
                                              int ds_ld, int dim, int tx,
@@ -95,43 +90,6 @@ __device__ __forceinline__ void tile_product(const float* Qs, const TD* D,
           s[i][4 * h + 1] = fmaf(a[kk], w[kk][h].y, s[i][4 * h + 1]);
           s[i][4 * h + 2] = fmaf(a[kk], w[kk][h].z, s[i][4 * h + 2]);
           s[i][4 * h + 3] = fmaf(a[kk], w[kk][h].w, s[i][4 * h + 3]);
-        }
-      }
-    }
-  }
-}
-
-// int8 x int8 -> int32 with __dp4a: Qw[kw][c] holds word kw (4 int8
-// values, dims 4 kw .. 4 kw + 3) of query column c; D rows are int8.
-// s[i][4h + j] += sum_k D[ty + 16 i][k] * q[64 h + 4 tx + j][k], exactly.
-template <int H>
-__device__ __forceinline__ void tile_product_i8(const int* Qw,
-                                                const int8_t* D, int ds_ld,
-                                                int dim, int tx, int ty,
-                                                int (&s)[8][8]) {
-  for (int k = 0; k < dim; k += 16) {
-    int4 w[4][H];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-        w[kk][h] = *reinterpret_cast<const int4*>(
-            Qw + (k / 4 + kk) * kQsLd + 64 * h + tx * 4);
-    int4 a4[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      a4[i] = *reinterpret_cast<const int4*>(D + (ty + 16 * i) * ds_ld + k);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int a[4] = {a4[i].x, a4[i].y, a4[i].z, a4[i].w};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          s[i][4 * h + 0] = __dp4a(a[kk], w[kk][h].x, s[i][4 * h + 0]);
-          s[i][4 * h + 1] = __dp4a(a[kk], w[kk][h].y, s[i][4 * h + 1]);
-          s[i][4 * h + 2] = __dp4a(a[kk], w[kk][h].z, s[i][4 * h + 2]);
-          s[i][4 * h + 3] = __dp4a(a[kk], w[kk][h].w, s[i][4 * h + 3]);
         }
       }
     }

@@ -20,14 +20,18 @@ The pruned search modes' summary sweeps follow the same pattern:
 
 - ``coarse_sweep`` (``csrc/coarse_sweep.cu``, port of
   ``coarse_sweep_pallas``): every query against every doc's S summary
-  vectors in slot-major (S, N, dim) layout, float (K2) or int8 (K3); plain
-  version ``coarse_sweep_torch``.
+  vectors in slot-major (S, N, dim) layout, float (K2, CUDA cores) or int8
+  (K3, tensor cores); plain version ``coarse_sweep_torch``.
 - ``stage1_sweep`` (``csrc/stage1_sweep.cu``, port of
   ``stage1_sweep_pallas``): each query against the summaries of its own
-  selected blocks in ``stage1_rows`` layout (K4); plain version
+  selected blocks in ``stage1_rows`` layout (K4: bf16 and int8 rows on the
+  tensor cores, float32 rows on the CUDA cores); plain version
   ``stage1_sweep_torch`` (port of ``stage1_sweep_xla``).
+  ``summary_plan`` is the tensor-core sweep's grid (``csrc/summary_tile.cuh``,
+  K3 and K4).
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``;
+``launch_coarse_int8`` and ``launch_stage1`` are the launches alone.
 """
 
 from __future__ import annotations
@@ -83,8 +87,8 @@ def maxsim_search_torch(q: torch.Tensor, tokens: torch.Tensor,
 _LIBRARIES = {
     "ravqa_maxsim_mma": ("maxsim_mma.cu", {"ravqa_maxsim_mma": (4, 12)}),
     "ravqa_coarse_sweep": ("coarse_sweep.cu", {
-        "ravqa_coarse_sweep": (4, 6), "ravqa_coarse_sweep_int8": (6, 5)}),
-    "ravqa_stage1_sweep": ("stage1_sweep.cu", {"ravqa_stage1_sweep": (4, 8)}),
+        "ravqa_coarse_sweep": (4, 6), "ravqa_coarse_sweep_int8": (6, 11)}),
+    "ravqa_stage1_sweep": ("stage1_sweep.cu", {"ravqa_stage1_sweep": (5, 14)}),
     "ravqa_maxsim_int8": ("maxsim_int8.cu", {
         "ravqa_maxsim_search_int8": (5, 10)}),
     "ravqa_residual_maxsim": ("residual_maxsim.cu", {
@@ -398,6 +402,73 @@ def _valid_row(valid: Optional[torch.Tensor], n: int):
         torch.int8)
 
 
+# ---------------------------------------------------------------------------
+# The tensor-core summary sweep (csrc/summary_tile.cuh): K3 and K4
+# ---------------------------------------------------------------------------
+
+SUMMARY_TILE_ROWS = 64          # summary rows (the MMA's M) per tile
+_SUMMARY_COLS = (16, 32, 64, 128)   # the MMA's N that the kernels take
+_COARSE_COLS = 128              # K3's N: a group of whole queries
+_SUMMARY_MAX_TILES = 32         # most tiles one block sweeps
+
+
+class SummaryPlan(NamedTuple):
+    """How the tensor-core summary sweep covers a launch; the kernels take
+    these ints.
+
+    Queries go in groups of `queries_per_group` whole queries, each padded
+    to `lqp` columns (Lq rounded up to 8), `cols` columns (the MMA's N) a
+    pass; a query longer than `cols` columns (then alone in its group)
+    takes `passes` passes. A group's summaries go in `n_tiles` tiles of 64
+    rows; block x sweeps group x % groups over tiles
+    (x // groups) * tiles_per_block .. + tiles_per_block - 1, every slot of
+    each. K3's tiles are docs 64 t .. 64 t + 63; K4's tile t is docs
+    64 (t % chunks) .. + 63 of the query's selected block t // chunks,
+    chunks = ceil(bs / 64)."""
+    cols: int
+    lqp: int
+    queries_per_group: int
+    passes: int
+    n_tiles: int
+    tiles_per_block: int
+
+    def groups(self, b: int) -> int:
+        return -(-b // self.queries_per_group)
+
+    def blocks(self, b: int) -> int:
+        return self.groups(b) * -(-self.n_tiles // self.tiles_per_block)
+
+
+def summary_plan(b: int, lq: int, n_tiles: int, *, gathered: bool,
+                 sm_count: int = 132) -> SummaryPlan:
+    """The tensor-core sweep's plan for B queries of Lq tokens over n_tiles
+    tiles of 64 summary rows per group.
+
+    gathered (K4, each query its own blocks): one query a group, N the
+    smallest of 16, 32, 64, 128 that covers it (passes of 128 past that).
+    Else (K3): groups of as many whole queries as fit 128 columns, or one
+    query over several passes. Tiles per block: at most 32, fewer when the
+    grid would give the card's `sm_count` SMs less than four blocks each."""
+    lqp = -(-lq // 8) * 8
+    if gathered:
+        cols = next(c for c in _SUMMARY_COLS if c >= min(lqp, 128))
+        g = 1
+    else:
+        cols = _COARSE_COLS
+        g = max(1, min(b, cols // lqp))
+    passes = -(-g * lqp // cols)
+    groups = -(-b // g)
+    per_block = max(1, min(_SUMMARY_MAX_TILES,
+                           groups * n_tiles // (4 * sm_count)))
+    return SummaryPlan(cols, lqp, g, passes, n_tiles, per_block)
+
+
+def _summary_launch_plan(device, b: int, lq: int, n_tiles: int,
+                         gathered: bool) -> SummaryPlan:
+    return summary_plan(b, lq, n_tiles, gathered=gathered,
+                        sm_count=_sm_count(torch.device(device).index or 0))
+
+
 def _slot_max(q2: torch.Tensor, slots, max_chunk_elems: int):
     """max over s of q2 (R, dim) @ slots(s, lo, hi).T -> (R, N), in docs
     chunks so the (R, n) score block stays bounded. slots is (S, N, dim);
@@ -466,8 +537,8 @@ def coarse_sweep_int8(q8: torch.Tensor, qscale: torch.Tensor,
                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The int8 coarse sweep (K3) on quantized queries: see
     coarse_sweep_int8_torch. CUDA tensors launch csrc/coarse_sweep.cu's
-    int8 body (counted in ``coarse_sweep_int8.launches``); CPU tensors take
-    the plain version."""
+    int8 body on the tensor cores (counted in
+    ``coarse_sweep_int8.launches``); CPU tensors take the plain version."""
     if q8.device.type == "cpu":
         return coarse_sweep_int8_torch(q8, qscale, summaries_t, dscale,
                                        valid)
@@ -492,11 +563,22 @@ def coarse_sweep_int8(q8: torch.Tensor, qscale: torch.Tensor,
     _check_cuda("coarse_sweep_int8", q8=q8, qscale=qscale,
                 summaries_t=summaries_t, dscale=dscale,
                 **({} if v is None else {"valid": v}))
+    return launch_coarse_int8(q8, qscale, summaries_t, dscale, v)
+
+
+def launch_coarse_int8(q8, qscale, summaries_t, dscale, valid):
+    """K3's launch alone (csrc/coarse_sweep.cu on the tensor cores), on the
+    inputs coarse_sweep_int8 checks (`valid` int8 or None): (B, N) float32,
+    counted in ``coarse_sweep_int8.launches``."""
+    b, lq, dim = q8.shape
+    s_, n, _ = summaries_t.shape
     out = torch.empty((b, n), dtype=torch.float32, device=q8.device)
+    plan = _summary_launch_plan(q8.device, b, lq,
+                                -(-n // SUMMARY_TILE_ROWS), gathered=False)
     _launch("ravqa_coarse_sweep", "ravqa_coarse_sweep_int8", q8.device,
             q8.data_ptr(), qscale.data_ptr(), summaries_t.data_ptr(),
-            dscale.data_ptr(), None if v is None else v.data_ptr(),
-            out.data_ptr(), b, lq, s_, n, dim)
+            dscale.data_ptr(), None if valid is None else valid.data_ptr(),
+            out.data_ptr(), b, lq, s_, n, dim, *plan)
     coarse_sweep_int8.launches += 1
     return out
 
@@ -604,11 +686,12 @@ def stage1_sweep(q: torch.Tensor, summ_rows: torch.Tensor, blk: torch.Tensor,
                  dscale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gathered stage-1 sweep (port of stage1_sweep_pallas): see
     stage1_sweep_torch for the semantics. CUDA tensors launch
-    csrc/stage1_sweep.cu (K4, counted in ``stage1_sweep.launches``), which
-    returns raw scores; dscale is applied after it. int8 rows require
-    dscale. `tile_b` is the TPU kernel's blocks-per-step knob, accepted
-    and unused: the CUDA kernel has no lane rule on n_blocks. CPU tensors
-    take the plain version."""
+    csrc/stage1_sweep.cu (K4, counted in ``stage1_sweep.launches``): bf16
+    and int8 rows on the tensor cores, with dscale applied in the kernel's
+    epilogue; float32 rows on the CUDA cores, with dscale applied after.
+    int8 rows require dscale. `tile_b` is the TPU kernel's blocks-per-step
+    knob, accepted and unused: the CUDA kernel has no lane rule on
+    n_blocks. CPU tensors take the plain version."""
     del tile_b
     if summ_rows.dtype == torch.int8 and dscale is None:
         raise ValueError("int8 summ_rows require dscale")
@@ -625,24 +708,47 @@ def stage1_sweep(q: torch.Tensor, summ_rows: torch.Tensor, blk: torch.Tensor,
                          f"(NB, S, bs, dim), blk (B, n_blocks); got "
                          f"{tuple(q.shape)}, {tuple(summ_rows.shape)}, "
                          f"{tuple(blk.shape)}")
-    b, lq, dim = q.shape
-    nb, s_, bs, _ = summ_rows.shape
-    nbl = blk.shape[1]
-    if lq == 0:
+    nb, _, bs, _ = summ_rows.shape
+    if q.shape[1] == 0:
         raise ValueError("stage1_sweep: Lq must be > 0")
-    _check_dim("stage1_sweep", dim, int8=summ_rows.dtype == torch.int8)
+    if dscale is not None:
+        if tuple(dscale.shape) != (nb * bs,):
+            raise ValueError(f"stage1_sweep: dscale must have shape "
+                             f"({nb * bs},); got {tuple(dscale.shape)}")
+        dscale = dscale.float().contiguous()
+    _check_dim("stage1_sweep", q.shape[2],
+               int8=summ_rows.dtype == torch.int8)
     qc = q.to(_stage1_dtype(summ_rows)).contiguous()
     blk32 = blk.to(torch.int32).contiguous()
-    _check_cuda("stage1_sweep", q=qc, summ_rows=summ_rows, blk=blk32)
-    out = torch.empty((b, nbl * bs), dtype=torch.float32, device=q.device)
+    _check_cuda("stage1_sweep", q=qc, summ_rows=summ_rows, blk=blk32,
+                **({} if dscale is None else {"dscale": dscale}))
+    if summ_rows.dtype == torch.float32:
+        out = launch_stage1(qc, summ_rows, blk32, None)
+        return out if dscale is None else _apply_dscale(
+            out, dscale, blk.long(), summ_rows)
+    return launch_stage1(qc, summ_rows, blk32, dscale)
+
+
+def launch_stage1(qc, summ_rows, blk32, dscale):
+    """K4's launch alone (csrc/stage1_sweep.cu), on the inputs
+    stage1_sweep prepares and checks (q in the rows' compute type, blk
+    int32; dscale folded in for bf16 and int8 rows, None for float32
+    ones): (B, n_blocks * bs) float32, counted in
+    ``stage1_sweep.launches``."""
+    b, lq, dim = qc.shape
+    nb, s_, bs, _ = summ_rows.shape
+    nbl = blk32.shape[1]
+    out = torch.empty((b, nbl * bs), dtype=torch.float32, device=qc.device)
     rows_type = {torch.float32: 0, torch.bfloat16: 1,
                  torch.int8: 2}[summ_rows.dtype]
-    _launch("ravqa_stage1_sweep", "ravqa_stage1_sweep", q.device,
+    plan = _summary_launch_plan(qc.device, b, lq,
+                                nbl * -(-bs // SUMMARY_TILE_ROWS),
+                                gathered=True)
+    _launch("ravqa_stage1_sweep", "ravqa_stage1_sweep", qc.device,
             qc.data_ptr(), summ_rows.data_ptr(), blk32.data_ptr(),
-            out.data_ptr(), b, lq, s_, bs, nbl, nb, dim, rows_type)
+            None if dscale is None else dscale.data_ptr(), out.data_ptr(),
+            b, lq, s_, bs, nbl, nb, dim, rows_type, *plan)
     stage1_sweep.launches += 1
-    if dscale is not None:
-        out = _apply_dscale(out, dscale, blk.long(), summ_rows)
     return out
 
 

@@ -38,10 +38,12 @@ BATCH = 32
 BURSTS = 3
 PROFILED_BATCHES = 8
 # search kernels by name: the first pattern found in the lowercased name
-# picks the stage; every other kernel is the plain fine stage's gather,
+# picks the stage (the tensor-core summary sweep's instances are named by
+# their Op: summary_kernel<CoarseInt8Op> is K3, <Stage1Op<...>> K4); every other kernel is the plain fine stage's gather,
 # einsum, max and sum, or the glue between the stages
-STAGES = (("stage 0: coarse_sweep (K2/K3)", ("coarse_sweep",)),
-          ("stage 1: stage1_sweep (K4)", ("stage1_sweep",)),
+STAGES = (("stage 0: coarse_sweep (K2/K3)", ("coarse_sweep",
+                                                "coarseint8op")),
+          ("stage 1: stage1_sweep (K4)", ("stage1_sweep", "stage1op")),
           ("residual fine stage: residual_maxsim (K6)",
            ("residual_maxsim",)),
           ("exact int8: maxsim_int8 (K5)", ("maxsim_int8",)),
@@ -75,7 +77,7 @@ def _time_ms(fn, iters=10, warmup=2) -> float:
     return float(np.median(times))
 
 
-def _kernels(fn, n=PROFILED_BATCHES):
+def kernel_times(fn, n=PROFILED_BATCHES):
     """Run fn n times under torch.profiler. Returns {kernel name: device
     ms per call}, from the kernel and memcpy/memset events of its trace."""
     from torch.profiler import ProfilerActivity, profile
@@ -153,14 +155,14 @@ def profile_config(path: str) -> dict:
                       flush=True)
 
             q = ex.encode_query(ids, mask, feats)
-            tower = _kernels(lambda: ex.encode_query(ids, mask, feats))
-            search = _kernels(lambda: s.search_device(q, k))
+            tower = kernel_times(lambda: ex.encode_query(ids, mask, feats))
+            search = kernel_times(lambda: s.search_device(q, k))
 
             def dispatch():
                 server._dispatch([(ids[i], mask[i], feats[i], Future())
                                   for i in range(BATCH)])
 
-            whole = _kernels(dispatch)
+            whole = kernel_times(dispatch)
             dispatch()
             torch.cuda.synchronize()
             t0 = time.perf_counter()

@@ -350,6 +350,100 @@ def test_sweep_kernels_are_deterministic():
                        maxsim.stage1_sweep(q, rows, blk))
 
 
+# -- K3 and K4 on the tensor cores (csrc/summary_tile.cuh) at the serve's
+# shapes: Lq = 64 (32 text + 32 mapping tokens); K3 over 1,024 padded
+# blocks x 4 summaries, 256 valid; K4 over 32 of 256 blocks of 64 docs x 8
+# summaries
+
+def make_serve_stage0(seed=5):
+    q, st, _ = make_sweep((32, 64, 4, 1024, 128), torch.float32, seed=seed)
+    valid = torch.zeros(1024, dtype=torch.int8, device="cuda")
+    valid[:256] = 1
+    st[:, 256:] = 0
+    return q, st, valid
+
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_coarse_sweep_int8_kernel_at_the_serve_shape(negative):
+    q, st, valid = make_serve_stage0()
+    if negative:
+        q, st = q.abs(), -st.abs()
+    st8, dsc = quantize_summaries_t_int8(st)
+    q8, qs = quantize_queries_int8(q)
+    ones_q, ones_d = torch.ones_like(qs), torch.ones_like(dsc)
+    assert torch.equal(
+        maxsim.coarse_sweep_int8(q8, ones_q, st8, ones_d, valid),
+        maxsim.coarse_sweep_int8_torch(q8, ones_q, st8, ones_d, valid))
+    got = maxsim.coarse_sweep(q, st8, valid, dscale=dsc)
+    _close(got, maxsim.coarse_sweep_torch(q, st8, valid, dscale=dsc), 64)
+    assert torch.equal(got[:, 256:], torch.full_like(got[:, 256:], -9999.0))
+
+
+def test_coarse_sweep_int8_unit_scales_exact_at_the_two_stage_shape():
+    q, st, valid = make_sweep((32, 32, 8, 112640, 128), torch.float32,
+                              seed=6)
+    st8, dsc = quantize_summaries_t_int8(st)
+    q8, qs = quantize_queries_int8(q)
+    ones_q, ones_d = torch.ones_like(qs), torch.ones_like(dsc)
+    assert torch.equal(
+        maxsim.coarse_sweep_int8(q8, ones_q, st8, ones_d, valid),
+        maxsim.coarse_sweep_int8_torch(q8, ones_q, st8, ones_d, valid))
+
+
+@pytest.mark.parametrize("rows_dtype", [torch.bfloat16, torch.int8])
+def test_stage1_sweep_kernel_at_the_serve_shape(rows_dtype):
+    q, rows, _, dscale = make_stage1((32, 64, 8, 64, 32, 256, 128),
+                                     rows_dtype)
+    blk = torch.rand(32, 256, device="cuda").argsort(dim=1)[:, :32]
+    got = maxsim.stage1_sweep(q, rows, blk, dscale=dscale)
+    want = maxsim.stage1_sweep_torch(q, rows, blk, dscale=dscale)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3 * 64)
+
+
+def test_summary_sweeps_repeat_bit_for_bit_at_the_serve_shapes():
+    q, st, valid = make_serve_stage0()
+    st8, dsc = quantize_summaries_t_int8(st)
+    assert torch.equal(maxsim.coarse_sweep(q, st8, valid, dscale=dsc),
+                       maxsim.coarse_sweep(q, st8, valid, dscale=dsc))
+    for rows_dtype in (torch.bfloat16, torch.int8):
+        q, rows, blk, dscale = make_stage1((32, 64, 8, 64, 32, 256, 128),
+                                           rows_dtype)
+        assert torch.equal(maxsim.stage1_sweep(q, rows, blk, dscale=dscale),
+                           maxsim.stage1_sweep(q, rows, blk, dscale=dscale))
+
+
+def test_summary_sweep_launches_count_every_route():
+    """stage1_sweep counts float32 (CUDA cores), bf16 and int8 rows
+    (tensor cores), each route once a call; the launches alone count on
+    their wrappers' counters too; float32 rows still take their scale
+    after the kernel."""
+    shape = STAGE1_SHAPES[1]
+    for rows_dtype in (torch.float32, torch.bfloat16, torch.int8):
+        q, rows, blk, dscale = make_stage1(shape, rows_dtype)
+        before = maxsim.stage1_sweep.launches
+        got = maxsim.stage1_sweep(q, rows, blk, dscale=dscale)
+        assert maxsim.stage1_sweep.launches == before + 1
+        qc = q.to(torch.float32 if rows_dtype == torch.float32
+                  else torch.bfloat16)
+        raw = maxsim.launch_stage1(qc, rows, blk.to(torch.int32), dscale)
+        assert maxsim.stage1_sweep.launches == before + 2
+        torch.testing.assert_close(raw, got, rtol=0, atol=0)
+    q, rows, blk, _ = make_stage1(shape, torch.float32)
+    scale = torch.rand(rows.shape[0] * rows.shape[2], device="cuda") + 0.5
+    torch.testing.assert_close(
+        maxsim.stage1_sweep(q, rows, blk, dscale=scale),
+        maxsim.stage1_sweep_torch(q, rows, blk, dscale=scale),
+        rtol=1e-5, atol=1e-3 * shape[1])
+    q, st, valid = make_sweep(SWEEP_SHAPES[1], torch.float32)
+    st8, dsc = quantize_summaries_t_int8(st)
+    q8, qs = quantize_queries_int8(q)
+    before = maxsim.coarse_sweep_int8.launches
+    got = maxsim.coarse_sweep(q, st8, valid, dscale=dsc)
+    alone = maxsim.launch_coarse_int8(q8, qs, st8, dsc, valid)
+    assert maxsim.coarse_sweep_int8.launches == before + 2
+    assert torch.equal(got, alone)
+
+
 def test_sweep_wrappers_raise_on_bad_input():
     q, st, valid = make_sweep(SWEEP_SHAPES[0], torch.float32)
     with pytest.raises(TypeError):
