@@ -8,11 +8,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      TF32 off for float32 matmuls and convolutions. No GPU -> exit 1.
   2. build: every CUDA library of the port (csrc/maxsim_mma.cu: K1 on the
      tensor cores, a bf16 index or a float32 one as two bf16 planes,
-     csrc/coarse_sweep.cu: K2 + K3 (K3 on the tensor cores,
-     csrc/summary_tile.cuh), csrc/stage1_sweep.cu: K4 (bf16 and int8 rows
-     on the same tensor-core sweep, float32 rows on the CUDA cores),
-     csrc/maxsim_int8.cu: K5, csrc/residual_maxsim.cu: K6,
-     csrc/residual_lut_maxsim.cu: X1, csrc/candidate_maxsim.cu: X2 and X3)
+     csrc/coarse_sweep.cu: K2 + K3 (K2's bf16 body and K3 on the tensor
+     cores, csrc/summary_tile.cuh), csrc/stage1_sweep.cu: K4 (bf16 and
+     int8 rows on the same tensor-core sweep, float32 rows on the CUDA
+     cores), csrc/maxsim_int8.cu: K5, csrc/residual_maxsim.cu: K6,
+     csrc/residual_lut_maxsim.cu: X1, csrc/candidate_maxsim.cu: X2 and X3
+     on the tensor cores)
      from the repo's sources, the nvcc runs side by side; ptxas
      registers/spills.
   3. K1 against its plain PyTorch version on the card: a bf16 index
@@ -37,16 +38,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the hierarchical serve's (Lq=64; 256 of 1,024 padded blocks x 4
      summaries; int8 rows, n_blocks 32 of 256 blocks x 8 summaries):
      scores, tie-aware top-10, K3's pre-scale sums exactly, invalid docs at
-     exactly -9999, the wrapper's and the plain version's times, K3's and
-     K4's launch alone beside them ("kernel_ms", CUDA events) and the
-     kernel's device time from torch.profiler's trace ("device_ms").
+     exactly -9999, the wrapper's and the plain version's times, each
+     kernel's launch alone beside them ("kernel_ms", CUDA events) and its
+     device time from torch.profiler's trace ("device_ms"); the run fails
+     unless K2's wrapper ran the tensor-core body on bf16 summaries.
   6. pruned search at the bench scale: a clustered bf16 index of 112,640
      docs x 128 tokens made on the card (bench.py's recipe), summaries and
      block summaries, then LateInteractionSearcher in hierarchical (fast,
      reference) and two_stage (fast, reference) mode: recall@10 against
      exact search (K1, which must take the MMA route) and ms per batch of
-     32, the exact search's beside its bound; hierarchical fast must reach
-     recall 0.95, and K2, K3 and K4 must each launch.
+     32 and each search's launches, the exact search's beside its bound;
+     hierarchical fast must reach recall 0.95, K2, K3 and K4 must each
+     launch, and both reference searches must launch K2.
   7. the hierarchical slice: build_server on
      configs/synthetic_flmr_base_serve_hier.json (preset fast), 64
      requests from 4 threads, every answer checked against the same
@@ -87,7 +90,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      multiple of neither the TPU tiles' 32 nor 128), ~30 % of the tokens
      masked and one candidate of every query with none: max |err| and
      tie-aware top-10 at 1e-3; X2 batched, X3 the same kernel once per
-     query (B launches of B = 1); both times (median of 10, CUDA events).
+     query (B launches of B = 1); both times (median of 10, CUDA events),
+     X2's launch alone, and X2's and X3's device times from the profiler
+     (X3's also per launch).
  12. the residual stage-2 experiment: ravqa_tpu_torch.scripts.
      exp_residual_stage2.run() with every round at the script's full
      widths (N = 200,064, then 1,000,448 docs of records made on the card,
@@ -212,17 +217,23 @@ def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd, ops=None):
           f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
 
 
-def device_ms(fn, pattern):
+def device_ms(fn, pattern, launches=1):
     """The device time per call of the kernels whose lowercased name holds
-    `pattern`, from torch.profiler's trace of 10 calls: the kernel's own
-    time, where CUDA events around a small launch also count the host's
-    enqueue."""
-    from ravqa_tpu_torch.profile_serve import kernel_times
-    hit = [v for k, v in kernel_times(fn, n=10).items()
+    `pattern`, `launches` of them a call, from torch.profiler's trace of 10
+    calls: the kernel's own time, where CUDA events around a small launch
+    also count the host's enqueue. It is the mean of the launches the trace
+    holds times `launches`: a trace late in a long run has been seen to
+    keep 1 of a kernel's 10 launches (the run prints how many it kept)."""
+    from ravqa_tpu_torch.profile_serve import kernel_events
+    hit = [v for k, v in kernel_events(fn, n=10).items()
            if pattern in k.lower()]
     if not hit:
         raise AssertionError(f"the profiler saw no kernel like {pattern!r}")
-    return sum(hit)
+    ms, events = (sum(x) for x in zip(*hit))
+    if events != 10 * launches:
+        print(f"  (the trace kept {events} of the {10 * launches} launches "
+              f"like {pattern!r})", flush=True)
+    return ms / events * launches
 
 
 def maxsim_bound(maxsim, q, tok, mask):
@@ -449,10 +460,12 @@ def _compare(name, got, want, atol=SWEEP_ATOL):
 
 def sweep_kernels(maxsim):
     """K2, K3 and K4 against their plain versions at the bench.py shapes
-    and, for K3 and K4, at the hierarchical serve's. K3 and K4 also time
-    the kernel alone ("kernel_ms", launch_coarse_int8 / launch_stage1 on
-    the inputs the wrapper prepares). Returns {kernel: {"err", "ms",
-    "plain_ms", "shapes": {...}}}."""
+    and, for K3 and K4, at the hierarchical serve's. Each also times the
+    kernel alone ("kernel_ms", launch_coarse_bf16 / launch_coarse_int8 /
+    launch_stage1 on the inputs the wrapper prepares) and its device time
+    from the profiler ("device_ms"); K2 fails unless the wrapper's trace
+    holds the tensor-core body. Returns {kernel: {"err", "ms", "plain_ms",
+    "shapes": {...}}}."""
     import torch
     from ravqa_tpu_torch.ops.quant import (quantize_queries_int8,
                                            quantize_summaries_int8,
@@ -466,7 +479,8 @@ def sweep_kernels(maxsim):
     out = {k: {"err": 0.0, "shapes": {}} for k in ("K2", "K3", "K4")}
 
     # the tensor-core sweep's instances, by their Op's name
-    ops_name = {"K3": "coarseint8op", "K4": "stage1op"}
+    ops_name = {"K2": "coarsebf16op", "K3": "coarseint8op",
+                "K4": "stage1op"}
 
     def record(kernel, shape, err, fn, plain_fn, bnd, kernel_fn=None):
         record_kernel(out, kernel, shape, err, fn, plain_fn, bnd)
@@ -505,10 +519,20 @@ def sweep_kernels(maxsim):
             if not bool((got[:, invalid] == -9999.0).all()):
                 raise AssertionError("K2: an invalid doc must score -9999")
             err = _compare(f"K2 bf16 {shape}", got, want)
+            qc = q.bfloat16()
             record("K2", shape, err,
                    lambda: maxsim.coarse_sweep(q, summ_t, valid),
                    lambda: maxsim.coarse_sweep_torch(q, summ_t, valid),
-                   bound(_nbytes(q, summ_t, valid, got), ops, "bf16"))
+                   bound(_nbytes(q, summ_t, valid, got), ops, "bf16"),
+                   lambda: maxsim.launch_coarse_bf16(qc, summ_t, valid))
+            # the wrapper's own trace: bf16 summaries on the tensor cores
+            wrapper_dev = device_ms(
+                lambda: maxsim.coarse_sweep(q, summ_t, valid),
+                ops_name["K2"])
+            out["K2"]["shapes"][shape]["wrapper_device_ms"] = wrapper_dev
+            print(f"  K2 {shape}: the wrapper ran summary_kernel"
+                  f"<CoarseBf16Op>, {wrapper_dev:.4f} ms on the device",
+                  flush=True)
 
         st8, dsc = quantize_summaries_t_int8(summ_t)
         q8, qs = quantize_queries_int8(q)
@@ -635,24 +659,32 @@ def pruned_search(maxsim):
                  for m, p in modes}
     wrappers = {"K2": maxsim.coarse_sweep, "K3": maxsim.coarse_sweep_int8,
                 "K4": maxsim.stage1_sweep}
-    for w in wrappers.values():
-        w.launches = 0
-    rows = {name: s.search_device(q, K)[1] for name, s in searchers.items()}
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    rows, per_search = {}, {}
+    for name, s in searchers.items():
+        for w in wrappers.values():
+            w.launches = 0
+        rows[name] = s.search_device(q, K)[1]
+        torch.cuda.synchronize()
+        per_search[name] = {k: w.launches for k, w in wrappers.items()}
+    launches = {k: sum(p[k] for p in per_search.values()) for k in wrappers}
     print(f"launches over the four searches: {launches}", flush=True)
     for k_, n in launches.items():
         if n == 0:
             raise AssertionError(f"{k_} never launched on the pruned path")
+    for name in ("hierarchical reference", "two_stage reference"):
+        if per_search[name]["K2"] == 0:
+            raise AssertionError(f"{name} search did not launch K2")
     out = {}
     for name, s in searchers.items():
         out[name] = {"recall": _recall(rows[name], exact_rows),
-                     "ms": time_ms(lambda: s.search_device(q, K))}
+                     "ms": time_ms(lambda: s.search_device(q, K)),
+                     "launches": per_search[name]}
         print(f"{name}: recall@10 vs exact {out[name]['recall']:.4f}, "
               f"{out[name]['ms']:.3f} ms per batch of 32 "
               f"(n_candidates {s.resolve_candidates(K)}"
               + (f", n_blocks {s.resolve_blocks(K)}"
-                 if s.mode == "hierarchical" else "") + ")", flush=True)
+                 if s.mode == "hierarchical" else "")
+              + f"; launches {per_search[name]})", flush=True)
     bnd, _ = maxsim_bound(maxsim, q, index.tokens, index.mask)
     out["exact"] = {"recall": 1.0, "ms": time_ms(
         lambda: maxsim.maxsim_search(q, index.tokens, index.mask)),
@@ -1089,7 +1121,10 @@ def stage2_kernels():
     256 and 200 (a multiple of neither of the TPU tiles, 32 and 128); ~30 %
     of the tokens masked and candidate 1 of every query with none. Returns
     {kernel: {"err", "ms", "plain_ms", "bound_ms", "bound_by", "shapes"}}:
-    the first shape's times and bound at the top."""
+    the first shape's times and bound at the top. X2 also times the launch
+    alone ("kernel_ms", launch_candidate) and both X2 and X3 the device
+    time of their kernels from the profiler ("device_ms" a call of the
+    route, "device_ms_per_launch": X3's call is B launches)."""
     import torch
     from ravqa_tpu_torch.ops import stage2
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -1145,6 +1180,30 @@ def stage2_kernels():
         check("X3", shape, per_query(mask, tok), want,
               lambda: per_query(mask, tok),
               lambda: stage2.candidate_maxsim_torch(qb, tok, mask), bnd)
+        x2, x3 = out["X2"]["shapes"][shape], out["X3"]["shapes"][shape]
+        x2["kernel_ms"] = time_ms(
+            lambda: stage2.launch_candidate(qb, tok, mask))
+        for o, fn, n in ((x2, lambda: stage2.candidate_maxsim(qb, tok, mask),
+                          1),
+                         (x3, lambda: per_query(mask, tok), b)):
+            o["device_ms"] = device_ms(fn, "candidate_kernel", launches=n)
+            o["device_ms_per_launch"] = o["device_ms"] / n
+        # the host's enqueue of X3's launches (the clock stops before the
+        # card is waited for)
+        host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            per_query(mask, tok)
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        x3["host_ms_per_launch"] = float(np.median(host)) * 1e3 / b
+        print(f"  X2 {shape}: the launch alone {x2['kernel_ms']:.4f} ms, "
+              f"device {x2['device_ms']:.4f} ms; X3: device "
+              f"{x3['device_ms']:.4f} ms for {b} launches, "
+              f"{x3['device_ms_per_launch'] * 1e3:.2f} us a launch on the "
+              f"device, {x3['host_ms_per_launch'] * 1e3:.2f} us a launch "
+              f"on the host", flush=True)
         del tok, want, got
     return out
 
@@ -1281,7 +1340,7 @@ def main():
         next(iter(k1["K1-f32"]["shapes"]))]["f32_bound_ms"]
 
     for key, name, source, replaces, launches in (
-            ("K2", "coarse_sweep (float)", "coarse_sweep.cu",
+            ("K2", "coarse_sweep (bf16, tensor cores)", "coarse_sweep.cu",
              "ravqa_tpu/ops/maxsim.py:336 (_coarse_sweep_kernel :252)",
              pruned_launches["K2"]),
             ("K3", "coarse_sweep_int8", "coarse_sweep.cu",
@@ -1312,7 +1371,8 @@ def main():
     for key, name, source, replaces in (
             ("X1", "fused_lut_maxsim", "residual_lut_maxsim.cu",
              f"{script}:189 (v_pallas :173, _fused_kernel :151)"),
-            ("X2", "candidate_maxsim (batched)", "candidate_maxsim.cu",
+            ("X2", "candidate_maxsim (batched, tensor cores)",
+             "candidate_maxsim.cu",
              f"{script}:268 (maxsim_candidates_pallas :261, _cand_kernel "
              f":251)"),
             ("X3", "candidate_maxsim (once per query)", "candidate_maxsim.cu",

@@ -1,5 +1,5 @@
-// MaxSim over pre-gathered candidate tokens on Hopper (X2, and X3 by one
-// launch per query).
+// MaxSim over pre-gathered candidate tokens on Hopper's tensor cores (X2,
+// and X3 by one launch per query).
 //
 // Replaces scripts/exp_residual_stage2.py::maxsim_candidates_pallas (body
 // _cand_kernel) and, launched once per query with B = 1,
@@ -10,141 +10,248 @@
 //                 = -9999                             otherwise
 //
 // bf16 tokens and queries, float32 products (exact) and sums; the running
-// maximum over Ld starts at -inf.
+// maximum over Ld starts at -inf, so a candidate with no valid token
+// scores exactly -9999 * Lq.
 //
 // What bounds it on this card: the tokens are read once. At the
 // experiment's shape (B=32, C=1024, Ld=64, Lq=32, dim=128) that is 537 MB
 // against 1.7e10 FLOP, 32 operations per byte, under the 295 at which bf16
 // tensor cores would be the limit: bytes bound the function (0.16 ms at
-// 3.35 TB/s). This first version multiplies on the CUDA cores in float32
-// (the sweep kernels' scheme), so their 67 TFLOP/s rate bounds it instead,
-// about 0.26 ms; tensor-core products are later work. The design
-// (candidate_tile.cuh): one block per (query, 16 candidates); the query
-// (bf16 -> float, transposed) is staged once; the candidates' rows are
-// contiguous in memory and go 16 bytes a thread into a shared tile; the
-// register tile's width follows Lq, so at Lq = 32 no column idles; a
-// running (16, Lq) maximum in shared memory lets a candidate span tiles.
-// There is no tile rule on C (the TPU kernel needed C % 128 == 0).
+// 3.35 TB/s). So the design streams the tokens at the memory's rate and
+// fills the card at B = 32 and at B = 1 alike; idle MMA columns cost
+// nothing that matters, an idle SM would.
+//
+// Design (the tensor-core route; csrc/candidate_tile.cuh's CUDA-core tile
+// stays for X1):
+//  - a tile is 64 token rows of one candidate, one TMA box (per 128-byte
+//    k-panel) of the contiguous (B * C * Ld, dim) tokens, into a 4-stage
+//    mbarrier ring; a candidate longer than 64 tokens spans several tiles,
+//    and rows of a tile past its candidate are dropped (none at Ld = 64);
+//  - the tiles are the MMA's rows and the query's tokens its columns (N =
+//    16, 32, 64 or 128, the least that covers Lq), staged once per block
+//    (summary_tile.cuh's stage_bf16); bf16 wgmma m64nNk16 with both
+//    operands in shared memory, 8 k-steps at dim 128;
+//  - epilogue: the mask selects -9999 per row (-inf for a dropped row);
+//    each thread keeps, per column it owns, the max over its two rows of
+//    every tile of the candidate; at the candidate's end shuffles over
+//    lanes ^4, ^8, ^16 take the max over the warp's 16 rows, shared memory
+//    over the 4 warps, and warp 0 sums the Lq columns in a fixed order
+//    (lane l's columns l, l + 32, .. in turn, then a shuffle tree): repeats
+//    are bit for bit;
+//  - grid (ops/stage2.py::candidate_plan): one block per (query, range of
+//    cands_per_block candidates), so a B = 1 launch at C = 256 still has
+//    256 blocks for 132 SMs. The other orientation (query tokens as rows,
+//    mma_tile.cuh) would leave 75 % of the MMA's 64 rows idle at Lq = 32.
+//
+// Every tile's wgmmas run in straight code and are waited for before the
+// epilogue (ptxas serializes a wgmma in a branch or in flight across a
+// loop's back edge); two or three blocks an SM, by shared memory, overlap
+// one block's epilogue with another's products and copies.
 //
 // Inputs, all contiguous: q (B, Lq, dim) bf16; tok (B, C, Ld, dim) bf16,
 // 16-byte aligned; mask (B, C, Ld) int8; out (B, C) float. 0 < Lq <= 128,
 // Ld > 0, dim % 8 == 0, dim <= 128. The Python wrapper checks.
 
-#include "candidate_tile.cuh"
+#include "summary_tile.cuh"
 
 namespace {
 
-using namespace cand;
+using summary_tile::kRows;       // token rows a tile (the MMA's M)
+using summary_tile::kStages;
+using summary_tile::kThreads;    // one warpgroup
+using summary_tile::smem_addr;
 
-template <int TX>
-__global__ void __launch_bounds__(kThreads, 1)
-candidate_maxsim_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ tok,
-                        const int8_t* __restrict__ mask,
-                        float* __restrict__ out, int Lq, int C, int Ld,
-                        int dim) {
-  using T = Tile<TX>;
-  extern __shared__ float4 smem4[];
-  const int ds_ld = dim + 8;                 // bf16 elements, 16-byte rows
-  const Layout L = layout<TX>(dim, Lq, sizeof(__nv_bfloat16) * ds_ld, 1);
-  char* base = reinterpret_cast<char*>(smem4);
-  float* Qs = reinterpret_cast<float*>(base);
-  char* region = base + L.qs;
-  __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(region);
-  float* red = reinterpret_cast<float*>(region);
-  int* rvalid = reinterpret_cast<int*>(region + L.region);
-  float* colmax = reinterpret_cast<float*>(region + L.region + L.meta);
+constexpr int kPanels = 2;       // 128-byte k-panels of a row: dim <= 128
+constexpr int kTile = kPanels * kRows * 128;
+constexpr int kMaxDim = 128;
+constexpr float kNegFill = -9999.0f;
 
-  const int cblocks = (C + kCands - 1) / kCands;
-  const int b = blockIdx.x / cblocks;
-  const int c0 = (blockIdx.x % cblocks) * kCands;
-  const int ct = min(kCands, C - c0);
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+struct Args {
+  const __nv_bfloat16* q;     // (B, Lq, dim)
+  const int8_t* mask;         // (B * C * Ld)
+  float* out;                 // (B, C)
+  int B, Lq, C, Ld, dim;
+  int tiles_per_cand;         // ceil(Ld / 64)
+  int cands_per_block;
+};
 
-  stage_query<TX>(Qs, colmax, q + static_cast<size_t>(b) * Lq * dim, Lq,
-                  dim, tid);
-  // the block's rows: candidates c0 .. c0 + ct - 1 of query b
-  const size_t row0 = (static_cast<size_t>(b) * C + c0) * Ld;
-  const int R = ct * Ld;
-  const int chunks = dim / 8;                // 16-byte chunks a row
-  for (int r0 = 0; r0 < R; r0 += T::kRows) {
-    const int nr = min(T::kRows, R - r0);
-    __syncthreads();  // staging done; the previous tile's readers are done
-    for (int i = tid; i < nr * chunks; i += kThreads) {
-      const int r = i / chunks, j = i % chunks;
-      *reinterpret_cast<uint4*>(Ds + r * ds_ld + 8 * j) =
-          *reinterpret_cast<const uint4*>(tok + (row0 + r0 + r) * dim + 8 * j);
-    }
-    for (int r = tid; r < nr; r += kThreads)
-      rvalid[r] = mask[row0 + r0 + r] != 0;
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    tile_product<TX>(Qs, Ds, ds_ld, dim, tx, ty, s);
-    __syncthreads();  // every product is done: red may overwrite Ds
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty + T::TY * i;
-      if (r < nr) {
-        const bool valid = rvalid[r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = 4 * tx + j;
-          if (c < Lq) red[r * T::kRedLd + c] = valid ? s[i][j] : kNegFill;
-        }
-      }
-    }
-    __syncthreads();
-    fold_max<TX>(red, colmax, r0, nr, Ld, Lq, tid);
-  }
-  __syncthreads();
-  write_sums(colmax, out + static_cast<size_t>(b) * C + c0, ct, Lq, tid);
+// 0: a scored row, 1: a masked one (-9999), 2: past the candidate (-inf)
+__device__ __forceinline__ float fill(float v, int kind) {
+  return kind == 0 ? v : kind == 1 ? kNegFill : __int_as_float(0xff800000);
 }
 
-template <int TX>
-int launch(const void* q, const void* tok, const void* mask, void* out,
-           int B, int Lq, int C, int Ld, int dim, cudaStream_t stream) {
-  const size_t smem =
-      layout<TX>(dim, Lq, sizeof(__nv_bfloat16) * (dim + 8), 1).total;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = candidate_maxsim_kernel<TX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+candidate_kernel(const Args a, const __grid_constant__ CUtensorMap map) {
+  constexpr int NA = NC / 2;        // accumulators a thread
+  constexpr int NM = NC / 4;        // columns a thread keeps the max of
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle's 8-row atoms must start at 1024-byte boundaries
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qbuf = base + kStages * kTile;
+  // [4][NC]: each warp's column maxima of a candidate
+  float* red = reinterpret_cast<float*>(qbuf + kPanels * NC * 128);
+  const uint32_t bars = smem_addr(red + 4 * NC);          // [kStages]
+  const uint32_t ring = smem_addr(base);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int ranges = (a.C + a.cands_per_block - 1) / a.cands_per_block;
+  const int b = blockIdx.x / ranges;
+  const int c0 = (blockIdx.x - b * ranges) * a.cands_per_block;
+  const int tpc = a.tiles_per_cand;
+  const int T = min(a.cands_per_block, a.C - c0) * tpc;    // tiles
+  const int panels = (a.dim * 2 + 127) / 128;
+  // the block's first token row (below 2^31: the host checks)
+  const int row0 = (b * a.C + c0) * a.Ld;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mma_tile::mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  summary_tile::zero_unloaded_panels<kPanels>(base, panels, tid);
+  // the query's tokens as the MMA's columns, zeros past Lq and dim
+  const __nv_bfloat16* qb = a.q + static_cast<size_t>(b) * a.Lq * a.dim;
+  for (int i = tid; i < NC * 16; i += kThreads) {
+    const int col = i >> 4;
+    summary_tile::stage_bf16<NC>(
+        qbuf, col, i & 15, col < a.Lq ? qb + col * a.dim : nullptr, a.dim);
+  }
+  summary_tile::fence_async_smem();
+  __syncthreads();
+
+  // tile k of the block (candidate k / tpc, rows 64 (k % tpc) ..) into
+  // stage k % kStages
+  auto load = [&](int k) {
+    if (tid != 0 || k >= T) return;
+    const int ci = k / tpc;
+    const uint32_t bar = bars + 8 * (k % kStages);
+    const uint32_t st = ring + (k % kStages) * kTile;
+    const int row = row0 + ci * a.Ld + (k - ci * tpc) * kRows;
+    mma_tile::mbar_expect_tx(bar, panels * kRows * 128);
+    for (int pn = 0; pn < panels; ++pn)
+      mma_tile::tma_load_2d(st + pn * kRows * 128, &map, pn * 64, row, bar);
+  };
+  for (int k = 0; k < kStages; ++k) load(k);
+
+  const float neg_inf = __int_as_float(0xff800000);
+  const int r0 = 16 * warp + g;     // this thread's rows r0, r0 + 8
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+  float m[NM];
+#pragma unroll
+  for (int i = 0; i < NM; ++i) m[i] = neg_inf;
+  int ci = 0, j = 0;                // the tile's candidate and its part
+  for (int k = 0; k < T; ++k) {
+    // the two rows' kinds, read while the tile lands
+    const int8_t* mk = a.mask + row0 + ci * a.Ld;
+    int kind[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int l = j * kRows + r0 + 8 * h;
+      kind[h] = l >= a.Ld ? 2 : mk[l] != 0 ? 0 : 1;
+    }
+    mma_tile::mbar_wait(bars + 8 * (k % kStages), (k / kStages) & 1);
+    summary_tile::product_bf16_ss<NC>(acc, base + (k % kStages) * kTile,
+                                      qbuf);
+    __syncthreads();                // every thread is done with the stage
+    load(k + kStages);
+    // accumulator of slab s (columns 8s .. 8s + 7): [4s], [4s + 1] row r0,
+    // columns 8s + 2c, 8s + 2c + 1; [4s + 2], [4s + 3] row r0 + 8
+#pragma unroll
+    for (int s = 0; s < NC / 8; ++s)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        m[2 * s + e] = fmaxf(m[2 * s + e],
+                             fmaxf(fill(acc[4 * s + e], kind[0]),
+                                   fill(acc[4 * s + 2 + e], kind[1])));
+    if (++j < tpc) continue;
+
+    // candidate c0 + ci ends: the max over its rows, then the sum over Lq
+#pragma unroll
+    for (int i = 0; i < NM; ++i) {
+      float v = m[i];
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      m[i] = neg_inf;
+      if (g == 0) red[warp * NC + 8 * (i >> 1) + 2 * c + (i & 1)] = v;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < (NC + 31) / 32; ++i) {
+        const int col = 32 * i + lane;
+        if (col < NC && col < a.Lq)
+          sum += fmaxf(fmaxf(red[col], red[NC + col]),
+                       fmaxf(red[2 * NC + col], red[3 * NC + col]));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) a.out[static_cast<size_t>(b) * a.C + c0 + ci] = sum;
+    }
+    // red is written again only after the next tile's __syncthreads
+    ++ci;
+    j = 0;
+  }
+}
+
+template <int NC>
+int launch(const Args& a, const void* tok, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(a.B) * a.C * a.Ld;
   const long long blocks =
-      static_cast<long long>(B) * ((C + kCands - 1) / kCands);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(tok),
-      static_cast<const int8_t*>(mask), static_cast<float*>(out), Lq, C, Ld,
-      dim);
+      static_cast<long long>(a.B) *
+      ((a.C + a.cands_per_block - 1) / a.cands_per_block);
+  if (a.Lq > NC || a.tiles_per_cand != (a.Ld + kRows - 1) / kRows ||
+      a.cands_per_block < 1 || rows + kRows > INT_MAX || blocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  int err = mma_tile::encode_map_2d(&map, tok, 2, a.dim, rows, kRows);
+  if (err) return err;
+  const size_t smem = 1024 + static_cast<size_t>(kStages) * kTile +
+                      static_cast<size_t>(kPanels) * NC * 128 +
+                      sizeof(float) * 4 * NC + 8 * kStages;
+  auto kernel = candidate_kernel<NC>;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  if (err) return err;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(a, map);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes). Returns the CUDA error code of
-// the launch (0 on success; cudaErrorInvalidValue when the shapes are
-// refused); launches nothing when B or C is 0.
+// Plain C interface (loaded with ctypes). The plan's ints (cols,
+// tiles_per_cand, cands_per_block) come from ops/stage2.py::candidate_plan.
+// Returns the CUDA error code of the launch (0 on success;
+// cudaErrorInvalidValue when the shapes or the plan are refused); launches
+// nothing when B or C is 0.
 extern "C" int ravqa_candidate_maxsim(const void* q, const void* tok,
                                       const void* mask, void* out, int B,
                                       int Lq, int C, int Ld, int dim,
-                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                      int cols, int tiles_per_cand,
+                                      int cands_per_block, void* stream) {
   if (B <= 0 || C <= 0) return 0;
-  if (Lq <= 0 || Lq > kMaxLq || Ld <= 0 || dim <= 0 || dim % 8 ||
-      dim > kMaxDim)
+  if (Lq <= 0 || Ld <= 0 || dim <= 0 || dim % 8 || dim > kMaxDim)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (Lq <= 32) return launch<8>(q, tok, mask, out, B, Lq, C, Ld, dim, s);
-  if (Lq <= 64) return launch<16>(q, tok, mask, out, B, Lq, C, Ld, dim, s);
-  return launch<32>(q, tok, mask, out, B, Lq, C, Ld, dim, s);
+  Args a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.mask = static_cast<const int8_t*>(mask);
+  a.out = static_cast<float*>(out);
+  a.B = B, a.Lq = Lq, a.C = C, a.Ld = Ld, a.dim = dim;
+  a.tiles_per_cand = tiles_per_cand;
+  a.cands_per_block = cands_per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cols) {
+    case 16: return launch<16>(a, tok, s);
+    case 32: return launch<32>(a, tok, s);
+    case 64: return launch<64>(a, tok, s);
+    case 128: return launch<128>(a, tok, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

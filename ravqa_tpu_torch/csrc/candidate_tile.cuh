@@ -1,5 +1,6 @@
-// Building blocks of the candidate-MaxSim kernels on Hopper:
-// residual_lut_maxsim.cu (X1) and candidate_maxsim.cu (X2/X3).
+// Building blocks of the CUDA-core candidate-MaxSim kernel on Hopper,
+// residual_lut_maxsim.cu (X1). X2/X3 (candidate_maxsim.cu) run on the
+// tensor cores instead.
 //
 // Each query b has C candidates of Ld token rows, laid out one after
 // another, (B, C, Ld, ...). A block of 256 threads scores kCands of one
@@ -68,20 +69,15 @@ __host__ __device__ inline Layout layout(int dim, int Lq, size_t ds_bytes,
   return L;
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Qs[d][c] = q[c][d] as float for c < Lq, 0 up to kCols; colmax = -inf
-template <int TX, typename TQ>
+// Qs[d][c] = q[c][d] for c < Lq, 0 up to kCols; colmax = -inf
+template <int TX>
 __device__ __forceinline__ void stage_query(float* Qs, float* colmax,
-                                            const TQ* qb, int Lq, int dim,
+                                            const float* qb, int Lq, int dim,
                                             int tid) {
   using T = Tile<TX>;
   for (int i = tid; i < T::kCols * dim; i += kThreads) {
     const int c = i / dim, d = i % dim;
-    Qs[d * T::kQsLd + c] = c < Lq ? to_float(qb[c * dim + d]) : 0.f;
+    Qs[d * T::kQsLd + c] = c < Lq ? qb[c * dim + d] : 0.f;
   }
   const float neg_inf = __int_as_float(0xff800000);
   for (int i = tid; i < kCands * Lq; i += kThreads) colmax[i] = neg_inf;
@@ -89,8 +85,8 @@ __device__ __forceinline__ void stage_query(float* Qs, float* colmax,
 
 // s[i][j] += sum_k D[ty + TY i][k] * Qs[k][4 tx + j]. All 8 rows, also
 // those past the tile's data: their products are computed and never read.
-template <int TX, typename TD>
-__device__ __forceinline__ void tile_product(const float* Qs, const TD* D,
+template <int TX>
+__device__ __forceinline__ void tile_product(const float* Qs, const float* D,
                                              int ds_ld, int dim, int tx,
                                              int ty, float (&s)[8][4]) {
   using T = Tile<TX>;

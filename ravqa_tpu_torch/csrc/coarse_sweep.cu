@@ -1,4 +1,5 @@
-// Coarse summary sweep on Hopper: float (K2) and int8 (K3) bodies.
+// Coarse summary sweep on Hopper: float32 and bf16 (K2) and int8 (K3)
+// bodies.
 //
 // Replaces ravqa_tpu/ops/maxsim.py::coarse_sweep_pallas, bodies
 // _coarse_sweep_kernel (float) and _coarse_sweep_int8_kernel (int8).
@@ -21,26 +22,30 @@
 // operations (1k in bf16, 2k in int8), far above the H100's ridge, so the
 // sweep is bound by arithmetic.
 //
-// K3 runs on the tensor cores (summary_tile.cuh): wgmma m64n128k32 s8 x s8
-// -> s32, exact, with a tile's 64 docs of slot s as the MMA's rows (one
-// TMA box of the slot-major layout) and a group of whole queries' tokens,
-// 128 columns, as its columns, both read from shared memory. The int32
-// max over slots is an elementwise max of the accumulators; the doc scale
-// multiplies each row's maximum as a float, the query scale each column,
-// inside the sum over the query's columns.
+// K2 on bf16 summaries (the only kind the searcher makes) and K3 run on
+// the tensor cores (summary_tile.cuh): a tile's 64 docs of slot s are the
+// MMA's rows (one TMA box of the slot-major layout) and a group of whole
+// queries' tokens, 128 columns, its columns, both read from shared memory.
+// K2 multiplies bf16 x bf16 -> f32 (wgmma m64n128k16, 8 k-steps at dim
+// 128), exact products summed in float32, and keeps the float max over
+// slots in the accumulators; its epilogue has no scales. K3 multiplies
+// s8 x s8 -> s32 (m64n128k32), exact; the int32 max over slots is an
+// elementwise max of the accumulators, the doc scale multiplies each
+// row's maximum as a float, the query scale each column, inside the sum
+// over the query's columns.
 //
-// K2's float body stays on the CUDA cores (sweep_tile.cuh): f32 FMAs on
+// K2's float32 body stays on the CUDA cores (sweep_tile.cuh): f32 FMAs on
 // 8 x 8 register tiles, one block per (group of whole queries, up to 128
 // columns; tile of 128 docs), slot slabs double-buffered with cp.async,
 // the running max over slots in registers; each (query, doc) sum by one
-// thread in a fixed order. A bf16 instance of the tensor-core sweep is
-// later work.
+// thread in a fixed order.
 //
-// Inputs, all contiguous: q (B*Lq, dim) float or bfloat16 (the summaries'
-// type), or int8 with qscale (B*Lq,) float; summ (S, N, dim) of the same
-// type, with dscale (N,) float for int8; valid (N,) int8 or null (all
-// valid); out (B, N) float. dim % 8 == 0 (float, bfloat16) or dim % 16 == 0
-// (int8), dim <= 128, pointers 16-byte aligned (the Python wrapper checks).
+// Inputs, all contiguous: q (B*Lq, dim) float32 or bfloat16 (the
+// summaries' type), or int8 with qscale (B*Lq,) float; summ (S, N, dim) of
+// the same type, with dscale (N,) float for int8; valid (N,) int8 or null
+// (all valid); out (B, N) float. dim % 8 == 0 (float32, bfloat16) or
+// dim % 16 == 0 (int8), dim <= 128, pointers 16-byte aligned (the Python
+// wrapper checks).
 
 #include "summary_tile.cuh"
 #include "sweep_tile.cuh"
@@ -48,31 +53,30 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// K2: the float body on the CUDA cores
+// K2: the float32 body on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxDim = 128;
 
-template <typename T>
 size_t smem_bytes(int dim) {
   const size_t qs = sizeof(float) * dim * sweep::kQsLd;
-  const size_t ds = sizeof(T) * 2 * sweep::kRows * sweep::row_ld<T>(dim);
+  const size_t ds = sizeof(float) * 2 * sweep::kRows * sweep::row_ld(dim);
   const size_t red = sizeof(float) * sweep::kRows * sweep::kRedLd;
   return qs + (ds > red ? ds : red);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(sweep::kThreads, 1)
-coarse_sweep_kernel(const T* __restrict__ q, const T* __restrict__ summ,
+coarse_sweep_kernel(const float* __restrict__ q,
+                    const float* __restrict__ summ,
                     const int8_t* __restrict__ valid,
                     float* __restrict__ out, int B, int Lq, int S, int N,
                     int dim, int G) {
   using namespace sweep;
   extern __shared__ float4 smem4[];
-  const int ds_ld = row_ld<T>(dim);
+  const int ds_ld = row_ld(dim);
   float* Qs = reinterpret_cast<float*>(smem4);              // [dim][kQsLd]
   char* region = reinterpret_cast<char*>(Qs + dim * kQsLd);
-  T* Ds = reinterpret_cast<T*>(region);                     // [2][kRows][ds_ld]
+  float* Ds = reinterpret_cast<float*>(region);         // [2][kRows][ds_ld]
   float* red = reinterpret_cast<float*>(region);            // [kRows][kRedLd]
 
   const int n_groups = (B + G - 1) / G;
@@ -84,7 +88,7 @@ coarse_sweep_kernel(const T* __restrict__ q, const T* __restrict__ summ,
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int cols_total = g_here * Lq;
-  const int chunks_per_row = dim * static_cast<int>(sizeof(T)) / 16;
+  const int chunks_per_row = dim * static_cast<int>(sizeof(float)) / 16;
 
   // cp.async copies of slot s's rows n0 .. n0 + nr into buffer s & 1
   auto issue = [&](int s) {
@@ -93,8 +97,8 @@ coarse_sweep_kernel(const T* __restrict__ q, const T* __restrict__ summ,
     char* dst = reinterpret_cast<char*>(Ds + (s & 1) * kRows * ds_ld);
     for (int i = tid; i < nr * chunks_per_row; i += kThreads) {
       const int r = i / chunks_per_row, c = i % chunks_per_row;
-      cp_async16(dst + (static_cast<size_t>(r) * ds_ld) * sizeof(T) + c * 16,
-                 src + (static_cast<size_t>(r) * dim) * sizeof(T) + c * 16);
+      cp_async16(dst + (static_cast<size_t>(r) * ds_ld + 4 * c) * 4,
+                 src + (static_cast<size_t>(r) * dim + 4 * c) * 4);
     }
     cp_async_commit();
   };
@@ -125,7 +129,7 @@ coarse_sweep_kernel(const T* __restrict__ q, const T* __restrict__ summ,
       cp_async_wait_all();
       __syncthreads();  // slot s landed; everyone is done with slot s-1
       if (s + 1 < S) issue(s + 1);
-      const T* D = Ds + (s & 1) * kRows * ds_ld;
+      const float* D = Ds + (s & 1) * kRows * ds_ld;
       float acc[8][8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -167,14 +171,13 @@ coarse_sweep_kernel(const T* __restrict__ q, const T* __restrict__ summ,
   }
 }
 
-template <typename T>
 int launch_float(const void* q, const void* summ, const void* valid,
                  void* out, int B, int Lq, int S, int N, int dim,
                  cudaStream_t stream) {
   if (dim > kMaxDim || dim % 8 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<T>(dim);
-  auto kernel = coarse_sweep_kernel<T>;
+  const size_t smem = smem_bytes(dim);
+  auto kernel = coarse_sweep_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -187,22 +190,91 @@ int launch_float(const void* q, const void* summ, const void* valid,
   const long long blocks = tiles * groups;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), sweep::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(summ),
+      static_cast<const float*>(q), static_cast<const float*>(summ),
       static_cast<const int8_t*>(valid), static_cast<float*>(out), B, Lq, S,
       N, dim, G);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// K3: the int8 body on the tensor cores
+// K2 (bf16) and K3 (int8) on the tensor cores
 // ---------------------------------------------------------------------------
 
 using summary_tile::Args;
 using summary_tile::kRows;
 using summary_tile::Row;
 
-struct CoarseInt8Op {
-  static constexpr int kCols = 128;
+// what both bodies share: where a slab lies, and how a query's sum is
+// written
+struct CoarseSlabs {
+  static constexpr int kCols = 128;      // a group of whole queries
+
+  // slot s of docs 64 t .. 64 t + 63 (rows past N are the next slot's, or
+  // zeros past the last, and are never written)
+  __device__ static int slab_row(const Args& a, int, int t, int s) {
+    return s * a.N + t * kRows;
+  }
+
+  __device__ static void emit(const Args& a, int gi, int qi, const Row& r,
+                              float v, bool first, bool last) {
+    float* o = a.out + static_cast<size_t>(gi * a.G + qi) * a.N + r.o;
+    v = first ? v : *o + v;
+    *o = last && r.invalid ? summary_tile::kNegFill : v;
+  }
+};
+
+// K2: bf16 x bf16 -> f32 (wgmma m64n128k16), the float max over slots
+struct CoarseBf16Op : CoarseSlabs {
+  static constexpr int kSlabPanels = 2;    // a bf16 row: dim <= 128 values
+  static constexpr int kQueryPanels = 2;
+  static constexpr int kElemBytes = 2;
+  static constexpr bool kWeighted = false;
+  using Acc = float;
+  __device__ static float lowest() { return __int_as_float(0xff800000); }
+  // the k-panels that hold data (a row of dim <= 64 takes one; the sweep
+  // keeps the other zero)
+  __device__ static int panels(const Args& a) {
+    return (a.dim * kElemBytes + 127) / 128;
+  }
+
+  // the slab's 8 k-steps of 16 values, both operands K-major in shared
+  // memory (zeros past dim on both sides)
+  __device__ static void product(const Args&, float (&acc)[64],
+                                 const unsigned char* slab,
+                                 const unsigned char* qbuf, int, int) {
+    summary_tile::product_bf16_ss<kCols>(acc, slab, qbuf);
+  }
+
+  // column c of pass p: token tok of query qi of group gi (lqp columns a
+  // query); zeros past the group's queries, Lq and dim
+  __device__ static void stage_query(const Args& a, int gi, int g_here,
+                                     int pass, unsigned char* qbuf, float*,
+                                     int tid) {
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+    for (int i = tid; i < kCols * 16; i += summary_tile::kThreads) {
+      const int c = i >> 4, k = i & 15;
+      const int gcol = pass * kCols + c, qi = gcol / a.lqp;
+      const int tok = gcol - qi * a.lqp;
+      const bool in = qi < g_here && tok < a.Lq;
+      summary_tile::stage_bf16<kCols>(
+          qbuf, c, k,
+          in ? q + (static_cast<size_t>(gi * a.G + qi) * a.Lq + tok) * a.dim
+             : nullptr,
+          a.dim);
+    }
+  }
+
+  __device__ static Row row(const Args& a, int, int t, int r) {
+    const int n = t * kRows + r;
+    if (n >= a.N) return Row{-1, 1.f, false};
+    return Row{n, 1.f, a.valid != nullptr && a.valid[n] == 0};
+  }
+
+  __device__ static float term(float m, float, const Row&) { return m; }
+};
+
+// K3: s8 x s8 -> s32 (wgmma m64n128k32), the int32 max over slots
+struct CoarseInt8Op : CoarseSlabs {
   static constexpr int kSlabPanels = 1;    // a summary row: dim <= 128 bytes
   static constexpr int kQueryPanels = 1;
   static constexpr int kElemBytes = 1;
@@ -210,12 +282,6 @@ struct CoarseInt8Op {
   using Acc = int;
   __device__ static int lowest() { return INT_MIN; }
   __device__ static int panels(const Args&) { return 1; }
-
-  // slot s of docs 64 t .. 64 t + 63 (rows past N are the next slot's, or
-  // zeros past the last, and are never written)
-  __device__ static int slab_row(const Args& a, int, int t, int s) {
-    return s * a.N + t * kRows;
-  }
 
   // the slab's 4 k-steps of 32 values: wgmma s8 x s8 -> s32, both operands
   // K-major in shared memory (zeros past dim on both sides)
@@ -267,31 +333,64 @@ struct CoarseInt8Op {
   __device__ static float term(int m, float w, const Row& r) {
     return w * (summary_tile::exact_float(m) * r.scale);
   }
-
-  __device__ static void emit(const Args& a, int gi, int qi, const Row& r,
-                              float v, bool first, bool last) {
-    float* o = a.out + static_cast<size_t>(gi * a.G + qi) * a.N + r.o;
-    v = first ? v : *o + v;
-    *o = last && r.invalid ? summary_tile::kNegFill : v;
-  }
 };
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Each returns the CUDA error code
 // of the launch (0 on success) and launches nothing when B or N is 0.
-// Float body (K2): q and summ both float32 (bf16 == 0) or both bfloat16.
+// float32 body (K2 on the CUDA cores): q and summ float32.
 extern "C" int ravqa_coarse_sweep(const void* q, const void* summ,
                                   const void* valid, void* out, int B,
-                                  int Lq, int S, int N, int dim, int bf16,
+                                  int Lq, int S, int N, int dim,
                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || N <= 0) return 0;
   if (Lq <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16)
-    return launch_float<__nv_bfloat16>(q, summ, valid, out, B, Lq, S, N, dim,
-                                       s);
-  return launch_float<float>(q, summ, valid, out, B, Lq, S, N, dim, s);
+  return launch_float(q, summ, valid, out, B, Lq, S, N, dim,
+                      static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// the tensor-core bodies' arguments: the plan's ints (cols, lqp, G,
+// passes, n_tiles, tiles_per_block) from ops/maxsim.py::summary_plan
+int launch_coarse_mma(bool int8, const void* q, const void* qscale,
+                      const void* summ, const void* dscale,
+                      const void* valid, void* out, int B, int Lq, int S,
+                      int N, int dim, int cols, int lqp, int G, int passes,
+                      int n_tiles, int tiles_per_block, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (Lq <= 0 || dim % (int8 ? 16 : 8) || cols != CoarseSlabs::kCols ||
+      n_tiles != (N + kRows - 1) / kRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.q = q;
+  a.qscale = static_cast<const float*>(qscale);
+  a.dscale = static_cast<const float*>(dscale);
+  a.valid = static_cast<const int8_t*>(valid);
+  a.out = static_cast<float*>(out);
+  a.B = B, a.Lq = Lq, a.S = S, a.dim = dim, a.N = N;
+  a.lqp = lqp, a.G = G, a.passes = passes, a.n_tiles = n_tiles;
+  a.tiles_per_block = tiles_per_block;
+  const long long rows = static_cast<long long>(S) * N;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int8 ? summary_tile::launch<CoarseInt8Op>(a, summ, rows, s)
+              : summary_tile::launch<CoarseBf16Op>(a, summ, rows, s);
+}
+
+}  // namespace
+
+// bf16 body (K2 on the tensor cores): q (B*Lq, dim) and summ (S, N, dim)
+// bfloat16, the plan's ints as for the int8 body.
+extern "C" int ravqa_coarse_sweep_bf16(const void* q, const void* summ,
+                                       const void* valid, void* out, int B,
+                                       int Lq, int S, int N, int dim,
+                                       int cols, int lqp, int G, int passes,
+                                       int n_tiles, int tiles_per_block,
+                                       void* stream) {
+  return launch_coarse_mma(false, q, nullptr, summ, nullptr, valid, out, B,
+                           Lq, S, N, dim, cols, lqp, G, passes, n_tiles,
+                           tiles_per_block, stream);
 }
 
 // int8 body (K3): q8 (B*Lq, dim) int8 with qscale (B*Lq,) float, summ8
@@ -305,20 +404,7 @@ extern "C" int ravqa_coarse_sweep_int8(const void* q8, const void* qscale,
                                        int cols, int lqp, int G, int passes,
                                        int n_tiles, int tiles_per_block,
                                        void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (Lq <= 0 || dim % 16 || cols != CoarseInt8Op::kCols ||
-      n_tiles != (N + kRows - 1) / kRows)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.q = q8;
-  a.qscale = static_cast<const float*>(qscale);
-  a.dscale = static_cast<const float*>(dscale);
-  a.valid = static_cast<const int8_t*>(valid);
-  a.out = static_cast<float*>(out);
-  a.B = B, a.Lq = Lq, a.S = S, a.dim = dim, a.N = N;
-  a.lqp = lqp, a.G = G, a.passes = passes, a.n_tiles = n_tiles;
-  a.tiles_per_block = tiles_per_block;
-  return summary_tile::launch<CoarseInt8Op>(
-      a, summ8, static_cast<long long>(S) * N,
-      static_cast<cudaStream_t>(stream));
+  return launch_coarse_mma(true, q8, qscale, summ8, dscale, valid, out, B,
+                           Lq, S, N, dim, cols, lqp, G, passes, n_tiles,
+                           tiles_per_block, stream);
 }

@@ -67,7 +67,7 @@ constexpr int kMaxDim = 128;
 size_t simt_smem_bytes(int dim) {
   using namespace sweep;
   const size_t qs = sizeof(float) * dim * kQsLd;
-  const size_t ds = sizeof(float) * 2 * kRows * row_ld<float>(dim);
+  const size_t ds = sizeof(float) * 2 * kRows * row_ld(dim);
   const size_t red = sizeof(float) * kRows * kRedLd;
   return qs + (ds > red ? ds : red) + sizeof(long long) * kRows;
 }
@@ -79,7 +79,7 @@ stage1_sweep_simt(const float* __restrict__ q,
                   int Lq, int S, int bs, int nbl, int NB, int dim) {
   using namespace sweep;
   extern __shared__ float4 smem4[];
-  const int ds_ld = row_ld<float>(dim);
+  const int ds_ld = row_ld(dim);
   float* Qs = reinterpret_cast<float*>(smem4);             // [dim][kQsLd]
   char* region = reinterpret_cast<char*>(Qs + dim * kQsLd);
   float* Ds = reinterpret_cast<float*>(region);            // [2][kRows][ds_ld]

@@ -1,14 +1,16 @@
-// The tensor-core sweep of slot-major summaries on Hopper: K3
-// (coarse_sweep.cu, int8) and K4 (stage1_sweep.cu, bf16 and int8 rows).
-// Both compute
+// The tensor-core sweep of slot-major summaries on Hopper: K2 and K3
+// (coarse_sweep.cu, bf16 and int8 summaries) and K4 (stage1_sweep.cu,
+// bf16 and int8 rows). Its bf16 product from shared memory
+// (product_bf16_ss, stage_bf16) also serves the candidate MaxSim X2/X3
+// (candidate_maxsim.cu). The sweep computes
 //
 //   out[b, doc] = sum_t w_t * max_s q[b, t] . row_s(doc)
 //
-// over tiles of 64 summary rows that are one contiguous slab per slot: K3's
-// slab s of summaries_t (S, N, dim) at docs n0 .. n0 + 63, K4's rows j0 ..
-// j0 + 63 of block blk[b, i] at slot s in summ_rows (NB, S, bs, dim). Each
-// kernel's Op says where a slab lies, how it is multiplied and how a
-// query's sum is weighed, scaled and written.
+// over tiles of 64 summary rows that are one contiguous slab per slot: K2's
+// and K3's slab s of summaries_t (S, N, dim) at docs n0 .. n0 + 63, K4's
+// rows j0 .. j0 + 63 of block blk[b, i] at slot s in summ_rows (NB, S, bs,
+// dim). Each kernel's Op says where a slab lies, how it is multiplied and
+// how a query's sum is weighed, scaled and written.
 //
 // Orientation: summary rows are the MMA's rows (M = 64, one warpgroup) and
 // query tokens its columns (N = Op::kCols, whole queries padded to lqp =
@@ -29,9 +31,12 @@
 // that the host encodes per call) into a 4-stage ring with an mbarrier per
 // stage, so three slabs load while one multiplies. The TMA writes wgmma's
 // K-major 128-byte-swizzle layout; values past dim, and rows past the
-// tensor, arrive as zeros, and rows past a tile's docs are never written
-// out. The query's columns are staged once per pass by the threads, in
-// the same layout, with zeros past Lq and past dim.
+// tensor, arrive as zeros (a k-panel wholly past dim is never loaded and
+// is zeroed once), and rows past a tile's docs are never written out. The
+// query's columns are staged once per pass by the threads, in the same
+// layout, with zeros past Lq and past dim. K2 (bf16) and K3 (s8) multiply
+// both operands from shared memory; K4 loads A into registers (its int8
+// rows are widened to bf16 on the way).
 //
 // Every wgmma of a slab runs in straight code (ptxas serializes a wgmma in
 // a branch or in flight across a loop's back edge); the slab's product is
@@ -64,10 +69,10 @@ struct Args {
   const float* qscale;    // (B * Lq) query-token scales (K3), or null
   const int* blk;         // (B, nbl) selected blocks (K4), or null
   const float* dscale;    // per-doc scales, or null
-  const int8_t* valid;    // (N) doc validity (K3), or null
+  const int8_t* valid;    // (N) doc validity (K2, K3), or null
   float* out;
   int B, Lq, S, dim;
-  int N;                  // K3: docs per slot
+  int N;                  // K2, K3: docs per slot
   int bs, nbl, NB;        // K4: block size, blocks per query, blocks
   int lqp;                // columns per query: Lq rounded up to 8
   int G;                  // queries per group
@@ -76,9 +81,9 @@ struct Args {
   int tiles_per_block;
 };
 
-// what a tile row needs to be written: out offset o (K3: the doc, K4: the
-// gathered position; < 0 off the tile), its scale, and whether it is an
-// invalid doc (K3: scores -9999)
+// what a tile row needs to be written: out offset o (K2, K3: the doc, K4:
+// the gathered position; < 0 off the tile), its scale, and whether it is
+// an invalid doc (K2, K3: scores -9999)
 struct Row {
   long long o;
   float scale;
@@ -210,6 +215,145 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "memory");
 }
 
+// d (64 x N f32, this thread's N / 2) += the 64 x 16 bf16 tile at a x the
+// 16 x N bf16 tile at b (both K-major in shared memory, 128-byte swizzle);
+// scale_d 0 overwrites d
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+// d (64 x N f32) = the 64-row bf16 slab at a (two 128-byte k-panels of 64
+// rows) x the N staged columns at b (two k-panels of N rows), both in the
+// order stage_bf16 writes: 8 k-steps of 16 values, waited for
+template <int N>
+__device__ __forceinline__ void product_bf16_ss(float (&d)[N / 2],
+                                                const unsigned char* a,
+                                                const unsigned char* b) {
+  const uint32_t sa = smem_addr(a), sb = smem_addr(b);
+  mma_tile::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+    wgmma_ss<N>(d, sw128_desc(sa + (ks >> 2) * 64 * 128 + (ks & 3) * 32),
+                sw128_desc(sb + (ks >> 2) * N * 128 + (ks & 3) * 32),
+                ks > 0);
+  mma_tile::wgmma_commit();
+  mma_tile::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) fence_operand(d[i]);
+}
+
+// The k-panels past `loaded` of every stage of a ring of 64-row tiles of
+// kPanels k-panels, which no TMA box fills (a bf16 row of dim <= 64
+// values), are zeroed once and stay zeros; a fence.proxy.async before the
+// first wgmma makes them visible to it.
+template <int kPanels>
+__device__ __forceinline__ void zero_unloaded_panels(unsigned char* ring,
+                                                     int loaded, int tid) {
+  const int n = (kPanels - loaded) * kRows * 8;     // 16-byte chunks a stage
+  for (int i = tid; i < kStages * n; i += kThreads) {
+    const int st = i / n;
+    *reinterpret_cast<uint4*>(ring + (st * kPanels + loaded) * kRows * 128 +
+                              16 * (i - st * n)) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// chunk k (values 8k .. 8k + 7, k < 16) of column c of a staged bf16
+// operand of N columns, K-major in two 128-byte k-panels (chunk k & 7 of
+// panel k >> 3 at (k ^ c) & 7, the TMA's 128-byte swizzle): the dim
+// values at src, zeros past dim or for a null src (a column past the data)
+template <int N>
+__device__ __forceinline__ void stage_bf16(unsigned char* buf, int c, int k,
+                                           const __nv_bfloat16* src,
+                                           int dim) {
+  uint4 v = make_uint4(0, 0, 0, 0);
+  if (src != nullptr && 8 * k < dim)
+    v = *reinterpret_cast<const uint4*>(src + 8 * k);
+  *reinterpret_cast<uint4*>(buf + (k >> 3) * N * 128 + c * 128 +
+                            (((k ^ c) & 7) << 4)) = v;
+}
+
 // d (64 x 128 s32, this thread's 64) += the 64 x 32 s8 tile at a x the
 // 32 x 128 s8 tile at b (both K-major, 128-byte swizzle); scale_d 0
 // overwrites d
@@ -282,6 +426,7 @@ __device__ __forceinline__ void sweep(const Args& a, const CUtensorMap& map) {
     for (int i = 0; i < kStages; ++i) mma_tile::mbar_init(bars + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  zero_unloaded_panels<Op::kSlabPanels>(base, panels, tid);
   __syncthreads();
 
   // slab k of a pass (tile k / S, slot k % S), the q-th this block loads,

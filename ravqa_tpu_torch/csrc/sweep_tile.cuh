@@ -1,19 +1,18 @@
-// Register-tiled building blocks of the CUDA-core summary sweeps on Hopper:
-// K2's float body (coarse_sweep.cu) and K4's float32 rows
-// (stage1_sweep.cu). K3 and K4's bf16 and int8 rows run on the tensor
-// cores (summary_tile.cuh).
+// Register-tiled building blocks of the CUDA-core float32 sweeps on Hopper:
+// K2's float32 body (coarse_sweep.cu) and K4's float32 rows
+// (stage1_sweep.cu). K2's bf16 summaries, K3 and K4's bf16 and int8 rows
+// run on the tensor cores (summary_tile.cuh).
 //
 // A block of 256 threads (16 x 16) computes a 128-row x 128-column tile of
 // dot products: rows are summary vectors staged in shared memory (one row
 // per doc and slot), columns are query tokens staged transposed in shared
 // memory. Each thread owns an 8 x 8 micro-tile: rows ty + 16 i, columns
 // 4 tx + j and 64 + 4 tx + j (H = 2), or only the first four columns when a
-// tile has at most 64 query columns (H = 1). The stage-2 candidate sweep
+// tile has at most 64 query columns (H = 1). X1's candidate sweep
 // (candidate_tile.cuh) streams doc tokens through the same scheme.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,15 +27,6 @@ constexpr float kNegFill = -9999.0f;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -55,17 +45,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // shared-memory row stride of staged summary rows, in elements: 16 bytes
 // of padding keeps rows 16-byte aligned and spreads them over the banks
-template <typename TD>
-__host__ __device__ constexpr int row_ld(int dim) {
-  return dim + 16 / static_cast<int>(sizeof(TD));
-}
+__host__ __device__ constexpr int row_ld(int dim) { return dim + 4; }
 
-// s[i][4h + j] += sum_k D[ty + 16 i][k] * Qs[k][64 h + 4 tx + j], h < H,
-// float products (float or bfloat16 rows). All 8 rows, also those past the
-// data's end: their products are computed and never read, so the loads run
-// ahead of the FMAs without branches.
-template <int H, typename TD>
-__device__ __forceinline__ void tile_product(const float* Qs, const TD* D,
+// s[i][4h + j] += sum_k D[ty + 16 i][k] * Qs[k][64 h + 4 tx + j], h < H.
+// All 8 rows, also those past the data's end: their products are computed
+// and never read, so the loads run ahead of the FMAs without branches.
+template <int H>
+__device__ __forceinline__ void tile_product(const float* Qs, const float* D,
                                              int ds_ld, int dim, int tx,
                                              int ty, float (&s)[8][8]) {
   for (int k = 0; k < dim; k += 4) {

@@ -20,18 +20,20 @@ The pruned search modes' summary sweeps follow the same pattern:
 
 - ``coarse_sweep`` (``csrc/coarse_sweep.cu``, port of
   ``coarse_sweep_pallas``): every query against every doc's S summary
-  vectors in slot-major (S, N, dim) layout, float (K2, CUDA cores) or int8
-  (K3, tensor cores); plain version ``coarse_sweep_torch``.
+  vectors in slot-major (S, N, dim) layout: K2 on bf16 summaries (tensor
+  cores) or float32 ones (CUDA cores), K3 on int8 (tensor cores); plain
+  version ``coarse_sweep_torch``.
 - ``stage1_sweep`` (``csrc/stage1_sweep.cu``, port of
   ``stage1_sweep_pallas``): each query against the summaries of its own
   selected blocks in ``stage1_rows`` layout (K4: bf16 and int8 rows on the
   tensor cores, float32 rows on the CUDA cores); plain version
   ``stage1_sweep_torch`` (port of ``stage1_sweep_xla``).
   ``summary_plan`` is the tensor-core sweep's grid (``csrc/summary_tile.cuh``,
-  K3 and K4).
+  K2 on bf16, K3 and K4).
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``;
-``launch_coarse_int8`` and ``launch_stage1`` are the launches alone.
+``launch_coarse_bf16``, ``launch_coarse_int8`` and ``launch_stage1`` are
+the launches alone.
 """
 
 from __future__ import annotations
@@ -87,7 +89,8 @@ def maxsim_search_torch(q: torch.Tensor, tokens: torch.Tensor,
 _LIBRARIES = {
     "ravqa_maxsim_mma": ("maxsim_mma.cu", {"ravqa_maxsim_mma": (4, 12)}),
     "ravqa_coarse_sweep": ("coarse_sweep.cu", {
-        "ravqa_coarse_sweep": (4, 6), "ravqa_coarse_sweep_int8": (6, 11)}),
+        "ravqa_coarse_sweep": (4, 5), "ravqa_coarse_sweep_bf16": (4, 11),
+        "ravqa_coarse_sweep_int8": (6, 11)}),
     "ravqa_stage1_sweep": ("stage1_sweep.cu", {"ravqa_stage1_sweep": (5, 14)}),
     "ravqa_maxsim_int8": ("maxsim_int8.cu", {
         "ravqa_maxsim_search_int8": (5, 10)}),
@@ -97,7 +100,7 @@ _LIBRARIES = {
     "ravqa_residual_lut_maxsim": ("residual_lut_maxsim.cu", {
         "ravqa_residual_lut_maxsim": (7, 5)}),
     "ravqa_candidate_maxsim": ("candidate_maxsim.cu", {
-        "ravqa_candidate_maxsim": (4, 5)}),
+        "ravqa_candidate_maxsim": (4, 8)}),
 }
 
 
@@ -403,12 +406,12 @@ def _valid_row(valid: Optional[torch.Tensor], n: int):
 
 
 # ---------------------------------------------------------------------------
-# The tensor-core summary sweep (csrc/summary_tile.cuh): K3 and K4
+# The tensor-core summary sweep (csrc/summary_tile.cuh): K2 on bf16, K3, K4
 # ---------------------------------------------------------------------------
 
 SUMMARY_TILE_ROWS = 64          # summary rows (the MMA's M) per tile
 _SUMMARY_COLS = (16, 32, 64, 128)   # the MMA's N that the kernels take
-_COARSE_COLS = 128              # K3's N: a group of whole queries
+_COARSE_COLS = 128              # K2's and K3's N: a group of whole queries
 _SUMMARY_MAX_TILES = 32         # most tiles one block sweeps
 
 
@@ -422,7 +425,7 @@ class SummaryPlan(NamedTuple):
     takes `passes` passes. A group's summaries go in `n_tiles` tiles of 64
     rows; block x sweeps group x % groups over tiles
     (x // groups) * tiles_per_block .. + tiles_per_block - 1, every slot of
-    each. K3's tiles are docs 64 t .. 64 t + 63; K4's tile t is docs
+    each. K2's and K3's tiles are docs 64 t .. 64 t + 63; K4's tile t is docs
     64 (t % chunks) .. + 63 of the query's selected block t // chunks,
     chunks = ceil(bs / 64)."""
     cols: int
@@ -446,7 +449,7 @@ def summary_plan(b: int, lq: int, n_tiles: int, *, gathered: bool,
 
     gathered (K4, each query its own blocks): one query a group, N the
     smallest of 16, 32, 64, 128 that covers it (passes of 128 past that).
-    Else (K3): groups of as many whole queries as fit 128 columns, or one
+    Else (K2, K3): groups of as many whole queries as fit 128 columns, or one
     query over several passes. Tiles per block: at most 32, fewer when the
     grid would give the card's `sm_count` SMs less than four blocks each."""
     lqp = -(-lq // 8) * 8
@@ -590,11 +593,11 @@ def coarse_sweep(q: torch.Tensor, summaries_t: torch.Tensor,
                  valid: Optional[torch.Tensor] = None,
                  dscale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Coarse summary sweep (port of coarse_sweep_pallas): see
-    coarse_sweep_torch for the semantics. Float32 or bfloat16 summaries
-    launch the float body of csrc/coarse_sweep.cu on CUDA tensors (K2,
-    counted in ``coarse_sweep.launches``); int8 summaries quantize q and go
-    through ``coarse_sweep_int8`` (K3). CPU tensors take the plain
-    version."""
+    coarse_sweep_torch for the semantics. On CUDA tensors bfloat16
+    summaries launch K2's tensor-core body (``launch_coarse_bf16``) and
+    float32 ones its CUDA-core body, both counted in
+    ``coarse_sweep.launches``; int8 summaries quantize q and go through
+    ``coarse_sweep_int8`` (K3). CPU tensors take the plain version."""
     if summaries_t.dtype == torch.int8:
         if dscale is None:
             raise ValueError("int8 summaries_t requires dscale")
@@ -621,11 +624,31 @@ def coarse_sweep(q: torch.Tensor, summaries_t: torch.Tensor,
     v = _valid_row(valid, n)
     _check_cuda("coarse_sweep", q=qc, summaries_t=summaries_t,
                 **({} if v is None else {"valid": v}))
+    if summaries_t.dtype == torch.bfloat16:
+        return launch_coarse_bf16(qc, summaries_t, v)
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
     _launch("ravqa_coarse_sweep", "ravqa_coarse_sweep", q.device,
             qc.data_ptr(), summaries_t.data_ptr(),
             None if v is None else v.data_ptr(), out.data_ptr(), b, lq, s_,
-            n, dim, int(summaries_t.dtype == torch.bfloat16))
+            n, dim)
+    coarse_sweep.launches += 1
+    return out
+
+
+def launch_coarse_bf16(qc, summaries_t, valid):
+    """K2's launch alone on bf16 summaries (csrc/coarse_sweep.cu on the
+    tensor cores), on the inputs coarse_sweep prepares and checks (q cast
+    to bfloat16, `valid` int8 or None): (B, N) float32, counted in
+    ``coarse_sweep.launches``."""
+    b, lq, dim = qc.shape
+    s_, n, _ = summaries_t.shape
+    out = torch.empty((b, n), dtype=torch.float32, device=qc.device)
+    plan = _summary_launch_plan(qc.device, b, lq,
+                                -(-n // SUMMARY_TILE_ROWS), gathered=False)
+    _launch("ravqa_coarse_sweep", "ravqa_coarse_sweep_bf16", qc.device,
+            qc.data_ptr(), summaries_t.data_ptr(),
+            None if valid is None else valid.data_ptr(), out.data_ptr(), b,
+            lq, s_, n, dim, *plan)
     coarse_sweep.launches += 1
     return out
 

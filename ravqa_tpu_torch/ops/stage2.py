@@ -12,10 +12,13 @@ into dense (B, C, Ld, ...) tensors:
   ``fused_lut_maxsim_torch``.
 - ``candidate_maxsim`` (X2, ``csrc/candidate_maxsim.cu``, port of
   ``maxsim_candidates_pallas`` and ``_cand_kernel``): MaxSim of bf16
-  queries over bf16 candidate tokens, float32 sums. X3
-  (``v_record_perq_pallas``, body ``_perq_kernel``) is the same function
-  for one query, launched once per query: its route calls this wrapper
-  with B = 1. Plain version ``candidate_maxsim_torch``.
+  queries over bf16 candidate tokens, float32 sums, on the tensor cores
+  (tiles of 64 of a candidate's tokens as the MMA's rows, the query's
+  tokens as its columns; ``candidate_plan`` is the grid,
+  ``launch_candidate`` the launch alone). X3 (``v_record_perq_pallas``,
+  body ``_perq_kernel``) is the same function for one query, launched once
+  per query: its route calls this wrapper with B = 1. Plain version
+  ``candidate_maxsim_torch``.
 
 On CUDA tensors each wrapper launches its hand-written kernel on the
 current stream (or raises) and counts the launch in ``<wrapper>.launches``;
@@ -25,9 +28,12 @@ tile rule on C (32 for X1, 128 for X2).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from .maxsim import _launch, maxsim_reduce
+from .maxsim import (SUMMARY_TILE_ROWS, _SUMMARY_COLS, _SUMMARY_MAX_TILES,
+                     _launch, _sm_count, maxsim_reduce)
 from .quant import NEG_INF
 
 
@@ -144,17 +150,55 @@ def fused_lut_maxsim(q: torch.Tensor, cqg: torch.Tensor, bits: torch.Tensor,
 fused_lut_maxsim.launches = 0
 
 
+# X2 runs on summary_tile.cuh's bf16 product: its tiles, the MMA's N that
+# it takes and the most tiles a block sweeps are the summary sweep's
+CANDIDATE_TILE_ROWS = SUMMARY_TILE_ROWS
+
+
+class CandidatePlan(NamedTuple):
+    """How X2's tensor-core kernel covers a launch; the kernel takes these
+    ints.
+
+    The query's Lq tokens are the MMA's `cols` columns (zeros past Lq). A
+    candidate's Ld tokens go in `tiles_per_cand` tiles of 64 rows (rows of
+    its last tile past Ld dropped); block x sweeps query x // ranges,
+    candidates (x % ranges) * cands_per_block .. + cands_per_block - 1, with
+    ranges = ceil(C / cands_per_block)."""
+    cols: int
+    tiles_per_cand: int
+    cands_per_block: int
+
+    def ranges(self, c: int) -> int:
+        return -(-c // self.cands_per_block)
+
+    def blocks(self, b: int, c: int) -> int:
+        return b * self.ranges(c)
+
+
+def candidate_plan(b: int, lq: int, c: int, ld: int,
+                   sm_count: int = 132) -> CandidatePlan:
+    """X2's plan for B queries of Lq tokens over C candidates of Ld tokens:
+    N the smallest of 16, 32, 64, 128 that covers Lq; tiles per block at
+    most 32, fewer when the grid would give the card's `sm_count` SMs less
+    than four blocks each, and never less than one candidate's."""
+    cols = next(x for x in _SUMMARY_COLS if x >= lq)
+    tpc = -(-ld // CANDIDATE_TILE_ROWS)
+    tiles = max(1, min(_SUMMARY_MAX_TILES,
+                       b * c * tpc // (4 * sm_count)))
+    return CandidatePlan(cols, tpc, max(1, tiles // tpc))
+
+
 def candidate_maxsim(q: torch.Tensor, tok: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """MaxSim over pre-gathered candidate tokens (X2, port of
     maxsim_candidates_pallas; X3 is this with B = 1, once per query): see
     candidate_maxsim_torch for the semantics.
 
-    CUDA tensors launch csrc/candidate_maxsim.cu on the current stream,
-    counted in ``candidate_maxsim.launches``: q (B, Lq, dim) bfloat16, tok
-    (B, C, Ld, dim) bfloat16, mask (B, C, Ld) int8. The TPU kernel took
-    the mask as a (B, C*Ld, 1) float column, a Mosaic layout choice. CPU
-    tensors take the plain version."""
+    CUDA tensors launch csrc/candidate_maxsim.cu on the tensor cores, on
+    the current stream, counted in ``candidate_maxsim.launches``: q
+    (B, Lq, dim) bfloat16, tok (B, C, Ld, dim) bfloat16, mask (B, C, Ld)
+    int8. The TPU kernel took the mask as a (B, C*Ld, 1) float column, a
+    Mosaic layout choice. CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return candidate_maxsim_torch(q, tok, mask)
     if q.device.type != "cuda":
@@ -175,11 +219,22 @@ def candidate_maxsim(q: torch.Tensor, tok: torch.Tensor,
                         f"mask int8; got {q.dtype}, {tok.dtype}, "
                         f"{mask.dtype}")
     _check_widths("candidate_maxsim", lq, ld, dim)
-    _check_tensors("candidate_maxsim", ("tok",), q=q, tok=tok, mask=mask)
+    _check_tensors("candidate_maxsim", ("q", "tok"), q=q, tok=tok, mask=mask)
+    return launch_candidate(q, tok, mask)
+
+
+def launch_candidate(q, tok, mask):
+    """X2's launch alone (csrc/candidate_maxsim.cu), on the inputs
+    candidate_maxsim checks: (B, C) float32, counted in
+    ``candidate_maxsim.launches``."""
+    b, lq, dim = q.shape
+    _, c, ld, _ = tok.shape
     out = torch.empty((b, c), dtype=torch.float32, device=q.device)
+    plan = candidate_plan(b, lq, c, ld,
+                          sm_count=_sm_count(q.device.index or 0))
     _launch("ravqa_candidate_maxsim", "ravqa_candidate_maxsim", q.device,
             q.data_ptr(), tok.data_ptr(), mask.data_ptr(), out.data_ptr(), b,
-            lq, c, ld, dim)
+            lq, c, ld, dim, *plan)
     candidate_maxsim.launches += 1
     return out
 

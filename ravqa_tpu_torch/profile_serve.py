@@ -39,9 +39,10 @@ BURSTS = 3
 PROFILED_BATCHES = 8
 # search kernels by name: the first pattern found in the lowercased name
 # picks the stage (the tensor-core summary sweep's instances are named by
-# their Op: summary_kernel<CoarseInt8Op> is K3, <Stage1Op<...>> K4); every other kernel is the plain fine stage's gather,
+# their Op: summary_kernel<CoarseBf16Op> is K2, <CoarseInt8Op> K3,
+# <Stage1Op<...>> K4); every other kernel is the plain fine stage's gather,
 # einsum, max and sum, or the glue between the stages
-STAGES = (("stage 0: coarse_sweep (K2/K3)", ("coarse_sweep",
+STAGES = (("stage 0: coarse_sweep (K2/K3)", ("coarse_sweep", "coarsebf16op",
                                                 "coarseint8op")),
           ("stage 1: stage1_sweep (K4)", ("stage1_sweep", "stage1op")),
           ("residual fine stage: residual_maxsim (K6)",
@@ -77,9 +78,10 @@ def _time_ms(fn, iters=10, warmup=2) -> float:
     return float(np.median(times))
 
 
-def kernel_times(fn, n=PROFILED_BATCHES):
-    """Run fn n times under torch.profiler. Returns {kernel name: device
-    ms per call}, from the kernel and memcpy/memset events of its trace."""
+def kernel_events(fn, n=PROFILED_BATCHES):
+    """Run fn n times under torch.profiler. Returns {kernel name: [device
+    ms summed over the trace, events]}, from the kernel and memcpy/memset
+    events of its trace."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -96,10 +98,18 @@ def kernel_times(fn, n=PROFILED_BATCHES):
     out: dict = {}
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e3 / n
+            hit = out.setdefault(e["name"], [0.0, 0])
+            hit[0] += e["dur"] / 1e3
+            hit[1] += 1
     if not out:
         raise RuntimeError("the profiler's trace holds no device kernels")
     return out
+
+
+def kernel_times(fn, n=PROFILED_BATCHES):
+    """Run fn n times under torch.profiler. Returns {kernel name: device
+    ms per call} (kernel_events' sums over n)."""
+    return {k: ms / n for k, (ms, _) in kernel_events(fn, n).items()}
 
 
 def _requests(data, n):

@@ -292,6 +292,31 @@ def test_coarse_sweep_all_invalid_and_no_validity_row():
            shape[1])
 
 
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+def test_coarse_sweep_bf16_takes_the_tensor_core_body(shape):
+    """bf16 summaries run K2's tensor-core body: the wrapper equals the
+    launch alone bit for bit and each counts once; float32 summaries count
+    on the same counter."""
+    q, st, valid = make_sweep(shape, torch.bfloat16, seed=3)
+    before = maxsim.coarse_sweep.launches
+    got = maxsim.coarse_sweep(q, st, valid)
+    alone = maxsim.launch_coarse_bf16(q.bfloat16(), st, valid)
+    assert maxsim.coarse_sweep.launches == before + 2
+    assert torch.equal(got, alone)
+    maxsim.coarse_sweep(q, st.float(), valid)
+    assert maxsim.coarse_sweep.launches == before + 3
+
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_coarse_sweep_bf16_at_the_two_stage_shape(negative):
+    q, st, valid = make_sweep((32, 32, 8, 112640, 128), torch.bfloat16,
+                              negative, seed=7)
+    got = maxsim.coarse_sweep(q, st, valid)
+    _close(got, maxsim.coarse_sweep_torch(q, st, valid), 32)
+    assert torch.equal(got[:, ::5], torch.full_like(got[:, ::5], -9999.0))
+    assert torch.equal(got, maxsim.coarse_sweep(q, st, valid))
+
+
 # (B, Lq, S, bs, n_blocks, NB, dim): gathered docs per query below one
 # 128-row tile (72), ragged over tiles (300), the bench's 64 x 32
 STAGE1_SHAPES = [(3, 6, 3, 16, 5, 7, 16), (32, 32, 8, 64, 32, 40, 128),
@@ -924,6 +949,22 @@ def test_candidate_kernel_keeps_negative_maxima():
     _close(got, stage2.candidate_maxsim_torch(q, tok, mask), 32)
     valid = (mask != 0).any(-1)
     assert bool((got[valid] < 0).all()) and bool(valid.any())
+
+
+@pytest.mark.parametrize("b,c,ld", [(1, 256, 64), (1, 200, 37),
+                                    (32, 1024, 64), (2, 300, 220)])
+def test_candidate_kernel_launch_alone_at_the_plan_shapes(b, c, ld):
+    """The launch alone equals the wrapper bit for bit and counts on its
+    counter; B = 1 (X3's launches) and Ld short of, equal to and past the
+    64-row tile, several candidates a block at B = 32."""
+    q, tok, mask = make_x2(c, ld, b=b, seed=11)
+    before = stage2.candidate_maxsim.launches
+    got = stage2.candidate_maxsim(q, tok, mask)
+    alone = stage2.launch_candidate(q, tok, mask)
+    assert stage2.candidate_maxsim.launches == before + 2
+    assert torch.equal(got, alone)
+    _close(got, stage2.candidate_maxsim_torch(q, tok, mask), 32)
+    assert torch.equal(got[:, 1], torch.full_like(got[:, 1], -9999.0 * 32))
 
 
 def test_candidate_wrapper_raises_on_bad_input():

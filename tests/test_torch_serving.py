@@ -268,6 +268,8 @@ def test_serve_slice_imports_no_jax():
 
 @pytest.mark.parametrize("name,stage", [
     ("void coarse_sweep_kernel<signed char, 8>(...)", "stage 0"),
+    ("void summary_tile::summary_kernel<(anonymous namespace)::CoarseBf16Op>"
+     "(summary_tile::Args, CUtensorMap)", "stage 0"),
     ("void stage1_sweep_kernel<__nv_bfloat16, signed char>(...)", "stage 1"),
     ("void maxsim_kernel<float, float>(...)", "exact"),
     ("void maxsim_int8_kernel<4>(...)", "exact int8"),

@@ -22,6 +22,10 @@ reasons:
 - make_records and the script's split_records: bit-equal;
 - the sums of v_gathers / v_record_gather / v_decomp_only: rtol 1e-6 /
   1e-5, float32 sums of 1e4-1e7 values in another order.
+X2's tensor-core kernel runs only on the card; its plan (every query,
+candidate and token covered once) and a model of its epilogue (the mask,
+the max over rows and the sum's order) are held here to the plain version
+and to maxsim_candidates_pallas (1e-3 abs, as the bf16 paths above).
 """
 
 import ast
@@ -323,6 +327,99 @@ def test_candidate_maxsim_plain_matches_pallas_interpret(jx, interpret,
     got = stage2.candidate_maxsim(torch.from_numpy(q).bfloat16(),
                                   torch.from_numpy(tok).bfloat16(),
                                   torch.from_numpy(mask))
+    _close(got, want, atol=BF16)
+
+
+# -- X2's tensor-core kernel (csrc/candidate_maxsim.cu), its host side -----
+
+ROWS = stage2.CANDIDATE_TILE_ROWS
+
+
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("c", [200, 256, 1024])
+@pytest.mark.parametrize("ld", [37, 64, 220])
+def test_candidate_plan_covers_every_token_once(b, c, ld):
+    """A model of the kernel's index arithmetic (block -> query and
+    candidates, tile -> candidate and rows, rows past Ld dropped) covers
+    every (query, candidate, token) exactly once and writes each score
+    once; the query's Lq = 32 tokens fit the MMA's columns."""
+    plan = stage2.candidate_plan(b, 32, c, ld)
+    assert plan.cols == 32 and plan.tiles_per_cand == -(-ld // ROWS)
+    ranges, tpc, cpb = plan.ranges(c), plan.tiles_per_cand, \
+        plan.cands_per_block
+    x = np.arange(plan.blocks(b, c))
+    qb, c0 = x // ranges, x % ranges * cpb
+    n_tiles = np.minimum(cpb, c - c0) * tpc                 # T of each block
+    k = np.arange(cpb * tpc)
+    live = k[None, :] < n_tiles[:, None]                    # (blocks, k)
+    cand = c0[:, None] + k[None, :] // tpc
+    row = (qb[:, None] * c + c0[:, None]) * ld \
+        + (k[None, :] // tpc) * ld + k[None, :] % tpc * ROWS   # TMA rows
+    l = k[None, :, None] % tpc * ROWS + np.arange(ROWS)     # token in cand
+    keep = live[:, :, None] & (l < ld)
+    flat = ((qb[:, None, None] * c + cand[:, :, None]) * ld + l)[keep]
+    assert (flat == (row[:, :, None] + np.arange(ROWS))[keep]).all()
+    assert (np.bincount(flat, minlength=b * c * ld) == 1).all()
+    ends = live & (k[None, :] % tpc == tpc - 1)             # scores written
+    scores = (qb[:, None] * c + cand)[ends]
+    assert (np.bincount(scores, minlength=b * c) == 1).all()
+    if (b, c) in ((1, 256), (32, 1024)):                    # the card's SMs
+        assert plan.blocks(b, c) >= 132
+
+
+@pytest.mark.parametrize("lq,cols", [(1, 16), (16, 16), (17, 32), (32, 32),
+                                     (33, 64), (64, 64), (65, 128),
+                                     (128, 128)])
+def test_candidate_plan_columns_cover_the_query(lq, cols):
+    assert stage2.candidate_plan(4, lq, 100, 64).cols == cols
+
+
+def candidate_model(q, tok, mask):
+    """X2 as the kernel computes it: float32 products of each candidate's
+    64-row tiles with the query's columns; a row scores -9999 where masked
+    and -inf past the candidate; thread (warp w, lane 4g + c) keeps the max
+    over rows 16w + g and 16w + g + 8 of every tile, lanes ^4, ^8, ^16 and
+    the 4 warps the max over the rest; then warp 0's lane l adds columns l,
+    l + 32, .. (< Lq) in turn and the shuffle tree (lanes ^16, ^8, ^4, ^2,
+    ^1) adds the lanes' sums."""
+    b, c, ld, _ = tok.shape
+    lq = q.shape[1]
+    plan = stage2.candidate_plan(b, lq, c, ld)
+    rows = plan.tiles_per_cand * ROWS
+    s = torch.einsum("bcld,bqd->bclq", tok.float(), q.float())
+    s = s.masked_fill(mask[..., None] == 0, -9999.0)
+    s = torch.nn.functional.pad(s, (0, plan.cols - lq, 0, rows - ld),
+                                value=float("-inf"))
+    # row 64 j + 16 w + 8 h + g of the candidate
+    s = s.reshape(b, c, plan.tiles_per_cand, 4, 2, 8, plan.cols)
+    thread = s.amax(dim=(2, 4))                       # (b, c, w, g, col)
+    colmax = thread.amax(dim=3).amax(dim=2)           # lanes, then warps
+    lanes = torch.zeros(b, c, 32)
+    for i in range(-(-plan.cols // 32)):
+        for lane in range(32):
+            col = 32 * i + lane
+            if col < min(plan.cols, lq):
+                lanes[..., lane] = lanes[..., lane] + colmax[..., col]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., [x ^ o for x in range(32)]]
+    return lanes[..., 0]
+
+
+@pytest.mark.parametrize("ld,lq", [(LD, LQ), (70, 33), (64, 32)])
+def test_candidate_model_matches_plain_and_pallas_interpret(jx, interpret,
+                                                            ld, lq):
+    """The kernel's row max, mask and sum order equal candidate_maxsim_torch
+    and maxsim_candidates_pallas (tile 128) in interpret mode; Ld = 70
+    spans two tiles with 58 rows dropped; an all-masked candidate scores
+    exactly -9999 * Lq."""
+    q, tok, mask = _x2_inputs(b=2, c=128, ld=ld, lq=lq, dim=DIM)
+    qb, tb = (torch.from_numpy(x).bfloat16() for x in (q, tok))
+    got = candidate_model(qb, tb, torch.from_numpy(mask))
+    assert torch.equal(got[:, 1], torch.full((2,), -9999.0 * lq))
+    _close(got, stage2.candidate_maxsim_torch(qb, tb, torch.from_numpy(mask)),
+           atol=BF16)
+    want = jx["maxsim_candidates_pallas"](
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, tok)), jnp.asarray(mask))
     _close(got, want, atol=BF16)
 
 

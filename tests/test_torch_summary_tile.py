@@ -1,5 +1,5 @@
 """The tensor-core summary sweep's host-side design (csrc/summary_tile.cuh,
-K3 and K4), checked on the CPU.
+K2 on bf16 summaries, K3 and K4), checked on the CPU.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py). What
 they take from Python, and the orders they sum in, are checked here:
@@ -16,7 +16,13 @@ they take from Python, and the orders they sum in, are checked here:
   the staged query's word order gives, and a plain model of the kernel's
   sums in that order equals stage1_sweep_torch and JAX's stage1_sweep_xla;
 - the dscale folded into K4's epilogue (raw sum x the doc's scale) equals
-  stage1_sweep_pallas with dscale, in interpret mode.
+  stage1_sweep_pallas with dscale, in interpret mode;
+- K2 and X2 (candidate_maxsim.cu) multiply bf16 operands both read from
+  shared memory: the TMA's boxes and stage_bf16's writes put every value
+  where each k-step's descriptor reads it, in order, with zeros past dim,
+  and K2's boxes load every (slot, doc, value) once; a model of K2's sums
+  in the kernel's order equals coarse_sweep_torch and coarse_sweep_pallas
+  in interpret mode, invalid docs exactly -9999.
 
 Tolerances: rtol 1e-5, atol 1e-3 on scores of unnormalized rows (|score|
 ~ 100), as tests/test_torch_coarse.py: float32 sums of the same products
@@ -291,4 +297,129 @@ def test_folded_dscale_matches_pallas_interpret():
             dscale=dscale))
     tr, td = _torch_rows(rows, dscale)
     got = stage1_model(torch.from_numpy(q), tr, torch.from_numpy(blk), td)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
+
+
+# -- K2 on bf16 summaries: both operands from shared memory -----------------
+
+def _swizzled(rows, dim, panels):
+    """Where each (row, dim) of a bf16 operand lies, as the TMA writes a
+    slab (boxes of 64 values at columns 64 pn) and stage_bf16 writes the
+    query's columns: value d of row r in k-panel d // 64 (panels of
+    `rows` rows x 128 bytes), 16-byte chunk (d % 64) // 8 at chunk
+    (chunk ^ r) & 7 of its row. Returns the byte offset of each value,
+    (rows, dim)."""
+    r = np.arange(rows)[:, None]
+    d = np.arange(dim)[None, :]
+    chunk = (d % 64) // 8
+    return ((d // 64) * rows * 128 + r * 128 + ((chunk ^ r) & 7) * 16
+            + (d % 8) * 2)
+
+
+def _descriptor_reads(rows, ks):
+    """The byte offsets that k-step ks of a K-major 128-byte-swizzle
+    descriptor at panel ks // 4, start + 32 (ks % 4) reads for each row's
+    16 values (the swizzle applies to the address within each 8-row,
+    1024-byte atom: 16-byte chunk j of row r at (j ^ r) & 7)."""
+    r = np.arange(rows)[:, None]
+    kb = 32 * (ks % 4) + 2 * np.arange(16)[None, :]      # logical bytes
+    return ((ks // 4) * rows * 128 + r * 128
+            + (((kb // 16) ^ r) & 7) * 16 + kb % 16)
+
+
+@pytest.mark.parametrize("rows", [64, 16, 32, 128])
+@pytest.mark.parametrize("dim", [16, 40, 64, 128])
+def test_bf16_k_steps_read_each_dim_in_order(rows, dim):
+    """For the slab (64 rows, K2 and X2) and the staged columns (N = 16 to
+    128): k-step ks of product_bf16_ss reads values 16 ks .. 16 ks + 15 of
+    every row, in order, on both operands, so the MMA's k positions agree;
+    positions past dim read bytes no value was written to (the zeros the
+    TMA's bounds, the zeroed unloaded k-panel or stage_bf16 put there)."""
+    where = _swizzled(rows, dim, panels=2)
+    assert len(np.unique(where)) == rows * dim          # no two values clash
+    for ks in range(8):
+        reads = _descriptor_reads(rows, ks)
+        d = 16 * ks + np.arange(16)
+        inside = d < dim
+        np.testing.assert_array_equal(reads[:, inside], where[:, d[inside]])
+        assert not np.isin(reads[:, ~inside], where).any()
+
+
+@pytest.mark.parametrize("dim", [16, 64, 128])
+def test_coarse_bf16_slab_boxes_load_every_doc_slot_value_once(dim):
+    """K2's TMA boxes (slab row s N + 64 t, k-panels at columns 0 and 64,
+    the k-panels wholly past dim not loaded) bring every (slot, doc, value)
+    of a tile into the ring once."""
+    s_, n = 3, 150
+    panels = -(-dim * 2 // 128)
+    hits = np.zeros((s_ * n, dim), np.int64)
+    for t in range(-(-n // ROWS)):
+        for s in range(s_):
+            row = s * n + t * ROWS
+            for pn in range(panels):
+                r = np.arange(row, min(row + ROWS, s_ * n))
+                d = np.arange(64 * pn, min(64 * pn + 64, dim))
+                keep = (r - s * n) < n                  # this slot's docs
+                hits[np.ix_(r[keep], d)] += 1
+    assert (hits == 1).all()
+
+
+def coarse_bf16_model(q, summ_t, valid):
+    """K2 on bf16 summaries as the kernel sums: q cast to bf16, products in
+    float32, the max over slots; per doc, each query's sum over its lqp
+    columns (zeros past Lq) pass by pass as a warp takes it (thread c adds
+    columns 8j + 2c, 8j + 2c + 1 slab by slab, then lanes ^1 and ^2 add;
+    a later pass adds to what the earlier one wrote); -9999 on invalid
+    docs."""
+    b, lq, dim = q.shape
+    n = summ_t.shape[1]
+    plan = torch_maxsim.summary_plan(b, lq, -(-n // ROWS), gathered=False)
+    m = torch.einsum("snd,bqd->bqns", summ_t.float(),
+                     q.bfloat16().float()).amax(dim=-1)     # (B, Lq, N)
+    m = torch.nn.functional.pad(m, (0, 0, 0, plan.lqp - lq))
+    out = torch.empty(b, n)
+    for bi in range(b):
+        qi = bi % plan.queries_per_group
+        total = None
+        for p in range(plan.passes):
+            lo = max(qi * plan.lqp, p * plan.cols) - qi * plan.lqp
+            hi = min((qi + 1) * plan.lqp, (p + 1) * plan.cols) - qi * plan.lqp
+            if lo >= hi:
+                continue
+            run = torch.zeros(4, n)
+            for j in range(lo // 8, hi // 8):
+                for e in range(2):
+                    run = run + m[bi, 8 * j + 2 * np.arange(4) + e]
+            v = run + run[[1, 0, 3, 2]]
+            v = (v + v[[2, 3, 0, 1]])[0]
+            total = v if total is None else total + v
+        out[bi] = total
+    return out.masked_fill(~valid.bool()[None, :], -9999.0)
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 3, 256, 128), (5, 32, 2, 256, 64),
+                                   (2, 150, 2, 128, 32)])
+def test_coarse_bf16_model_matches_plain_and_pallas_interpret(shape):
+    """Groups of several queries (Lq = 8, 32) and one query over two
+    column passes (Lq = 150); invalid docs exactly -9999."""
+    b, lq, s_, n, dim = shape
+    rng = np.random.default_rng(12)
+    q = rng.normal(size=(b, lq, dim)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    q[-1, -2:] = 0.0                              # zero query rows
+    summ = rng.normal(size=(s_, n, dim)).astype(np.float32)
+    summ /= np.linalg.norm(summ, axis=-1, keepdims=True)
+    valid = rng.random(n) > 0.1
+    st = jnp.asarray(summ).astype(jnp.bfloat16)
+    tst = torch.from_numpy(np.asarray(st, np.float32)).bfloat16()
+    tq, tv = torch.from_numpy(q), torch.from_numpy(valid)
+    got = coarse_bf16_model(tq, tst, tv)
+    assert (got.numpy()[:, ~valid] == -9999.0).all()
+    plain = torch_maxsim.coarse_sweep_torch(tq, tst, tv)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-3)
+    with _interpret():
+        want = np.asarray(jax_maxsim.coarse_sweep_pallas(
+            jnp.asarray(q), st, jnp.asarray(valid), tile_n=128,
+            queries_per_chunk=2))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
