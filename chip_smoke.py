@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      cores, csrc/summary_tile.cuh), csrc/stage1_sweep.cu: K4 (bf16 and
      int8 rows on the same tensor-core sweep, float32 rows on the CUDA
      cores), csrc/maxsim_int8.cu: K5, csrc/residual_maxsim.cu: K6,
-     csrc/residual_lut_maxsim.cu: X1, csrc/candidate_maxsim.cu: X2 and X3
-     on the tensor cores)
+     csrc/residual_lut_maxsim.cu: X1, csrc/candidate_maxsim.cu: X2 and X3,
+     both on the tensor cores)
      from the repo's sources, the nvcc runs side by side; ptxas
      registers/spills.
   3. K1 against its plain PyTorch version on the card: a bf16 index
@@ -91,8 +91,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      masked and one candidate of every query with none: max |err| and
      tie-aware top-10 at 1e-3; X2 batched, X3 the same kernel once per
      query (B launches of B = 1); both times (median of 10, CUDA events),
-     X2's launch alone, and X2's and X3's device times from the profiler
-     (X3's also per launch).
+     X1's and X2's launches alone, and X1's, X2's and X3's device times
+     from the profiler (X3's also per launch). X1's bound counts the bytes
+     of the mask and of the scored rows only (a masked row's ids, centroid
+     scores and scale do not change its -9999) and the bf16 operations of
+     its three products (the weights and the query as two bf16 parts
+     each); the CUDA cores' float32 bound beside it.
  12. the residual stage-2 experiment: ravqa_tpu_torch.scripts.
      exp_residual_stage2.run() with every round at the script's full
      widths (N = 200,064, then 1,000,448 docs of records made on the card,
@@ -1115,23 +1119,65 @@ def compressed_serve_slice(maxsim, data, server, index):
     return out
 
 
-def stage2_kernels():
-    """X1, X2 and X3 against their plain versions at the stage-2
-    experiment's shape (phase 11): B=32, Lq=32, Ld=64, dim 128, C = 1,024,
+def stage2_inputs(lq=32):
+    """Phase 11's inputs, made on the card from seed 3, shape by shape:
+    B=32 queries of Lq unit tokens (float32), Ld=64, dim 128, C = 1,024,
     256 and 200 (a multiple of neither of the TPU tiles, 32 and 128); ~30 %
-    of the tokens masked and candidate 1 of every query with none. Returns
-    {kernel: {"err", "ms", "plain_ms", "bound_ms", "bound_by", "shapes"}}:
-    the first shape's times and bound at the top. X2 also times the launch
-    alone ("kernel_ms", launch_candidate) and both X2 and X3 the device
-    time of their kernels from the profiler ("device_ms" a call of the
-    route, "device_ms_per_launch": X3's call is B launches)."""
+    of the tokens masked and candidate 1 of every query with none. Yields
+    (shape, X1's keyword arguments, X2's bf16 candidate tokens): the mask
+    (X1's mg, X2's too), X1's pre-gathered centroid scores (dot products of unit vectors, here
+    0.1 N(0, 1)), 2-bit bucket ids and scales near 1."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, ld, dim = 32, 64, 128
+    q = _normed(g, b, lq, dim, dtype=torch.float32)
+    w = torch.tensor([-0.05, -0.01, 0.01, 0.05], device="cuda")
+    for c in (1024, 256, 200):
+        mask = (torch.rand(b, c, ld, generator=g, device="cuda") > 0.3).to(
+            torch.int8)
+        mask[:, 1] = 0
+        x1 = dict(q=q, cqg=0.1 * torch.randn(b, c, ld, lq, generator=g,
+                                             device="cuda"),
+                  bits=torch.randint(4, (b, c, ld, dim), generator=g,
+                                     device="cuda", dtype=torch.uint8),
+                  sg=1.0 + 0.01 * torch.randn(b, c, ld, generator=g,
+                                              device="cuda"),
+                  mg=mask, weights=w)
+        yield f"C={c}", x1, _normed(g, b, c, ld, dim, dtype=torch.bfloat16)
+
+
+def x1_bound(x1, out):
+    """X1's bound on these inputs: the bytes it must move (the mask, the
+    query, the weights, the scores and, of each scored row (mg != 0) only,
+    its ids, centroid scores and scale: a masked row scores -9999 whatever
+    they hold) and the bf16 operations of its three products (hi.hi + lo.hi
+    + hi.lo) over the scored rows; the CUDA cores' float32 bound of the
+    same function beside it ("f32_bound_ms")."""
+    q, mg = x1["q"], x1["mg"]
+    _, lq, dim = q.shape
+    scored = int((mg != 0).sum().item())
+    nbytes = (_nbytes(mg, q, x1["weights"], out)
+              + scored * (dim + 4 * lq + 4))
+    flop = 2.0 * lq * dim * scored
+    bnd = bound(nbytes, 3 * flop, "bf16")
+    bnd["bound_note"] = ("bytes and bf16 operations of the 3 products "
+                         "(hi.hi + lo.hi + hi.lo) of the scored rows")
+    bnd["scored_rows"] = scored
+    bnd["f32_bound_ms"] = bound(nbytes, flop, "f32")["bound_ms"]
+    return bnd
+
+
+def stage2_kernels():
+    """X1, X2 and X3 against their plain versions on phase 11's inputs
+    (stage2_inputs). Returns {kernel: {"err", "ms", "plain_ms", "bound_ms",
+    "bound_by", "shapes"}}: the first shape's times and bound at the top.
+    X1 and X2 also time the launch alone ("kernel_ms", launch_fused_lut /
+    launch_candidate) and X1, X2 and X3 the device time of their kernels
+    from the profiler ("device_ms" a call of the route,
+    "device_ms_per_launch": X3's call is B launches). X1's bound is
+    x1_bound's."""
     import torch
     from ravqa_tpu_torch.ops import stage2
-    g = torch.Generator(device="cuda").manual_seed(3)
-    b, lq, ld, dim = 32, 32, 64, 128
-    q = _normed(g, b, lq, dim, dtype=torch.float32)
-    qb = q.bfloat16()
-    w = torch.tensor([-0.05, -0.01, 0.01, 0.05], device="cuda")
     out = {k: {"err": 0.0, "shapes": {}} for k in ("X1", "X2", "X3")}
 
     def per_query(mask, tok):
@@ -1148,29 +1194,25 @@ def stage2_kernels():
         record_kernel(out, kernel, shape, _compare(f"{kernel} {shape}", got,
                                                    want), fn, plain_fn, bnd)
 
-    for c in (1024, 256, 200):
-        shape = f"C={c}"
-        mask = (torch.rand(b, c, ld, generator=g, device="cuda") > 0.3).to(
-            torch.int8)
-        mask[:, 1] = 0
-        flop = 2.0 * b * lq * c * ld * dim
-        # X1: pre-gathered centroid scores (dot products of unit vectors,
-        # here 0.1 N(0, 1)), 2-bit bucket ids, scales near 1
-        x1 = dict(q=q, cqg=0.1 * torch.randn(b, c, ld, lq, generator=g,
-                                             device="cuda"),
-                  bits=torch.randint(4, (b, c, ld, dim), generator=g,
-                                     device="cuda", dtype=torch.uint8),
-                  sg=1.0 + 0.01 * torch.randn(b, c, ld, generator=g,
-                                              device="cuda"),
-                  mg=mask, weights=w)
+    for shape, x1, tok in stage2_inputs():
+        b, lq, dim = x1["q"].shape
+        mask = x1["mg"]
+        qb = x1["q"].bfloat16()
         got = stage2.fused_lut_maxsim(**x1)
         check("X1", shape, got, stage2.fused_lut_maxsim_torch(**x1),
               lambda: stage2.fused_lut_maxsim(**x1),
-              lambda: stage2.fused_lut_maxsim_torch(**x1),
-              bound(_nbytes(got, *x1.values()), flop, "f32"))
-        del x1
+              lambda: stage2.fused_lut_maxsim_torch(**x1), x1_bound(x1, got))
+        x1s = out["X1"]["shapes"][shape]
+        x1s["kernel_ms"] = time_ms(lambda: stage2.launch_fused_lut(**x1))
+        x1s["device_ms"] = device_ms(lambda: stage2.fused_lut_maxsim(**x1),
+                                     "lut_maxsim_kernel")
+        print(f"  X1 {shape}: the launch alone {x1s['kernel_ms']:.4f} ms, "
+              f"device {x1s['device_ms']:.4f} ms; {x1s['scored_rows']} rows "
+              f"scored; the CUDA cores' float32 bound "
+              f"{x1s['f32_bound_ms']:.4f} ms", flush=True)
+        del x1, got
         # X2 batched, X3 the same kernel once per query (B launches)
-        tok = _normed(g, b, c, ld, dim, dtype=torch.bfloat16)
+        flop = 2.0 * lq * dim * mask.numel()
         want = stage2.candidate_maxsim_torch(qb, tok, mask)
         got = stage2.candidate_maxsim(qb, tok, mask)
         bnd = bound(_nbytes(qb, tok, mask, got), flop, "bf16")
@@ -1384,6 +1426,8 @@ def main():
                              experiment["launches"][key], x)
     kernels["X3"]["ms_note"] = ("the batch's B launches of B = 1, as "
                                 "v_record_perq runs them")
+    kernels["X1"]["f32_bound_ms"] = stage2_k["X1"]["shapes"][
+        next(iter(stage2_k["X1"]["shapes"]))]["f32_bound_ms"]
     for k in kernels.values():
         # no single PyTorch call computes any of these functions
         k["library_ms"] = None

@@ -21,8 +21,7 @@
 // fills the card at B = 32 and at B = 1 alike; idle MMA columns cost
 // nothing that matters, an idle SM would.
 //
-// Design (the tensor-core route; csrc/candidate_tile.cuh's CUDA-core tile
-// stays for X1):
+// Design (X1, residual_lut_maxsim.cu, takes the same grid and epilogue):
 //  - a tile is 64 token rows of one candidate, one TMA box (per 128-byte
 //    k-panel) of the contiguous (B * C * Ld, dim) tokens, into a 4-stage
 //    mbarrier ring; a candidate longer than 64 tokens spans several tiles,

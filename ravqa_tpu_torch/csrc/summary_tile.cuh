@@ -2,7 +2,9 @@
 // (coarse_sweep.cu, bf16 and int8 summaries) and K4 (stage1_sweep.cu,
 // bf16 and int8 rows). Its bf16 product from shared memory
 // (product_bf16_ss, stage_bf16) also serves the candidate MaxSim X2/X3
-// (candidate_maxsim.cu). The sweep computes
+// (candidate_maxsim.cu), and its bf16 wgmma with A from registers
+// (wgmma_rs) the fused LUT MaxSim X1 (residual_lut_maxsim.cu). The sweep
+// computes
 //
 //   out[b, doc] = sum_t w_t * max_s q[b, t] . row_s(doc)
 //

@@ -8,8 +8,7 @@
 // per doc and slot), columns are query tokens staged transposed in shared
 // memory. Each thread owns an 8 x 8 micro-tile: rows ty + 16 i, columns
 // 4 tx + j and 64 + 4 tx + j (H = 2), or only the first four columns when a
-// tile has at most 64 query columns (H = 1). X1's candidate sweep
-// (candidate_tile.cuh) streams doc tokens through the same scheme.
+// tile has at most 64 query columns (H = 1).
 
 #pragma once
 

@@ -98,7 +98,7 @@ _LIBRARIES = {
         "ravqa_residual_maxsim": (7, 11)}),
     # the stage-2 experiment's scorers (ops/stage2.py): X1, and X2/X3
     "ravqa_residual_lut_maxsim": ("residual_lut_maxsim.cu", {
-        "ravqa_residual_lut_maxsim": (7, 5)}),
+        "ravqa_residual_lut_maxsim": (7, 8)}),
     "ravqa_candidate_maxsim": ("candidate_maxsim.cu", {
         "ravqa_candidate_maxsim": (4, 8)}),
 }

@@ -8,8 +8,10 @@ into dense (B, C, Ld, ...) tensors:
   ``v_pallas`` and its body ``_fused_kernel``): the residual term of a
   2-bit residual codec, a lookup of each dim's bucket id in the 4 bucket
   weights dotted with the float32 query, plus the pre-gathered centroid
-  scores, times the token's scale, masked, MaxSim. Plain version
-  ``fused_lut_maxsim_torch``.
+  scores, times the token's scale, masked, MaxSim. On the tensor cores:
+  the weights and the query each split into two bf16 parts, hi.hi + lo.hi
+  + hi.lo, on X2's grid (``candidate_plan``); ``launch_fused_lut`` is the
+  launch alone. Plain version ``fused_lut_maxsim_torch``.
 - ``candidate_maxsim`` (X2, ``csrc/candidate_maxsim.cu``, port of
   ``maxsim_candidates_pallas`` and ``_cand_kernel``): MaxSim of bf16
   queries over bf16 candidate tokens, float32 sums, on the tensor cores
@@ -92,14 +94,54 @@ def _check_widths(where: str, lq: int, ld: int, dim: int) -> None:
                          f"Ld={ld}, dim={dim}")
 
 
+# X1 and X2 run on summary_tile.cuh's bf16 wgmma: their tiles, the MMA's N
+# that they take and the most tiles a block sweeps are the summary sweep's
+CANDIDATE_TILE_ROWS = SUMMARY_TILE_ROWS
+
+
+class CandidatePlan(NamedTuple):
+    """How X1's and X2's tensor-core kernels cover a launch; the kernels
+    take these ints.
+
+    The query's Lq tokens are the MMA's `cols` columns (zeros past Lq). A
+    candidate's Ld tokens go in `tiles_per_cand` tiles of 64 rows (rows of
+    its last tile past Ld dropped); block x sweeps query x // ranges,
+    candidates (x % ranges) * cands_per_block .. + cands_per_block - 1, with
+    ranges = ceil(C / cands_per_block)."""
+    cols: int
+    tiles_per_cand: int
+    cands_per_block: int
+
+    def ranges(self, c: int) -> int:
+        return -(-c // self.cands_per_block)
+
+    def blocks(self, b: int, c: int) -> int:
+        return b * self.ranges(c)
+
+
+def candidate_plan(b: int, lq: int, c: int, ld: int,
+                   sm_count: int = 132) -> CandidatePlan:
+    """X1's and X2's plan for B queries of Lq tokens over C candidates of
+    Ld tokens: N the smallest of 16, 32, 64, 128 that covers Lq; tiles per
+    block at most 32, fewer when the grid would give the card's `sm_count`
+    SMs less than four blocks each, and never less than one candidate's."""
+    cols = next(x for x in _SUMMARY_COLS if x >= lq)
+    tpc = -(-ld // CANDIDATE_TILE_ROWS)
+    tiles = max(1, min(_SUMMARY_MAX_TILES,
+                       b * c * tpc // (4 * sm_count)))
+    return CandidatePlan(cols, tpc, max(1, tiles // tpc))
+
+
 def fused_lut_maxsim(q: torch.Tensor, cqg: torch.Tensor, bits: torch.Tensor,
                      sg: torch.Tensor, mg: torch.Tensor,
                      weights: torch.Tensor, nbits: int = 2) -> torch.Tensor:
     """Fused 2-bit LUT + MaxSim over pre-gathered candidates (X1, port of
     v_pallas's kernel): see fused_lut_maxsim_torch for the semantics.
 
-    CUDA tensors launch csrc/residual_lut_maxsim.cu on the current stream,
-    counted in ``fused_lut_maxsim.launches``: q (B, Lq, dim) float32, cqg
+    CUDA tensors launch csrc/residual_lut_maxsim.cu on the tensor cores
+    (the weights and the query each as two bf16 parts, three products), on
+    the current stream, counted in ``fused_lut_maxsim.launches``: q
+    (B, Lq, dim) float32, cqg
     (B, C, Ld, Lq) float32, bits (B, C, Ld, dim) uint8 (ops.residual's
     unpack_bits), sg (B, C, Ld) float32, mg (B, C, Ld) int8, weights (4,)
     float32; nbits must be 2 (the TPU body is a 4-way select). The TPU
@@ -138,54 +180,27 @@ def fused_lut_maxsim(q: torch.Tensor, cqg: torch.Tensor, bits: torch.Tensor,
     _check_widths("fused_lut_maxsim", lq, ld, dim)
     _check_tensors("fused_lut_maxsim", ("bits",), q=q, cqg=cqg, bits=bits,
                    sg=sg, mg=mg, weights=weights)
+    return launch_fused_lut(q, cqg, bits, sg, mg, weights)
+
+
+def launch_fused_lut(q, cqg, bits, sg, mg, weights):
+    """X1's launch alone (csrc/residual_lut_maxsim.cu), on the inputs
+    fused_lut_maxsim checks: (B, C) float32, counted in
+    ``fused_lut_maxsim.launches``."""
+    b, lq, dim = q.shape
+    _, c, ld, _ = bits.shape
     out = torch.empty((b, c), dtype=torch.float32, device=q.device)
+    plan = candidate_plan(b, lq, c, ld,
+                          sm_count=_sm_count(q.device.index or 0))
     _launch("ravqa_residual_lut_maxsim", "ravqa_residual_lut_maxsim",
             q.device, q.data_ptr(), cqg.data_ptr(), bits.data_ptr(),
             sg.data_ptr(), mg.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            b, lq, c, ld, dim)
+            b, lq, c, ld, dim, *plan)
     fused_lut_maxsim.launches += 1
     return out
 
 
 fused_lut_maxsim.launches = 0
-
-
-# X2 runs on summary_tile.cuh's bf16 product: its tiles, the MMA's N that
-# it takes and the most tiles a block sweeps are the summary sweep's
-CANDIDATE_TILE_ROWS = SUMMARY_TILE_ROWS
-
-
-class CandidatePlan(NamedTuple):
-    """How X2's tensor-core kernel covers a launch; the kernel takes these
-    ints.
-
-    The query's Lq tokens are the MMA's `cols` columns (zeros past Lq). A
-    candidate's Ld tokens go in `tiles_per_cand` tiles of 64 rows (rows of
-    its last tile past Ld dropped); block x sweeps query x // ranges,
-    candidates (x % ranges) * cands_per_block .. + cands_per_block - 1, with
-    ranges = ceil(C / cands_per_block)."""
-    cols: int
-    tiles_per_cand: int
-    cands_per_block: int
-
-    def ranges(self, c: int) -> int:
-        return -(-c // self.cands_per_block)
-
-    def blocks(self, b: int, c: int) -> int:
-        return b * self.ranges(c)
-
-
-def candidate_plan(b: int, lq: int, c: int, ld: int,
-                   sm_count: int = 132) -> CandidatePlan:
-    """X2's plan for B queries of Lq tokens over C candidates of Ld tokens:
-    N the smallest of 16, 32, 64, 128 that covers Lq; tiles per block at
-    most 32, fewer when the grid would give the card's `sm_count` SMs less
-    than four blocks each, and never less than one candidate's."""
-    cols = next(x for x in _SUMMARY_COLS if x >= lq)
-    tpc = -(-ld // CANDIDATE_TILE_ROWS)
-    tiles = max(1, min(_SUMMARY_MAX_TILES,
-                       b * c * tpc // (4 * sm_count)))
-    return CandidatePlan(cols, tpc, max(1, tiles // tpc))
 
 
 def candidate_maxsim(q: torch.Tensor, tok: torch.Tensor,

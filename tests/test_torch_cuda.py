@@ -10,7 +10,9 @@ tests/conftest.py, which imports jax, out).
 
 Tolerance: rtol 1e-5, atol 1e-4 * Lq. The kernel and the plain version get
 the same values (bf16 and int8 inputs are upcast exactly) and differ only
-in the order they sum products and per-token maxima in float32. K3's int32
+in the order they sum products and per-token maxima in float32; K1 on a
+float32 index and X1 multiply float32 values as two bf16 parts a side
+(hi.hi + lo.hi + hi.lo), about 2^-17 of each product off. K3's int32
 maxima are exact: with unit query and doc scales its sums of integers
 equal the plain version's bit for bit. TF32 is off for the plain versions'
 float32 matmuls (the fixture below), as chip_smoke.py sets it.
@@ -863,7 +865,9 @@ def make_x2(c, ld, b=4, lq=32, dim=128, negative=False, seed=9):
 
 @pytest.mark.parametrize("c,ld", STAGE2_SHAPES)
 def test_fused_lut_kernel_matches_plain(c, ld):
-    """The same float32 products on both sides, summed in another order."""
+    """The kernel's residual term is three bf16 products (hi.hi + lo.hi +
+    hi.lo, about 2^-17 of it off float32), the plain version's float32;
+    the rest differs in the order of float32 sums."""
     a = make_x1(c, ld)
     before = stage2.fused_lut_maxsim.launches
     got = stage2.fused_lut_maxsim(**a)
@@ -887,6 +891,59 @@ def test_fused_lut_kernel_keeps_negative_maxima():
     _close(got, stage2.fused_lut_maxsim_torch(**a), 32)
     valid = (a["mg"] != 0).any(-1)
     assert bool((got[valid] < 0).all()) and bool(valid.any())
+
+
+def test_fused_lut_kernel_takes_w3_past_id_3():
+    """Ids 4-255 (a 4-way select's last branch on the TPU) take w[3]: a
+    clamp, not a mask of two bits."""
+    a = make_x1(200, 64)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a["bits"] = torch.randint(256, a["bits"].shape, generator=g,
+                              device="cuda", dtype=torch.uint8)
+    got = stage2.fused_lut_maxsim(**a)
+    _close(got, stage2.fused_lut_maxsim_torch(**a), 32)
+    all_w3 = dict(a, bits=torch.full_like(a["bits"], 4))
+    _close(stage2.fused_lut_maxsim(**all_w3),
+           stage2.fused_lut_maxsim_torch(**dict(a, bits=torch.full_like(
+               a["bits"], 3))), 32)
+
+
+def test_fused_lut_kernel_ignores_masked_rows():
+    """A masked row scores -9999 whatever its ids, centroid scores and
+    scale hold (the kernel does not read them): NaN and ids past 3 there
+    change no bit of the result."""
+    a = make_x1(200, 64)
+    masked = a["mg"] == 0
+    junk = dict(a, cqg=a["cqg"].masked_fill(masked[..., None], float("nan")),
+                sg=a["sg"].masked_fill(masked, float("nan")),
+                bits=a["bits"].masked_fill(masked[..., None], 255))
+    got = stage2.fused_lut_maxsim(**junk)
+    assert torch.equal(got, stage2.fused_lut_maxsim(**a))
+    _close(got, stage2.fused_lut_maxsim_torch(**junk), 32)
+
+
+@pytest.mark.parametrize("dim", [8, 24, 64, 120])
+def test_fused_lut_kernel_narrow_rows(dim):
+    """dim <= 64 leaves the query's second k-panel all zeros; dim % 16 ==
+    8 (8, 24, 120) rows are no multiple of 16 bytes, which a tensor map
+    would need: the kernel loads them 8 bytes at a time."""
+    a = make_x1(256, 64, dim=dim)
+    _close(stage2.fused_lut_maxsim(**a), stage2.fused_lut_maxsim_torch(**a),
+           32)
+
+
+@pytest.mark.parametrize("b,c,ld", [(1, 256, 64), (32, 1024, 64),
+                                    (2, 300, 220)])
+def test_fused_lut_launch_alone_at_the_plan_shapes(b, c, ld):
+    """The launch alone equals the wrapper bit for bit and counts on its
+    counter."""
+    a = make_x1(c, ld, b=b)
+    before = stage2.fused_lut_maxsim.launches
+    got = stage2.launch_fused_lut(**a)
+    torch.cuda.synchronize()
+    assert stage2.fused_lut_maxsim.launches == before + 1
+    assert torch.equal(got, stage2.fused_lut_maxsim(**a))
+    _close(got, stage2.fused_lut_maxsim_torch(**a), 32)
 
 
 def test_fused_lut_wrapper_raises_on_bad_input():

@@ -25,7 +25,11 @@ reasons:
 X2's tensor-core kernel runs only on the card; its plan (every query,
 candidate and token covered once) and a model of its epilogue (the mask,
 the max over rows and the sum's order) are held here to the plain version
-and to maxsim_candidates_pallas (1e-3 abs, as the bf16 paths above).
+and to maxsim_candidates_pallas (1e-3 abs, as the bf16 paths above). X1's
+tensor-core kernel shares that plan and epilogue; a model of its split
+arithmetic (two bf16 parts of the weights and of the query, three
+products) is held to the plain version and to _fused_kernel (1e-4 abs, the
+float32 tolerance), with its k order and its id decode.
 """
 
 import ast
@@ -265,29 +269,36 @@ def test_fused_lut_maxsim_plain_matches_numpy():
     assert (got[:, 2] == -9999.0 * 4).all()      # C1: maxima from -inf
 
 
-def test_fused_lut_maxsim_plain_matches_pallas_interpret(jx, interpret):
-    """The plain version against the TPU body _fused_kernel, driven by the
-    script's own pallas_call (v_pallas's tile of 32 candidates)."""
-    a = _x1_inputs(b=2, c=32, ld=LD, lq=LQ, dim=DIM)
-    ns = dict(jx)
-    want = pl.pallas_call(
-        ns["_fused_kernel"], grid=(2, 1),
-        in_specs=[pl.BlockSpec((None, LQ, DIM), lambda i, j: (i, 0, 0)),
-                  pl.BlockSpec((None, 32, LD, LQ), lambda i, j: (i, j, 0, 0)),
-                  pl.BlockSpec((None, 32, LD, DIM),
+def _fused_pallas(jx, a):
+    """The TPU body _fused_kernel on the numpy inputs `a`, driven as v_pallas
+    drives it (tiles of 32 candidates, int32 ids and mask, the weights
+    padded to a row of 128 lanes)."""
+    b, c, ld, dim = a["bits"].shape
+    lq = a["q"].shape[1]
+    return pl.pallas_call(
+        jx["_fused_kernel"], grid=(b, c // 32),
+        in_specs=[pl.BlockSpec((None, lq, dim), lambda i, j: (i, 0, 0)),
+                  pl.BlockSpec((None, 32, ld, lq), lambda i, j: (i, j, 0, 0)),
+                  pl.BlockSpec((None, 32, ld, dim),
                                lambda i, j: (i, j, 0, 0)),
-                  pl.BlockSpec((None, 32, LD), lambda i, j: (i, j, 0)),
-                  pl.BlockSpec((None, 32, LD), lambda i, j: (i, j, 0)),
+                  pl.BlockSpec((None, 32, ld), lambda i, j: (i, j, 0)),
+                  pl.BlockSpec((None, 32, ld), lambda i, j: (i, j, 0)),
                   pl.BlockSpec((1, 128), lambda i, j: (0, 0))],
         out_specs=pl.BlockSpec((None, 32), lambda i, j: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((2, 32), jnp.float32),
+        out_shape=jax.ShapeDtypeStruct((b, c), jnp.float32),
     )(jnp.asarray(a["q"]), jnp.asarray(a["cqg"]),
       jnp.asarray(a["bits"], jnp.int32), jnp.asarray(a["sg"]),
       jnp.asarray(a["mg"], jnp.int32),
       jnp.pad(jnp.asarray(a["weights"]), (0, 124)).reshape(1, 128))
+
+
+def test_fused_lut_maxsim_plain_matches_pallas_interpret(jx, interpret):
+    """The plain version against the TPU body _fused_kernel, driven by the
+    script's own pallas_call (v_pallas's tile of 32 candidates)."""
+    a = _x1_inputs(b=2, c=32, ld=LD, lq=LQ, dim=DIM)
     got = stage2.fused_lut_maxsim_torch(
         **{k: torch.from_numpy(v) for k, v in a.items()})
-    _close(got, want, atol=F32)
+    _close(got, _fused_pallas(jx, a), atol=F32)
 
 
 def _x2_inputs(seed=2, b=3, c=6, ld=5, lq=4, dim=16):
@@ -382,12 +393,19 @@ def candidate_model(q, tok, mask):
     the 4 warps the max over the rest; then warp 0's lane l adds columns l,
     l + 32, .. (< Lq) in turn and the shuffle tree (lanes ^16, ^8, ^4, ^2,
     ^1) adds the lanes' sums."""
-    b, c, ld, _ = tok.shape
-    lq = q.shape[1]
+    s = torch.einsum("bcld,bqd->bclq", tok.float(), q.float())
+    return _kernel_reduce(s.masked_fill(mask[..., None] == 0, -9999.0),
+                          q.shape[1])
+
+
+def _kernel_reduce(s, lq):
+    """The epilogue that X1 and X2 share, on token scores s (B, C, Ld, Lq),
+    masked rows already -9999: rows past the candidate -inf, the max over
+    each thread's rows of every 64-row tile (candidate_plan's tiles), then
+    over lanes and warps, and warp 0's sum over Lq in the kernels' order."""
+    b, c, ld, _ = s.shape
     plan = stage2.candidate_plan(b, lq, c, ld)
     rows = plan.tiles_per_cand * ROWS
-    s = torch.einsum("bcld,bqd->bclq", tok.float(), q.float())
-    s = s.masked_fill(mask[..., None] == 0, -9999.0)
     s = torch.nn.functional.pad(s, (0, plan.cols - lq, 0, rows - ld),
                                 value=float("-inf"))
     # row 64 j + 16 w + 8 h + g of the candidate
@@ -421,6 +439,135 @@ def test_candidate_model_matches_plain_and_pallas_interpret(jx, interpret,
     want = jx["maxsim_candidates_pallas"](
         *(jnp.asarray(x, jnp.bfloat16) for x in (q, tok)), jnp.asarray(mask))
     _close(got, want, atol=BF16)
+
+
+# -- X1's tensor-core kernel (csrc/residual_lut_maxsim.cu), its arithmetic --
+
+def _bf16_parts(x):
+    """x as float32 hi = bf16(x) and lo = bf16(x - hi)."""
+    x = x.float()
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def lut_split_model(q, cqg, ids, sg, mg, w, products=3):
+    """X1 as the kernel computes it: the 4 weights as two bf16 tables and
+    the query as two bf16 parts; the accumulator starts at the centroid
+    scores and takes the products w_lo q_hi, w_hi q_lo and w_hi q_hi, each
+    exact in float32 and summed in float32 (products=1: w_hi q_hi alone);
+    then x sg, -9999 where masked, and X2's epilogue (_kernel_reduce)."""
+    w_hi, w_lo = _bf16_parts(w)
+    q_hi, q_lo = _bf16_parts(q)
+    idx = ids.long().clamp_max(3)                # an id past 3 takes w[3]
+    a_hi, a_lo = w_hi[idx], w_lo[idx]
+    s = cqg.float()
+    for a, x in [(a_lo, q_hi), (a_hi, q_lo), (a_hi, q_hi)][-products:]:
+        s = s + torch.einsum("bcld,bqd->bclq", a, x)
+    s = s * sg.float()[..., None]
+    return _kernel_reduce(s.masked_fill(mg[..., None] == 0, -9999.0),
+                          q.shape[1])
+
+
+def _x1_split_inputs(ld, lq, dim, seed=11, b=2, c=32):
+    """X1's inputs with unit queries (the experiment's are), ids past 3 (a
+    fifth of them, up to 255), weights that bf16 does not hold exactly and
+    candidate 2 all masked. Two bf16 parts a side keep about 16 bits of
+    each value: with the raw normal queries of _x1_inputs (norm ~11) the
+    split's error alone reaches ~9e-5 of the 1e-4 tolerance on sums near
+    100; with unit queries it is ~10x less."""
+    a = _x1_inputs(seed=seed, b=b, c=c, ld=ld, lq=lq, dim=dim)
+    a["q"] /= np.linalg.norm(a["q"], axis=-1, keepdims=True)
+    rng = np.random.default_rng(seed + 1)
+    past = rng.random(a["bits"].shape) < 0.2
+    a["bits"][past] = rng.integers(4, 256, size=int(past.sum()))
+    a["weights"] = rng.normal(0.0, 0.05, size=4).astype(np.float32)
+    assert (a["bits"] > 3).any() and (a["bits"] == 255).any()
+    return a
+
+
+@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("ld,lq", [(64, 32), (70, 33), (220, 64)])
+def test_lut_split_model_matches_plain_and_pallas_interpret(jx, interpret,
+                                                            ld, lq, dim):
+    """Three bf16 products (hi.hi + lo.hi + hi.lo) with the kernel's max
+    and sum order equal fused_lut_maxsim_torch and the TPU body
+    _fused_kernel to the float32 tolerance; Ld = 70 and 220 span two and
+    four tiles; an all-masked candidate scores exactly -9999 * Lq."""
+    a = _x1_split_inputs(ld, lq, dim)
+    w = torch.from_numpy(a["weights"])
+    assert not torch.equal(w.bfloat16().float(), w)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    got = lut_split_model(t["q"], t["cqg"], t["bits"], t["sg"], t["mg"], w)
+    assert torch.equal(got[:, 2], torch.full((2,), -9999.0 * lq))
+    _close(got, stage2.fused_lut_maxsim_torch(**t), atol=F32)
+    _close(got, _fused_pallas(jx, a), atol=F32)
+
+
+def test_lut_one_bf16_part_a_side_misses_the_tolerance():
+    """Why three products: w_hi q_hi alone (8 bits of each value) is off
+    by far more than 1e-4; the three products are within it."""
+    a = _x1_split_inputs(64, 32, 128)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    want = stage2.fused_lut_maxsim_torch(**t)
+    args = (t["q"], t["cqg"], t["bits"], t["sg"], t["mg"], t["weights"])
+    one = (lut_split_model(*args, products=1) - want).abs().max().item()
+    three = (lut_split_model(*args) - want).abs().max().item()
+    assert one > 10 * F32 and three <= F32
+
+
+def _dim_of(ks, c, j):
+    """residual_lut_maxsim.cu's dim_of: the dim of lane c's value j of
+    k-step ks (A fragment k positions 2c, 2c + 1, 2c + 8, 2c + 9)."""
+    return 32 * (ks >> 1) + 8 * c + 4 * (ks & 1) + j
+
+
+def test_lut_k_order_covers_every_dim_once():
+    """The kernel's k order is a permutation of the 128 dims; lane c's
+    8-byte unit i of a row (bytes 8 (4 i + c) ..) holds k-steps 2 i (low
+    word) and 2 i + 1 (high word); the staged query's chunk k holds, at
+    each k position, the dim the A fragments put there."""
+    assert sorted(_dim_of(ks, c, j) for ks in range(8) for c in range(4)
+                  for j in range(4)) == list(range(128))
+    for i in range(4):
+        for c in range(4):
+            unit = list(range(8 * (4 * i + c), 8 * (4 * i + c) + 8))
+            assert unit == [_dim_of(2 * i + h, c, j) for h in range(2)
+                            for j in range(4)]
+    for ks in range(8):
+        for c in range(4):
+            for j in range(4):
+                pos = 2 * c + (j & 1) + 8 * (j >> 1)    # the fragment's k
+                half, p, e = pos >> 3, (pos & 7) >> 1, pos & 1   # staged
+                assert _dim_of(ks, p, 2 * half + e) == _dim_of(ks, c, j)
+
+
+def _lookup(word, t):
+    """residual_lut_maxsim.cu's lookup() on numpy uint32: per-byte min with
+    3 (__vminu4), then two __byte_perm selections from the 8-byte table
+    t = (t.x, t.y); returns (.x, .y)."""
+    b = np.array([(word >> (8 * i)) & 0xFF for i in range(4)], np.uint32)
+    d = sum(int(min(v, 3)) << (8 * i) for i, v in enumerate(b)) << 1
+    s = d | (((d + 0x01010101) << 4) & 0xFFFFFFFF)
+    table = [(int(t[i // 4]) >> (8 * (i % 4))) & 0xFF for i in range(8)]
+
+    def perm(sel):
+        return sum(table[(sel >> (4 * n)) & 7] << (8 * n) for n in range(4))
+    return perm(s & 0xFFFF), perm(s >> 16)
+
+
+def test_lut_decode_takes_the_clamped_entry():
+    """Every id 0-255 in every byte of a word decodes to the table's entry
+    min(id, 3), the lower id in the low half of each output word."""
+    entries = [0x3D53, 0xBC49, 0x3C15, 0xBD48]        # four bf16 values
+    t = (entries[0] | entries[1] << 16, entries[2] | entries[3] << 16)
+    rng = np.random.default_rng(12)
+    ids = np.concatenate([np.arange(256), rng.integers(0, 256, 1020)])
+    for w4 in ids.reshape(-1, 4):
+        word = int(w4[0]) | int(w4[1]) << 8 | int(w4[2]) << 16 \
+            | int(w4[3]) << 24
+        x, y = _lookup(word, t)
+        want = [entries[min(int(v), 3)] for v in w4]
+        assert [x & 0xFFFF, x >> 16, y & 0xFFFF, y >> 16] == want
 
 
 def test_wrappers_take_the_plain_version_on_cpu():
