@@ -34,9 +34,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      towers on the card checked against the same module run on the CPU.
   5. K2, K3 and K4 against their plain versions at the bench.py shape
      (B=32, Lq=32, dim=128; 112,640 docs x 8 summaries; 1,760 x 4 block
-     summaries padded to 2,048; bs=64, n_blocks 16 and 32) and K3 and K4
-     at the hierarchical serve's (Lq=64; 256 of 1,024 padded blocks x 4
-     summaries; int8 rows, n_blocks 32 of 256 blocks x 8 summaries):
+     summaries padded to 2,048; bs=64, n_blocks 16 and 32) and K2, K3 and
+     K4 at the hierarchical serve's (Lq=64; 256 of 1,024 padded blocks x 4
+     summaries, K2 also on float32 ones, its CUDA-core body; int8 rows,
+     n_blocks 32 of 256 blocks x 8 summaries):
      scores, tie-aware top-10, K3's pre-scale sums exactly, invalid docs at
      exactly -9999, the wrapper's and the plain version's times, each
      kernel's launch alone beside them ("kernel_ms", CUDA events) and its
@@ -105,6 +106,39 @@ Phases, in order; any failure raises and the script exits non-zero:
      1e-3; the launches of X1 (fused_lut_maxsim), X2 and X3
      (candidate_maxsim batched and once per query, B a batch) equal what
      the run called; no round raises.
+ 13. the training step on the card against the CPU: ravqa_tpu_torch.entry.
+     entry()'s loss and backward at its BERT-base shape on both from one
+     state dict (loss and grad norm to rtol 1e-4, each parameter's grad
+     within 1e-4 of max(its scale, 1e-3 of the model's largest grad));
+     then one FLMRExecutor.train_step on each on a batch of 2 from
+     configs/synthetic_flmr_base_train.json (loss and grad norm to rtol
+     1e-4, each grad as above; the update, on the coordinates whose grad is
+     well above rounding, within 2 ulp of the parameter plus 1e-3 lr: a
+     first Adam update moves every coordinate by about lr whatever its
+     grad's size), and a second step on the same batch (its loss to rtol
+     1e-4).
+     Nothing of the card's run may sit on the CPU.
+ 14. the training slice: `main --mode train` in-process on
+     configs/synthetic_flmr_base_train.json (configs/okvqa/flmr_base.json's
+     widths: BERT-base, B=30, nway 5 with in-batch negatives, lr 1e-5 and
+     1e-4 for the mapping network; 24 steps, a validation at 12 and 24 over
+     16,384 passages indexed on the card), then `--mode eval` from the
+     checkpoint it wrote, in exact mode and with
+     model_config.search_mode=hierarchical. Gates: every loss finite; K1 on
+     the float32 index's split route in every exact evaluation and K2/K3
+     in the hierarchical one (each count set to 0 just before the run and
+     read just after); the exact eval's ranking equals a plain search of
+     the same index on the same query embeddings (16 queries on a CPU
+     copy, all on the card's plain version; tie-aware top-10, 1e-3); the
+     hierarchical eval's stage-0 sweep (K2 at B=192, Lq=64) against its
+     plain version for every query and its answers against the plain
+     versions' search of a CPU copy for 16 (both tie-aware top-10, 1e-3);
+     the eval from the checkpoint reproduces the final validation's recall@K
+     and precision@K; params.msgpack decodes with the port's reader.
+     Prints the step's ms (median of steps 3-24) and steps/s, padded
+     query+doc positions/s and attended (attention-mask) tokens/s, peak
+     max_memory_allocated and the evaluations' seconds (corpus encode,
+     search), each beside the card's name and power limit.
 Every phase prints its seconds. The line before the last is the kernels'
 JSON record: each kernel's launches on its path, its error against its
 plain version, its time and its plain version's, and its bound, the least
@@ -129,6 +163,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "configs", "synthetic_flmr_base_serve.json")
 HIER_CONFIG = os.path.join(HERE, "configs",
                            "synthetic_flmr_base_serve_hier.json")
+TRAIN_CONFIG = os.path.join(HERE, "configs",
+                            "synthetic_flmr_base_train.json")
 # float32 scores of L2-normalized embeddings at Lq <= 64: the kernel and
 # the plain version sum the same products in different orders, which moves
 # a score by ~1e-5; 1e-3 leaves room without hiding a wrong max or mask
@@ -339,7 +375,7 @@ def drive_requests(server, data, index, wrappers, n=64, clients=4):
     server. Every wrapper's launch count is set to 0 just before and read
     just after. Returns (requests, scores (n, K), pids (n, K), launches per
     wrapper, dispatches)."""
-    items = data["items"]["train"] + data["items"]["test"]
+    items = data["train"].items + data["test"].items
     reqs = [items[i % len(items)] for i in range(n)]
     lat = [0.0] * n
     results = [None] * n
@@ -464,17 +500,19 @@ def _compare(name, got, want, atol=SWEEP_ATOL):
 
 def sweep_kernels(maxsim):
     """K2, K3 and K4 against their plain versions at the bench.py shapes
-    and, for K3 and K4, at the hierarchical serve's. Each also times the
-    kernel alone ("kernel_ms", launch_coarse_bf16 / launch_coarse_int8 /
-    launch_stage1 on the inputs the wrapper prepares) and its device time
-    from the profiler ("device_ms"); K2 fails unless the wrapper's trace
-    holds the tensor-core body. Returns {kernel: {"err", "ms", "plain_ms",
-    "shapes": {...}}}."""
+    and at the hierarchical serve's (Lq = 64), K2 there also on float32
+    summaries (its CUDA-core body). Each also times the kernel alone
+    ("kernel_ms", launch_coarse_bf16 / launch_coarse_int8 / launch_stage1
+    on the inputs the wrapper prepares) and its device time from the
+    profiler ("device_ms"); K2 fails unless the wrapper's trace holds the
+    tensor-core body on bf16 summaries. Returns {kernel: {"err", "ms",
+    "plain_ms", "shapes": {...}}}."""
     import torch
     from ravqa_tpu_torch.ops.quant import (quantize_queries_int8,
                                            quantize_summaries_int8,
                                            quantize_summaries_t_int8)
     g = torch.Generator(device="cuda").manual_seed(1)
+    g32 = torch.Generator(device="cuda").manual_seed(2)
     b, dim, bs = 32, 128, 64
     queries = {}
     for lq in (32, 64):
@@ -499,8 +537,9 @@ def sweep_kernels(maxsim):
     summ_docs = None
     # two-stage coarse pass: 112,640 docs x 8 summaries; hierarchical
     # stage 0: 1,760 blocks x 4 summaries, zero-padded to 2,048; the
-    # hierarchical serve's stage 0 (K3 only): 256 blocks padded to 1,024,
-    # Lq = 64 (32 text + 32 mapping tokens)
+    # hierarchical serve's stage 0: 256 blocks padded to 1,024, Lq = 64
+    # (32 text + 32 mapping tokens), which the serve sweeps with K3 and
+    # the reference preset's hierarchical eval (phase 14) with K2
     for shape, s_, n, n_valid, lq in (
             ("docs S=8 N=112640", 8, 112640, None, 32),
             ("blocks S=4 N=2048", 4, 2048, 1760, 32),
@@ -516,27 +555,41 @@ def sweep_kernels(maxsim):
             summ_t[:, n_valid:] = 0
         invalid = valid == 0
         ops = 2.0 * b * lq * s_ * n * dim
-        if lq == 32:
-            got = maxsim.coarse_sweep(q, summ_t, valid)
-            want = maxsim.coarse_sweep_torch(q, summ_t, valid)
+        got = maxsim.coarse_sweep(q, summ_t, valid)
+        want = maxsim.coarse_sweep_torch(q, summ_t, valid)
+        torch.cuda.synchronize()
+        if not bool((got[:, invalid] == -9999.0).all()):
+            raise AssertionError("K2: an invalid doc must score -9999")
+        err = _compare(f"K2 bf16 {shape}", got, want)
+        qc = q.bfloat16()
+        record("K2", shape, err,
+               lambda: maxsim.coarse_sweep(q, summ_t, valid),
+               lambda: maxsim.coarse_sweep_torch(q, summ_t, valid),
+               bound(_nbytes(q, summ_t, valid, got), ops, "bf16"),
+               lambda: maxsim.launch_coarse_bf16(qc, summ_t, valid))
+        # the wrapper's own trace: bf16 summaries on the tensor cores
+        wrapper_dev = device_ms(
+            lambda: maxsim.coarse_sweep(q, summ_t, valid),
+            ops_name["K2"])
+        out["K2"]["shapes"][shape]["wrapper_device_ms"] = wrapper_dev
+        print(f"  K2 {shape}: the wrapper ran summary_kernel"
+              f"<CoarseBf16Op>, {wrapper_dev:.4f} ms on the device",
+              flush=True)
+        if lq == 64:
+            # K2's float32 body (CUDA cores), on float32 summaries
+            summ_f = _normed(g32, s_, n, dim, dtype=torch.float32)
+            summ_f[:, ~valid.bool()] = 0
+            got = maxsim.coarse_sweep(q, summ_f, valid)
+            want = maxsim.coarse_sweep_torch(q, summ_f, valid)
             torch.cuda.synchronize()
             if not bool((got[:, invalid] == -9999.0).all()):
-                raise AssertionError("K2: an invalid doc must score -9999")
-            err = _compare(f"K2 bf16 {shape}", got, want)
-            qc = q.bfloat16()
-            record("K2", shape, err,
-                   lambda: maxsim.coarse_sweep(q, summ_t, valid),
-                   lambda: maxsim.coarse_sweep_torch(q, summ_t, valid),
-                   bound(_nbytes(q, summ_t, valid, got), ops, "bf16"),
-                   lambda: maxsim.launch_coarse_bf16(qc, summ_t, valid))
-            # the wrapper's own trace: bf16 summaries on the tensor cores
-            wrapper_dev = device_ms(
-                lambda: maxsim.coarse_sweep(q, summ_t, valid),
-                ops_name["K2"])
-            out["K2"]["shapes"][shape]["wrapper_device_ms"] = wrapper_dev
-            print(f"  K2 {shape}: the wrapper ran summary_kernel"
-                  f"<CoarseBf16Op>, {wrapper_dev:.4f} ms on the device",
-                  flush=True)
+                raise AssertionError("K2 f32: an invalid doc must score "
+                                     "-9999")
+            err = _compare(f"K2 f32 {shape}", got, want)
+            record("K2", f"f32 {shape}", err,
+                   lambda: maxsim.coarse_sweep(q, summ_f, valid),
+                   lambda: maxsim.coarse_sweep_torch(q, summ_f, valid),
+                   bound(_nbytes(q, summ_f, valid, got), ops, "f32"))
 
         st8, dsc = quantize_summaries_t_int8(summ_t)
         q8, qs = quantize_queries_int8(q)
@@ -1283,6 +1336,507 @@ def stage2_experiment():
     return report
 
 
+# ---------------------------------------------------------------------------
+# phases 13-14: FLMR retriever training
+# ---------------------------------------------------------------------------
+
+# gradients on the card against the CPU, per parameter: max |diff| over
+# max(the CPU grad's max |value|, 1e-3 of the model's largest grad) (the
+# attention key biases' grads are 0 in exact arithmetic, rounding alone)
+GRAD_RTOL = 1e-4
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def grad_agreement(model, ref):
+    """Worst per-parameter gradient error of `model` against `ref` (the same
+    module run on the CPU), as GRAD_RTOL measures it. Returns (error,
+    parameter name, the models' grad norms)."""
+    from ravqa_tpu_torch.executors.base import global_norm
+    got = {n: p.grad for n, p in model.named_parameters()
+           if p.grad is not None}
+    want = {n: p.grad for n, p in ref.named_parameters()
+            if p.grad is not None}
+    if set(got) != set(want):
+        raise AssertionError("the card and the CPU grads cover different "
+                             "parameters")
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    worst = (0.0, "")
+    for n, g in want.items():
+        err = (got[n].cpu() - g).abs().max().item() / max(
+            g.abs().max().item(), floor)
+        worst = max(worst, (err, n))
+    return worst + ((global_norm(list(got.values())).item(),
+                     global_norm(list(want.values())).item()),)
+
+
+def training_step_vs_cpu(config_path, device="cuda"):
+    """Phase 13: entry()'s loss and backward at its BERT-base shape on the
+    card and on the CPU from one state dict (loss, grad norm, every
+    parameter's grad); then two FLMRExecutor.train_step on the card and on
+    the CPU on one batch of 2 from the training config (loss, grad norm,
+    grads, the first update, the second step's loss). Nothing of the
+    card's run may sit on the CPU."""
+    import copy
+    import torch
+    from ravqa_tpu_torch.entry import entry
+    from ravqa_tpu_torch.main import build_executor, build_pipeline, load_config
+    fn, (model, batch) = entry(device=device)
+    cpu = copy.deepcopy(model).cpu()
+    t0 = time.perf_counter()
+    loss = fn(model, batch)
+    loss.backward()
+    _sync(device)
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_cpu = fn(cpu, {k: v.cpu() for k, v in batch.items()})
+    loss_cpu.backward()
+    t_cpu = time.perf_counter() - t0
+    on_card = {p.device.type for p in model.parameters()} | {
+        p.grad.device.type for p in model.parameters() if p.grad is not None}
+    if on_card != {torch.device(device).type} \
+            or loss.device.type != torch.device(device).type:
+        raise AssertionError(f"entry() on {device} ran on {on_card}")
+    err, name, (norm, norm_cpu) = grad_agreement(model, cpu)
+    loss_err = abs(loss.item() - loss_cpu.item())
+    print(f"entry() BERT-base loss {loss.item():.6f} on {device}, "
+          f"{loss_cpu.item():.6f} on the CPU (|diff| {loss_err:.3g}); grad "
+          f"norm {norm:.6f} vs {norm_cpu:.6f}; worst grad {err:.3g} "
+          f"({name}); forward+backward {t_dev * 1e3:.1f} ms on {device} "
+          f"(first call), {t_cpu * 1e3:.0f} ms on the CPU", flush=True)
+    if not (loss_err <= 1e-4 * abs(loss_cpu.item()) and err <= GRAD_RTOL
+            and abs(norm - norm_cpu) <= 1e-4 * norm_cpu):
+        raise AssertionError("entry()'s loss or grads on the card disagree "
+                             "with the CPU")
+    del model, cpu, batch, loss, loss_cpu
+
+    cfg = load_config(config_path)
+    data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
+                                        explode=True)
+    batch = data["train"].collate([0, 1])
+    ex = build_executor(cfg, device)
+    ex_cpu = build_executor(cfg, "cpu")
+    before = {n: p.detach().cpu().clone()
+              for n, p in ex_cpu.model.named_parameters()}
+    m = ex.train_step(batch)
+    m_cpu = ex_cpu.train_step(batch)
+    if m["loss"].device.type != torch.device(device).type or {
+            p.device.type for p in ex.model.parameters()} != {
+            torch.device(device).type}:
+        raise AssertionError(f"train_step on {device} left the card")
+    g_err, g_name, _ = grad_agreement(ex.model, ex_cpu.model)
+    lr = {n: (ex.train_cfg.mapping_lr if n.startswith("vision_projection")
+              and ex.train_cfg.mapping_lr is not None else ex.train_cfg.lr)
+          for n in before}
+    # A first Adam update moves a coordinate by lr * g / (|g| + eps): about
+    # lr whatever the grad's size, so a grad near 0 that rounds to the
+    # other sign on one device moves it the other way. Where the CPU's grad
+    # is well above rounding (over 1e-3 of its parameter's largest and
+    # 1e-6, far past eps), both devices must make the same move: within 2
+    # ulp of the parameter (one rounding of the update each) plus 1e-3 lr.
+    # A wrong learning rate, a skipped update or a flipped sign is ~lr off.
+    worst, moved, far, n_sig, n_all = 0.0, np.inf, 0, 0, 0
+    for n, p in ex.model.named_parameters():
+        got, want = p.detach().cpu(), ex_cpu.model.state_dict()[n]
+        g = ex_cpu.model.get_parameter(n).grad
+        d = (got - want).abs()
+        ulp = torch.nextafter(want.abs(), torch.full_like(want, np.inf)) \
+            - want.abs()
+        sig = g.abs() > max(1e-3 * g.abs().max().item(), 1e-6)
+        if sig.any():
+            worst = max(worst, ((d - 2 * ulp)[sig].max().item()) / lr[n])
+            moved = min(moved, (want - before[n]).abs()[sig].min().item()
+                        / lr[n])
+        n_sig += int(sig.sum())
+        n_all += sig.numel()
+        far += int((d > 1e-3 * lr[n]).sum())
+    dl = abs(float(m["loss"]) - float(m_cpu["loss"]))
+    dn = abs(float(m["grad_norm"]) - float(m_cpu["grad_norm"]))
+    # a second step on the same batch: its loss reads the first update
+    m2, m2_cpu = ex.train_step(batch), ex_cpu.train_step(batch)
+    dl2 = abs(float(m2["loss"]) - float(m2_cpu["loss"]))
+    print(f"train_step (batch of 2, {config_path}): loss "
+          f"{float(m['loss']):.6f} on {device}, {float(m_cpu['loss']):.6f} on "
+          f"the CPU; grad norm {float(m['grad_norm']):.6f} vs "
+          f"{float(m_cpu['grad_norm']):.6f}; worst grad {g_err:.3g} "
+          f"({g_name}); the update on the {n_sig} of {n_all} coordinates "
+          f"whose grad is well above rounding: max |diff| past 2 ulp "
+          f"{worst:.3g} lr (each moved at least {moved:.3g} lr); "
+          f"{far} coordinates in all past 1e-3 lr", flush=True)
+    print(f"second train_step on the same batch: loss "
+          f"{float(m2['loss']):.6f} on {device}, {float(m2_cpu['loss']):.6f} "
+          f"on the CPU (|diff| {dl2:.3g}; the first update moved it by "
+          f"{abs(float(m2_cpu['loss']) - float(m_cpu['loss'])):.3g})",
+          flush=True)
+    if not (dl <= 1e-4 * abs(float(m_cpu["loss"]))
+            and dn <= 1e-4 * float(m_cpu["grad_norm"]) and g_err <= GRAD_RTOL
+            and n_sig > 0 and worst <= 1e-3
+            and dl2 <= 1e-4 * abs(float(m2_cpu["loss"]))):
+        raise AssertionError("train_step on the card disagrees with the CPU")
+    return {"entry_loss": loss_err, "entry_grad_rel_err": err,
+            "entry_grad_worst": name, "step_loss_err": dl,
+            "step_grad_norm_err": dn, "step_grad_rel_err": g_err,
+            "step_update_err_lr": worst, "step_update_coords": n_sig,
+            "step_coords_past_1e-3_lr": far, "step2_loss_err": dl2}
+
+
+class _Recorder:
+    """Wraps FLMRExecutor.train_step / build_index / evaluate_retrieval and
+    LateInteractionSearcher.search for phase 14: each train step's seconds
+    (to the card's finish), loss, grad norm and attended tokens, each
+    corpus encode's and search's seconds, each evaluation's result and
+    each search's query embeddings, answers and searcher. restore() puts
+    the methods back."""
+
+    def __init__(self, device):
+        import torch
+        from ravqa_tpu_torch.executors import FLMRExecutor
+        from ravqa_tpu_torch.retrieval import LateInteractionSearcher
+        self.steps, self.encodes, self.searches, self.evals = [], [], [], []
+        self.peak_after_2 = None
+        self._orig = [(FLMRExecutor, "train_step"),
+                      (FLMRExecutor, "build_index"),
+                      (FLMRExecutor, "evaluate_retrieval"),
+                      (LateInteractionSearcher, "search")]
+        self._orig = [(c, n, getattr(c, n)) for c, n in self._orig]
+        rec = self
+        step, build, evaluate, search = (f for _, _, f in self._orig)
+
+        def timed(fn, out):
+            def run(*a, **k):
+                _sync(device)
+                t0 = time.perf_counter()
+                r = fn(*a, **k)
+                _sync(device)
+                out.append(time.perf_counter() - t0)
+                return r
+            return run
+
+        def train_step(self, batch):
+            _sync(device)
+            t0 = time.perf_counter()
+            m = step(self, batch)
+            loss = float(m["loss"])                # waits for the card
+            seconds = time.perf_counter() - t0
+            # the positions the attention masks keep (the rest is padding)
+            attended = sum(int(batch[k].sum()) for k in (
+                "query_attention_mask", "doc_attention_mask"))
+            rec.steps.append((seconds, loss, float(m["grad_norm"]),
+                              attended))
+            if len(rec.steps) == 2 and torch.device(device).type == "cuda":
+                rec.peak_after_2 = torch.cuda.max_memory_allocated()
+            return m
+
+        def searched(self, q, k):
+            _sync(device)
+            t0 = time.perf_counter()
+            scores, pids = search(self, q, k)
+            rec.searches.append({"s": time.perf_counter() - t0,
+                                 "q": torch.as_tensor(q).detach(),
+                                 "scores": scores, "pids": pids,
+                                 "searcher": self})
+            return scores, pids
+
+        def evaluated(self, *a, **k):
+            t0 = time.perf_counter()
+            r = evaluate(self, *a, **k)
+            rec.evals.append((time.perf_counter() - t0, r))
+            return r
+
+        FLMRExecutor.train_step = train_step
+        FLMRExecutor.build_index = timed(build, self.encodes)
+        FLMRExecutor.evaluate_retrieval = evaluated
+        LateInteractionSearcher.search = searched
+
+    def restore(self):
+        for cls, name, fn in self._orig:
+            setattr(cls, name, fn)
+
+
+def _recall_precision(m):
+    return {k: v for k, v in m.items()
+            if k.startswith(("recall_at_", "precision_at_"))}
+
+
+def check_eval_search(search, index, n_check=16):
+    """The exact evaluation's answers against a plain search of a CPU copy
+    of the same index on the same query embeddings (tie-aware top-10, max
+    abs 1e-3), for the first n_check queries; all of them against the
+    plain version on the index's own device. Returns max |score error|."""
+    import torch
+    from ravqa_tpu_torch.ops import maxsim
+    q, scores, pids = search["q"], search["scores"][:, :K], \
+        search["pids"][:, :K]
+    n_check = min(n_check, len(q))
+    with torch.inference_mode():
+        dev = maxsim.maxsim_search_torch(q, index.tokens, index.mask)
+        dv, dr = (t.cpu().numpy() for t in torch.topk(dev, K, dim=1))
+        cpu = cpu_copy(index)
+        t0 = time.perf_counter()
+        want = maxsim.maxsim_search_torch(q[:n_check].cpu(), cpu.tokens,
+                                          cpu.mask)
+        wv, wr = (t.numpy() for t in torch.topk(want, K, dim=1))
+    t_cpu = time.perf_counter() - t0
+    rows = [np.flatnonzero(index.pids == p) for p in pids.ravel()]
+    if any(len(r) != 1 for r in rows):
+        raise AssertionError("an evaluated pid is not one row of the index")
+    bad = [i for i in range(n_check) if not _tie_aware(
+        pids[i], scores[i], index.pids[wr[i]], wv[i], ATOL)]
+    bad += [i for i in range(len(q)) if not _tie_aware(
+        pids[i], scores[i], index.pids[dr[i]], dv[i], ATOL)]
+    err = max(float(np.abs(scores[:n_check] - wv).max()),
+              float(np.abs(scores - dv).max()))
+    print(f"exact evaluation vs plain search: {n_check} queries on a CPU "
+          f"copy ({t_cpu:.1f} s), {len(q)} on the card's plain version; "
+          f"max |score err| {err:.3g}, {len(set(bad))} queries differ",
+          flush=True)
+    if bad:
+        raise AssertionError(f"the evaluation's ranking disagrees with the "
+                             f"plain search on queries {sorted(set(bad))}")
+    return err
+
+
+def check_hier_eval(search, n_check=16):
+    """The hierarchical evaluation against the plain versions on the query
+    embeddings it searched: its stage-0 sweep (K2 over the searcher's
+    bf16 block summaries, or K3 over int8 ones) against coarse_sweep_torch
+    for every query (check_topk: top-10 tie-aware, max abs 1e-3), timed
+    beside its bound; and the first n_check queries' answers against the
+    same search of a CPU copy of the index, which runs the kernels' plain
+    versions (tie-aware top-10, max abs 1e-3). Returns (the stage-0
+    kernel's name, {shape: its record as record_kernel keeps a shape},
+    max |score error| of the answers)."""
+    import torch
+    from ravqa_tpu_torch.ops import maxsim
+    from ravqa_tpu_torch.retrieval import LateInteractionSearcher
+    s = search["searcher"]
+    idx = s.index
+    q = search["q"].to(idx.device)
+    if s.mode != "hierarchical" or s._bsum_t is None:
+        raise AssertionError("the hierarchical eval's stage 0 took no kernel")
+    kernel = "K2" if s._bsum_t_scale is None else "K3"
+    # stage 0's inputs as hierarchical_search makes them
+    nb = idx.block_summaries.shape[0]
+    v = torch.zeros(s._bsum_t.shape[1], dtype=torch.int8, device=idx.device)
+    v[:nb] = s._doc_valid.bool().reshape(nb, idx.block_size).any(dim=1)
+    qc = q if s.coarse_query_len is None else q[:, :s.coarse_query_len]
+    args = (qc, s._bsum_t, v)
+    kw = {"dscale": s._bsum_t_scale}
+    got = maxsim.coarse_sweep(*args, **kw)
+    want = maxsim.coarse_sweep_torch(*args, **kw)
+    torch.cuda.synchronize()
+    b, lq, dim = qc.shape
+    s_, n, _ = s._bsum_t.shape
+    dtype = str(s._bsum_t.dtype).removeprefix("torch.")
+    shape = (f"phase 14 hierarchical eval stage 0 {dtype} B={b} Lq={lq} "
+             f"S={s_} N={n}")
+    err0 = _compare(f"{kernel} {shape}", got, want)
+    stage0 = {kernel: {"err": err0, "shapes": {}}}
+    record_kernel(stage0, kernel, shape, err0,
+                  lambda: maxsim.coarse_sweep(*args, **kw),
+                  lambda: maxsim.coarse_sweep_torch(*args, **kw),
+                  bound(_nbytes(qc, s._bsum_t, v, got)
+                        + (0 if s._bsum_t_scale is None
+                           else _nbytes(s._bsum_t_scale)),
+                        2.0 * b * lq * s_ * n * dim,
+                        "bf16" if kernel == "K2" else "int8"))
+
+    n_check = min(n_check, len(q))
+    cpu = LateInteractionSearcher(
+        cpu_copy(idx), use_pallas=s.use_pallas, mode=s.mode,
+        preset=s.preset, n_candidates=s.n_candidates, n_blocks=s.n_blocks,
+        coarse_query_len=s.coarse_query_len, group_size=s.group_size,
+        coarse_int8=s.coarse_int8, stage1_kernel=s._summ_rows is not None,
+        centroid_prune=s.centroid_prune)
+    k = search["scores"].shape[1]
+    t0 = time.perf_counter()
+    want_s, want_r = (t.numpy() for t in cpu.search_device(
+        q[:n_check].cpu(), k))
+    t_cpu = time.perf_counter() - t0
+    got_s, got_p = search["scores"][:n_check, :K], search["pids"][:n_check, :K]
+    want_s, want_p = want_s[:, :K], idx.pids[want_r[:, :K]]
+    bad = [i for i in range(n_check) if not _tie_aware(
+        got_p[i], got_s[i], want_p[i], want_s[i], ATOL)]
+    err = float(np.abs(got_s - want_s).max())
+    print(f"hierarchical evaluation vs the plain versions' search of a CPU "
+          f"copy ({n_check} queries, {t_cpu:.1f} s): max |score err| "
+          f"{err:.3g}, {len(bad)} queries differ", flush=True)
+    if bad:
+        raise AssertionError(f"the hierarchical evaluation disagrees with "
+                             f"the plain versions' search on queries {bad}")
+    return kernel, {shape: {**stage0[kernel]["shapes"][shape],
+                            "err": err0}}, err
+
+
+def training_slice(config_path, smi, device="cuda"):
+    """Phase 14: `main --mode train` in-process on the BERT-base training
+    config (validation in the middle and at the end, then ckpt/), then
+    `--mode eval` from that checkpoint in exact mode and with
+    model_config.search_mode=hierarchical. Gates: every loss finite; K1 on
+    the float32 index's split route in every exact evaluation, K2/K3/K4 in
+    the hierarchical one (each count set to 0 just before the run and read
+    just after); the exact evaluation's ranking against a plain search
+    (check_eval_search), and the hierarchical one's stage-0 sweep and
+    answers against the plain versions (check_hier_eval); the eval from
+    the checkpoint reproduces the final validation's recall_at_* and
+    precision_at_*; params.msgpack decodes with the port's reader. Prints
+    the step time, steps/s, padded positions/s and attended tokens/s, peak
+    memory and the evaluations' seconds beside the card's name and power
+    limit."""
+    import tempfile
+    import torch
+    from ravqa_tpu_torch.main import main as port_main, load_config
+    from ravqa_tpu_torch.models import read_flax_msgpack
+    from ravqa_tpu_torch.ops import maxsim
+    cfg = load_config(config_path)
+    tc, pc = cfg.train, cfg.data_pipeline.loaders.setup_kwargs
+    counted = (maxsim.maxsim_search, maxsim.coarse_sweep,
+               maxsim.coarse_sweep_int8, maxsim.stage1_sweep)
+    names = ("K1", "K2", "K3", "K4")
+    out = {}
+
+    def drive(argv, key):
+        for w in counted:
+            w.launches = 0
+        maxsim.maxsim_search.split_launches = 0
+        rec = _Recorder(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            if port_main(argv) != 0:
+                raise AssertionError(f"main {argv} failed")
+        finally:
+            rec.restore()
+        wall = time.perf_counter() - t0
+        launches = dict(zip(names, (w.launches for w in counted)))
+        launches["K1 split"] = maxsim.maxsim_search.split_launches
+        out[key] = {"wall_s": wall, "launches": launches,
+                    "encode_s": rec.encodes,
+                    "search_s": [s["s"] for s in rec.searches]}
+        if torch.device(device).type == "cuda":
+            out[key]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        print(f"{key}: {wall:.1f} s; launches {launches}; corpus encodes "
+              f"{[round(s, 2) for s in rec.encodes]} s, searches "
+              f"{[round(s['s'], 3) for s in rec.searches]} s", flush=True)
+        return rec
+
+    with tempfile.TemporaryDirectory(dir=HERE,
+                                     prefix=".chip_smoke_train_") as tmp:
+        common = ["--config", config_path, "--device", device, "--log_dir",
+                  tmp, "--experiment_name", "train"]
+        rec = drive(common + ["--mode", "train"], "train")
+        steps = rec.steps
+        losses = [s[1] for s in steps]
+        if len(steps) != tc.total_steps or not np.all(np.isfinite(
+                losses + [s[2] for s in steps])):
+            raise AssertionError(f"{len(steps)} train steps, losses {losses}")
+        if len(rec.evals) != tc.total_steps // tc.val_every:
+            raise AssertionError(f"{len(rec.evals)} validations")
+        final = _recall_precision(rec.evals[-1][1])
+        tr = out["train"]
+        if tr["launches"]["K1"] < len(rec.evals) or \
+                tr["launches"]["K1 split"] != tr["launches"]["K1"]:
+            raise AssertionError(f"validation launches {tr['launches']}")
+        ms = [s[0] * 1e3 for s in steps[2:]]
+        step_ms = float(np.median(ms))
+        # the towers run every padded position; the attention masks keep
+        # far fewer (SyntheticOKVQA's passages and questions are short)
+        toks = tc.batch_size * (pc.query_maxlen + pc.nway * pc.doc_maxlen)
+        attended = float(np.mean([s[3] for s in steps[2:]]))
+        tr.update(step_ms_median=step_ms, step_ms_min=min(ms),
+                  step_ms_max=max(ms), first_steps_ms=[
+                      s[0] * 1e3 for s in steps[:2]],
+                  steps_per_s=1e3 / step_ms, padded_positions_per_step=toks,
+                  padded_positions_per_s=toks / step_ms * 1e3,
+                  attended_tokens_per_step=attended,
+                  attended_tokens_per_s=attended / step_ms * 1e3,
+                  losses=losses,
+                  peak_bytes_after_2_steps=rec.peak_after_2,
+                  validation_s=[e[0] for e in rec.evals],
+                  final_validation=final)
+        print(f"{smi}: train step {step_ms:.1f} ms median over steps 3-"
+              f"{len(steps)} (min {min(ms):.1f}, max {max(ms):.1f}; the first "
+              f"two {tr['first_steps_ms'][0]:.0f}, "
+              f"{tr['first_steps_ms'][1]:.0f}), {tr['steps_per_s']:.3f} "
+              f"steps/s", flush=True)
+        print(f"{smi}: {toks} padded query+doc positions a step "
+              f"(B={tc.batch_size} x ({pc.query_maxlen} + {pc.nway} x "
+              f"{pc.doc_maxlen})), {tr['padded_positions_per_s']:.0f} "
+              f"positions/s; of them {attended:.0f} attended (the attention "
+              f"masks' ones, mean over steps 3-{len(steps)}), "
+              f"{tr['attended_tokens_per_s']:.0f} attended tokens/s",
+              flush=True)
+        print(f"{smi}: peak torch.cuda.max_memory_allocated "
+              f"{tr.get('peak_bytes', 0) / 2**30:.2f} GiB over the run, "
+              f"{(rec.peak_after_2 or 0) / 2**30:.2f} GiB after 2 steps",
+              flush=True)
+        print(f"{smi}: validations {[round(e[0], 1) for e in rec.evals]} s "
+              f"(corpus encodes {[round(s, 1) for s in rec.encodes]} s, "
+              f"searches {tr['search_s']} s); losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}", flush=True)
+        ckpt = os.path.join(tmp, "train", "ckpt")
+        with open(os.path.join(ckpt, "params.msgpack"), "rb") as f:
+            tree = read_flax_msgpack(f.read())
+        n_leaves = sum(1 for _ in _leaves(tree))
+        if not all(np.isfinite(a).all() for a in _leaves(tree)):
+            raise AssertionError("params.msgpack holds non-finite values")
+        print(f"params.msgpack: {n_leaves} arrays decoded by "
+              f"models.read_flax_msgpack", flush=True)
+
+        rec = drive(common + ["--mode", "eval"], "eval exact")
+        ev = out["eval exact"]
+        if ev["launches"]["K1"] < 1 or \
+                ev["launches"]["K1 split"] != ev["launches"]["K1"]:
+            raise AssertionError(f"exact eval launches {ev['launches']}")
+        got = _recall_precision(rec.evals[-1][1])
+        if got != final:
+            raise AssertionError(f"eval from the checkpoint {got} differs "
+                                 f"from the final validation {final}")
+        ev["err"] = check_eval_search(rec.searches[-1],
+                                      rec.evals[-1][1]["_index"])
+        ev["metrics"] = got
+        ev["seconds"] = rec.evals[-1][0]
+        print(f"{smi}: exact eval {ev['seconds']:.1f} s (corpus encode "
+              f"{ev['encode_s'][0]:.1f} s, search {ev['search_s'][0]:.3f} "
+              f"s); recall@5/10/100 {got['recall_at_5']:.4f} "
+              f"{got['recall_at_10']:.4f} {got['recall_at_100']:.4f}",
+              flush=True)
+        del rec
+
+        rec = drive(common + ["--mode", "eval", "--opts",
+                              "model_config.search_mode=hierarchical"],
+                    "eval hierarchical")
+        eh = out["eval hierarchical"]
+        lh = eh["launches"]
+        if lh["K2"] + lh["K3"] < 1:
+            raise AssertionError(f"hierarchical eval launches {lh}")
+        eh["stage0_kernel"], eh["stage0"], eh["err"] = check_hier_eval(
+            rec.searches[-1])
+        eh["metrics"] = _recall_precision(rec.evals[-1][1])
+        eh["seconds"] = rec.evals[-1][0]
+        print(f"{smi}: hierarchical eval {eh['seconds']:.1f} s (corpus "
+              f"encode {eh['encode_s'][0]:.1f} s, search "
+              f"{eh['search_s'][0]:.3f} s); recall@5/10 "
+              f"{eh['metrics']['recall_at_5']:.4f} "
+              f"{eh['metrics']['recall_at_10']:.4f}", flush=True)
+        del rec
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "ravqa_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the repo")
@@ -1353,6 +1907,10 @@ def main():
     stage2_k = stage2_kernels()
     phase("12 the residual stage-2 experiment")
     experiment = stage2_experiment()
+    phase("13 the training step on the card against the CPU")
+    train_step = training_step_vs_cpu(TRAIN_CONFIG)
+    phase("14 the training slice")
+    train_slice = training_slice(TRAIN_CONFIG, smi)
     phase("report")
 
     def entry(name, source, replaces, launches, measured):
@@ -1377,7 +1935,12 @@ def main():
         "phase 6's exact oracle (bf16 query); the exact serve slice's "
         "float32 index runs K1-f32")
     kernels["K1"]["launches_1m"] = launches_1m["exact bf16 (K1)"]["K1"]
-    kernels["K1-f32"]["launches_note"] = "phase 4, the exact serve slice"
+    kernels["K1-f32"]["launches_note"] = (
+        "phase 4, the exact serve slice; launches_train_eval: phase 14's "
+        "validations during training and its exact eval from the "
+        "checkpoint, all on the split route")
+    kernels["K1-f32"]["launches_train_eval"] = {
+        k: train_slice[k]["launches"]["K1"] for k in ("train", "eval exact")}
     kernels["K1-f32"]["f32_bound_ms"] = k1["K1-f32"]["shapes"][
         next(iter(k1["K1-f32"]["shapes"]))]["f32_bound_ms"]
 
@@ -1393,7 +1956,16 @@ def main():
         kernels[key] = entry(name, source, replaces, launches, sweeps[key])
     kernels["K2"]["launches_note"] = (
         "phase 6 (hierarchical and two-stage search under the reference "
-        "preset); the fast serve slice runs K3 and K4")
+        "preset); the fast serve slice runs K3 and K4; "
+        "launches_train_eval: phase 14's hierarchical eval (reference)")
+    eh = train_slice["eval hierarchical"]
+    kernels["K2"]["launches_train_eval"] = eh["launches"]["K2"]
+    # the hierarchical eval's stage 0, held to its plain version at its
+    # own shape (check_hier_eval)
+    k0 = kernels[eh["stage0_kernel"]]
+    for shape, measured in eh["stage0"].items():
+        k0["shapes"][shape] = measured
+        k0["max_abs_err"] = max(k0["max_abs_err"], measured["err"])
     kernels["K3"]["pruned_search_launches"] = pruned_launches["K3"]
     kernels["K4"]["pruned_search_launches"] = pruned_launches["K4"]
     res_launches = comp_serve["residual hierarchical fast"]["launches"]
@@ -1440,7 +2012,9 @@ def main():
                       "hier_serve_recall": hier_recall,
                       "searches_1m": legs_1m,
                       "compressed_serve": comp_serve,
-                      "stage2_experiment": experiment}), flush=True)
+                      "stage2_experiment": experiment,
+                      "train_step_vs_cpu": train_step,
+                      "train_slice": train_slice}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

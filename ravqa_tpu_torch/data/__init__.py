@@ -1,7 +1,12 @@
 from .pipeline import (BaseTransform, DataPipeline, TRANSFORM_REGISTRY,
                        register_transform)
-from .datasets import PassageCorpus, corpus_doc_batches
+from .module_parser import ModuleParser
+from .datasets import (PassageCorpus, RetrievalDataset, corpus_doc_batches,
+                       query_eval_batches)
+from .prefetch import prefetch, prefetch_to_device
 from . import transforms  # noqa: F401  (populates the registry)
 
 __all__ = ["BaseTransform", "DataPipeline", "TRANSFORM_REGISTRY",
-           "register_transform", "PassageCorpus", "corpus_doc_batches"]
+           "register_transform", "ModuleParser", "PassageCorpus",
+           "RetrievalDataset", "corpus_doc_batches", "query_eval_batches",
+           "prefetch", "prefetch_to_device"]

@@ -1,16 +1,15 @@
-"""Data transforms for the retrieval serving slice.
+"""Data transforms for the retrieval slices.
 
 Ports of ravqa_tpu/data/transforms.py:
 - SyntheticOKVQA (:314-357): the synthetic world (word-bag passages,
   questions repeating words of their positive passage, random image
   features); from the same seed it gives the same corpus, questions and
   features as the JAX package. Patch features and raw pixels come with the
-  vision towers (ROADMAP.md A11).
-- PrepareDataloaders (:360-394), its tokenizer and corpus part: the
-  WordPiece base tokenizer (the tiny synthetic vocab when no vocab_path),
-  the ColBERT query and doc tokenizers, and the passages. The question
-  items pass through under "items" ({split: [item dict]}); the training
-  datasets come with the trainer (ROADMAP.md A8).
+  vision towers (ROADMAP.md A5).
+- PrepareDataloaders (:360-394): the WordPiece base tokenizer (the tiny
+  synthetic vocab when no vocab_path), the ColBERT query and doc
+  tokenizers, the passages, and one RetrievalDataset per split ("valid"
+  falls back to "test"), the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ import numpy as np
 
 from ..tokenization import (DocTokenizer, QueryTokenizer,
                             WordPieceTokenizer, make_tiny_vocab)
-from .datasets import PassageCorpus
+from .datasets import PassageCorpus, RetrievalDataset
 from .pipeline import BaseTransform, register_transform
 
 
@@ -61,10 +60,11 @@ class SyntheticOKVQA(BaseTransform):
 
 @register_transform
 class PrepareDataloaders(BaseTransform):
-    """Terminal node: tokenizers + passages (+ question items).
+    """Terminal node: tokenizers + RetrievalDatasets.
 
-    setup: query_maxlen, doc_maxlen, vocab_path (None -> tiny vocab),
-    attend_to_mask_tokens."""
+    setup: query_maxlen, doc_maxlen, nway, vocab_path (None -> tiny vocab),
+    attend_to_mask_tokens, input_modules (ModuleParser specs),
+    use_self_negatives."""
 
     def __call__(self, data):
         vocab_path = getattr(self, "vocab_path", None)
@@ -76,8 +76,20 @@ class PrepareDataloaders(BaseTransform):
                             attend_to_mask_tokens=getattr(
                                 self, "attend_to_mask_tokens", False))
         dt = DocTokenizer(base, doc_maxlen=getattr(self, "doc_maxlen", 220))
-        items = {split: data[split] for split in ("train", "valid", "test")
-                 if split in data}
-        return {"tokenizer": base, "query_tokenizer": qt,
-                "doc_tokenizer": dt, "passages": data["passages"],
-                "items": items}
+        corpus = data["passages"]["full_passages"]
+        train_corpus = data["passages"].get("train_passages", corpus)
+        out = {"tokenizer": base, "query_tokenizer": qt, "doc_tokenizer": dt,
+               "passages": data["passages"]}
+        for split in ("train", "valid", "test"):
+            items = data.get(split)
+            if items is None and split == "valid":
+                items = data.get("test")
+            if items is None:
+                continue
+            out[split] = RetrievalDataset(
+                items, train_corpus if split == "train" else corpus,
+                qt, dt, nway=getattr(self, "nway", 2),
+                input_modules=getattr(self, "input_modules", None),
+                use_self_negatives=getattr(self, "use_self_negatives",
+                                           False))
+        return out

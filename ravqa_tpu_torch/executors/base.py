@@ -1,0 +1,447 @@
+"""Training executor core: the train config, the learning-rate schedule,
+AdamW with parameter groups, clipping, accumulation and freeze masks,
+metric logging, the training loop and checkpoints.
+
+Port of ravqa_tpu/executors/base.py on one device. The JAX package builds
+an optax chain (clip_by_global_norm -> adamw, per-group learning rates by
+multi_transform, optax.MultiSteps accumulation, masked freezing) and jits
+one train step; here ``Optimizer`` does the same arithmetic around
+torch.optim.AdamW and ``BaseExecutor.train_step`` runs eagerly:
+
+- the schedule is evaluated at the update count before it advances, so
+  update 0 takes lr(0) (0 under warmup), as optax does;
+- clipping is optax's: g * max_norm / norm when norm >= max_norm, on the
+  averaged grads of an accumulation window;
+- with accumulate_grad_batches k, grads are averaged over k micro-steps
+  (optax's running mean) and one update is made on the k-th; the schedule
+  and Adam's count advance per update only;
+- frozen parameters (freeze_* module flags) get no update and no optimizer
+  state; a parameter no loss term reaches gets a zero grad, as it does
+  under jax.grad, so Adam's count and weight decay still apply to it.
+
+A checkpoint directory holds params.msgpack (flax's format: the JAX
+package's load_params and load_checkpoint read it), step.json, and the
+port's optimizer.pt and rng.pt. Those two names differ from the JAX
+package's opt_state.msgpack and rng.msgpack, which hold optax trees, so
+each package loads the other's checkpoint as params-only: the optimizer
+starts afresh and "ckpt_opt_state_missing" is logged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import time
+from typing import Callable, Iterable, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.convert import load_params, save_params
+from ..models.transformer import MultiHeadAttention
+from ..parallel import trainable_mask
+
+# a checkpoint directory's params file, in the order load_checkpoint looks
+CHECKPOINT_FILES = ("params.msgpack", "params.npz")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-5
+    mapping_lr: Optional[float] = None     # separate LR for mapping network
+    weight_decay: float = 0.0
+    warmup_steps: int = 0
+    total_steps: int = 10000
+    schedule: str = "constant"             # constant | linear | cosine
+    grad_clip: float = 0.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    modules: tuple = ()                    # feature-flag bus incl. freeze_*
+    accumulate_grad_batches: int = 1       # reference accumulate_grad_batches
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule: init -> end over `steps` updates, then end."""
+    if steps <= 0:
+        return lambda count: init
+
+    def schedule(count: int) -> float:
+        c = min(max(count, 0), steps)
+        return (init - end) * (1 - c / steps) + end
+    return schedule
+
+
+def _join(first, second, boundary: int) -> Callable[[int], float]:
+    """optax.join_schedules of two schedules at one boundary."""
+    return lambda count: (first(count) if count < boundary
+                          else second(count - boundary))
+
+
+def _warmup_cosine(init: float, peak: float, warmup: int,
+                   decay_steps: int) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule with end value 0."""
+    steps = decay_steps - warmup
+    if not steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={steps}.")
+
+    def cosine(count: int) -> float:
+        c = min(count, steps)
+        return peak * 0.5 * (1 + math.cos(math.pi * c / steps))
+    return _join(_linear(init, peak, warmup), cosine, warmup)
+
+
+def make_schedule(cfg: TrainConfig, lr: float) -> Callable[[int], float]:
+    """update count -> learning rate, optax's value at each update.
+    total_steps and warmup_steps count micro-batches; with accumulation the
+    schedule advances once per update, so both are rescaled: ceil for the
+    total, and a nonzero warmup keeps at least one update."""
+    accum = max(cfg.accumulate_grad_batches, 1)
+    total = max(-(-cfg.total_steps // accum), 1)
+    warmup = max(cfg.warmup_steps // accum, 1) if cfg.warmup_steps > 0 else 0
+    if cfg.schedule == "constant":
+        if warmup > 0:
+            return _linear(0.0, lr, warmup)
+        return lambda count: lr
+    if cfg.schedule == "linear":
+        # warmup, then linear decay to 0 (HF
+        # get_linear_schedule_with_warmup)
+        decay = _linear(lr, 0.0, max(total - warmup, 1))
+        if warmup > 0:
+            return _join(_linear(0.0, lr, warmup), decay, warmup)
+        return decay
+    if cfg.schedule == "cosine":
+        return _warmup_cosine(0.0, lr, max(warmup, 1), total)
+    raise ValueError(cfg.schedule)
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of every element squared (optax.global_norm)."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def _group(cfg: TrainConfig, name: str) -> str:
+    parts = name.split(".")
+    if cfg.mapping_lr is not None and "vision_projection" in parts[:2]:
+        return "mapping"
+    return "base"
+
+
+class Optimizer:
+    """make_optimizer's transformation over a module's parameters: AdamW
+    with the mapping-network learning-rate group, global-norm clipping,
+    gradient accumulation and freeze masks. step() reads the trainable
+    parameters' .grad."""
+
+    def __init__(self, cfg: TrainConfig, model: nn.Module):
+        self.cfg = cfg
+        mask = trainable_mask(model, cfg.modules)
+        groups: dict[str, list] = {}
+        for name, p in model.named_parameters():
+            if mask[name]:
+                groups.setdefault(_group(cfg, name), []).append(p)
+        lrs = {"base": cfg.lr, "mapping": cfg.mapping_lr}
+        order = [g for g in ("base", "mapping") if g in groups]
+        self.trainable = [p for g in order for p in groups[g]]
+        self.schedules = [make_schedule(cfg, lrs[g]) for g in order]
+        self.adamw = None
+        if self.trainable:
+            self.adamw = torch.optim.AdamW(
+                [{"params": groups[g], "lr": 0.0} for g in order],
+                betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
+                weight_decay=cfg.weight_decay)
+        self.every = max(cfg.accumulate_grad_batches, 1)
+        self.micro = 0       # micro-steps in the open accumulation window
+        self.updates = 0     # updates made: the schedule's and Adam's count
+        self.acc = ([torch.zeros_like(p) for p in self.trainable]
+                    if self.every > 1 else None)
+
+    def step(self) -> bool:
+        """Take one micro-step's grads; update on the window's last one.
+        Returns whether the parameters were updated."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.trainable]
+        if self.acc is not None:
+            for a, g in zip(self.acc, grads):        # optax's running mean
+                a.add_((g - a) / (self.micro + 1))
+            self.micro += 1
+            if self.micro < self.every:
+                return False
+            self.micro = 0
+            grads = [a.clone() for a in self.acc]
+            for a in self.acc:
+                a.zero_()
+        if self.cfg.grad_clip > 0 and grads:
+            norm = global_norm(grads)
+            keep = norm < self.cfg.grad_clip
+            grads = [torch.where(keep, g, g / norm * self.cfg.grad_clip)
+                     for g in grads]
+        if self.adamw is not None:
+            for p, g in zip(self.trainable, grads):
+                p.grad = g
+            for group, schedule in zip(self.adamw.param_groups,
+                                       self.schedules):
+                group["lr"] = schedule(self.updates)
+            self.adamw.step()
+        self.updates += 1
+        return True
+
+    def state_dict(self) -> dict:
+        return {"adamw": (self.adamw.state_dict()
+                          if self.adamw is not None else None),
+                "micro": self.micro, "updates": self.updates,
+                "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        if self.adamw is not None:
+            self.adamw.load_state_dict(state["adamw"])
+        self.micro = state["micro"]
+        self.updates = state["updates"]
+        if self.acc is not None:
+            for a, saved in zip(self.acc, state["acc"]):
+                a.copy_(saved)
+
+
+def make_optimizer(cfg: TrainConfig, model: nn.Module) -> Optimizer:
+    """AdamW with optional grad clip, a separate mapping-network LR
+    (reference FLMR_executor.py:290-365 param groups), accumulation and
+    freeze-flag masking."""
+    return Optimizer(cfg, model)
+
+
+class MetricsLogger:
+    """Metrics history with selectable backends: "jsonl" (metrics.jsonl
+    under log_dir), "tensorboard" (tensorboardX under log_dir/tb) and
+    "wandb"; the last two warn and are skipped when their package is
+    absent. The in-memory `history` list is always kept."""
+
+    def __init__(self, log_dir: Optional[str] = None, quiet: bool = False,
+                 backends: Sequence[str] = ("jsonl",),
+                 wandb_kwargs: Optional[dict] = None):
+        self.log_dir = log_dir
+        self.quiet = quiet
+        self.history: list[dict] = []
+        self._f = None
+        self._tb = None
+        self._wandb_run = None
+        if log_dir and "jsonl" in backends:
+            os.makedirs(log_dir, exist_ok=True)
+            self._f = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        if log_dir and "tensorboard" in backends:
+            try:
+                from tensorboardX import SummaryWriter
+                self._tb = SummaryWriter(os.path.join(log_dir, "tb"))
+            except Exception as e:  # pragma: no cover
+                import logging
+                logging.getLogger(__name__).warning(
+                    "tensorboard backend unavailable: %s", e)
+        if "wandb" in backends:  # pragma: no cover - wandb not installed
+            try:
+                import wandb
+                self._wandb_run = wandb.init(
+                    dir=log_dir, **(wandb_kwargs or {}))
+            except Exception as e:
+                import logging
+                logging.getLogger(__name__).warning(
+                    "wandb backend unavailable: %s", e)
+
+    def log(self, metrics: dict, step: int, prefix: str = ""):
+        rec = {("%s%s" % (prefix, k)): (float(v) if np.isscalar(v)
+                                        or hasattr(v, "item") else v)
+               for k, v in metrics.items()}
+        rec["step"] = int(step)
+        rec["time"] = time.time()
+        self.history.append(rec)
+        if self._f:
+            self._f.write(json.dumps(rec) + "\n")
+            self._f.flush()
+        if self._tb is not None:
+            for k, v in rec.items():
+                if k in ("step", "time") or not isinstance(v, float):
+                    continue
+                self._tb.add_scalar(k, v, int(step))
+            self._tb.flush()
+        if self._wandb_run is not None:  # pragma: no cover
+            self._wandb_run.log(
+                {k: v for k, v in rec.items() if k != "time"}, step=step)
+        if not self.quiet:
+            short = {k: (round(v, 5) if isinstance(v, float) else v)
+                     for k, v in rec.items() if k not in ("time",)}
+            print(f"[metrics] {short}", flush=True)
+
+
+def _num_heads(model: nn.Module) -> int:
+    """The attention heads of the model's towers (the Flax tree splits
+    attention kernels by head); 1 for a model without attention."""
+    heads = {m.num_heads for m in model.modules()
+             if isinstance(m, MultiHeadAttention)}
+    if len(heads) > 1:
+        raise ValueError(f"towers with different head counts {heads}")
+    return heads.pop() if heads else 1
+
+
+class BaseExecutor:
+    """Owns the model (on `device`), the optimizer, the step count and a
+    CPU generator for dropout seeds.
+
+    Subclasses define loss_fn(batch, generator) -> (loss, metrics dict).
+    inference_only=True builds no optimizer (a server never reads Adam's
+    moments; the constructor calls prepare_for_serving); train_step then
+    raises."""
+
+    def __init__(self, model: nn.Module,
+                 train_cfg: Optional[TrainConfig] = None, device=None,
+                 log_dir: Optional[str] = None, seed: int = 0,
+                 quiet: bool = False,
+                 logger_backends: Sequence[str] = ("jsonl",),
+                 inference_only: bool = False):
+        self.device = torch.device(
+            device if device is not None
+            else next(model.parameters()).device)
+        self.model = model.to(self.device).eval()
+        self.train_cfg = train_cfg or TrainConfig()
+        self.optimizer, self.inference_only = None, False
+        if inference_only:
+            self.prepare_for_serving()
+        else:
+            self.optimizer = make_optimizer(self.train_cfg, self.model)
+        self.logger = MetricsLogger(log_dir, quiet=quiet,
+                                    backends=logger_backends)
+        self.generator = torch.Generator().manual_seed(seed)
+        self.step = 0
+
+    # -- to be overridden ---------------------------------------------------
+    def loss_fn(self, batch, generator: torch.Generator):
+        raise NotImplementedError
+
+    def _t(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    # -- training -----------------------------------------------------------
+    def train_step(self, batch) -> dict:
+        """One micro-step: loss, grads, the optimizer's step. Returns the
+        metrics as tensors on the device (no host sync): loss_fn's,
+        "loss" and "grad_norm", the global norm of every grad of this
+        micro-step, frozen parameters' included."""
+        if self.inference_only:
+            raise RuntimeError(
+                "executor is inference_only: no optimizer state; rebuild "
+                "without inference_only to train")
+        self.model.zero_grad(set_to_none=True)
+        loss, metrics = self.loss_fn(batch, self.generator)
+        loss.backward()
+        grad_norm = global_norm([p.grad for p in self.model.parameters()
+                                 if p.grad is not None])
+        self.optimizer.step()
+        self.step += 1
+        metrics = dict(metrics)
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = grad_norm
+        return metrics
+
+    def fit(self, batches: Iterable, steps: Optional[int] = None,
+            log_every: int = 50,
+            val_every: Optional[int] = None,
+            val_fn: Optional[Callable[[], dict]] = None,
+            ckpt_manager=None, early_stopping=None) -> dict:
+        """Training loop. ckpt_manager/early_stopping: see
+        executors.callbacks."""
+        last_metrics: dict = {}
+        try:
+            last_metrics = self._fit_loop(batches, steps, log_every,
+                                          val_every, val_fn, ckpt_manager,
+                                          early_stopping)
+        finally:
+            # a prefetch stream abandoned mid-way (steps reached, early
+            # stop, an exception) would leave its producer thread parked
+            # on device-resident batches; close() stops it. Only
+            # prefetch-owned streams are closed: a caller's generator
+            # must survive for a later fit() continuation.
+            if getattr(batches, "_ravqa_prefetch_owned", False):
+                batches.close()
+        return last_metrics
+
+    def _fit_loop(self, batches, steps, log_every, val_every, val_fn,
+                  ckpt_manager, early_stopping) -> dict:
+        last_metrics: dict = {}
+        for i, batch in enumerate(batches):
+            if steps is not None and i >= steps:
+                break
+            metrics = self.train_step(batch)
+            if (i + 1) % log_every == 0 or (steps and i == steps - 1):
+                last_metrics = {k: float(v) for k, v in metrics.items()}
+                self.logger.log(last_metrics, self.step, prefix="train/")
+            if val_fn is not None and val_every and (i + 1) % val_every == 0:
+                # val_fn logs its own metrics (run_eval, under "valid/")
+                vm = val_fn()
+                if ckpt_manager is not None:
+                    ckpt_manager.on_validation(self, vm, self.step)
+                if early_stopping is not None and early_stopping.update(vm):
+                    self.logger.log({"early_stop": 1}, self.step)
+                    break
+        return last_metrics
+
+    def prepare_for_serving(self) -> None:
+        """Drop the optimizer (Adam's moments, accumulators) for an
+        inference deployment (what inference_only=True builds). train_step
+        raises afterwards."""
+        self.optimizer = None
+        self.inference_only = True
+
+    # -- checkpoints ----------------------------------------------------------
+    def save_checkpoint(self, path: str, backend: str = "msgpack"):
+        """params.msgpack (flax's format), step.json, optimizer.pt (the
+        optimizer's state, when there is an optimizer) and rng.pt (the
+        dropout generator's state). backend "orbax" is the JAX package's
+        sharded format and is not ported."""
+        if backend != "msgpack":
+            raise NotImplementedError(
+                f"checkpoint backend {backend!r} is not ported to "
+                "ravqa_tpu_torch (msgpack only)")
+        os.makedirs(path, exist_ok=True)
+        save_params(self.model.state_dict(),
+                    os.path.join(path, "params.msgpack"),
+                    _num_heads(self.model))
+        if self.optimizer is not None:
+            torch.save(self.optimizer.state_dict(),
+                       os.path.join(path, "optimizer.pt"))
+        torch.save(self.generator.get_state(), os.path.join(path, "rng.pt"))
+        with open(os.path.join(path, "step.json"), "w") as f:
+            json.dump({"step": self.step}, f)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Load a params file (flax msgpack or a flattened-key .npz;
+        models.convert.load_params) into the model, or a checkpoint
+        directory: its params.msgpack (else params.npz), step.json,
+        optimizer.pt and rng.pt where present. A training executor whose
+        directory lacks optimizer.pt (a JAX package checkpoint, or a
+        params-only one) starts a fresh optimizer and logs
+        "ckpt_opt_state_missing", as the JAX package does."""
+        if not os.path.isdir(path):
+            self.model.load_state_dict(load_params(path), strict=True)
+            return
+        found = [os.path.join(path, f) for f in CHECKPOINT_FILES
+                 if os.path.exists(os.path.join(path, f))]
+        if not found:
+            raise FileNotFoundError(f"{path} holds none of "
+                                    f"{CHECKPOINT_FILES}")
+        self.model.load_state_dict(load_params(found[0]), strict=True)
+        step_path = os.path.join(path, "step.json")
+        if os.path.exists(step_path):
+            with open(step_path) as f:
+                self.step = int(json.load(f)["step"])
+        if self.optimizer is not None:
+            opt_path = os.path.join(path, "optimizer.pt")
+            self.optimizer = make_optimizer(self.train_cfg, self.model)
+            if os.path.exists(opt_path):
+                self.optimizer.load_state_dict(
+                    torch.load(opt_path, map_location=self.device))
+            else:
+                self.logger.log({"ckpt_opt_state_missing": 1}, self.step)
+        rng_path = os.path.join(path, "rng.pt")
+        if os.path.exists(rng_path):
+            self.generator.set_state(torch.load(rng_path))

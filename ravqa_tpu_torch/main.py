@@ -1,19 +1,29 @@
-"""CLI entry point of the PyTorch port: config-driven retrieval serving.
+"""CLI entry point of the PyTorch port: config-driven FLMR retrieval
+training, evaluation and serving.
 
-Port of ravqa_tpu/main.py for `--mode serve` (and `prepare_data`) on FLMR
-retrieval configs. Example, on an NVIDIA GPU:
+Port of ravqa_tpu/main.py for FLMR retrieval configs: `--mode train`
+(the trainer, validation through `run_eval` every `train.val_every` steps,
+then `<log_dir>/<experiment_name>/ckpt`), `--mode test` / `eval` (the
+checkpoint, an index of the corpus, search, `<split>_metrics.json`,
+`<split>_predictions.json` and the prediction table), `--mode serve` and
+`prepare_data`. Examples, on an NVIDIA GPU:
 
+    python -m ravqa_tpu_torch.main --config configs/synthetic_flmr.json \
+        --mode train --experiment_name dev --opts train.lr=1e-4
+    python -m ravqa_tpu_torch.main --config configs/synthetic_flmr.json \
+        --mode eval --experiment_name dev
     python -m ravqa_tpu_torch.main \
         --config configs/synthetic_flmr_base_serve.json --mode serve
 
 `--device` chooses where the model and index live (default "cuda"; pass
-"cpu" for the plain PyTorch path). Training, test/eval and RAG configs are
-not ported yet (ROADMAP.md, Queue A).
+"cpu" for the plain PyTorch path). RAG configs and `--num_devices` are not
+ported yet (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from typing import Optional
 
@@ -37,6 +47,13 @@ def parse_args(argv=None):
     p.add_argument("--experiment_name", default="default")
     p.add_argument("--log_dir", default="experiments")
     p.add_argument("--opts", nargs="*", default=[])
+    p.add_argument("--modules", nargs="*", default=[],
+                   help="extra model_config.modules flags (reference "
+                        "--modules)")
+    p.add_argument("--use_dummy_data", action="store_true",
+                   help="truncate the OK-VQA data (not ported yet)")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="data-parallel devices (not ported yet)")
     p.add_argument("--device", default="cuda",
                    help="torch device for the model and the index")
     return p.parse_args(argv)
@@ -62,29 +79,55 @@ def _flmr_config_from(mc):
     if mc.get("query_mode", "text+vision") != "text+vision":
         raise NotImplementedError(
             f"query_mode {mc.get('query_mode')!r} {_NOT_PORTED}")
-    if mc.get("interaction", "colbert") != "colbert":
-        raise NotImplementedError(
-            f"interaction {mc.get('interaction')!r} {_NOT_PORTED}")
     return FLMRModelConfig(
         bert=BertConfig(**mc.get("bert", {})),
         dim=mc.get("dim", 128),
         vision_dim=mc.get("vision_embedding_size", 768),
         prefix_len=mc.get("mapping_network_prefix_length", 32),
+        nway=mc.get("num_negative_samples", 1) + 1,
+        use_ib_negatives=mc.get("use_ib_negatives", True),
         separate_question_encoder="separate_question_encoder" in modules,
+        interaction=mc.get("interaction", "colbert"),
+        flipr_query_part_len=mc.get("flipr_query_part_len", 0),
+        flipr_k1=mc.get("flipr_k1", 0),
+        flipr_k2=mc.get("flipr_k2", 0),
+        ib_block_n=mc.get("ib_block_n", 0),
+        ib_score_bf16=mc.get("ib_score_bf16", False),
     )
 
 
-def build_executor(cfg: Config, device):
-    """FLMR executor with weights drawn from the config's seed."""
-    from .executors import FLMRExecutor
+def build_executor(cfg: Config, device, log_dir: Optional[str] = None,
+                   quiet: bool = True, inference_only: bool = False):
+    """FLMR executor with weights drawn from the config's seed (a CPU
+    torch.Generator, so one seed gives the same weights on every device)
+    and the trainer configured from `train.*`. inference_only builds no
+    optimizer (serving)."""
+    from .executors import FLMRExecutor, TrainConfig
     from .models import FLMRRetriever
     cls = cfg.get("executor", Config()).get("ExecutorClass", "FLMRExecutor")
     if cls != "FLMRExecutor":
         raise NotImplementedError(f"executor {cls!r} {_NOT_PORTED}")
-    model = FLMRRetriever(_flmr_config_from(cfg.model_config))
+    mc = cfg.model_config
+    model = FLMRRetriever(_flmr_config_from(mc))
     model.reset_parameters(
         torch.Generator().manual_seed(cfg.get("seed", 0)))
-    return FLMRExecutor(model, device=device)
+    tc = cfg.get("train", Config())
+    train_cfg = TrainConfig(
+        lr=tc.get("lr", 1e-5),
+        mapping_lr=tc.get("mapping_network_lr"),
+        weight_decay=tc.get("weight_decay", 0.0),
+        warmup_steps=tc.get("warmup_steps", 0),
+        total_steps=tc.get("total_steps", 10000),
+        schedule=tc.get("schedule", "constant"),
+        grad_clip=tc.get("grad_clip", 0.0),
+        modules=tuple(mc.get("modules", [])),
+        accumulate_grad_batches=tc.get("accumulate_grad_batches", 1),
+    )
+    return FLMRExecutor(model, train_cfg, device=device, log_dir=log_dir,
+                        seed=cfg.get("seed", 0), quiet=quiet,
+                        logger_backends=tuple(tc.get("logger_backends",
+                                                     ["jsonl"])),
+                        inference_only=inference_only)
 
 
 def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
@@ -100,7 +143,6 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     knobs (n_candidates, approx_topk, approx_recall, coarse_int8,
     centroid_prune, coarse_query_len, stage1_kernel, preset)."""
     from .data import corpus_doc_batches
-    from .executors.flmr_executor import CHECKPOINT_FILES
     from .retrieval import LateInteractionSearcher
     from .serving import RetrievalServer, ServeConfig
 
@@ -110,18 +152,10 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
                      k=sv.get("k", 10),
                      max_queue=sv.get("max_queue", 0))
     mc = cfg.model_config
-    ex = build_executor(cfg, device)
-    explicit = cfg.get("train", Config()).get("load_model_path")
-    ckpt = os.path.join(log_dir, "ckpt") if log_dir else None
-    if explicit:
-        ex.load_checkpoint(explicit)             # raises on a bad path
-    elif ckpt and any(os.path.exists(os.path.join(ckpt, f))
-                      for f in CHECKPOINT_FILES):
-        ex.load_checkpoint(ckpt)
-    else:
+    ex = build_executor(cfg, device, inference_only=True)
+    if not _load_checkpoint(ex, cfg, log_dir):
         print("serve: no checkpoint found (set train.load_model_path) "
               "— serving randomly initialized weights", flush=True)
-    ex.prepare_for_serving()
     corpus = data["passages"]["full_passages"]
     index = ex.build_index(
         corpus_doc_batches(corpus, data["doc_tokenizer"], batch_size=64))
@@ -149,6 +183,164 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     return server
 
 
+def _load_checkpoint(ex, cfg, log_dir: Optional[str]) -> bool:
+    """Load `train.load_model_path` (a params file or a checkpoint
+    directory; raises on a bad path), else <log_dir>/ckpt when it holds a
+    params file. Returns whether anything was loaded."""
+    from .executors.base import CHECKPOINT_FILES
+    explicit = cfg.get("train", Config()).get("load_model_path")
+    ckpt = os.path.join(log_dir, "ckpt") if log_dir else None
+    if explicit:
+        ex.load_checkpoint(explicit)
+        return True
+    if ckpt and any(os.path.exists(os.path.join(ckpt, f))
+                    for f in CHECKPOINT_FILES):
+        ex.load_checkpoint(ckpt)
+        return True
+    return False
+
+
+def _callbacks_from(cfg, log_dir: str):
+    """CheckpointManager / EarlyStopping from the reference's config keys
+    (train.model_checkpoint_callback_paras /
+    train.early_stopping_callback_paras,
+    FLMR_base_preload_vision_features.jsonnet:206-232)."""
+    from .executors.callbacks import CheckpointManager, EarlyStopping
+    tc = cfg.get("train", Config())
+
+    def default_mode(monitor: str) -> str:
+        # Lightning defaults to "min"; recall/accuracy-style monitors (the
+        # reference's recall_at_5) to "max"
+        up = ("recall", "precision", "accuracy", "success", "mrr", "bleu")
+        return "max" if any(t in monitor for t in up) else "min"
+
+    ckpt_manager = None
+    mp = tc.get("model_checkpoint_callback_paras")
+    if mp:
+        monitor = mp.get("monitor", "loss")
+        ckpt_manager = CheckpointManager(
+            dirpath=mp.get("dirpath", os.path.join(log_dir, "ckpts")),
+            monitor=monitor,
+            mode=mp.get("mode", default_mode(monitor)),
+            save_top_k=mp.get("save_top_k", 1),
+            save_last=mp.get("save_last", True))
+    early = None
+    ep = tc.get("early_stopping_callback_paras")
+    if ep:
+        monitor = ep.get("monitor", "loss")
+        early = EarlyStopping(monitor=monitor,
+                              mode=ep.get("mode", default_mode(monitor)),
+                              patience=ep.get("patience", 3),
+                              min_delta=ep.get("min_delta", 0.0))
+    return ckpt_manager, early
+
+
+def _maybe_prefetch(batches, tc, device):
+    """Wrap a batch iterator with the background-thread prefetch and early
+    device copies (train.prefetch_batches, default 2; 0 disables)."""
+    depth = tc.get("prefetch_batches", 2)
+    if not depth:
+        return batches
+    from .data import prefetch_to_device
+    return prefetch_to_device(batches, size=depth, device=device)
+
+
+def run_eval(cfg, ex, data, log_dir: str, split: str = "valid") -> dict:
+    """Index the corpus, search the split's questions, score Recall and
+    Precision@K; write <split>_metrics.json, <split>_predictions.json and
+    <split>_prediction_table.jsonl under log_dir."""
+    from .data import corpus_doc_batches, query_eval_batches
+    from .utils.tables import (build_prediction_table, log_prediction_table,
+                               save_prediction_table)
+    ds = data.get(split) or data["test"]
+    corpus = data["passages"]["full_passages"]
+    ks = cfg.get("metrics", Config()).get("Ks", [5, 10])
+    mc = cfg.model_config
+    # the reference's exhaustive_search_in_testing flag forces exact search
+    search_mode = mc.get("search_mode", "exact")
+    if "exhaustive_search_in_testing" in mc.get("modules", []):
+        search_mode = "exact"
+    m = ex.evaluate_retrieval(
+        query_eval_batches(ds),
+        corpus_doc_batches(corpus, ds.dt),
+        passage_ids=corpus.ids,
+        passage_contents=corpus.contents,
+        answers=[it.get("answers", []) for it in ds.items],
+        pos_item_ids=[it.get("pos_item_ids", []) for it in ds.items],
+        ks=ks,
+        search_mode=search_mode,
+        search_preset=mc.get("search_preset", "reference"),
+        # reference parity (metrics_processors.py:225): the flag drops
+        # position 0, where static retrieval files hold a null document
+        add_null_document="add_null_document" in mc.get("modules", []))
+    metrics = {k: v for k, v in m.items() if not k.startswith("_")}
+    ex.logger.log(metrics, ex.step, prefix=f"{split}/")
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, f"{split}_metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    preds = [{"question_id": it.get("question_id"),
+              "top_ranking_passages": [
+                  {"passage_id": str(pid),
+                   "content": corpus.content_of(pid)}
+                  for pid in row]}
+             for it, row in zip(ds.items, m["_retrieved_pids"])]
+    with open(os.path.join(log_dir, f"{split}_predictions.json"), "w") as f:
+        json.dump(preds, f)
+    contents = [[corpus.content_of(pid) for pid in row]
+                for row in m["_retrieved_pids"]]
+    cols, rows = build_prediction_table(ds.items, contents, max(ks))
+    save_prediction_table(
+        os.path.join(log_dir, f"{split}_prediction_table.jsonl"), cols, rows)
+    log_prediction_table(ex.logger, f"{split}/predictions", cols, rows)
+    return metrics
+
+
+def run_train(cfg, args, data, log_dir: str) -> int:
+    """Train `train.total_steps` micro-steps (the remaining ones when
+    `train.auto_resume` finds <log_dir>/ckpt), validating every
+    `train.val_every`, then save <log_dir>/ckpt."""
+    tc = cfg.get("train", Config())
+    ex = build_executor(cfg, args.device, log_dir, quiet=False)
+    explicit = tc.get("load_model_path")
+    auto = os.path.join(log_dir, "ckpt")
+    steps = tc.get("total_steps", 100)
+    if explicit:
+        ex.load_checkpoint(explicit)
+    elif tc.get("auto_resume") and os.path.exists(
+            os.path.join(auto, "params.msgpack")):
+        # a restarted job continues from its checkpoint (optimizer and
+        # schedule position included) and trains only the remaining steps
+        print(f"auto-resuming from {auto}", flush=True)
+        ex.load_checkpoint(auto)
+        steps = max(steps - ex.step, 0)
+    batches = _maybe_prefetch(
+        data["train"].loader(batch_size=tc.get("batch_size", 8),
+                             shuffle=True, seed=cfg.get("seed", 0)),
+        tc, ex.device)
+    ckpt_manager, early_stopping = _callbacks_from(cfg, log_dir)
+    ex.fit(batches, steps=steps,
+           log_every=tc.get("log_every", 20),
+           val_every=tc.get("val_every"),
+           val_fn=lambda: run_eval(cfg, ex, data, log_dir, "valid"),
+           ckpt_manager=ckpt_manager, early_stopping=early_stopping)
+    ex.save_checkpoint(auto)
+    return 0
+
+
+def run_test(cfg, args, data, log_dir: str) -> int:
+    """Evaluate the checkpoint (train.load_model_path, else <log_dir>/ckpt)
+    on the test split (--mode test) or the valid split (--mode eval)."""
+    ex = build_executor(cfg, args.device, log_dir, quiet=False,
+                        inference_only=True)
+    if not _load_checkpoint(ex, cfg, log_dir):
+        print(f"{args.mode}: no checkpoint found — evaluating randomly "
+              "initialized weights", flush=True)
+    split = "test" if args.mode == "test" else "valid"
+    metrics = run_eval(cfg, ex, data, log_dir, split)
+    print(json.dumps(metrics, indent=2))
+    return 0
+
+
 def run_serve(cfg, args, data, log_dir: str) -> int:
     from .serving import make_http_server
     server = build_server(cfg, data, args.device, log_dir)
@@ -169,17 +361,29 @@ def run_serve(cfg, args, data, log_dir: str) -> int:
 def main(argv=None):
     args = parse_args(argv)
     cfg = apply_overrides(load_config(args.config), args.opts)
+    if args.modules:
+        cfg.model_config.modules = list(cfg.model_config.get("modules", [])) \
+            + list(args.modules)
+    if args.use_dummy_data:
+        # the reference flag truncates the OK-VQA loader's items; the port
+        # has no OK-VQA loader yet, and SyntheticOKVQA ignores the flag
+        raise NotImplementedError(f"--use_dummy_data {_NOT_PORTED}: A7")
     if cfg.get("executor", Config()).get("ExecutorClass") == "RagExecutor":
-        raise NotImplementedError(f"RAG serving {_NOT_PORTED}")
-    if args.mode in ("train", "test", "eval"):
-        raise NotImplementedError(f"--mode {args.mode} {_NOT_PORTED}")
+        raise NotImplementedError(f"RAG configs {_NOT_PORTED}: A6")
+    if args.num_devices:
+        raise NotImplementedError(f"--num_devices {_NOT_PORTED}: A4")
     log_dir = os.path.join(args.log_dir, args.experiment_name)
+    os.makedirs(log_dir, exist_ok=True)
     data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
                                         explode=True)
     if args.mode == "prepare_data":
         print("prepare_data done:", list(data))
         return 0
-    return run_serve(cfg, args, data, log_dir)
+    if args.mode == "serve":
+        return run_serve(cfg, args, data, log_dir)
+    if args.mode == "train":
+        return run_train(cfg, args, data, log_dir)
+    return run_test(cfg, args, data, log_dir)
 
 
 if __name__ == "__main__":

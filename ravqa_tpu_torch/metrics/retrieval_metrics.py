@@ -1,0 +1,75 @@
+"""Retrieval metrics: pseudo-relevance (string match) and ground-truth
+Recall/Precision@K.
+
+The port's own copy of pseudo_relevance_scores and positive_id_scores from
+ravqa_tpu/metrics/retrieval_metrics.py (reference
+metrics_processors.py:481-604): a top-K passage "hits" if any answer string
+appears (case-insensitive substring) in its content; recall@K is the share
+of questions with a hit in the top K, precision@K the hits over K averaged
+over questions; gold_* variants use the single gold answer. Ground truth:
+a hit iff the retrieved passage id is one of pos_item_ids.
+tests/test_torch_eval.py holds the copy to the original.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+
+def pseudo_relevance_scores(
+    retrieved_contents: Sequence[Sequence[str]],
+    answers: Sequence[Sequence[str]],
+    ks: Sequence[int],
+    gold_answers: Sequence[str] | None = None,
+    add_null_document: bool = False,
+) -> dict[str, float]:
+    """retrieved_contents[i] = top-maxK passage texts for question i.
+
+    add_null_document: the reference module flag (metrics_processors.py:225)
+    — position 0 holds an inserted null document; drop it before scoring.
+    """
+    if add_null_document:
+        retrieved_contents = [c[1:] for c in retrieved_contents]
+    n = len(retrieved_contents)
+    out = {f"recall_at_{k}": 0.0 for k in ks}
+    out.update({f"precision_at_{k}": 0.0 for k in ks})
+    if gold_answers is not None:
+        out.update({f"gold_recall_at_{k}": 0.0 for k in ks})
+        out.update({f"gold_precision_at_{k}": 0.0 for k in ks})
+    for i in range(n):
+        contents = [c.lower() for c in retrieved_contents[i]]
+        ans = [a.lower() for a in answers[i]]
+        hits = [any(a in c for a in ans) for c in contents]
+        gold_hits = None
+        if gold_answers is not None:
+            g = gold_answers[i].lower()
+            gold_hits = [g in c for c in contents]
+        for k in ks:
+            nh = sum(hits[:k])
+            out[f"recall_at_{k}"] += float(nh > 0)
+            out[f"precision_at_{k}"] += nh / k
+            if gold_hits is not None:
+                ngh = sum(gold_hits[:k])
+                out[f"gold_recall_at_{k}"] += float(ngh > 0)
+                out[f"gold_precision_at_{k}"] += ngh / k
+    return {name: v / max(n, 1) for name, v in out.items()}
+
+
+def positive_id_scores(
+    retrieved_ids: Sequence[Sequence],
+    pos_item_ids: Sequence[Sequence],
+    ks: Sequence[int],
+    field: str = "pos_item_ids",
+) -> dict[str, float]:
+    """Ground-truth Recall/Precision@K against positive passage ids."""
+    n = len(retrieved_ids)
+    out = {f"{field}_recall_at_{k}": 0.0 for k in ks}
+    out.update({f"{field}_precision_at_{k}": 0.0 for k in ks})
+    for i in range(n):
+        pos = set(pos_item_ids[i])
+        hits = [rid in pos for rid in retrieved_ids[i]]
+        for k in ks:
+            nh = sum(hits[:k])
+            out[f"{field}_recall_at_{k}"] += float(nh > 0)
+            out[f"{field}_precision_at_{k}"] += nh / k
+    return {name: v / max(n, 1) for name, v in out.items()}

@@ -1,6 +1,7 @@
 from .bert import BertConfig, BertModel
 from .convert import (flatten_params, flax_to_state_dict, load_params,
-                      load_params_npz, read_flax_msgpack)
+                      load_params_npz, read_flax_msgpack, save_params,
+                      state_dict_to_flax, write_flax_msgpack)
 from .flmr import (FLMRModelConfig, FLMRRetriever, l2_normalize,
                    punctuation_skiplist_ids, skiplist_mask)
 from .mapping import MappingMLP, VisionMapping
@@ -10,6 +11,7 @@ from .transformer import (EncoderConfig, EncoderLayer, MlpBlock,
 
 __all__ = ["BertConfig", "BertModel", "flatten_params", "flax_to_state_dict",
            "load_params", "load_params_npz", "read_flax_msgpack",
+           "save_params", "state_dict_to_flax", "write_flax_msgpack",
            "FLMRModelConfig", "FLMRRetriever",
            "l2_normalize", "punctuation_skiplist_ids", "skiplist_mask",
            "MappingMLP", "VisionMapping", "EncoderConfig", "EncoderLayer",

@@ -25,6 +25,8 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    dropout_rate: float = 0.0
+    remat: bool = False                  # per-layer backward remat
 
     @property
     def encoder_cfg(self) -> EncoderConfig:
@@ -34,6 +36,8 @@ class BertConfig:
             num_heads=self.num_heads,
             intermediate_size=self.intermediate_size,
             layer_norm_eps=self.layer_norm_eps,
+            dropout_rate=self.dropout_rate,
+            remat=self.remat,
         )
 
     @staticmethod
@@ -61,8 +65,11 @@ class BertModel(nn.Module):
         self.pooler = nn.Linear(h, h, device=device)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                token_type_ids: torch.Tensor | None = None):
-        """-> (hidden states (B, T, H), pooled (B, H))."""
+                token_type_ids: torch.Tensor | None = None,
+                deterministic: bool = True,
+                generator: torch.Generator | None = None):
+        """-> (hidden states (B, T, H), pooled (B, H)). Dropout (the
+        encoder's) is live when not `deterministic`."""
         t = input_ids.shape[1]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
@@ -71,6 +78,7 @@ class BertModel(nn.Module):
              + self.position_embeddings(pos_ids)
              + self.token_type_embeddings(token_type_ids))
         x = _layer_norm(self.embeddings_ln, x)
-        x = self.encoder(x, attention_bias_from_mask(attention_mask))
+        x = self.encoder(x, attention_bias_from_mask(attention_mask),
+                         deterministic, generator)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return x, pooled

@@ -13,11 +13,17 @@ A Flax params tree (nested dicts of numpy arrays, as
 - ``layer_<i>`` / ``dense_<i>`` become the ModuleList entries
   ``layers.<i>`` / ``dense.<i>``.
 
+``state_dict_to_flax`` is the way back, so a tree the port trained loads
+into the JAX package.
+
 Imports no flax and no msgpack. The JAX package writes a params tree as
 flax msgpack (``save_params``, and ``params.msgpack`` in a
 ``save_checkpoint`` directory); ``read_flax_msgpack`` decodes the subset
-flax writes. A params ``.npz`` stores the same tree with flattened "a/b/c"
-keys (``flatten_params``). ``load_params`` reads either into a state_dict.
+flax writes and ``write_flax_msgpack`` writes it (nested str-keyed maps,
+ndarrays as msgpack ext type 1), so the JAX package's ``load_params``
+reads the port's ``params.msgpack``. A params ``.npz`` stores the same
+tree with flattened "a/b/c" keys (``flatten_params``). ``load_params``
+reads either into a state_dict.
 """
 
 from __future__ import annotations
@@ -81,6 +87,60 @@ def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
         sd[_torch_key(path)] = torch.tensor(
             _torch_value(path, np.asarray(value, np.float32)))
     return sd
+
+
+_FLAX_LIST = {"layers": "layer", "dense": "dense"}
+_ATTENTION = ("query", "key", "value", "out")
+
+
+def _flax_path(key: str, value: torch.Tensor) -> list[str]:
+    parts = key.split(".")
+    path = []
+    i = 0
+    while i < len(parts) - 1:
+        if parts[i] in _FLAX_LIST and parts[i + 1].isdigit():
+            path.append(f"{_FLAX_LIST[parts[i]]}_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    leaf = parts[-1]
+    if leaf == "weight":
+        if value.ndim == 1:
+            leaf = "scale"                          # LayerNorm
+        elif path[-1].endswith("embeddings"):
+            leaf = "embedding"                      # Embedding
+        else:
+            leaf = "kernel"                         # Linear
+    elif leaf != "bias":
+        raise KeyError(f"unknown parameter {key}")
+    return path + [leaf]
+
+
+def state_dict_to_flax(state_dict: dict, num_heads: int) -> dict:
+    """The inverse of flax_to_state_dict: the port's state_dict -> a nested
+    Flax params tree of float32 numpy arrays. num_heads gives the attention
+    kernels and biases their (heads, head_dim) axes back."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+        path = _flax_path(key, t)
+        parent, leaf = path[-2], path[-1]
+        attention = len(path) > 2 and path[-3] == "attention" \
+            and parent in _ATTENTION
+        if leaf == "kernel":
+            a = a.T                                 # (in, out)
+            if attention and parent == "out":
+                a = a.reshape(num_heads, -1, a.shape[-1])
+            elif attention:
+                a = a.reshape(a.shape[0], num_heads, -1)
+        elif leaf == "bias" and attention and parent != "out":
+            a = a.reshape(num_heads, -1)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree
 
 
 def load_params_npz(path: str) -> dict[str, torch.Tensor]:
@@ -196,6 +256,104 @@ def read_flax_msgpack(data: bytes):
     if r.pos != len(r.data):
         raise ValueError("trailing bytes after the msgpack object")
     return out
+
+
+class _Writer:
+    """msgpack encoder for what flax.serialization.to_bytes writes of a
+    params tree: str-keyed maps, str, ints (an array's shape) and ndarrays
+    as ext type 1 holding the msgpack array (shape, dtype name, C-order
+    bytes). Anything else raises TypeError."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def head(self, n: int, fix: int, fix_max: int, codes) -> None:
+        if n <= fix_max:
+            self.out += struct.pack(">B", fix | n)
+            return
+        for code, fmt in codes:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                self.out += struct.pack(">B" + fmt, code, n)
+                return
+        raise ValueError(f"msgpack length {n} is too large")
+
+    def value(self, v) -> None:
+        if isinstance(v, dict):
+            self.head(len(v), 0x80, 15, ((0xDE, "H"), (0xDF, "I")))
+            for k in sorted(v, key=str):           # flax sorts keys too
+                self.value(str(k))
+                self.value(v[k])
+        elif isinstance(v, str):
+            b = v.encode("utf-8")
+            self.head(len(b), 0xA0, 31,
+                      ((0xD9, "B"), (0xDA, "H"), (0xDB, "I")))
+            self.out += b
+        elif isinstance(v, bytes):
+            self.head(len(v), 0, -1, ((0xC4, "B"), (0xC5, "H"), (0xC6, "I")))
+            self.out += v
+        elif isinstance(v, (list, tuple)):
+            self.head(len(v), 0x90, 15, ((0xDC, "H"), (0xDD, "I")))
+            for x in v:
+                self.value(x)
+        elif isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+            self.int(int(v))
+        elif isinstance(v, np.ndarray):
+            inner = _Writer()
+            inner.value([list(v.shape), v.dtype.name,
+                         np.ascontiguousarray(v).tobytes()])
+            self.ext(1, bytes(inner.out))
+        else:
+            raise TypeError(f"cannot write {type(v).__name__} as a flax "
+                            f"params leaf")
+
+    def int(self, v: int) -> None:
+        if 0 <= v <= 0x7F:
+            self.out += struct.pack(">B", v)
+        elif -32 <= v < 0:
+            self.out += struct.pack(">b", v)
+        elif v >= 0:
+            for code, fmt in ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"),
+                              (0xCF, "Q")):
+                if v < 1 << (8 * struct.calcsize(fmt)):
+                    self.out += struct.pack(">B" + fmt, code, v)
+                    return
+            raise ValueError(f"int {v} does not fit msgpack")
+        else:
+            for code, fmt in ((0xD0, "b"), (0xD1, "h"), (0xD2, "i"),
+                              (0xD3, "q")):
+                if v >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                    self.out += struct.pack(">B" + fmt, code, v)
+                    return
+            raise ValueError(f"int {v} does not fit msgpack")
+
+    def ext(self, code: int, payload: bytes) -> None:
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.out += struct.pack(">Bb", fixed[n], code)
+        else:
+            self.head(n, 0, -1, ((0xC7, "B"), (0xC8, "H"), (0xC9, "I")))
+            self.out += struct.pack(">b", code)
+        self.out += payload
+
+
+def write_flax_msgpack(tree: dict) -> bytes:
+    """Encode a params tree (nested str-keyed dicts with ndarray leaves) as
+    flax.serialization.to_bytes does, without flax or msgpack. Arrays over
+    1 GB, which flax writes in chunks, are not supported."""
+    w = _Writer()
+    w.value(tree)
+    return bytes(w.out)
+
+
+def save_params(state_dict: dict, path: str, num_heads: int) -> None:
+    """Write the port's state_dict as a flax msgpack params file that the
+    JAX package's load_params reads."""
+    import os
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    data = write_flax_msgpack(state_dict_to_flax(state_dict, num_heads))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def load_params(path: str) -> dict[str, torch.Tensor]:

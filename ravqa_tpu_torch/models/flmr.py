@@ -5,10 +5,13 @@
   normalize (reference FLMR.py:73-99).
 - doc(): BERT -> linear -> pad/skiplist masking -> L2 normalize
   (colbert.py:194-215).
+- forward(): the training forward, nway scores plus the nway and
+  in-batch-negative losses (JAX ``__call__``, colbert.py:64-113), with the
+  colbert or the FLIPR interaction.
 
 Ported for ``query_mode="text+vision"`` with pre-extracted image features.
-The in-graph ViT, multimodal docs, the PreFLMR transformer mapping, FLIPR
-and the training forward (losses) come later (ROADMAP.md A8, A11).
+The in-graph ViT, multimodal docs and the PreFLMR transformer mapping come
+later (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.losses import in_batch_negative_loss, nway_ce_loss
 from .bert import BertConfig, BertModel
 from .mapping import VisionMapping
 
@@ -32,8 +36,19 @@ class FLMRModelConfig:
     dim: int = 128
     vision_dim: int = 768               # CLIP CLS embedding size
     prefix_len: int = 32                # mapping_network_prefix_length
+    nway: int = 2
+    use_ib_negatives: bool = True
     separate_question_encoder: bool = False
     pad_token_id: int = 0
+    interaction: str = "colbert"        # | "flipr" (PreFLMR)
+    flipr_query_part_len: int = 0       # text-token count (question part)
+    flipr_k1: int = 0                   # top-k1 over the question part
+    flipr_k2: int = 0                   # top-k2 over the context part
+    # in-batch-negative loss knobs (ops.losses): ib_block_n > 0 scores the
+    # (B x B*nway) grid in doc blocks, each recomputed in the backward;
+    # ib_score_bf16 casts both operands of that product to bf16
+    ib_block_n: int = 0
+    ib_score_bf16: bool = False
 
     @staticmethod
     def tiny(**kw) -> "FLMRModelConfig":
@@ -110,13 +125,16 @@ class FLMRRetriever(nn.Module):
                     module.bias.zero_()
 
     def query(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-              image_features: torch.Tensor) -> torch.Tensor:
+              image_features: torch.Tensor, deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Late-interaction query embeddings, L2-normalized.
 
         image_features: (B, vision_dim) or (B, n_roi, vision_dim).
         Returns (B, Lq + n_vision, dim) float32; pad text rows are zero."""
         cfg = self.cfg
-        hidden = self.query_bert(input_ids, attention_mask)[0]
+        hidden = self.query_bert(input_ids, attention_mask,
+                                 deterministic=deterministic,
+                                 generator=generator)[0]
         q = self.linear(hidden)
         # query masking uses an empty skiplist: only pads zeroed (FLMR.py:80)
         q = q * (input_ids != cfg.pad_token_id).to(q.dtype)[..., None]
@@ -125,12 +143,46 @@ class FLMRRetriever(nn.Module):
         return l2_normalize(torch.cat([q, v.to(q.dtype)], dim=1).float())
 
     def doc(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-            skip_mask: Optional[torch.Tensor] = None):
+            skip_mask: Optional[torch.Tensor] = None,
+            deterministic: bool = True,
+            generator: Optional[torch.Generator] = None):
         """-> (D (B, Ld, dim) L2-normalized float32, mask (B, Ld) float).
 
         skip_mask: optional precomputed skiplist mask; None zeroes pads."""
-        d = self.linear(self.doc_encoder(input_ids, attention_mask)[0])
+        d = self.linear(self.doc_encoder(input_ids, attention_mask,
+                                         deterministic=deterministic,
+                                         generator=generator)[0])
         if skip_mask is None:
             skip_mask = (input_ids != self.cfg.pad_token_id).float()
         d = d * skip_mask[..., None].to(d.dtype)
         return l2_normalize(d.float()), skip_mask
+
+    def forward(self, query_input_ids: torch.Tensor,
+                query_attention_mask: torch.Tensor,
+                image_features: torch.Tensor, doc_input_ids: torch.Tensor,
+                doc_attention_mask: torch.Tensor,
+                doc_skip_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """Training forward: nway scores and losses. doc_* are grouped per
+        query, row i*nway query i's positive (colbert.py:64-113).
+        -> {"scores" (B, nway), "loss", "ib_loss"}; ib_loss is 0 without
+        in-batch negatives, and loss = nway loss + ib_loss."""
+        cfg = self.cfg
+        q = self.query(query_input_ids, query_attention_mask, image_features,
+                       deterministic, generator)
+        d, d_mask = self.doc(doc_input_ids, doc_attention_mask,
+                             doc_skip_mask, deterministic, generator)
+        nway_loss, scores = nway_ce_loss(
+            q, d, d_mask, cfg.nway, interaction=cfg.interaction,
+            flipr_query_part_len=cfg.flipr_query_part_len,
+            flipr_k1=cfg.flipr_k1, flipr_k2=cfg.flipr_k2)
+        out = {"scores": scores, "loss": nway_loss,
+               "ib_loss": torch.zeros((), device=q.device)}
+        if cfg.use_ib_negatives:
+            ib, _ = in_batch_negative_loss(
+                q, d, d_mask, cfg.nway, block_n=cfg.ib_block_n,
+                compute_dtype=torch.bfloat16 if cfg.ib_score_bf16 else None)
+            out["ib_loss"] = ib
+            out["loss"] = nway_loss + ib
+        return out

@@ -3,7 +3,7 @@
 Port of ravqa_tpu/models/mapping.py (MappingMLP, VisionMapping): a Tanh-MLP
 (vision_dim -> lm_dim*prefix/2 -> lm_dim*prefix) whose output reshapes to
 `prefix_len` extra query tokens per image. The PreFLMR TransformerMapping
-comes later (ROADMAP.md A11).
+comes later (ROADMAP.md A5).
 """
 
 from __future__ import annotations

@@ -7,6 +7,10 @@ the max), then sum over query tokens.
 - ``maxsim_reduce`` / ``maxsim_search_torch``: plain PyTorch. The CPU path
   and the tests use them; on the card they are the reference the kernel is
   checked against.
+- ``maxsim_pair_xla``, ``maxsim_all_pairs_xla``, ``maxsim_all_pairs_blocked``
+  and ``flipr_reduce``: the training scores under the losses (ops.losses),
+  plain PyTorch with autograd on every device, as they are XLA (no Pallas
+  kernel) in the JAX package.
 - ``maxsim_search``: the serving entry (K1, port of ``maxsim_search_pallas``).
   On CUDA tensors it launches the hand-written Hopper tensor-core kernel
   ``csrc/maxsim_mma.cu`` or raises. A bfloat16 index is read as it is; a
@@ -62,6 +66,92 @@ def maxsim_reduce(scores: torch.Tensor, d_mask: torch.Tensor,
     if q_mask is not None:
         per_q = per_q * q_mask.to(per_q.dtype)
     return per_q.sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Training pair scores (port of maxsim_pair_xla, maxsim_all_pairs_xla,
+# maxsim_all_pairs_blocked and flipr_reduce). The JAX package computes them
+# in XLA with autodiff, so here they are plain PyTorch with autograd. The
+# gradient of amax splits evenly among tied maxima, as JAX's max does, and
+# reaches no masked doc token (masked_fill cuts it off, as jnp.where does).
+# ---------------------------------------------------------------------------
+
+def maxsim_pair_xla(q: torch.Tensor, d: torch.Tensor, d_mask: torch.Tensor,
+                    q_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paired MaxSim: query i scores doc i. q (B, Lq, dim), d (B, Ld, dim),
+    d_mask (B, Ld) -> (B,) float32."""
+    scores = torch.einsum("bld,bqd->blq", d, q).float()
+    return maxsim_reduce(scores, d_mask, q_mask)
+
+
+def maxsim_all_pairs_xla(q: torch.Tensor, d: torch.Tensor,
+                         d_mask: torch.Tensor,
+                         q_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """All-pairs MaxSim (in-batch negatives): q (Bq, Lq, dim), d (Bd, Ld,
+    dim), d_mask (Bd, Ld), q_mask (Bq, Lq) -> (Bq, Bd) float32. Holds the
+    whole (Bd, Ld, Bq, Lq) token-score tensor for the backward."""
+    return _score_block(d, d_mask.bool(), q, q_mask, None)
+
+
+def _score_block(d: torch.Tensor, m: torch.Tensor, qc: torch.Tensor,
+                 q_mask: Optional[torch.Tensor], compute_dtype):
+    """(blk, Ld, dim) docs against every query -> (Bq, blk). Operands cast
+    to compute_dtype, then multiplied and summed in float32 (bf16 values
+    are exact in float32), as XLA's preferred_element_type=f32 does."""
+    if compute_dtype is not None:
+        d = d.to(compute_dtype)
+    s = torch.einsum("nld,bqd->nlbq", d.float(), qc.float())
+    s = s.masked_fill(~m[:, :, None, None], NEG_INF)
+    per_q = s.amax(dim=1)                                # (blk, Bq, Lq)
+    if q_mask is not None:
+        per_q = per_q * q_mask.to(per_q.dtype)[None]
+    return per_q.sum(dim=-1).T
+
+
+def maxsim_all_pairs_blocked(q: torch.Tensor, d: torch.Tensor,
+                             d_mask: torch.Tensor,
+                             q_mask: Optional[torch.Tensor] = None, *,
+                             block_n: int = 0,
+                             compute_dtype: Optional[torch.dtype] = None
+                             ) -> torch.Tensor:
+    """maxsim_all_pairs_xla in doc blocks of `block_n` (0: one block), each
+    run under torch.utils.checkpoint, so the backward keeps one block's
+    (block_n, Ld, Bq, Lq) tensor, not the whole one. Bd is padded up to a
+    multiple of block_n with masked docs, cut off again at the end.
+    compute_dtype (e.g. torch.bfloat16) casts both operands before the
+    product; accumulation is always float32. -> (Bq, Bd) float32."""
+    from torch.utils.checkpoint import checkpoint
+    bd = d.shape[0]
+    qc = q.to(compute_dtype) if compute_dtype is not None else q
+    if block_n <= 0 or block_n >= bd:
+        block_n = bd
+    pad = (-bd) % block_n
+    m = d_mask.bool()
+    if pad:
+        d = torch.nn.functional.pad(d, (0, 0, 0, 0, 0, pad))
+        m = torch.nn.functional.pad(m, (0, 0, 0, pad))
+    out = [checkpoint(_score_block, d[s:s + block_n], m[s:s + block_n], qc,
+                      q_mask, compute_dtype, use_reentrant=False)
+           for s in range(0, d.shape[0], block_n)]
+    return torch.cat(out, dim=1)[:, :bd]
+
+
+def flipr_reduce(scores: torch.Tensor, d_mask: torch.Tensor,
+                 query_part_len: int, k1: int, k2: int) -> torch.Tensor:
+    """FLIPR interaction (PreFLMR): per-query-token maxima split into the
+    question part (first `query_part_len`) and the context part; the sum of
+    the question part's top-k1 plus, only when at least k2 context tokens
+    exist, the context part's top-k2 (a shorter context part adds nothing).
+    scores (..., Ld, Lq), d_mask (..., Ld) -> (...,)."""
+    scores = scores.masked_fill(~d_mask.bool()[..., :, None], NEG_INF)
+    per_q = scores.amax(dim=-2)                          # (..., Lq)
+    first = per_q[..., :query_part_len]
+    rest = per_q[..., query_part_len:]
+    out = torch.topk(first, min(k1, first.shape[-1]), dim=-1)[0].sum(-1)
+    if k2 > 0 and rest.shape[-1] >= k2:
+        out = out + torch.topk(rest, k2, dim=-1)[0].sum(-1)
+    return out
 
 
 def maxsim_search_torch(q: torch.Tensor, tokens: torch.Tensor,

@@ -113,7 +113,7 @@ def kernel_times(fn, n=PROFILED_BATCHES):
 
 
 def _requests(data, n):
-    items = data["items"]["train"] + data["items"]["test"]
+    items = data["train"].items + data["test"].items
     return [items[i % len(items)] for i in range(n)]
 
 

@@ -17,8 +17,8 @@ Port of ravqa_tpu/retrieval/index.py for one device:
 Save format (save_index / load_index): the JAX package's index.npz plus
 metadata.json, so an index saved by either package loads in the other.
 The functions keep the JAX package's argument positions, `mesh` and
-`axis` included; sharding (a given mesh raises NotImplementedError) and
-encode_corpus's resume_dir are not ported (ROADMAP.md, Queue A).
+`axis` included; sharding (a given mesh raises NotImplementedError) is not
+ported (ROADMAP.md, Queue A: A4).
 A float32 index searched exactly on the card also keeps its bf16 planes
 (token_planes), made on first use and never saved.
 """
@@ -291,16 +291,37 @@ def encode_corpus(
     dtype: torch.dtype = torch.bfloat16,
     pids: Optional[Sequence[int]] = None,
     device=None,
+    resume_dir: Optional[str] = None,
 ) -> TokenIndex:
     """Encode a corpus into a TokenIndex.
 
     doc_encode_fn(batch) -> (D (B, Ld, dim), mask (B, Ld)) tensors. Each
     batch's embeddings are cast to `dtype` as they arrive and stay on their
     device, so the index never makes a round trip through the host (casting
-    per batch gives the same values as casting the whole f32 stack)."""
+    per batch gives the same values as casting the whole f32 stack).
+
+    resume_dir: each batch's float32 embeddings and int8 mask persist there
+    as chunk_{i}.npz (the JAX package's files, so either package resumes
+    the other's), and a restarted build skips the chunks already on disk
+    (the reference's indexing `resume` mode). A chunk is written to a
+    temporary name and renamed, so a crash never leaves a truncated one."""
     embs, msks = [], []
-    for batch in batches:
-        d, m = doc_encode_fn(batch)
+    if resume_dir:
+        os.makedirs(resume_dir, exist_ok=True)
+    for i, batch in enumerate(batches):
+        chunk = (os.path.join(resume_dir, f"chunk_{i}.npz")
+                 if resume_dir else None)
+        if chunk and os.path.exists(chunk):
+            with np.load(chunk) as z:
+                d, m = torch.from_numpy(z["d"]), torch.from_numpy(z["m"])
+            if device is not None:
+                d, m = d.to(device), m.to(device)
+        else:
+            d, m = doc_encode_fn(batch)
+            if chunk:
+                tmp = chunk + ".tmp.npz"
+                np.savez(tmp, d=_np(d, torch.float32), m=_np(m, torch.int8))
+                os.replace(tmp, chunk)
         embs.append(d.to(dtype))
         msks.append(m.to(torch.int8))
     tok = torch.cat(embs)

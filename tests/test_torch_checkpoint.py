@@ -1,4 +1,4 @@
-"""The port loads the JAX package's checkpoints.
+"""The port and the JAX package load each other's checkpoints.
 
 The JAX executor's `save_checkpoint` (a directory with params.msgpack,
 opt_state.msgpack, rng.msgpack and step.json) and `save_params` (one flax
@@ -12,6 +12,7 @@ tests/test_torch_models.py (float32 on both sides, reductions ordered
 differently by XLA and PyTorch).
 """
 
+import json
 import os
 import struct
 
@@ -148,3 +149,189 @@ def test_msgpack_reader_rejects_what_flax_params_do_not_use():
         read_flax_msgpack(msgpack.packb("abc")[:-1])
     with pytest.raises(ValueError, match="trailing"):
         read_flax_msgpack(msgpack.packb(1) + b"\x00")
+
+
+# ---------------------------------------------------------------------------
+# the port's own checkpoints (the trainer's save_checkpoint)
+# ---------------------------------------------------------------------------
+
+# warmup + linear decay + accumulation: the state a params-only resume
+# would reset (schedule position, Adam's moments, the accumulator)
+RESUME_OPTS = ["train.lr=1e-3", "train.warmup_steps=4", "train.total_steps=8",
+               "train.schedule=linear", "train.accumulate_grad_batches=2"]
+
+
+@pytest.fixture(scope="module")
+def port_world():
+    from ravqa_tpu_torch import main as torch_main
+    from ravqa_tpu_torch.config import apply_overrides
+    cfg = apply_overrides(load_config(CONFIG), RESUME_OPTS)
+    data = torch_main.build_pipeline(cfg).get_data(
+        cfg.data_pipeline_output_node, explode=True)
+    loader = data["train"].loader(batch_size=4, shuffle=True, seed=0)
+    return cfg, [next(loader) for _ in range(8)]
+
+
+def _trainer(cfg, log_dir=None):
+    from ravqa_tpu_torch import main as torch_main
+    return torch_main.build_executor(cfg, "cpu", log_dir=log_dir)
+
+
+def _state(ex):
+    return {k: v.clone() for k, v in ex.model.state_dict().items()}
+
+
+def test_port_checkpoint_loads_in_jax(saved, port_world, tmp_path):
+    """params.msgpack from the port's save_checkpoint decodes with the JAX
+    package's load_params on a model.init template: the same tree, the
+    port's values; the JAX executor loads the directory as a params-only
+    checkpoint (its optimizer afresh, ckpt_opt_state_missing logged)."""
+    from ravqa_tpu.executors.base import load_params as jax_load_params
+    from ravqa_tpu_torch.models import flax_to_state_dict
+    cfg, batches = port_world
+    ex = _trainer(cfg)
+    ex.train_step(batches[0])
+    ex.train_step(batches[1])
+    ex.save_checkpoint(str(tmp_path / "ck"))
+    assert sorted(os.listdir(tmp_path / "ck")) == [
+        "optimizer.pt", "params.msgpack", "rng.pt", "step.json"]
+    template = jax.device_get(saved["ex"].state.params)
+    tree = jax_load_params(template,
+                           str(tmp_path / "ck" / "params.msgpack"))
+    assert jax.tree.structure(tree) == jax.tree.structure(template)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(template)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    got = flax_to_state_dict(jax.device_get(tree))
+    for k, v in ex.model.state_dict().items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy())
+    from ravqa_tpu import main as jax_main
+    jcfg = jax_load_config(CONFIG)
+    jdata = jax_main.build_pipeline(jcfg, cache_dir=None).get_data(
+        jcfg.data_pipeline_output_node, explode=True)
+    jex = jax_main.build_executor(jcfg, jdata, None, str(tmp_path / "j"),
+                                  quiet=True)
+    jex.load_checkpoint(str(tmp_path / "ck"))
+    assert int(jex.state.step) == 2
+    assert any(r.get("ckpt_opt_state_missing") for r in jex.logger.history)
+    np.testing.assert_array_equal(
+        np.asarray(jex.state.params["linear"]["kernel"]),
+        ex.model.linear.weight.detach().numpy().T)
+
+
+def test_params_msgpack_bytes_equal_flax(saved):
+    """write_flax_msgpack gives flax.serialization.to_bytes' bytes for the
+    JAX executor's own params tree."""
+    from flax import serialization
+    from ravqa_tpu_torch.models.convert import write_flax_msgpack
+    tree = jax.device_get(saved["ex"].state.params)
+    tree = jax.tree.map(np.asarray, tree)
+    assert write_flax_msgpack(tree) == serialization.to_bytes(tree)
+
+
+@pytest.mark.parametrize("split", [4, 3])
+def test_resume_parity(port_world, tmp_path, split):
+    """`split` steps, save, a fresh executor loads, the rest: the same
+    parameters as 8 steps in one run, bit for bit. split 3 saves in the
+    middle of an accumulation window (tests/test_checkpoint_resume.py)."""
+    cfg, batches = port_world
+    ex = _trainer(cfg)
+    for b in batches:
+        ex.train_step(b)
+    want = _state(ex)
+    ex1 = _trainer(cfg)
+    for b in batches[:split]:
+        ex1.train_step(b)
+    ex1.save_checkpoint(str(tmp_path / "ck"))
+    ex2 = _trainer(cfg)
+    ex2.load_checkpoint(str(tmp_path / "ck"))
+    assert ex2.step == split
+    assert ex2.optimizer.micro == split % 2
+    for b in batches[split:]:
+        ex2.train_step(b)
+    got = _state(ex2)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert ex2.optimizer.updates == 4
+
+
+def test_params_only_checkpoint_loads_with_fresh_optimizer(port_world,
+                                                          saved, tmp_path):
+    """A directory without optimizer.pt (a params-only checkpoint, or the
+    JAX package's, whose opt_state.msgpack holds an optax tree) loads its
+    params and step; the optimizer starts afresh and
+    ckpt_opt_state_missing is logged, as the JAX package does."""
+    cfg, batches = port_world
+    ex = _trainer(cfg)
+    ex.train_step(batches[0])
+    ex.save_checkpoint(str(tmp_path / "ck"))
+    os.remove(tmp_path / "ck" / "optimizer.pt")
+    ex2 = _trainer(cfg)
+    ex2.load_checkpoint(str(tmp_path / "ck"))
+    assert ex2.step == 1 and ex2.optimizer.updates == 0
+    assert [r["ckpt_opt_state_missing"] for r in ex2.logger.history
+            if "ckpt_opt_state_missing" in r] == [1]
+    ex2.train_step(batches[1])                      # trains on from there
+    ex3 = _trainer(cfg)
+    ex3.load_checkpoint(saved["ckpt"])             # the JAX checkpoint
+    with open(os.path.join(saved["ckpt"], "step.json")) as f:
+        assert ex3.step == json.load(f)["step"]
+    assert any(r.get("ckpt_opt_state_missing") for r in ex3.logger.history)
+    np.testing.assert_array_equal(
+        ex3.model.linear.weight.detach().numpy(),
+        read_flax_msgpack(open(os.path.join(saved["ckpt"], "params.msgpack"),
+                               "rb").read())["linear"]["kernel"].T)
+
+
+def test_serving_executor_loads_a_training_checkpoint(port_world, tmp_path):
+    """An inference_only executor (build_server's) loads a full checkpoint
+    and builds no optimizer state (C5)."""
+    from ravqa_tpu_torch import main as torch_main
+    cfg, batches = port_world
+    ex = _trainer(cfg)
+    ex.train_step(batches[0])
+    ex.save_checkpoint(str(tmp_path / "ck"))
+    srv = torch_main.build_executor(cfg, "cpu", inference_only=True)
+    srv.load_checkpoint(str(tmp_path / "ck"))
+    assert srv.optimizer is None and srv.step == 1
+    assert not srv.logger.history
+    for k, v in ex.model.state_dict().items():
+        assert torch.equal(srv.model.state_dict()[k], v)
+
+
+def test_orbax_backend_is_not_ported(port_world, tmp_path):
+    ex = _trainer(port_world[0])
+    with pytest.raises(NotImplementedError, match="orbax"):
+        ex.save_checkpoint(str(tmp_path / "ck"), backend="orbax")
+
+
+class _FakeExecutor:
+    def save_checkpoint(self, path):
+        os.makedirs(path, exist_ok=True)
+        open(os.path.join(path, "params.msgpack"), "w").write("x")
+
+
+def test_checkpoint_manager_keeps_top_k(tmp_path):
+    """executors.callbacks, the JAX package's host-only copy
+    (tests/test_callbacks.py)."""
+    from ravqa_tpu_torch.executors.callbacks import CheckpointManager
+    cm = CheckpointManager(str(tmp_path), monitor="recall_at_5", mode="max",
+                           save_top_k=2, save_last=True)
+    ex = _FakeExecutor()
+    assert cm.on_validation(ex, {"recall_at_5": 0.5}, 10) is True
+    assert cm.on_validation(ex, {"recall_at_5": 0.7}, 20) is True
+    assert cm.on_validation(ex, {"recall_at_5": 0.6}, 30) is False
+    kept = sorted(d for d in os.listdir(tmp_path) if d.startswith("step"))
+    assert kept == ["step_20", "step_30"]
+    assert cm.best_value == 0.7
+    assert os.path.exists(tmp_path / "last")
+    assert cm.on_validation(ex, {"recall_at_5": 0.55}, 40) is False
+    assert not os.path.exists(tmp_path / "step_40")
+
+
+@pytest.mark.parametrize("mode,vals,stops,patience", [
+    ("max", [0.5, 0.6, 0.55, 0.58, 0.59], [False] * 4 + [True], 2),
+    ("min", [1.0, 0.9, 0.95, 0.95], [False] * 3 + [True], 1)])
+def test_early_stopping(mode, vals, stops, patience):
+    from ravqa_tpu_torch.executors.callbacks import EarlyStopping
+    es = EarlyStopping(monitor="m", mode=mode, patience=patience)
+    assert [es.update({"m": v}) for v in vals] == stops

@@ -1052,3 +1052,86 @@ def test_stage2_experiment_rounds_on_the_card():
     assert fused.launches == r["launches"]["X1"]
     assert cand.launches == r["launches"]["X2"] + r["launches"]["X3"]
     assert max(r["twin_err"].values()) <= 1e-3
+
+
+# -- training (no kernel of its own: the losses are plain PyTorch) -----------
+
+@pytest.mark.parametrize("shape", [(4, 16, 10, 24, 32),
+                                   (30, 64, 150, 220, 128)])
+@pytest.mark.parametrize("block_n,bf16", [(0, False), (4, False),
+                                          (64, True)])
+def test_blocked_all_pairs_grad_on_cuda_matches_cpu(shape, block_n, bf16):
+    """maxsim_all_pairs_blocked's value and gradient on the card against
+    the CPU, (Bq, Lq, Bd, Ld, dim) up to the training step's in-batch
+    shape; an all-masked doc scores -9999 x Lq and takes no gradient.
+    Tolerance rtol 1e-5, atol 1e-5 (float32 sums of at most 128 products
+    and 64 maxima, ordered differently); bf16 operands are rounded the same
+    way on both, so the scores keep it. Under bf16 the gradients do not:
+    each is a float32 sum, ordered differently on each device, that is
+    then rounded to bf16 on its way through the cast, so a sum near a
+    rounding boundary lands one bf16 step (2^-7 relative) apart (7 of
+    245,760 at the training shape): rtol 1e-2, atol 1e-3 there, as
+    tests/test_torch_losses.py holds the bf16 grads to JAX's."""
+    from ravqa_tpu_torch.ops.maxsim import maxsim_all_pairs_blocked
+    bq, lq, bd, ld, dim = shape
+    g = torch.Generator().manual_seed(0)
+    q = torch.nn.functional.normalize(torch.randn(bq, lq, dim, generator=g),
+                                      dim=-1)
+    d = torch.nn.functional.normalize(torch.randn(bd, ld, dim, generator=g),
+                                      dim=-1)
+    mask = (torch.rand(bd, ld, generator=g) > 0.3).float()
+    mask[1] = 0
+    cot = torch.randn(bq, bd, generator=g)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        qd = q.to(dev).requires_grad_()
+        dd = d.to(dev).requires_grad_()
+        s = maxsim_all_pairs_blocked(
+            qd, dd, mask.to(dev), block_n=block_n,
+            compute_dtype=torch.bfloat16 if bf16 else None)
+        (s * cot.to(dev)).sum().backward()
+        out[dev] = (s.detach().cpu(), qd.grad.cpu(), dd.grad.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    grad_tol = dict(rtol=1e-2, atol=1e-3) if bf16 else dict(rtol=1e-5,
+                                                            atol=1e-5)
+    for got, want in zip(out["cuda"][1:], out["cpu"][1:]):
+        torch.testing.assert_close(got, want, **grad_tol)
+    assert torch.equal(out["cuda"][0][:, 1],
+                       torch.full((bq,), -9999.0 * lq))
+    assert torch.count_nonzero(out["cuda"][2][1]) == 0
+
+
+def test_train_step_on_cuda_matches_cpu():
+    """FLMRExecutor.train_step at tiny width on the card and on the CPU
+    from one state dict: loss and grad norm to rtol 1e-5; parameters after
+    the Adam update within 2 lr (the first update moves a coordinate by up
+    to lr whatever its grad's size, so a near-zero grad whose sign differs
+    between the devices moves it the other way)."""
+    from ravqa_tpu_torch.executors import FLMRExecutor, TrainConfig
+    from ravqa_tpu_torch.models import FLMRModelConfig, FLMRRetriever
+    cfg = FLMRModelConfig.tiny(nway=2)
+    rng = np.random.default_rng(0)
+    batch = dict(
+        query_input_ids=rng.integers(5, 512, (3, 8)).astype(np.int32),
+        query_attention_mask=np.ones((3, 8), np.int32),
+        image_features=rng.normal(size=(3, 24)).astype(np.float32),
+        doc_input_ids=rng.integers(5, 512, (6, 12)).astype(np.int32),
+        doc_attention_mask=np.ones((6, 12), np.int32))
+    lr = 1e-3
+    ex = {}
+    for dev in ("cuda", "cpu"):
+        model = FLMRRetriever(cfg)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        ex[dev] = FLMRExecutor(model, TrainConfig(lr=lr), device=dev,
+                               quiet=True)
+    m = {dev: e.train_step(batch) for dev, e in ex.items()}
+    assert m["cuda"]["loss"].device.type == "cuda"
+    for key in ("loss", "grad_norm", "ib_loss"):
+        torch.testing.assert_close(m["cuda"][key].cpu(), m["cpu"][key],
+                                   rtol=1e-5, atol=1e-6)
+    want = ex["cpu"].model.state_dict()
+    for n, p in ex["cuda"].model.named_parameters():
+        assert p.device.type == "cuda"
+        torch.testing.assert_close(p.detach().cpu(), want[n], rtol=0,
+                                   atol=2 * lr)

@@ -236,18 +236,26 @@ def test_bounded_queue_sheds_and_stop_fails_pending():
         assert f.done()                           # left pending
 
 
-def test_serve_slice_imports_no_jax():
-    """The exact and the hierarchical serve slices, the residual codec, the
-    stage-2 kernels' module and the stage-2 experiment, in one process:
-    nothing of the JAX package (ravqa_tpu) or of jax/jaxlib/flax loads."""
+def test_serve_slice_imports_no_jax(tmp_path):
+    """The exact and the hierarchical serve slices, the training slice
+    (train, then eval from its checkpoint, and entry()), the residual
+    codec, the stage-2 kernels' module and the stage-2 experiment, in one
+    process: nothing of the JAX package (ravqa_tpu) or of jax/jaxlib/flax
+    loads."""
     code = (
         "import sys, numpy as np\n"
         "from ravqa_tpu_torch.config import apply_overrides, load_config\n"
-        "from ravqa_tpu_torch.main import build_pipeline, build_server\n"
+        "from ravqa_tpu_torch.main import build_pipeline, build_server, main\n"
         "import ravqa_tpu_torch.profile_serve\n"
         "import ravqa_tpu_torch.ops.residual\n"
         "import ravqa_tpu_torch.ops.stage2\n"
         "import ravqa_tpu_torch.scripts.exp_residual_stage2\n"
+        "import ravqa_tpu_torch.entry\n"
+        f"args = ['--config', {CONFIG!r}, '--device', 'cpu',\n"
+        f"        '--log_dir', {str(tmp_path)!r}]\n"
+        "assert main(args + ['--mode', 'train', '--opts',\n"
+        "                    'train.total_steps=2', 'train.val_every=2']) == 0\n"
+        "assert main(args + ['--mode', 'test']) == 0\n"
         f"for opts in ([], {HIER_OPTS!r}):\n"
         f"    cfg = apply_overrides(load_config({CONFIG!r}), opts)\n"
         "    data = build_pipeline(cfg).get_data(\n"
@@ -291,12 +299,16 @@ def test_profile_serve_needs_a_gpu():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--config", CONFIG, "--mode", "train"],
-    ["--config", CONFIG, "--mode", "eval"],
+    ["--config", CONFIG, "--mode", "train", "--num_devices", "2"],
+    ["--config", os.path.join(REPO, "configs", "synthetic_rag.json"),
+     "--mode", "eval"],
     ["--config", os.path.join(REPO, "configs", "synthetic_rag.json"),
      "--mode", "serve"],
+    ["--config", CONFIG, "--mode", "train", "--use_dummy_data"],
 ])
 def test_unported_modes_raise(argv):
+    """Data parallelism (A4), RAG configs (A6) and the OK-VQA loader's
+    --use_dummy_data (A7) are not ported yet."""
     from ravqa_tpu_torch.main import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv + ["--device", "cpu"])
