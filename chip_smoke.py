@@ -139,6 +139,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      query+doc positions/s and attended (attention-mask) tokens/s, peak
      max_memory_allocated and the evaluations' seconds (corpus encode,
      search), each beside the card's name and power limit.
+ 15. the PreFLMR serve slices: build_server on
+     configs/synthetic_preflmr_vitl_serve.json (exact) and
+     configs/synthetic_preflmr_vitl_serve_hier.json (hierarchical fast):
+     PreFLMR_ViT-L's query tower at its published widths (CLIP ViT-L/14,
+     24 x 1024, in the graph; the separate BERT-base question encoder; the
+     mapping MLP; the 1-layer 768-wide transformer mapping over the 256
+     patches), random weights from the seed, 16,384 passages encoded on
+     the card; a query of 32 + 32 + 256 = 320 tokens. Each: three bursts of
+     128 requests, then 64 requests from 4 threads, each request with its
+     own seeded 224 x 224 x 3 image; every answer against the plain
+     versions' search on the query embeddings its dispatch searched (the
+     hierarchical one on a CPU copy of the index; the exact one on the
+     card's plain version for all 64, which 2 queries on a CPU copy
+     check); K1-f32 (exact) or K3 and K4 (hierarchical) launched at least
+     once per dispatch (counts set to 0 just before, read just after);
+     the towers on the card against the CPU for 2 requests and 4
+     passages (max abs 1e-4); K1-f32 at B=32, Lq=320 against its plain
+     version (random inputs, an all-masked doc at exactly -9999 x 320),
+     K3 and K4 on the hierarchical serve's own summaries and 32 of its
+     queries (tie-aware top-10, 1e-3), each timed beside its bound;
+     p50/p95, the bursts' req/s, the ViT's, the whole tower's, the
+     search's and K1's ms per batch of 32 and peak memory beside the
+     card's name and power limit.
 Every phase prints its seconds. The line before the last is the kernels'
 JSON record: each kernel's launches on its path, its error against its
 plain version, its time and its plain version's, and its bound, the least
@@ -165,6 +188,10 @@ HIER_CONFIG = os.path.join(HERE, "configs",
                            "synthetic_flmr_base_serve_hier.json")
 TRAIN_CONFIG = os.path.join(HERE, "configs",
                             "synthetic_flmr_base_train.json")
+PREFLMR_CONFIG = os.path.join(HERE, "configs",
+                              "synthetic_preflmr_vitl_serve.json")
+PREFLMR_HIER_CONFIG = os.path.join(HERE, "configs",
+                                   "synthetic_preflmr_vitl_serve_hier.json")
 # float32 scores of L2-normalized embeddings at Lq <= 64: the kernel and
 # the plain version sum the same products in different orders, which moves
 # a score by ~1e-5; 1e-3 leaves room without hiding a wrong max or mask
@@ -341,40 +368,56 @@ def kernel_shape(out, key, shape, b, lq, n, ld, dim, q_dtype, t_dtype,
              if "f32_bound_ms" in bnd else ""), flush=True)
 
 
-def check_towers(ex, data, reqs):
+def check_towers(ex, data, reqs, images=None):
     """The executor's towers on its device against the same module run by
     PyTorch on the CPU (the path the CPU tests hold to the JAX package), on
-    4 queries and 4 passages at full width. Returns max |error|."""
+    at most 4 queries and 4 passages at full width; the queries take the
+    requests' image features, or `images` (pixels, one per request) for an
+    in-graph ViT. Returns max |error|."""
     import copy
     import torch
     cpu = copy.deepcopy(ex.model).cpu()
+    reqs = reqs[:4]
     ids, mask = data["query_tokenizer"].tensorize(
-        [r["question"] for r in reqs[:4]])
-    feats = np.stack([r["image_features"] for r in reqs[:4]])
+        [r["question"] for r in reqs])
+    vis = ({"image_features": np.stack([r["image_features"] for r in reqs])}
+           if images is None else {"pixel_values": np.stack(images[:4])})
     di, dm = data["doc_tokenizer"].tensorize(
         data["passages"]["full_passages"].contents[:4])
     with torch.inference_mode():
-        q_dev = ex.encode_query(ids, mask, feats).cpu()
+        q_dev = ex.encode_query(ids, mask, **vis).cpu()
         d_dev, _ = ex.encode_doc(di, dm)
+        t0 = time.perf_counter()
         q_cpu = cpu.query(torch.from_numpy(ids).long(),
-                          torch.from_numpy(mask), torch.from_numpy(feats))
+                          torch.from_numpy(mask),
+                          **{k: torch.from_numpy(v) for k, v in vis.items()})
         d_cpu, _ = cpu.doc(torch.from_numpy(di).long(), torch.from_numpy(dm))
+    del cpu
     err = max((q_dev - q_cpu).abs().max().item(),
               (d_dev.cpu() - d_cpu).abs().max().item())
-    print(f"towers on {ex.device} vs CPU (4 queries, 4 passages): max|err| "
-          f"{err:.3g}", flush=True)
+    print(f"towers on {ex.device} vs CPU ({len(reqs)} queries "
+          f"{tuple(q_dev.shape)}, 4 passages; the CPU's run "
+          f"{time.perf_counter() - t0:.1f} s): max|err| {err:.3g}",
+          flush=True)
     # unit-norm rows in float32 on both sides (TF32 off): differences are
-    # summation order through 12 layers, ~1e-6
+    # summation order through the layers (BERT's 12, ViT-L's 24), ~1e-6
     if not err <= TOWER_ATOL:
         raise AssertionError(f"towers disagree with their CPU run: {err}")
     return err
 
 
-def drive_requests(server, data, index, wrappers, n=64, clients=4):
+def _features(i, item):
+    """A request's image as the FLMR serve slices send it: its features."""
+    return {"image_features": item["image_features"]}
+
+
+def drive_requests(server, data, index, wrappers, n=64, clients=4,
+                   vision=_features):
     """Send n requests from `clients` closed-loop threads and stop the
-    server. Every wrapper's launch count is set to 0 just before and read
-    just after. Returns (requests, scores (n, K), pids (n, K), launches per
-    wrapper, dispatches)."""
+    server; request i carries vision(i, its item) (submit's keyword
+    arguments for its image). Every wrapper's launch count is set to 0
+    just before and read just after. Returns (requests, scores (n, K),
+    pids (n, K), launches per wrapper, dispatches)."""
     items = data["train"].items + data["test"].items
     reqs = [items[i % len(items)] for i in range(n)]
     lat = [0.0] * n
@@ -384,7 +427,7 @@ def drive_requests(server, data, index, wrappers, n=64, clients=4):
         for i in ids:
             t = time.perf_counter()
             results[i] = server.submit(reqs[i]["question"],
-                                       reqs[i]["image_features"]).result(120)
+                                       **vision(i, reqs[i])).result(300)
             lat[i] = time.perf_counter() - t
 
     try:
@@ -398,7 +441,7 @@ def drive_requests(server, data, index, wrappers, n=64, clients=4):
         for t in threads:
             t.start()
         for t in threads:
-            t.join(300)
+            t.join(600)
         wall = time.perf_counter() - t0
         launches = [w.launches for w in wrappers]
         dispatches = server.dispatches - d0
@@ -1829,6 +1872,154 @@ def training_slice(config_path, smi, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: PreFLMR retrieval serving (CLIP ViT-L/14 in the graph)
+# ---------------------------------------------------------------------------
+
+LQ_PREFLMR = 320      # 32 text + 32 mapping + 256 patch tokens (224 / 14)
+
+
+def request_image(i):
+    """Request i's own 224 x 224 x 3 image (pixel values 0-255), seeded
+    by i."""
+    return np.random.default_rng(10_000 + i).integers(
+        0, 256, (224, 224, 3)).astype(np.float32)
+
+
+def _pixels(i, item):
+    return {"pixel_values": request_image(i)}
+
+
+def preflmr_sweeps(maxsim, sweeps, s, q):
+    """K3 and K4 at Lq=320 on the hierarchical serve's own data: stage 0
+    over the searcher's int8 block summaries and stage 1 over its int8
+    stage1_rows for the blocks stage 0 selects, on 32 queries the
+    dispatches searched, each against its plain version (check_topk:
+    tie-aware top-10, max abs 1e-3), timed beside its bound into
+    sweeps["K3"] / sweeps["K4"]."""
+    import torch
+    from ravqa_tpu_torch.retrieval.coarse import doc_validity
+    idx = s.index
+    q = q[:32].contiguous()
+    b, lq, dim = q.shape
+    bs, nb = idx.block_size, idx.block_summaries.shape[0]
+    st8, dsc = s._bsum_t, s._bsum_t_scale
+    valid = torch.zeros(st8.shape[1], dtype=torch.int8, device=q.device)
+    valid[:nb] = doc_validity(idx.mask).bool().reshape(nb, bs).any(dim=1)
+    with torch.inference_mode():
+        got = maxsim.coarse_sweep(q, st8, valid, dscale=dsc)
+        want = maxsim.coarse_sweep_torch(q, st8, valid, dscale=dsc)
+        torch.cuda.synchronize()
+        shape = (f"preflmr serve blocks Lq={lq} S={st8.shape[0]} "
+                 f"N={st8.shape[1]} ({nb} valid)")
+        err = _compare(f"K3 {shape}", got, want)
+        record_kernel(sweeps, "K3", shape, err,
+                      lambda: maxsim.coarse_sweep(q, st8, valid, dscale=dsc),
+                      lambda: maxsim.coarse_sweep_torch(q, st8, valid,
+                                                        dscale=dsc),
+                      bound(_nbytes(q, st8, dsc, valid, got),
+                            2.0 * b * lq * st8.shape[0] * st8.shape[1] * dim,
+                            "int8"))
+        nbl = s.resolve_blocks(K)
+        blk = torch.topk(got, nbl, dim=1).indices.clamp_max(nb - 1)
+        r, rsc = s._summ_rows, s._summ_rows_scale
+        got = maxsim.stage1_sweep(q, r, blk, dscale=rsc)
+        want = maxsim.stage1_sweep_torch(q, r, blk, dscale=rsc)
+        shape = (f"preflmr serve int8 rows Lq={lq} n_blocks={nbl} of {nb} "
+                 f"x {r.shape[1]} summaries")
+        err = _compare(f"K4 {shape}", got, want)
+        used = torch.unique(blk).numel()
+        nbytes = (_nbytes(q, blk, got) + used * r[0].numel()
+                  * r.element_size() + used * bs * 4)
+        record_kernel(sweeps, "K4", shape, err,
+                      lambda: maxsim.stage1_sweep(q, r, blk, dscale=rsc),
+                      lambda: maxsim.stage1_sweep_torch(q, r, blk,
+                                                        dscale=rsc),
+                      bound(nbytes, 2.0 * b * lq * nbl * r.shape[1] * bs
+                            * dim, "bf16"))
+
+
+def preflmr_slice(config_path, maxsim, k1, sweeps, smi):
+    """One PreFLMR serve slice (phase 15): build_server on the config (the
+    published ViT-L/14 and BERT-base widths, random weights from the seed,
+    16,384 passages encoded on the card), three bursts of 128 requests,
+    then 64 requests from 4 threads, each with its own seeded 224 x 224 x 3
+    image; every answer against the plain versions' search on the query
+    embeddings its dispatch searched; K1-f32 (exact) or K3 and K4
+    (hierarchical) launched at least once per dispatch; the towers on the
+    card against the CPU for 2 requests and 4 passages; K1-f32 at Lq=320
+    against its
+    plain version (kernel_shape, into k1) or K3 and K4 on the serve's own
+    data (preflmr_sweeps, into sweeps); the ViT's and K1's ms per batch of
+    32, peak memory. Returns the slice's numbers."""
+    import torch
+    f32 = torch.float32
+    torch.cuda.reset_peak_memory_stats()
+    data, server, index = start_server(config_path, "cuda")
+    s, ex = server.searcher, server.ex
+    mc = ex.model.cfg
+    lq = (data["query_tokenizer"].query_maxlen + mc.prefix_len
+          + mc.vit.num_patches)
+    if lq != LQ_PREFLMR or server.pixel_shape != (224, 224, 3):
+        raise AssertionError(f"PreFLMR query of {lq} tokens, images "
+                             f"{server.pixel_shape}")
+    hier = s.mode == "hierarchical"
+    out = {"mode": s.mode, "preset": s.preset, "lq": lq}
+    from ravqa_tpu_torch.profile_serve import bursts
+    out["bursts"] = bursts(server, data, n=128)
+    print(f"bursts of 128: {out['bursts']}", flush=True)
+    record = record_searches(server)
+    wrappers = ([maxsim.coarse_sweep_int8, maxsim.stage1_sweep] if hier
+                else [maxsim.maxsim_search])
+    maxsim.maxsim_search.split_launches = 0
+    reqs, scores, pids, launches, dispatches = drive_requests(
+        server, data, index, wrappers, vision=_pixels)
+    if dispatches == 0 or min(launches) < dispatches:
+        raise AssertionError(f"{[w.__name__ for w in wrappers]} launched "
+                             f"{launches} times for {dispatches} dispatches")
+    if not hier and maxsim.maxsim_search.split_launches != launches[0]:
+        raise AssertionError("K1 left the float32 index's split route")
+    out["launches"] = dict(zip(("K3", "K4") if hier else ("K1-f32",),
+                               launches))
+    out["dispatches"] = dispatches
+    q, _, out["serve_err"] = check_served(server, index, record, scores,
+                                          pids)
+    out["tower_err"] = check_towers(ex, data, reqs[:2],
+                                    [request_image(i) for i in range(2)])
+    px = torch.as_tensor(np.stack([request_image(i) for i in range(32)]),
+                         device="cuda")
+    with torch.inference_mode():
+        out["vit_ms"] = time_ms(lambda: ex.model.vision_model(px), iters=5)
+        q_all = ex.encode_query(*data["query_tokenizer"].tensorize(
+            [r["question"] for r in reqs[:32]]), pixel_values=px)
+        out["encode_ms"] = time_ms(lambda: ex.encode_query(
+            *data["query_tokenizer"].tensorize(
+                [r["question"] for r in reqs[:32]]), pixel_values=px),
+            iters=5)
+        out["search_ms"] = time_ms(lambda: s.search_device(q_all, K),
+                                   iters=5)
+    print(f"ms per batch of 32: ViT-L {out['vit_ms']:.2f}, the whole query "
+          f"tower {out['encode_ms']:.2f}, the search {out['search_ms']:.2f}",
+          flush=True)
+    if hier:
+        preflmr_sweeps(maxsim, sweeps, s, q)
+    else:
+        planes = index.token_planes()
+        qb = q[:32].contiguous()
+        out["k1_ms"] = time_ms(lambda: maxsim.maxsim_search(
+            qb, index.tokens, index.mask, planes=planes))
+        print(f"K1-f32 on the served index and queries (B=32, Lq={lq}): "
+              f"{out['k1_ms']:.2f} ms", flush=True)
+        kernel_shape(k1, "K1-f32",
+                     f"preflmr serve f32 B=32 Lq={lq} N=16387 Ld=220",
+                     32, lq, 16387, 220, 128, f32, f32, maxsim)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"peak max_memory_allocated {out['peak_bytes'] / 2**30:.2f} GiB "
+          f"({smi})", flush=True)
+    del server, index, q, px
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1911,6 +2102,10 @@ def main():
     train_step = training_step_vs_cpu(TRAIN_CONFIG)
     phase("14 the training slice")
     train_slice = training_slice(TRAIN_CONFIG, smi)
+    phase("15 PreFLMR serve slices (ViT-L/14 in the graph, Lq=320)")
+    preflmr = {name: preflmr_slice(path, maxsim, k1, sweeps, smi)
+               for name, path in (("exact", PREFLMR_CONFIG),
+                                  ("hierarchical", PREFLMR_HIER_CONFIG))}
     phase("report")
 
     def entry(name, source, replaces, launches, measured):
@@ -1943,6 +2138,8 @@ def main():
         k: train_slice[k]["launches"]["K1"] for k in ("train", "eval exact")}
     kernels["K1-f32"]["f32_bound_ms"] = k1["K1-f32"]["shapes"][
         next(iter(k1["K1-f32"]["shapes"]))]["f32_bound_ms"]
+    kernels["K1-f32"]["launches_preflmr_serve"] = \
+        preflmr["exact"]["launches"]["K1-f32"]
 
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (bf16, tensor cores)", "coarse_sweep.cu",
@@ -1968,6 +2165,9 @@ def main():
         k0["max_abs_err"] = max(k0["max_abs_err"], measured["err"])
     kernels["K3"]["pruned_search_launches"] = pruned_launches["K3"]
     kernels["K4"]["pruned_search_launches"] = pruned_launches["K4"]
+    for key in ("K3", "K4"):
+        kernels[key]["launches_preflmr_serve"] = \
+            preflmr["hierarchical"]["launches"][key]
     res_launches = comp_serve["residual hierarchical fast"]["launches"]
     for key, name, source, replaces, launches in (
             ("K5", "maxsim_search_int8", "maxsim_int8.cu",
@@ -2014,7 +2214,8 @@ def main():
                       "compressed_serve": comp_serve,
                       "stage2_experiment": experiment,
                       "train_step_vs_cpu": train_step,
-                      "train_slice": train_slice}), flush=True)
+                      "train_slice": train_slice,
+                      "preflmr_serve": preflmr}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

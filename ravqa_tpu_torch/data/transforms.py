@@ -3,9 +3,10 @@
 Ports of ravqa_tpu/data/transforms.py:
 - SyntheticOKVQA (:314-357): the synthetic world (word-bag passages,
   questions repeating words of their positive passage, random image
-  features); from the same seed it gives the same corpus, questions and
-  features as the JAX package. Patch features and raw pixels come with the
-  vision towers (ROADMAP.md A5).
+  features, and with `n_patches` random patch features, with
+  `emit_pixels` random uint8 images in place of the features); from the
+  same seed it gives the same corpus, questions, features and images as
+  the JAX package.
 - PrepareDataloaders (:360-394): the WordPiece base tokenizer (the tiny
   synthetic vocab when no vocab_path), the ColBERT query and doc
   tokenizers, the passages, and one RetrievalDataset per split ("valid"
@@ -24,7 +25,10 @@ from .pipeline import BaseTransform, register_transform
 
 @register_transform
 class SyntheticOKVQA(BaseTransform):
-    """setup: n_docs=64, n_questions=32, vision_dim=16, seed=0."""
+    """setup: n_docs=64, n_questions=32, vision_dim=16, seed=0,
+    n_patches=0 (> 0: (n_patches, vision_dim) patch features per question),
+    emit_pixels=0 (> 0: an (S, S, 3) uint8 image per question, which then
+    carries no image features: an in-graph ViT takes the pixels)."""
 
     WORDS = ["cat", "dog", "sky", "sun", "tree", "fish", "bird", "car",
              "red", "blue", "big", "old", "hot", "wet", "sad", "fast",
@@ -34,6 +38,8 @@ class SyntheticOKVQA(BaseTransform):
         n_docs = getattr(self, "n_docs", 64)
         n_q = getattr(self, "n_questions", 32)
         vdim = getattr(self, "vision_dim", 16)
+        n_patches = getattr(self, "n_patches", 0)
+        pixels = getattr(self, "emit_pixels", 0)
         rng = np.random.default_rng(getattr(self, "seed", 0))
         contents = [" ".join(rng.choice(self.WORDS, 5, replace=False))
                     for _ in range(n_docs)]
@@ -52,6 +58,13 @@ class SyntheticOKVQA(BaseTransform):
                 "pos_item_contents": [contents[d]],
                 "image_features": rng.normal(size=(vdim,)).astype(np.float32),
             })
+            if n_patches:
+                items[-1]["image_patch_features"] = rng.normal(
+                    size=(n_patches, vdim)).astype(np.float32)
+            if pixels:
+                items[-1]["image"] = rng.integers(
+                    0, 255, (pixels, pixels, 3)).astype(np.uint8)
+                del items[-1]["image_features"]
         n_train = max(1, int(0.8 * n_q))
         return {"train": items[:n_train], "test": items[n_train:],
                 "passages": {"train_passages": corpus,

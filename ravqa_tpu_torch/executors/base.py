@@ -274,14 +274,20 @@ class MetricsLogger:
             print(f"[metrics] {short}", flush=True)
 
 
-def _num_heads(model: nn.Module) -> int:
-    """The attention heads of the model's towers (the Flax tree splits
-    attention kernels by head); 1 for a model without attention."""
-    heads = {m.num_heads for m in model.modules()
-             if isinstance(m, MultiHeadAttention)}
-    if len(heads) > 1:
-        raise ValueError(f"towers with different head counts {heads}")
-    return heads.pop() if heads else 1
+def _num_heads(model: nn.Module) -> dict[str, int]:
+    """The attention heads of each top-level module that has attention
+    (the Flax tree splits attention kernels by head; a ViT's count may
+    differ from the text towers')."""
+    out = {}
+    for name, child in model.named_children():
+        heads = {m.num_heads for m in child.modules()
+                 if isinstance(m, MultiHeadAttention)}
+        if len(heads) > 1:
+            raise ValueError(f"{name}: layers with different head counts "
+                             f"{heads}")
+        if heads:
+            out[name] = heads.pop()
+    return out
 
 
 class BaseExecutor:

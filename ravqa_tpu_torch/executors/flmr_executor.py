@@ -26,6 +26,9 @@ from .base import CHECKPOINT_FILES, BaseExecutor, TrainConfig
 
 __all__ = ["CHECKPOINT_FILES", "FLMRExecutor"]
 
+_FLOAT_INPUTS = ("image_features", "pixel_values", "image_patch_features",
+                 "doc_image_features")
+
 
 class FLMRExecutor(BaseExecutor):
     def __init__(self, model: FLMRRetriever,
@@ -39,11 +42,12 @@ class FLMRExecutor(BaseExecutor):
 
     # -- loss ----------------------------------------------------------------
     def _inputs(self, batch: dict) -> dict:
-        """A collated batch on the device: ids as int64, features float32."""
+        """A collated batch on the device: ids as int64, image features,
+        patch features and pixels float32."""
         out = {}
         for k, v in batch.items():
             dtype = torch.long if k.endswith("input_ids") else (
-                torch.float32 if k == "image_features" else None)
+                torch.float32 if k in _FLOAT_INPUTS else None)
             out[k] = self._t(v, dtype)
         return out
 
@@ -56,12 +60,19 @@ class FLMRExecutor(BaseExecutor):
 
     # -- encoding ------------------------------------------------------------
     @torch.inference_mode()
-    def encode_query(self, input_ids, attention_mask,
-                     image_features) -> torch.Tensor:
-        """-> (B, Lq + n_vision, dim) float32 on the executor's device."""
-        return self.model.query(self._t(input_ids, torch.long),
-                                self._t(attention_mask),
-                                self._t(image_features, torch.float32))
+    def encode_query(self, input_ids, attention_mask, image_features=None,
+                     pixel_values=None,
+                     image_patch_features=None) -> torch.Tensor:
+        """-> (B, Lq_total, dim) float32 on the executor's device. Image
+        features, or pixels for an in-graph ViT, and patch features for
+        the transformer mapping, as the model's query mode takes them."""
+        def opt(x, dtype=torch.float32):
+            return None if x is None else self._t(x, dtype)
+
+        return self.model.query(opt(input_ids, torch.long),
+                                opt(attention_mask, None),
+                                opt(image_features), opt(pixel_values),
+                                opt(image_patch_features))
 
     @torch.inference_mode()
     def encode_doc(self, input_ids, attention_mask, skip_mask=None):
@@ -72,10 +83,10 @@ class FLMRExecutor(BaseExecutor):
                               self._t(skip_mask, torch.float32))
 
     def _encode_queries(self, batches: Iterable[dict]) -> torch.Tensor:
-        return torch.cat([self.encode_query(b["query_input_ids"],
-                                            b["query_attention_mask"],
-                                            b["image_features"])
-                          for b in batches])
+        return torch.cat([self.encode_query(
+            b.get("query_input_ids"), b.get("query_attention_mask"),
+            b.get("image_features"), b.get("pixel_values"),
+            b.get("image_patch_features")) for b in batches])
 
     def encode_queries(self, batches: Iterable[dict]) -> np.ndarray:
         return self._encode_queries(batches).cpu().numpy()

@@ -64,33 +64,45 @@ def build_pipeline(cfg: Config):
     return DataPipeline(cfg.data_pipeline.to_dict())
 
 
-_UNPORTED_MODEL_KEYS = ("in_graph_vision", "vit", "use_transformer_mapping",
-                        "multimodal_docs")
-
-
 def _flmr_config_from(mc):
-    """model_config dict -> FLMRModelConfig; raises on features the port
-    does not have yet."""
-    from .models import BertConfig, FLMRModelConfig
+    """model_config dict -> FLMRModelConfig, reading the keys the JAX
+    package's does, and `multimodal_docs` / `doc_prefix_len`, which the
+    JAX package's leaves unread (ROADMAP.md C16). `vit` is a ViTConfig's
+    fields, or {"tiny": true} for ViTConfig.tiny() (its other keys then
+    unread). Multimodal docs project the batches' `doc_image_features`;
+    a doc batch without them stays text-only."""
+    from .models import BertConfig, FLMRModelConfig, ViTConfig
     modules = mc.get("modules", [])
-    for key in _UNPORTED_MODEL_KEYS:
-        if mc.get(key) or key in modules:
-            raise NotImplementedError(f"model_config.{key} {_NOT_PORTED}")
-    if mc.get("query_mode", "text+vision") != "text+vision":
-        raise NotImplementedError(
-            f"query_mode {mc.get('query_mode')!r} {_NOT_PORTED}")
+    vit = None
+    vit_spec = dict(mc.get("vit", {}))
+    if vit_spec:
+        vit = ViTConfig.tiny() if vit_spec.pop("tiny", False) \
+            else ViTConfig(**vit_spec)
     return FLMRModelConfig(
         bert=BertConfig(**mc.get("bert", {})),
+        in_graph_vision=bool(mc.get("in_graph_vision", False)
+                             or "in_graph_vision" in modules),
+        vit=vit,
         dim=mc.get("dim", 128),
         vision_dim=mc.get("vision_embedding_size", 768),
         prefix_len=mc.get("mapping_network_prefix_length", 32),
         nway=mc.get("num_negative_samples", 1) + 1,
         use_ib_negatives=mc.get("use_ib_negatives", True),
         separate_question_encoder="separate_question_encoder" in modules,
+        multimodal_docs=bool(mc.get("multimodal_docs", False)),
+        doc_prefix_len=mc.get("doc_prefix_len", 8),
+        query_mode=mc.get("query_mode", "text+vision"),
         interaction=mc.get("interaction", "colbert"),
         flipr_query_part_len=mc.get("flipr_query_part_len", 0),
         flipr_k1=mc.get("flipr_k1", 0),
         flipr_k2=mc.get("flipr_k2", 0),
+        use_transformer_mapping=mc.get("use_transformer_mapping", False),
+        transformer_mapping_num_layers=mc.get(
+            "transformer_mapping_num_layers", 1),
+        transformer_mapping_hidden=mc.get("transformer_mapping_hidden", 768),
+        transformer_mapping_num_heads=mc.get(
+            "transformer_mapping_num_heads", 12),
+        vision_patch_dim=mc.get("vision_patch_dim"),
         ib_block_n=mc.get("ib_block_n", 0),
         ib_score_bf16=mc.get("ib_score_bf16", False),
     )
@@ -174,11 +186,17 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
         coarse_query_len=sv.get("coarse_query_len"),
         stage1_kernel=sv.get("stage1_kernel"),
         preset=sv.get("preset", "reference"))
-    server = RetrievalServer(ex, searcher, data["query_tokenizer"],
-                             image_feature_dim=mc.get("vision_embedding_size",
-                                                      768),
-                             id2content=dict(enumerate(corpus.contents)),
-                             config=sc)
+    # an in-graph ViT takes raw pixels per request, of the size of the
+    # ViT the model was built with
+    vit = ex.model.cfg.vit if ex.model.cfg.in_graph_vision else None
+    server = RetrievalServer(
+        ex, searcher, data["query_tokenizer"],
+        image_feature_dim=(0 if vit is not None else
+                           mc.get("vision_embedding_size", 768)),
+        id2content=dict(enumerate(corpus.contents)),
+        pixel_shape=(None if vit is None else
+                     (vit.image_size, vit.image_size, 3)),
+        config=sc)
     server.warm_up()
     return server
 

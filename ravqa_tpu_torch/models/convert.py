@@ -11,7 +11,11 @@ A Flax params tree (nested dicts of numpy arrays, as
   bert.py:120-150), and their (heads, head_dim) biases flatten to (hidden,);
 - ``Embed.embedding`` and ``LayerNorm.scale`` map to ``weight``;
 - ``layer_<i>`` / ``dense_<i>`` become the ModuleList entries
-  ``layers.<i>`` / ``dense.<i>``.
+  ``layers.<i>`` / ``dense.<i>``;
+- the ViT's bare params ``class_embedding`` and ``position_embedding``
+  keep their names, and its patch-embedding convolution kernel (kh, kw,
+  in, out) becomes the unfold form's (out, kh * kw * in) weight
+  (models/vit.py).
 
 ``state_dict_to_flax`` is the way back, so a tree the port trained loads
 into the JAX package.
@@ -28,6 +32,7 @@ reads either into a state_dict.
 
 from __future__ import annotations
 
+import math
 import re
 import struct
 import zipfile
@@ -38,6 +43,7 @@ import torch
 _LIST_ENTRY = re.compile(r"^(layer|dense)_(\d+)$")
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight",
          "bias": "bias"}
+_BARE = ("class_embedding", "position_embedding")      # the ViT's
 
 
 def flatten_params(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -58,6 +64,8 @@ def _torch_key(path: list[str]) -> str:
         m = _LIST_ENTRY.match(p)
         parts.append(f"{'layers' if m.group(1) == 'layer' else 'dense'}."
                      f"{m.group(2)}" if m else p)
+    if path[-1] in _BARE:
+        return ".".join(parts + [path[-1]])
     if path[-1] not in _LEAF:
         raise KeyError(f"unknown Flax parameter {'/'.join(path)}")
     return ".".join(parts + [_LEAF[path[-1]]])
@@ -66,7 +74,9 @@ def _torch_key(path: list[str]) -> str:
 def _torch_value(path: list[str], a: np.ndarray) -> np.ndarray:
     leaf, parent = path[-1], path[-2] if len(path) > 1 else ""
     if leaf == "kernel":
-        if a.ndim == 3 and parent == "out":       # (heads, head_dim, hidden)
+        if a.ndim == 4:                           # (kh, kw, in, out) conv
+            a = a.reshape(-1, a.shape[-1])
+        elif a.ndim == 3 and parent == "out":     # (heads, head_dim, hidden)
             a = a.reshape(-1, a.shape[-1])
         elif a.ndim == 3:                         # (hidden, heads, head_dim)
             a = a.reshape(a.shape[0], -1)
@@ -91,6 +101,7 @@ def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
 
 _FLAX_LIST = {"layers": "layer", "dense": "dense"}
 _ATTENTION = ("query", "key", "value", "out")
+_ATTENTION_BLOCKS = ("attention", "cross_attention")
 
 
 def _flax_path(key: str, value: torch.Tensor) -> list[str]:
@@ -105,6 +116,8 @@ def _flax_path(key: str, value: torch.Tensor) -> list[str]:
             path.append(parts[i])
             i += 1
     leaf = parts[-1]
+    if leaf in _BARE:
+        return path + [leaf]
     if leaf == "weight":
         if value.ndim == 1:
             leaf = "scale"                          # LayerNorm
@@ -117,25 +130,32 @@ def _flax_path(key: str, value: torch.Tensor) -> list[str]:
     return path + [leaf]
 
 
-def state_dict_to_flax(state_dict: dict, num_heads: int) -> dict:
+def state_dict_to_flax(state_dict: dict, num_heads: dict[str, int]) -> dict:
     """The inverse of flax_to_state_dict: the port's state_dict -> a nested
     Flax params tree of float32 numpy arrays. num_heads gives the attention
-    kernels and biases their (heads, head_dim) axes back."""
+    kernels and biases their (heads, head_dim) axes back, one count per
+    top-level module (a key's first name), since the towers differ (a
+    ViT-L's 16 heads beside BERT's 12)."""
     tree: dict = {}
     for key, t in state_dict.items():
         a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
         path = _flax_path(key, t)
         parent, leaf = path[-2], path[-1]
-        attention = len(path) > 2 and path[-3] == "attention" \
+        attention = len(path) > 2 and path[-3] in _ATTENTION_BLOCKS \
             and parent in _ATTENTION
-        if leaf == "kernel":
+        if attention:
+            heads = num_heads[path[0]]
+        if leaf == "kernel" and parent == "patch_embedding":
+            side = math.isqrt(a.shape[1] // 3)      # (out, p * p * 3)
+            a = a.T.reshape(side, side, 3, a.shape[0])  # (kh, kw, in, out)
+        elif leaf == "kernel":
             a = a.T                                 # (in, out)
             if attention and parent == "out":
-                a = a.reshape(num_heads, -1, a.shape[-1])
+                a = a.reshape(heads, -1, a.shape[-1])
             elif attention:
-                a = a.reshape(a.shape[0], num_heads, -1)
+                a = a.reshape(a.shape[0], heads, -1)
         elif leaf == "bias" and attention and parent != "out":
-            a = a.reshape(num_heads, -1)
+            a = a.reshape(heads, -1)
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
@@ -346,7 +366,8 @@ def write_flax_msgpack(tree: dict) -> bytes:
     return bytes(w.out)
 
 
-def save_params(state_dict: dict, path: str, num_heads: int) -> None:
+def save_params(state_dict: dict, path: str,
+                num_heads: dict[str, int]) -> None:
     """Write the port's state_dict as a flax msgpack params file that the
     JAX package's load_params reads."""
     import os

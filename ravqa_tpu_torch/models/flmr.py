@@ -8,10 +8,12 @@
 - forward(): the training forward, nway scores plus the nway and
   in-batch-negative losses (JAX ``__call__``, colbert.py:64-113), with the
   colbert or the FLIPR interaction.
-
-Ported for ``query_mode="text+vision"`` with pre-extracted image features.
-The in-graph ViT, multimodal docs and the PreFLMR transformer mapping come
-later (ROADMAP.md A5).
+- query modes "text+vision", "text_only" and "vision_only"; image
+  features pre-extracted, or pixels through the model's own CLIP ViT
+  (`in_graph_vision`); the PreFLMR transformer mapping
+  (`use_transformer_mapping`: one text-conditioned token per vision patch);
+  multimodal docs (`multimodal_docs`: doc text plus projected doc-image
+  tokens).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from torch import nn
 
 from ..ops.losses import in_batch_negative_loss, nway_ce_loss
 from .bert import BertConfig, BertModel
-from .mapping import VisionMapping
+from .mapping import TransformerMapping, VisionMapping
+from .vit import CLIPVisionModel, ViTConfig
 
 INIT_STD = 0.02  # BERT's initializer_range
 
@@ -39,11 +42,23 @@ class FLMRModelConfig:
     nway: int = 2
     use_ib_negatives: bool = True
     separate_question_encoder: bool = False
+    query_mode: str = "text+vision"     # | "vision_only" | "text_only"
+    in_graph_vision: bool = False       # encode pixel_values with own ViT
+    vit: Optional[ViTConfig] = None
     pad_token_id: int = 0
     interaction: str = "colbert"        # | "flipr" (PreFLMR)
     flipr_query_part_len: int = 0       # text-token count (question part)
     flipr_k1: int = 0                   # top-k1 over the question part
     flipr_k2: int = 0                   # top-k2 over the context part
+    multimodal_docs: bool = False       # doc = text | projected vision
+    doc_prefix_len: int = 8             # vision tokens per doc image
+    # PreFLMR transformer mapping network: one extra text-conditioned
+    # late-interaction token per vision patch
+    use_transformer_mapping: bool = False
+    transformer_mapping_num_layers: int = 1
+    transformer_mapping_hidden: int = 768
+    transformer_mapping_num_heads: int = 12
+    vision_patch_dim: Optional[int] = None  # patch features (vision_dim)
     # in-batch-negative loss knobs (ops.losses): ib_block_n > 0 scores the
     # (B x B*nway) grid in doc blocks, each recomputed in the backward;
     # ib_score_bf16 casts both operands of that product to bf16
@@ -100,9 +115,32 @@ class FLMRRetriever(nn.Module):
             self.query_encoder = BertModel(cfg.bert, device=device)
         self.linear = nn.Linear(cfg.bert.hidden_size, cfg.dim, bias=False,
                                 device=device)
-        self.vision_projection = VisionMapping(
-            vision_dim=cfg.vision_dim, lm_dim=cfg.dim,
-            prefix_len=cfg.prefix_len, device=device)
+        if cfg.query_mode not in ("text+vision", "text_only", "vision_only"):
+            raise ValueError(f"unknown query_mode {cfg.query_mode!r}")
+        if cfg.query_mode != "text_only":
+            self.vision_projection = VisionMapping(
+                vision_dim=cfg.vision_dim, lm_dim=cfg.dim,
+                prefix_len=cfg.prefix_len, device=device)
+        if cfg.multimodal_docs:
+            self.doc_vision_projection = VisionMapping(
+                vision_dim=cfg.vision_dim, lm_dim=cfg.dim,
+                prefix_len=cfg.doc_prefix_len, device=device)
+        if cfg.use_transformer_mapping:
+            if cfg.query_mode != "text+vision":
+                raise ValueError("the transformer mapping cross-attends to "
+                                 "the text: it needs query_mode "
+                                 "'text+vision'")
+            h = cfg.transformer_mapping_hidden
+            self.transformer_mapping = TransformerMapping(
+                vision_dim=cfg.vision_patch_dim or cfg.vision_dim,
+                text_dim=cfg.bert.hidden_size, hidden_size=h, lm_dim=cfg.dim,
+                num_layers=cfg.transformer_mapping_num_layers,
+                num_heads=cfg.transformer_mapping_num_heads,
+                intermediate_size=4 * h, device=device)
+        if cfg.in_graph_vision:
+            if cfg.vit is None:
+                raise ValueError("in_graph_vision needs a vit config")
+            self.vision_model = CLIPVisionModel(cfg.vit, device=device)
 
     @property
     def query_bert(self) -> BertModel:
@@ -112,10 +150,15 @@ class FLMRRetriever(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init from `generator` (a CPU generator, so one seed gives
-        the same weights on every device): N(0, 0.02) weights and
-        embeddings, zero biases, unit LayerNorm scales."""
+        the same weights on every device): N(0, 0.02) weights, embeddings
+        and the ViT's class and position embeddings, zero biases, unit
+        LayerNorm scales."""
         for module in self.modules():
-            if isinstance(module, nn.LayerNorm):
+            if isinstance(module, CLIPVisionModel):
+                for p in (module.class_embedding, module.position_embedding):
+                    p.copy_(torch.randn(p.shape, generator=generator)
+                            * INIT_STD)
+            elif isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
             elif isinstance(module, (nn.Linear, nn.Embedding)):
@@ -124,55 +167,115 @@ class FLMRRetriever(nn.Module):
                 if getattr(module, "bias", None) is not None:
                     module.bias.zero_()
 
-    def query(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-              image_features: torch.Tensor, deterministic: bool = True,
+    def encode_images(self, pixel_values: torch.Tensor,
+                      deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """(B, H, W, 3) or (B, n_roi, H, W, 3) pixels -> the ViT's pooled
+        features (B[, n_roi], vision_dim)."""
+        if pixel_values.dim() == 5:
+            b, n_roi = pixel_values.shape[:2]
+            _, pooled = self.vision_model(pixel_values.flatten(0, 1),
+                                          deterministic, generator)
+            return pooled.reshape(b, n_roi, -1)
+        return self.vision_model(pixel_values, deterministic, generator)[1]
+
+    def query(self, input_ids: Optional[torch.Tensor] = None,
+              attention_mask: Optional[torch.Tensor] = None,
+              image_features: Optional[torch.Tensor] = None,
+              pixel_values: Optional[torch.Tensor] = None,
+              image_patch_features: Optional[torch.Tensor] = None,
+              deterministic: bool = True,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Late-interaction query embeddings, L2-normalized.
 
-        image_features: (B, vision_dim) or (B, n_roi, vision_dim).
-        Returns (B, Lq + n_vision, dim) float32; pad text rows are zero."""
+        image_features: (B, vision_dim) or (B, n_roi, vision_dim)
+        pre-extracted CLS features; or pixel_values (B, H, W, 3) or (B,
+        n_roi, H, W, 3) through the in-graph ViT. image_patch_features
+        (B, P, patch_dim): the transformer mapping's input; with pixels
+        alone it is the ViT's last layer's patch rows (the JAX package's
+        choice; the HF PreFLMR release takes the second-to-last layer).
+        Returns (B, Lq_total, dim) float32, text | mapping | transformer
+        mapping tokens; pad text rows are zero."""
         cfg = self.cfg
-        hidden = self.query_bert(input_ids, attention_mask,
-                                 deterministic=deterministic,
-                                 generator=generator)[0]
-        q = self.linear(hidden)
-        # query masking uses an empty skiplist: only pads zeroed (FLMR.py:80)
-        q = q * (input_ids != cfg.pad_token_id).to(q.dtype)[..., None]
-        v = self.vision_projection(image_features)
-        v = v.reshape(v.shape[0], -1, cfg.dim)
-        return l2_normalize(torch.cat([q, v.to(q.dtype)], dim=1).float())
+        parts = []
+        text_hidden = None
+        if cfg.query_mode != "vision_only":
+            text_hidden = self.query_bert(input_ids, attention_mask,
+                                          deterministic=deterministic,
+                                          generator=generator)[0]
+            q = self.linear(text_hidden)
+            # query masking uses an empty skiplist: only pads zeroed
+            # (FLMR.py:80)
+            parts.append(q * (input_ids != cfg.pad_token_id).to(
+                q.dtype)[..., None])
+        if cfg.query_mode != "text_only":
+            if image_features is None:
+                if (cfg.use_transformer_mapping
+                        and image_patch_features is None
+                        and pixel_values.dim() == 4):
+                    last_hidden, image_features = self.vision_model(
+                        pixel_values, deterministic, generator)
+                    image_patch_features = last_hidden[:, 1:]
+                else:
+                    image_features = self.encode_images(
+                        pixel_values, deterministic, generator)
+            v = self.vision_projection(image_features)
+            # (B, prefix, dim) or (B, n_roi, prefix, dim) -> (B, n_v, dim)
+            parts.append(v.reshape(v.shape[0], -1, cfg.dim))
+            if cfg.use_transformer_mapping:
+                parts.append(self.transformer_mapping(
+                    image_patch_features, text_hidden, attention_mask))
+        return l2_normalize(torch.cat(parts, dim=1).float())
 
     def doc(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
             skip_mask: Optional[torch.Tensor] = None,
+            doc_image_features: Optional[torch.Tensor] = None,
             deterministic: bool = True,
             generator: Optional[torch.Generator] = None):
-        """-> (D (B, Ld, dim) L2-normalized float32, mask (B, Ld) float).
+        """-> (D (B, Ld[+doc_prefix_len], dim) L2-normalized float32, mask
+        (B, Ld[+doc_prefix_len]) float).
 
-        skip_mask: optional precomputed skiplist mask; None zeroes pads."""
+        skip_mask: optional precomputed skiplist mask; None zeroes pads.
+        doc_image_features (B, vision_dim), with multimodal_docs: projected
+        to doc_prefix_len more tokens, each unmasked."""
         d = self.linear(self.doc_encoder(input_ids, attention_mask,
                                          deterministic=deterministic,
                                          generator=generator)[0])
         if skip_mask is None:
             skip_mask = (input_ids != self.cfg.pad_token_id).float()
         d = d * skip_mask[..., None].to(d.dtype)
+        if self.cfg.multimodal_docs and doc_image_features is not None:
+            v = self.doc_vision_projection(doc_image_features)
+            v = v.reshape(v.shape[0], -1, self.cfg.dim)
+            d = torch.cat([d, v.to(d.dtype)], dim=1)
+            skip_mask = torch.cat([skip_mask, torch.ones(
+                v.shape[:2], dtype=skip_mask.dtype, device=v.device)], dim=1)
         return l2_normalize(d.float()), skip_mask
 
-    def forward(self, query_input_ids: torch.Tensor,
-                query_attention_mask: torch.Tensor,
-                image_features: torch.Tensor, doc_input_ids: torch.Tensor,
-                doc_attention_mask: torch.Tensor,
+    def forward(self, query_input_ids: Optional[torch.Tensor] = None,
+                query_attention_mask: Optional[torch.Tensor] = None,
+                image_features: Optional[torch.Tensor] = None,
+                pixel_values: Optional[torch.Tensor] = None,
+                doc_input_ids: Optional[torch.Tensor] = None,
+                doc_attention_mask: Optional[torch.Tensor] = None,
                 doc_skip_mask: Optional[torch.Tensor] = None,
+                doc_image_features: Optional[torch.Tensor] = None,
+                image_patch_features: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> dict:
-        """Training forward: nway scores and losses. doc_* are grouped per
-        query, row i*nway query i's positive (colbert.py:64-113).
+        """Training forward: nway scores and losses, the JAX ``__call__``'s
+        arguments in its order. doc_* are grouped per query, row i*nway
+        query i's positive (colbert.py:64-113).
         -> {"scores" (B, nway), "loss", "ib_loss"}; ib_loss is 0 without
         in-batch negatives, and loss = nway loss + ib_loss."""
         cfg = self.cfg
         q = self.query(query_input_ids, query_attention_mask, image_features,
-                       deterministic, generator)
+                       pixel_values, image_patch_features, deterministic,
+                       generator)
         d, d_mask = self.doc(doc_input_ids, doc_attention_mask,
-                             doc_skip_mask, deterministic, generator)
+                             doc_skip_mask, doc_image_features,
+                             deterministic, generator)
         nway_loss, scores = nway_ce_loss(
             q, d, d_mask, cfg.nway, interaction=cfg.interaction,
             flipr_query_part_len=cfg.flipr_query_part_len,

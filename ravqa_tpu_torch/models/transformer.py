@@ -1,13 +1,14 @@
-"""Post-LayerNorm transformer-encoder building blocks (BERT).
+"""Transformer-encoder building blocks: post-LayerNorm (BERT) and
+pre-LayerNorm (CLIP/ViT).
 
-Port of ravqa_tpu/models/transformer.py for the BERT text towers: exact
-(erf) GELU, attention logits and softmax in float32, additive -1e9 bias on
-padded keys, LayerNorm in float32. Dropout sits where the JAX package puts
-it (the attention probabilities and the MLP's output) and is live only when
-not `deterministic`; `remat` recomputes each layer in the backward
-(torch.utils.checkpoint, as the JAX package's nn.remat). The pre-LayerNorm
-(ViT/CLIP) variant and cross-attention come with the vision towers
-(ROADMAP.md A5).
+Port of ravqa_tpu/models/transformer.py: the activations by name (exact
+erf GELU for BERT, CLIP's quick_gelu), attention logits and softmax in
+float32, additive -1e9 bias on padded keys, cross-attention through `kv`
+(queries from x, keys and values from kv), LayerNorm in float32. Dropout
+sits where the JAX package puts it (the attention probabilities and the
+MLP's output) and is live only when not `deterministic`; `remat`
+recomputes each layer in the backward (torch.utils.checkpoint, as the JAX
+package's nn.remat).
 """
 
 from __future__ import annotations
@@ -25,13 +26,25 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's gelu variant: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+# the JAX package's activations that its configs use (BERT, the
+# transformer mapping and ViT-G: "gelu"; CLIP ViT-B/L: "quick_gelu")
+ACTIVATIONS = {"gelu": gelu, "quick_gelu": quick_gelu}
+
+
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
     hidden_size: int = 768
     num_layers: int = 12
     num_heads: int = 12
     intermediate_size: int = 3072
+    activation: str = "gelu"
     layer_norm_eps: float = 1e-12
+    pre_layernorm: bool = False          # False: BERT post-LN; True: ViT/CLIP
     dropout_rate: float = 0.0
     # recompute each layer in the backward: activation memory of one layer
     # instead of num_layers, at about a third more operations
@@ -50,26 +63,32 @@ def dropout(x: torch.Tensor, rate: float,
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, cfg: EncoderConfig, device=None):
+    """Self-attention over x, or cross-attention to a `kv` sequence of
+    width kv_dim (default: the hidden size)."""
+
+    def __init__(self, cfg: EncoderConfig, device=None,
+                 kv_dim: Optional[int] = None):
         super().__init__()
         h = cfg.hidden_size
+        kv_dim = kv_dim or h
         self.num_heads = cfg.num_heads
         self.dropout_rate = cfg.dropout_rate
         self.query = nn.Linear(h, h, device=device)
-        self.key = nn.Linear(h, h, device=device)
-        self.value = nn.Linear(h, h, device=device)
+        self.key = nn.Linear(kv_dim, h, device=device)
+        self.value = nn.Linear(kv_dim, h, device=device)
         self.out = nn.Linear(h, h, device=device)
 
     def forward(self, x: torch.Tensor,
                 attention_bias: torch.Tensor | None = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, h = x.shape
         nh = self.num_heads
         hd = h // nh
+        src = x if kv is None else kv.to(x.dtype)
         q = self.query(x).view(b, t, nh, hd)
-        k = self.key(x).view(b, t, nh, hd)
-        v = self.value(x).view(b, t, nh, hd)
+        k = self.key(src).view(b, src.shape[1], nh, hd)
+        v = self.value(src).view(b, src.shape[1], nh, hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5,
                               k).float()
         if attention_bias is not None:
@@ -88,10 +107,11 @@ class MlpBlock(nn.Module):
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
                              device=device)
         self.dropout_rate = cfg.dropout_rate
+        self.act = ACTIVATIONS[cfg.activation]
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return dropout(self.fc2(gelu(self.fc1(x))), self.dropout_rate,
+        return dropout(self.fc2(self.act(self.fc1(x))), self.dropout_rate,
                        generator)
 
 
@@ -102,11 +122,13 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN: x = LN1(x + attn(x)); x = LN2(x + mlp(x))."""
+    """Post-LN (BERT): x = LN1(x + attn(x)); x = LN2(x + mlp(x)).
+    Pre-LN (ViT/CLIP): x = x + attn(LN1(x)); x = x + mlp(LN2(x))."""
 
     def __init__(self, cfg: EncoderConfig, device=None):
         super().__init__()
         h = cfg.hidden_size
+        self.pre_layernorm = cfg.pre_layernorm
         self.attention = MultiHeadAttention(cfg, device=device)
         self.ln1 = nn.LayerNorm(h, eps=cfg.layer_norm_eps, device=device)
         self.mlp = MlpBlock(cfg, device=device)
@@ -119,6 +141,10 @@ class EncoderLayer(nn.Module):
         gen = None
         if seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(seed)
+        if self.pre_layernorm:
+            x = x + self.attention(_layer_norm(self.ln1, x), attention_bias,
+                                   gen)
+            return x + self.mlp(_layer_norm(self.ln2, x), gen)
         x = _layer_norm(self.ln1,
                         x + self.attention(x, attention_bias, gen))
         return _layer_norm(self.ln2, x + self.mlp(x, gen))

@@ -3,6 +3,8 @@
     python -m ravqa_tpu_torch.profile_serve \\
         configs/synthetic_flmr_base_serve_hier.json \\
         configs/synthetic_flmr_base_serve.json \\
+        configs/synthetic_preflmr_vitl_serve.json \\
+        configs/synthetic_preflmr_vitl_serve_hier.json \\
         --out chiprun_out/profile_serve.json
 
 For each config, build_server as the entry point does (random weights from
@@ -15,7 +17,11 @@ the config's seed), then:
      batches each of the query tower alone, the search alone and the
      server's whole dispatch (encode, search, results to the host); the
      search's kernels split by stage, the tower's kernel time, and the
-     dispatch's kernel time over its wall time without the profiler.
+     dispatch's kernel time over its wall time without the profiler. With
+     an in-graph ViT or the transformer mapping (the PreFLMR configs,
+     whose requests carry 224 x 224 x 3 images) the tower's kernel time is
+     split into the ViT, the text tower (BERT and the linear) and the
+     transformer mapping, each profiled alone on the same batch.
 Prints one line per measurement and writes everything as JSON to --out.
 """
 
@@ -117,14 +123,23 @@ def _requests(data, n):
     return [items[i % len(items)] for i in range(n)]
 
 
-def _bursts(server, data, n=256):
+def _vision(r) -> dict:
+    """A request's image: its features, or its pixels (float32) for an
+    in-graph ViT."""
+    if "image" in r:
+        return {"pixel_values": np.asarray(r["image"], np.float32)}
+    return {"image_features": r["image_features"]}
+
+
+def bursts(server, data, n=256):
+    """BURSTS closed bursts of n requests (the data's questions and images
+    in turn) submitted at once. Returns [{"req_per_s", "dispatches"}]."""
     out = []
     reqs = _requests(data, n)
     for _ in range(BURSTS):
         d0 = server.dispatches
         t0 = time.perf_counter()
-        futs = [server.submit(r["question"], r["image_features"])
-                for r in reqs]
+        futs = [server.submit(r["question"], **_vision(r)) for r in reqs]
         for f in futs:
             f.result(120)
         wall = time.perf_counter() - t0
@@ -146,31 +161,42 @@ def profile_config(path: str) -> dict:
     print(f"{path}: {s.mode} {s.preset}, {s.index.num_docs} docs, set-up "
           f"{res['setup_s']:.1f} s", flush=True)
     try:
-        res["bursts"] = _bursts(server, data)
+        res["bursts"] = bursts(server, data)
         print("bursts of 256:", res["bursts"], flush=True)
 
         reqs = _requests(data, BATCH)
         ids, mask = map(np.asarray, data["query_tokenizer"].tensorize(
             [r["question"] for r in reqs]))
-        feats = np.stack([r["image_features"] for r in reqs])
+        vis = {key: np.stack([_vision(r)[key] for r in reqs])
+               for key in _vision(reqs[0])}
+        feats = vis.get("image_features")
+        pixels = vis.get("pixel_values")
+
+        def encode(b=BATCH):
+            return ex.encode_query(ids[:b], mask[:b], *(
+                None if x is None else x[:b] for x in (feats, pixels)))
+
         with torch.inference_mode():
             res["per_batch"] = {}
             for b in (32, 8, 1):
-                q = ex.encode_query(ids[:b], mask[:b], feats[:b])
-                enc = _time_ms(lambda: ex.encode_query(ids[:b], mask[:b],
-                                                       feats[:b]))
+                q = encode(b)
+                enc = _time_ms(lambda: encode(b))
                 srch = _time_ms(lambda: s.search_device(q, k))
                 res["per_batch"][b] = {"encode_ms": enc, "search_ms": srch}
                 print(f"B={b}: encode {enc:.3f} ms, search {srch:.3f} ms",
                       flush=True)
 
-            q = ex.encode_query(ids, mask, feats)
-            tower = kernel_times(lambda: ex.encode_query(ids, mask, feats))
+            q = encode()
+            tower = kernel_times(encode)
             search = kernel_times(lambda: s.search_device(q, k))
+            res["tower_parts_ms"] = tower_parts(ex, ids, mask, pixels)
 
             def dispatch():
-                server._dispatch([(ids[i], mask[i], feats[i], Future())
-                                  for i in range(BATCH)])
+                server._dispatch([
+                    (ids[i], mask[i],
+                     None if feats is None else feats[i],
+                     None if pixels is None else pixels[i], Future())
+                    for i in range(BATCH)])
 
             whole = kernel_times(dispatch)
             dispatch()
@@ -188,18 +214,45 @@ def profile_config(path: str) -> dict:
     device_ms = sum(whole.values())
     res["profile"] = {
         "device_ms_per_batch": split,
+        "query_tower_parts_ms": res.pop("tower_parts_ms"),
         "dispatch_device_ms": device_ms,
         "dispatch_wall_ms": wall_ms,
         "device_busy_share": device_ms / wall_ms,
         "top_search_kernels": dict(sorted(search.items(),
                                           key=lambda kv: -kv[1])[:12])}
-    print(f"profile, ms per batch of {BATCH}: "
+    print(f"profile, device ms per batch of {BATCH}: "
           + ", ".join(f"{n} {ms:.3f}" for n, ms in
                       sorted(split.items(), key=lambda kv: -kv[1])),
           flush=True)
     print(f"dispatch: {device_ms:.3f} ms of kernels in {wall_ms:.3f} ms of "
           f"wall ({device_ms / wall_ms:.1%} busy)", flush=True)
     return res
+
+
+def tower_parts(ex, ids, mask, pixels) -> dict:
+    """The query tower's kernel time per batch, by part, each part
+    profiled alone on the batch's own inputs: the ViT, the text tower
+    (BERT and the linear) and the transformer mapping (on the ViT's
+    last-layer patch rows). Empty without an in-graph ViT."""
+    m = ex.model
+    if not m.cfg.in_graph_vision:
+        return {}
+    ids_t = torch.as_tensor(ids, dtype=torch.long, device=ex.device)
+    mask_t = torch.as_tensor(mask, device=ex.device)
+    parts = {"text tower (BERT, linear)": lambda: m.linear(
+        m.query_bert(ids_t, mask_t)[0])}
+    px = torch.as_tensor(pixels, device=ex.device)
+    parts["ViT"] = lambda: m.vision_model(px)
+    if m.cfg.use_transformer_mapping:
+        hidden = m.query_bert(ids_t, mask_t)[0]
+        patches = m.vision_model(px)[0][:, 1:]
+        parts["transformer mapping"] = lambda: m.transformer_mapping(
+            patches, hidden, mask_t)
+    out = {name: sum(kernel_times(fn).values())
+           for name, fn in parts.items()}
+    print("query tower by part, device ms per batch: "
+          + ", ".join(f"{n} {ms:.3f}" for n, ms in out.items()), flush=True)
+    return out
 
 
 def main(argv=None) -> int:

@@ -126,32 +126,46 @@ class RetrievalServer(_MicroBatchServer):
     serve = RetrievalServer(executor, searcher, query_tokenizer,
                             image_feature_dim=768)
     result = serve.submit("what is this?", image_features=feat).result()
+
+    An in-graph-vision retriever (PreFLMR) takes raw pixels per request
+    instead: RetrievalServer(..., image_feature_dim=0,
+    pixel_shape=(224, 224, 3)) and submit(text, pixel_values=img).
     """
 
     def __init__(self, executor, searcher, query_tokenizer,
-                 image_feature_dim: int,
+                 image_feature_dim: int = 0,
                  id2content: Optional[dict] = None,
+                 pixel_shape: Optional[tuple] = None,
                  config: Optional[ServeConfig] = None):
         """id2content: optional {pid: text} map; results carry contents
-        when given. `dispatches` counts the batches run."""
+        when given. pixel_shape: (H, W, 3) of the in-graph ViT's images.
+        `dispatches` counts the batches run."""
         self.ex = executor
         self.searcher = searcher
         self.qt = query_tokenizer
         self.image_feature_dim = image_feature_dim
+        self.pixel_shape = None if pixel_shape is None else tuple(pixel_shape)
         self.id2content = id2content
         self.dispatches = 0
         super().__init__(config)
 
     # -- client side --------------------------------------------------------
     def submit(self, text: str,
-               image_features: Optional[np.ndarray] = None) -> Future:
+               image_features: Optional[np.ndarray] = None,
+               pixel_values: Optional[np.ndarray] = None) -> Future:
         """Tokenize on the caller's thread, enqueue, return a Future.
-        Missing image features are zeros."""
+        Missing image features or pixels are zeros of the server's shape.
+        Raises ValueError here, before the request joins a batch, for an
+        image the server does not take or one of another shape."""
+        feats_shape = ((self.image_feature_dim,) if self.image_feature_dim
+                       else None)
+        image_features = _checked(image_features, feats_shape,
+                                  "image_features")
+        pixel_values = _checked(pixel_values, self.pixel_shape,
+                                "pixel_values")
         ids, mask = self.qt.tensorize([text])
-        if image_features is None:
-            image_features = np.zeros((self.image_feature_dim,), np.float32)
         return self._enqueue((np.asarray(ids)[0], np.asarray(mask)[0],
-                              np.asarray(image_features, np.float32)))
+                              image_features, pixel_values))
 
     def search_batch(self, texts: Sequence[str],
                      image_features: Optional[np.ndarray] = None
@@ -162,22 +176,40 @@ class RetrievalServer(_MicroBatchServer):
         futs = [self.submit(t, f) for t, f in zip(texts, feats)]
         return [f.result() for f in futs]
 
+    def _stack(self, batch, slot: int) -> Optional[np.ndarray]:
+        """The batch's image features (slot 2) or pixels (slot 3), None
+        when the server takes none."""
+        if batch[0][slot] is None:
+            return None
+        return np.stack([b[slot] for b in batch])
+
+    def encode(self, batch) -> torch.Tensor:
+        """The query embeddings of (ids, mask, features, pixels, ...)
+        rows, on the executor's device."""
+        pixels = self._stack(batch, 3)
+        extra = {} if pixels is None else {"pixel_values": pixels}
+        return self.ex.encode_query(np.stack([b[0] for b in batch]),
+                                    np.stack([b[1] for b in batch]),
+                                    self._stack(batch, 2), **extra)
+
     @torch.inference_mode()
     def warm_up(self) -> None:
         """Run one zero query through encode and search, so the first
         request does not pay for the kernel build and library set-up."""
         ids, mask = self.qt.tensorize([""])
-        q = self.ex.encode_query(
-            ids, mask, np.zeros((1, self.image_feature_dim), np.float32))
+        feats = (np.zeros((self.image_feature_dim,), np.float32)
+                 if self.image_feature_dim else None)
+        pixels = (np.zeros(self.pixel_shape, np.float32)
+                  if self.pixel_shape is not None else None)
+        q = self.encode([(np.asarray(ids)[0], np.asarray(mask)[0], feats,
+                          pixels)])
         self.searcher.search_device(q, self.cfg.k)[0].cpu()
 
     # -- dispatcher ---------------------------------------------------------
     @torch.inference_mode()
     def _dispatch(self, batch):
         self.dispatches += 1
-        q = self.ex.encode_query(np.stack([b[0] for b in batch]),
-                                 np.stack([b[1] for b in batch]),
-                                 np.stack([b[2] for b in batch]))
+        q = self.encode(batch)
         scores, rows = self.searcher.search_device(q, self.cfg.k)
         scores = scores.cpu().numpy()
         pids = self.searcher.index.pids[rows.cpu().numpy()]
@@ -189,9 +221,27 @@ class RetrievalServer(_MicroBatchServer):
                           if self.id2content is not None else None)))
 
 
+def _checked(value, shape: Optional[tuple],
+             name: str) -> Optional[np.ndarray]:
+    """A request's image input as float32 of the server's `shape` (zeros
+    when missing); None where the server takes none (`shape` None)."""
+    if shape is None:
+        if value is not None:
+            raise ValueError(f"this server takes no {name}")
+        return None
+    if value is None:
+        return np.zeros(shape, np.float32)
+    value = np.asarray(value, np.float32)
+    if value.shape != shape:
+        raise ValueError(f"{name} of shape {value.shape}; this server takes "
+                         f"{shape}")
+    return value
+
+
 # ---------------------------------------------------------------------------
 # HTTP front end (stdlib only): GET /healthz; POST /search {"query": str,
-# "image_features": [float]?, "timeout_s": float?}.
+# "image_features": [float]?, "pixel_values": [[[float]]]? (H x W x 3),
+# "timeout_s": float?}.
 # ---------------------------------------------------------------------------
 
 def make_http_server(server: RetrievalServer, host: str = "0.0.0.0",
@@ -228,19 +278,22 @@ def make_http_server(server: RetrievalServer, host: str = "0.0.0.0",
             if self.path != "/search":
                 return self._json(404, {"error": "not found"})
             try:
-                feats = req.get("image_features")
-                res = server.submit(
-                    req["query"],
-                    None if feats is None else np.asarray(feats, np.float32)
-                ).result(timeout=req.get("timeout_s", 60))
+                fut = server.submit(req["query"], req.get("image_features"),
+                                    req.get("pixel_values"))
+            except KeyError as e:
+                return self._json(400, {"error": f"missing field {e}"})
+            except (TypeError, ValueError) as e:       # malformed image
+                return self._json(400, {"error": str(e)})
+            except ServerOverloaded as e:              # shed -> retry later
+                return self._json(503, {"error": str(e)})
+            except Exception as e:                     # surface, don't die
+                return self._json(500, {"error": str(e)})
+            try:
+                res = fut.result(timeout=req.get("timeout_s", 60))
                 return self._json(200, {
                     "pids": np.asarray(res.pids).tolist(),
                     "scores": np.asarray(res.scores, np.float64).tolist(),
                     "contents": res.contents})
-            except KeyError as e:
-                return self._json(400, {"error": f"missing field {e}"})
-            except ServerOverloaded as e:              # shed -> retry later
-                return self._json(503, {"error": str(e)})
             except Exception as e:                     # surface, don't die
                 return self._json(500, {"error": str(e)})
 

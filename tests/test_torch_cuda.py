@@ -160,9 +160,10 @@ def test_maxsim_mma_launches_count_the_bf16_index_route_only():
 # -- K1 on a float32 index: two bf16 planes, three products --------------------
 
 # the float32 serve's shape at a small N (Ld=220 over two 112-column tiles),
-# 64-token docs (two a tile), and N a multiple of nothing
+# 64-token docs (two a tile), N a multiple of nothing, and the PreFLMR
+# query (Lq=320: one query over three 128-row chunks)
 SPLIT_SHAPES = [(32, 64, 203, 220, 128), (32, 32, 1031, 64, 128),
-                (4, 64, 57, 100, 64)]
+                (4, 64, 57, 100, 64), (8, 320, 203, 220, 128)]
 
 
 @pytest.mark.parametrize("shape", SPLIT_SHAPES)
@@ -285,6 +286,42 @@ def test_coarse_sweep_int8_kernel_matches_plain(shape, negative):
     assert torch.equal(got[:, ::5], torch.full_like(got[:, ::5], -9999.0))
 
 
+@pytest.mark.parametrize("negative", [False, True])
+def test_coarse_sweeps_at_the_preflmr_query(negative):
+    """K2 (bf16) and K3 at the PreFLMR query's Lq=320 (one query over
+    three column passes of 128): the plain versions to the card
+    tolerance, invalid docs at exactly -9999. K3's raw sums (unit scales)
+    add 320 exact integer maxima in float32: bit for bit equal to the
+    plain version's while every partial sum stays below 2^24 in magnitude
+    (the mixed-sign data: about 9.5e6), and past it (the all-negative
+    data: about 5.8e7) within float32's rounding of each addition, since
+    the kernel and the plain version add in different orders."""
+    shape = (4, 320, 4, 1024, 128)
+    lq = shape[1]
+    q, st, valid = make_sweep(shape, torch.bfloat16, negative)
+    got = maxsim.coarse_sweep(q, st, valid)
+    _close(got, maxsim.coarse_sweep_torch(q, st, valid), lq)
+    assert torch.equal(got[:, ::5], torch.full_like(got[:, ::5], -9999.0))
+    q, st, valid = make_sweep(shape, torch.float32, negative, seed=1)
+    st8, dsc = quantize_summaries_t_int8(st)
+    q8, qs = quantize_queries_int8(q)
+    ones_q, ones_d = torch.ones_like(qs), torch.ones_like(dsc)
+    raw = maxsim.coarse_sweep_int8(q8, ones_q, st8, ones_d, valid)
+    want = maxsim.coarse_sweep_int8_torch(q8, ones_q, st8, ones_d, valid)
+    b, _, _, n, dim = shape
+    absum = maxsim._slot_max(q8.reshape(b * lq, dim).float(), st8,
+                             1 << 26).abs().reshape(b, lq, n).sum(dim=1)
+    if float(absum.max()) < 2 ** 24:
+        assert torch.equal(raw, want)
+    else:
+        ok = valid.bool()
+        err = (raw - want).abs()[:, ok]
+        assert bool((err <= 2 * lq * 2.0 ** -24 * absum[:, ok]).all())
+    got = maxsim.coarse_sweep(q, st8, valid, dscale=dsc)
+    _close(got, maxsim.coarse_sweep_torch(q, st8, valid, dscale=dsc), lq)
+    assert torch.equal(got[:, ::5], torch.full_like(got[:, ::5], -9999.0))
+
+
 def test_coarse_sweep_all_invalid_and_no_validity_row():
     shape = SWEEP_SHAPES[1]
     q, st, valid = make_sweep(shape, torch.bfloat16, all_invalid=True)
@@ -323,7 +360,7 @@ def test_coarse_sweep_bf16_at_the_two_stage_shape(negative):
 # 128-row tile (72), ragged over tiles (300), the bench's 64 x 32
 STAGE1_SHAPES = [(3, 6, 3, 16, 5, 7, 16), (32, 32, 8, 64, 32, 40, 128),
                  (2, 150, 2, 24, 3, 4, 64), (4, 7, 1, 100, 3, 5, 32),
-                 (1, 1, 4, 8, 1, 2, 16)]
+                 (1, 1, 4, 8, 1, 2, 16), (4, 320, 8, 64, 32, 64, 128)]
 
 
 def make_stage1(shape, rows_dtype, negative=False, seed=2):

@@ -38,6 +38,23 @@ CONFIG = os.path.join(REPO, "configs", "synthetic_flmr.json")
 # the same tiny model over 512 passages, served by hierarchical search
 # under the fast preset: 64 blocks of 8, of which stage 0 keeps 32; stage 1
 # keeps 24 of their 256 docs (the int8 stage1_rows path)
+PREFLMR_CONFIG = os.path.join(REPO, "configs",
+                              "synthetic_preflmr_vitl_serve.json")
+# the PreFLMR ViT-L serve config cut to tiny widths over 64 passages
+PREFLMR_TINY_OPTS = [
+    "data_pipeline.raw.setup_kwargs.n_docs=64",
+    "data_pipeline.raw.setup_kwargs.emit_pixels=32",
+    "data_pipeline.loaders.setup_kwargs.query_maxlen=16",
+    "data_pipeline.loaders.setup_kwargs.doc_maxlen=16",
+    "model_config.bert={'vocab_size': 512, 'hidden_size': 64, "
+    "'num_layers': 2, 'num_heads': 4, 'intermediate_size': 128, "
+    "'max_position_embeddings': 64}",
+    "model_config.dim=32", "model_config.vit={'tiny': True}",
+    "model_config.vision_embedding_size=64",
+    "model_config.vision_patch_dim=64",
+    "model_config.mapping_network_prefix_length=4",
+    "model_config.transformer_mapping_hidden=32",
+    "model_config.transformer_mapping_num_heads=4"]
 HIER_OPTS = ["data_pipeline.raw.setup_kwargs.n_docs=512",
              "model_config.search_mode=hierarchical", "serve.preset=fast",
              "serve.block_size=8", "serve.n_summary=4",
@@ -236,12 +253,36 @@ def test_bounded_queue_sheds_and_stop_fails_pending():
         assert f.done()                           # left pending
 
 
+def test_submit_refuses_images_the_server_does_not_take():
+    """A request whose image features have another width, or that sends
+    pixels to a server without a ViT, fails at submit() and never reaches
+    a batch; the requests beside it are served."""
+    ex = _SlowExecutor()
+    ex.release.set()
+    server = RetrievalServer(ex, _StubSearcher(), _Tok(), image_feature_dim=3,
+                             config=ServeConfig(k=2))
+    try:
+        good = server.submit("a", np.ones(3, np.float32))
+        with pytest.raises(ValueError, match="image_features of shape"):
+            server.submit("b", np.ones(4, np.float32))
+        with pytest.raises(ValueError, match="takes no pixel_values"):
+            server.submit("c", pixel_values=np.zeros((2, 2, 3), np.float32))
+        blank = server.submit("d")
+        for fut in (good, blank):
+            assert fut.result(timeout=30).pids.shape == (2,)
+    finally:
+        server.stop()
+
+
 def test_serve_slice_imports_no_jax(tmp_path):
-    """The exact and the hierarchical serve slices, the training slice
-    (train, then eval from its checkpoint, and entry()), the residual
-    codec, the stage-2 kernels' module and the stage-2 experiment, in one
-    process: nothing of the JAX package (ravqa_tpu) or of jax/jaxlib/flax
-    loads."""
+    """The exact and the hierarchical serve slices, the PreFLMR serve slice
+    (in-graph ViT and transformer mapping, a tiny cut of
+    configs/synthetic_preflmr_vitl_serve.json: a request without pixels
+    gets a blank image of the ViT's own size), the HF key mappings, the
+    training slice (train, then eval from its checkpoint, and entry()),
+    the residual codec, the stage-2 kernels' module and the stage-2
+    experiment, in one process: nothing of the JAX package (ravqa_tpu) or
+    of jax/jaxlib/flax loads."""
     code = (
         "import sys, numpy as np\n"
         "from ravqa_tpu_torch.config import apply_overrides, load_config\n"
@@ -251,6 +292,7 @@ def test_serve_slice_imports_no_jax(tmp_path):
         "import ravqa_tpu_torch.ops.stage2\n"
         "import ravqa_tpu_torch.scripts.exp_residual_stage2\n"
         "import ravqa_tpu_torch.entry\n"
+        "import ravqa_tpu_torch.models.convert_flmr\n"
         f"args = ['--config', {CONFIG!r}, '--device', 'cpu',\n"
         f"        '--log_dir', {str(tmp_path)!r}]\n"
         "assert main(args + ['--mode', 'train', '--opts',\n"
@@ -265,6 +307,17 @@ def test_serve_slice_imports_no_jax(tmp_path):
         "    s.stop()\n"
         "    assert r.pids.shape == (10,)\n"
         "    assert s.searcher.mode == ('hierarchical' if opts else 'exact')\n"
+        f"cfg = apply_overrides(load_config({PREFLMR_CONFIG!r}),\n"
+        f"                      {PREFLMR_TINY_OPTS!r})\n"
+        "data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,\n"
+        "                                    explode=True)\n"
+        "s = build_server(cfg, data, 'cpu')\n"
+        "assert s.pixel_shape == (32, 32, 3)\n"
+        "img = data['train'].items[0]['image']\n"
+        "for px in (None, img):\n"
+        "    r = s.submit('cat dog sky', pixel_values=px).result(120)\n"
+        "    assert r.pids.shape == (10,)\n"
+        "s.stop()\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('ravqa_tpu', 'jax', 'jaxlib', 'flax')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -317,10 +370,29 @@ def test_unported_modes_raise(argv):
 @pytest.mark.parametrize("name", ["synthetic_flmr_pixels.json",
                                   "synthetic_preflmr.json"])
 def test_unported_model_features_raise(name):
-    from ravqa_tpu_torch.main import _flmr_config_from
+    """The in-graph ViT (synthetic_flmr_pixels.json) and the PreFLMR
+    transformer mapping on patch features (synthetic_preflmr.json), once
+    refused, now build and encode their queries: text | mapping |
+    (transformer mapping) tokens, from the dataset's pixels or features."""
+    from ravqa_tpu_torch.data import query_eval_batches
+    from ravqa_tpu_torch.main import build_executor, build_pipeline
     cfg = load_config(os.path.join(REPO, "configs", name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _flmr_config_from(cfg.model_config)
+    data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
+                                        explode=True)
+    ex = build_executor(cfg, "cpu", inference_only=True)
+    mc = ex.model.cfg
+    q = ex.encode_queries(query_eval_batches(data["test"]))
+    if mc.in_graph_vision:
+        n_vision = mc.prefix_len
+    else:
+        n_vision = mc.prefix_len + data["test"].items[0][
+            "image_patch_features"].shape[0]
+    assert q.shape == (len(data["test"].items),
+                       data["query_tokenizer"].query_maxlen + n_vision,
+                       mc.dim)
+    assert np.isfinite(q).all()
+    np.testing.assert_allclose(np.linalg.norm(q[:, -n_vision:], axis=-1),
+                               1.0, rtol=1e-5)
 
 
 def test_prepare_data_mode(capsys):
