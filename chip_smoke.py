@@ -162,6 +162,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      p50/p95, the bursts' req/s, the ViT's, the whole tower's, the
      search's and K1's ms per batch of 32 and peak memory beside the
      card's name and power limit.
+ 16. the RAVQA-v2 answer serve: build_server on
+     configs/synthetic_rag_blip2_serve.json (a VQAServer: FLMR-base live
+     retrieval through K1-f32 over 16,384 passages, then BLIP-2 with EVA
+     ViT-g/14, the 12-layer Q-Former and Flan-T5-XL at their published
+     widths, LoRA rank 8 merged, 5 passages, 5 beams, 512 + 32 encoder
+     tokens, 10 decoded tokens; random weights drawn on the card), 16
+     requests from 4 closed-loop clients, then 3 bursts of 8, each request
+     with seeded 768-d features and its own seeded 224 x 224 image. Gates:
+     every request answered with 5 finite doc_scores and 5 passages;
+     K1-f32 launched once per dispatch on the split route (counts set to
+     0 just before, read just after); each dispatch's retrieved rows
+     against a plain search of its recorded query embeddings on a CPU copy
+     of the index (tie-aware top-5, 1e-3), and generate's doc_scores (the
+     re-encoded query, paired MaxSim) against the searcher's scores of
+     those rows (1e-3); one (question, passage) sequence through the
+     generator: every layer of the full-depth model on the card against
+     its CPU copy on the card's own inputs (the encode and the first decode
+     step; 1e-4 of each output's largest magnitude), and a copy with the
+     same widths and the T5 stacks cut to their first 2 layers (the
+     random T5 encoder amplifies float32 rounding ~1.6x a layer, so the
+     whole model's two float32 runs differ by ~1e-3, printed) on the card
+     and the CPU: its encoder output and first decode step's logits within
+     1e-4 of the largest magnitude, its beam search's tokens identical;
+     one dispatch decoded with cached cross-attention
+     keys and values against keys and values projected at every step
+     (the same tokens, log-probs within 1e-4); no non-finite value.
+     Prints the dispatch split (device ms by stage, CUDA events), K1-f32
+     at B=8, questions/s over the bursts, p50/p95 latency, peak memory
+     and the phase's seconds beside the card's name and power limit.
 Every phase prints its seconds. The line before the last is the kernels'
 JSON record: each kernel's launches on its path, its error against its
 plain version, its time and its plain version's, and its bound, the least
@@ -192,6 +221,7 @@ PREFLMR_CONFIG = os.path.join(HERE, "configs",
                               "synthetic_preflmr_vitl_serve.json")
 PREFLMR_HIER_CONFIG = os.path.join(HERE, "configs",
                                    "synthetic_preflmr_vitl_serve_hier.json")
+RAG_CONFIG = os.path.join(HERE, "configs", "synthetic_rag_blip2_serve.json")
 # float32 scores of L2-normalized embeddings at Lq <= 64: the kernel and
 # the plain version sum the same products in different orders, which moves
 # a score by ~1e-5; 1e-3 leaves room without hiding a wrong max or mask
@@ -2020,6 +2050,518 @@ def preflmr_slice(config_path, maxsim, k1, sweeps, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: RAVQA-v2 answer serving (BLIP-2 Flan-T5-XL over FLMR retrieval)
+# ---------------------------------------------------------------------------
+
+def record_dispatches(server):
+    """Keep each dispatch's search (q, scores, rows) and generate output,
+    in dispatch order: wraps the executor's searcher.search_device and
+    generate until the returned undo() is called."""
+    ex = server.ex
+    s = ex.searcher
+    search, generate = s.search_device, ex.generate
+    searches, outputs = [], []
+
+    def recording_search(q, k):
+        scores, rows = search(q, k)
+        searches.append((q, scores, rows))
+        return scores, rows
+
+    def recording_generate(batch):
+        out = generate(batch)
+        outputs.append(out)
+        return out
+
+    s.search_device, ex.generate = recording_search, recording_generate
+
+    def undo():
+        del s.search_device, ex.generate
+    return searches, outputs, undo
+
+
+def drive_vqa(server, data, n=16, clients=4, bursts=3, burst=8):
+    """n requests from `clients` closed-loop threads, then `bursts` bursts
+    of `burst` requests submitted at once; request i carries
+    profile_serve.vqa_request's seeded features and the i-th item's image
+    (seeded 224 x 224). Returns (results, latencies of the closed loop,
+    questions/s of each burst)."""
+    from ravqa_tpu_torch.profile_serve import vqa_request
+    items = data["train"].items + data["test"].items
+    total = n + bursts * burst
+    reqs = [(items[i % len(items)]["question"],
+             vqa_request(i, items[i % len(items)], server))
+            for i in range(total)]
+    results = [None] * total
+    lat = [0.0] * n
+
+    def client(ids):
+        for i in ids:
+            t = time.perf_counter()
+            results[i] = server.submit(reqs[i][0], **reqs[i][1]).result(600)
+            lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=client, args=(range(c, n, clients),))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("the closed-loop clients did not finish")
+    rates = []
+    for k in range(bursts):
+        ids = range(n + k * burst, n + (k + 1) * burst)
+        t0 = time.perf_counter()
+        futs = [server.submit(reqs[i][0], **reqs[i][1]) for i in ids]
+        for i, f in zip(ids, futs):
+            results[i] = f.result(600)
+        rates.append(burst / (time.perf_counter() - t0))
+    return results, lat, rates
+
+
+def check_rag_retrieval(ex, searches, outputs):
+    """Each dispatch's rows against the same search by the plain versions
+    on a CPU copy of the index, on the query embeddings the dispatch
+    searched (tie-aware top-5, 1e-3); generate's doc_scores against the
+    searcher's scores of those rows (1e-3). Returns (max |score error| of
+    the search, of doc_scores)."""
+    import torch
+    from ravqa_tpu_torch.retrieval import LateInteractionSearcher
+    s = ex.searcher
+    if len(searches) != len(outputs):
+        raise AssertionError(f"{len(searches)} searches for "
+                             f"{len(outputs)} dispatches")
+    cpu = LateInteractionSearcher(cpu_copy(ex.index), use_pallas=True,
+                                  mode=s.mode, preset=s.preset)
+    search_err = doc_err = 0.0
+    t0 = time.perf_counter()
+    for (q, scores, rows), out in zip(searches, outputs):
+        got_s, got_r = scores.cpu().numpy(), rows.cpu().numpy()
+        want_s, want_r = (t.numpy() for t in
+                          cpu.search_device(q.cpu(), ex.rag_cfg.n_docs))
+        bad = [i for i in range(len(q)) if not _tie_aware(
+            got_r[i], got_s[i], want_r[i], want_s[i], ATOL)]
+        if bad:
+            raise AssertionError(f"retrieved rows disagree with the plain "
+                                 f"search on queries {bad}")
+        search_err = max(search_err, float(np.abs(got_s - want_s).max()))
+        doc_err = max(doc_err, float(np.abs(out["doc_scores"]
+                                            - got_s).max()))
+    print(f"retrieval: {len(searches)} dispatches' rows vs the plain "
+          f"search of a CPU copy ({time.perf_counter() - t0:.1f} s): max"
+          f"|score err| {search_err:.3g}; generate's doc_scores vs the "
+          f"searcher's: max|err| {doc_err:.3g}", flush=True)
+    if doc_err > ATOL:
+        raise AssertionError(f"doc_scores disagree with the search: "
+                             f"{doc_err}")
+    return search_err, doc_err
+
+
+# the random generator's T5 encoder is ill-conditioned in float32: 24
+# self-attention layers without 1/sqrt(d_kv) over lecun-normal weights
+# (attention logits of std ~8) grow a rounding difference about 1.3x a
+# layer. Against a float64 run on the CPU, float32 on an H100 and float32 on
+# the CPU both sit ~1e-3 off on the encoder output and ~1.5e-2 on the first
+# logits, and neither gives float64's beam tokens, so the two float32 runs
+# differ by as much (1.7e-3, 2.1e-2) however right each is. The check holds
+# every layer of the full model to its CPU twin on the card's own inputs,
+# runs end to end a copy with the T5 stacks cut to their first
+# RAG_CUT_LAYERS layers (at 4 + 4 the first logits differ by 7.6e-5 of
+# their largest magnitude), and holds the full model on the card to no
+# farther from float64 than F64_FACTOR times the CPU's float32 (1.4x on the
+# encoder output, 0.95x on the logits, measured on an H100).
+RAG_CUT_LAYERS = 4
+GEN_RTOL = 1e-4
+F64_FACTOR = 2.0
+
+
+def _to_cpu(x):
+    """A copy of x on the CPU: tensors, and tuples, lists and dicts of
+    them."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def _first(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _gen_layers(gen):
+    """The generator's layers by name: the vision tower and the Q-Former
+    whole (float32 runs of them agree to ~1e-6), the projection, every T5
+    encoder and decoder block, each decoder layer's cross-attention key and
+    value projections (T5Model.cross_kv calls them outside the blocks), the
+    final norms and the LM head."""
+    lm = gen.language_model
+    layers = {"vision_model": gen.vision_model, "qformer": gen.qformer,
+              "language_projection": gen.language_projection,
+              "encoder_final_ln": lm.encoder_final_ln,
+              "decoder_final_ln": lm.decoder_final_ln,
+              "lm_head": lm.lm_head}
+    for stack in ("encoder", "decoder"):
+        for i, blk in enumerate(getattr(lm, stack)):
+            layers[f"{stack}.{i}"] = blk
+    for i, blk in enumerate(lm.decoder):
+        layers[f"decoder.{i}.cross_k"] = blk.cross_attn.k
+        layers[f"decoder.{i}.cross_v"] = blk.cross_attn.v
+    return {k: m for k, m in layers.items() if m is not None}
+
+
+def _stage_outputs(model, run):
+    """run() with the vision tower, the Q-Former and each T5 encoder block
+    recording the output of its first call. Returns {name: output} on the
+    CPU in float64."""
+    import torch
+    mods = {"vision_model": model.vision_model, "qformer": model.qformer}
+    mods.update((f"encoder.{i}", blk)
+                for i, blk in enumerate(model.language_model.encoder))
+    seen = {}
+
+    def keep(name, out):
+        if name not in seen:
+            seen[name] = _first(out).detach().to("cpu", torch.float64)
+
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: keep(name, out))
+        for name, m in mods.items()]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def layers_vs_cpu(gen, run):
+    """run() on the card with every layer of _gen_layers recording the
+    inputs and output of its first call; each layer's CPU copy then runs on
+    those inputs. Returns {layer: |card - CPU| / max |card|}."""
+    import copy
+    import torch
+    records = {}
+
+    def record(mod, args, kwargs, out, name):
+        if name not in records:
+            records[name] = (_to_cpu(args), _to_cpu(kwargs),
+                             _to_cpu(_first(out)))
+
+    hooks = [m.register_forward_hook(
+        lambda mod, args, kwargs, out, name=name: record(mod, args, kwargs,
+                                                         out, name),
+        with_kwargs=True) for name, m in _gen_layers(gen).items()]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    layers = _gen_layers(gen)
+    errs = {}
+    for name, (args, kwargs, want) in records.items():
+        cpu = copy.deepcopy(layers[name]).cpu()
+        got = _first(cpu(*args, **kwargs))
+        del cpu
+        if not torch.isfinite(want).all():
+            raise AssertionError(f"{name} gave non-finite values")
+        errs[name] = ((got - want).abs().max() / want.abs().max()).item()
+    if len(errs) != len(layers):
+        raise AssertionError(f"{len(layers) - len(errs)} layers never ran")
+    return errs
+
+
+def _one_sequence(model, dev, px, gi, gm, cfg, gcfg):
+    """encode, the first decode step and the beam search of one (question,
+    passage) sequence. Returns (encoder output, first logits, beams,
+    scores), on the CPU."""
+    import torch
+    from ravqa_tpu_torch.models.generation import beam_generate
+    enc, m = model.encode(torch.as_tensor(px, device=dev),
+                          torch.as_tensor(gi, dtype=torch.long, device=dev),
+                          torch.as_tensor(gm, device=dev))
+    kv = model.cross_kv(enc)
+    start = torch.full((1, 1), gcfg.decoder_start_token_id,
+                       dtype=torch.long, device=dev)
+    logits, _ = model.decode_step(start, kv, m, model.init_cache(1, 1))
+    seqs, scores = beam_generate(
+        lambda tok, cache: model.decode_step(tok, kv, m, cache),
+        lambda n: model.init_cache(n, cfg.max_decode_len), 1, cfg.num_beams,
+        cfg.max_decode_len, gcfg.decoder_start_token_id, gcfg.eos_token_id,
+        gcfg.pad_token_id)
+    return [t.cpu() for t in (enc, logits, seqs, scores)]
+
+
+def generator_vs_cpu(ex, server, question, features, image):
+    """One (question, passage) sequence, float32 with TF32 off: (1) every
+    layer of the full-depth generator on the card against its CPU copy on
+    the card's own inputs (the encode, the cross-attention keys and values
+    and the first decode step; within 1e-4 of each output's largest
+    magnitude); (2) a copy with the same widths, the full vision tower and
+    Q-Former and the T5 stacks cut to their first RAG_CUT_LAYERS layers
+    (the card's own weights), on the card and on the CPU: its encoder
+    output and first logits within 1e-4 of the largest magnitude, its beam
+    search's tokens identical; (3) the full model end to end in float32 on
+    the card and on the CPU, each against a float64 run on the CPU: the
+    vision tower's, the Q-Former's and every T5 encoder layer's output, the
+    encoder output, the first logits and the beam tokens (the conditioning,
+    above); the card's vision tower and Q-Former within 1e-4 of float64, its
+    encoder output and first logits no farther from float64 than F64_FACTOR
+    times the CPU's float32 plus 1e-4. Returns the errors."""
+    import dataclasses as dc
+    import torch
+    from ravqa_tpu_torch.models.blip2 import Blip2T5
+    gen = ex.model.generator
+    cfg, gcfg = ex.rag_cfg, gen.cfg.t5
+    cpu = torch.device("cpu")
+    ids, mask = server.qt.tensorize([question])
+    batch = server.gen_batch([(question, np.asarray(ids)[0],
+                               np.asarray(mask)[0], features, image, None)])
+    t0 = time.perf_counter()
+    out, full, stages = {}, {}, {}
+
+    def copy_of(gen_cfg, dev, dtype):
+        m = Blip2T5(gen_cfg, device="meta")
+        keep = m.state_dict().keys()
+        m.load_state_dict({k: v.to(dev, dtype) if v.is_floating_point()
+                           else v.to(dev)
+                           for k, v in gen.state_dict().items() if k in keep},
+                          assign=True)
+        return m
+
+    with torch.inference_mode():
+        ret = ex.retrieve(batch)
+        text = ex.input_builder.build([question], ret["contents"])[:1]
+        gi, gm = ex._tensorize(text, cfg.gen_maxlen)
+        px = image[None]
+
+        def traced(model, dev, key):
+            def run():
+                full[key] = _one_sequence(model, dev, px, gi, gm, cfg, gcfg)
+            stages[key] = _stage_outputs(model, run)
+
+        errs = layers_vs_cpu(gen, lambda: traced(gen, ex.device, "card"))
+        worst = max(errs, key=errs.get)
+        kv_worst = max(v for k, v in errs.items() if k.endswith(
+            ("cross_k", "cross_v")))
+        out["layer_rel_err"] = errs[worst]
+        print(f"every layer of the full generator ({len(errs)} layers, the "
+              f"encode, the cross-attention keys and values and the first "
+              f"decode step) on the card vs its CPU copy on the card's "
+              f"inputs: max {errs[worst]:.3g} of the largest magnitude "
+              f"({worst}); vision tower {errs['vision_model']:.3g}, Q-Former "
+              f"{errs['qformer']:.3g}, cross-attention K/V {kv_worst:.3g}, "
+              f"LM head {errs['lm_head']:.3g}", flush=True)
+        if errs[worst] > GEN_RTOL:
+            raise AssertionError(f"layer {worst} disagrees with its CPU run: "
+                                 f"{errs[worst]}")
+        cut_cfg = dc.replace(gen.cfg, t5=dc.replace(
+            gcfg, num_layers=RAG_CUT_LAYERS,
+            num_decoder_layers=RAG_CUT_LAYERS))
+        cut = {}
+        for name, dev in (("card", ex.device), ("cpu", cpu)):
+            m = copy_of(cut_cfg, dev, torch.float32)
+            cut[name] = _one_sequence(m, dev, px, gi, gm, cfg, gcfg)
+            del m
+        t_ref = time.perf_counter()
+        for key, dtype in (("cpu", torch.float32), ("float64", torch.float64)):
+            m = copy_of(gen.cfg, cpu, dtype)
+            traced(m, cpu, key)
+            del m
+        t_ref = time.perf_counter() - t_ref
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    (enc_d, log_d, seq_d, sc_d), (enc_c, log_c, seq_c, sc_c) = \
+        cut["card"], cut["cpu"]
+    for t in (enc_d, log_d, sc_d, *full["card"]):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError("the generator gave non-finite values")
+    out.update(cut_enc_rel_err=rel(enc_d, enc_c),
+               cut_logits_rel_err=rel(log_d, log_c),
+               cut_beam_tokens_equal=bool(torch.equal(seq_d, seq_c)),
+               cut_beam_lp_err=(sc_d - sc_c).abs().max().item(),
+               full_enc_rel_err=rel(full["card"][0], full["cpu"][0]),
+               full_logits_rel_err=rel(full["card"][1], full["cpu"][1]),
+               full_beam_tokens_equal=bool(torch.equal(full["card"][2],
+                                                       full["cpu"][2])))
+    print(f"the generator with its T5 stacks cut to {RAG_CUT_LAYERS} + "
+          f"{RAG_CUT_LAYERS} layers (ViT-g {gen.cfg.vision.num_layers}, "
+          f"Q-Former {gen.cfg.qformer.num_layers}; the card's own weights), "
+          f"one sequence of {gen.cfg.num_query_tokens} + "
+          f"{cfg.gen_maxlen} tokens, card vs CPU: encoder output "
+          f"{out['cut_enc_rel_err']:.3g}, first logits "
+          f"{out['cut_logits_rel_err']:.3g} of the largest magnitude, beam "
+          f"tokens identical: {out['cut_beam_tokens_equal']} (log-probs "
+          f"{out['cut_beam_lp_err']:.3g} apart). The full model end to end, "
+          f"card vs CPU: encoder output {out['full_enc_rel_err']:.3g}, "
+          f"first logits {out['full_logits_rel_err']:.3g}, beam tokens "
+          f"identical: {out['full_beam_tokens_equal']}", flush=True)
+    ref, n_enc = full["float64"], gcfg.num_layers
+    vs64 = {}
+    for key, where in (("card", "the card"), ("cpu", "the CPU")):
+        e = {name: rel(got, stages["float64"][name])
+             for name, got in stages[key].items()}
+        e.update(encoder_output=rel(full[key][0], ref[0]),
+                 first_logits=rel(full[key][1], ref[1]),
+                 beam_tokens_equal=bool(torch.equal(full[key][2], ref[2])),
+                 growth_per_layer=(e[f"encoder.{n_enc - 1}"]
+                                   / e["encoder.0"]) ** (1 / (n_enc - 1)))
+        vs64[key] = e
+        print(f"the full model in float32 on {where} vs float64 on the CPU, "
+              f"of the largest magnitude: ViT-g {e['vision_model']:.3g}, "
+              f"Q-Former {e['qformer']:.3g}, T5 encoder layer "
+              + ", ".join(f"{i + 1} {e[f'encoder.{i}']:.3g}"
+                          for i in range(n_enc))
+              + f" ({e['growth_per_layer']:.3g}x a layer); encoder output "
+              f"{e['encoder_output']:.3g}, first logits "
+              f"{e['first_logits']:.3g}; beam tokens equal to float64's: "
+              f"{e['beam_tokens_equal']}", flush=True)
+    out["vs_float64"] = vs64
+    print(f"the CPU's float32 and float64 runs {t_ref:.1f} s; the check "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    card64, cpu64 = vs64["card"], vs64["cpu"]
+    for name in ("vision_model", "qformer"):
+        if card64[name] > GEN_RTOL:
+            raise AssertionError(f"{name} on the card is {card64[name]} from "
+                                 f"float64")
+    for name in ("encoder_output", "first_logits"):
+        if card64[name] > F64_FACTOR * cpu64[name] + GEN_RTOL:
+            raise AssertionError(
+                f"the full model's {name} on the card is {card64[name]} from "
+                f"float64, the CPU's float32 {cpu64[name]}")
+    if not (out["cut_enc_rel_err"] <= GEN_RTOL
+            and out["cut_logits_rel_err"] <= GEN_RTOL
+            and out["cut_beam_tokens_equal"]):
+        raise AssertionError("the cut generator on the card disagrees with "
+                             "its CPU run")
+    return out
+
+
+def rag_serve_slice(maxsim, k1, smi):
+    """The RAVQA-v2 answer serve (phase 16). Returns the phase's numbers
+    (launches of K1-f32 under "launches")."""
+    import torch
+    from ravqa_tpu_torch.main import build_pipeline, build_server, load_config
+    from ravqa_tpu_torch.profile_serve import vqa_request, vqa_stages
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(RAG_CONFIG)
+    data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
+                                        explode=True)
+    server = build_server(cfg, data, "cuda")
+    ex = server.ex
+    gen = ex.model.generator
+    gc, rc = gen.cfg, ex.rag_cfg
+    widths = (gc.vision.hidden_size, gc.vision.num_layers,
+              gc.qformer.num_layers, gc.num_query_tokens, gc.t5.d_model,
+              gc.t5.num_layers, gc.t5.n_dec, gc.t5.d_ff, gc.t5.vocab_size,
+              gc.t5.tie_word_embeddings, rc.n_docs, rc.num_beams,
+              rc.gen_maxlen, rc.max_decode_len, rc.lora_rank)
+    if widths != (1408, 39, 12, 32, 2048, 24, 24, 5120, 32128, False, 5, 5,
+                  512, 10, 8) or ex.lora is not None \
+            or server.pixel_shape != (224, 224, 3) \
+            or ex.searcher.mode != "exact":
+        raise AssertionError(f"the RAG serve is not the published recipe: "
+                             f"{widths}")
+    n_params = sum(p.numel() for p in gen.parameters())
+    print(f"set-up {time.perf_counter() - t_phase:.1f} s: generator "
+          f"{n_params / 1e9:.3f}e9 parameters on {next(gen.parameters()).device}"
+          f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    out = {"generator_params": n_params}
+    searches, outputs, undo = record_dispatches(server)
+    maxsim.maxsim_search.launches = 0
+    maxsim.maxsim_search.split_launches = 0
+    d0 = server.dispatches
+    try:
+        results, lat, rates = drive_vqa(server, data)
+        launches = maxsim.maxsim_search.launches
+        split = maxsim.maxsim_search.split_launches
+        dispatches = server.dispatches - d0
+    finally:
+        undo()
+    print(f"{len(results)} questions in {dispatches} dispatches: closed loop "
+          f"p50 {np.percentile(lat, 50) * 1e3:.1f} ms, p95 "
+          f"{np.percentile(lat, 95) * 1e3:.1f} ms; bursts of 8 "
+          f"{', '.join(f'{r:.3f}' for r in rates)} questions/s; K1-f32 "
+          f"launches {launches} ({split} on the split route)", flush=True)
+    if dispatches == 0 or launches != dispatches or split != launches:
+        raise AssertionError(f"K1-f32 launched {launches} times ({split} "
+                             f"split) for {dispatches} dispatches")
+    for r in results:
+        if not (isinstance(r.answer, str) and r.doc_scores.shape == (5,)
+                and np.isfinite(r.doc_scores).all()
+                and len(r.passages) == 5):
+            raise AssertionError(f"a malformed answer: {r}")
+    out.update(launches={"K1-f32": launches}, dispatches=dispatches,
+               p50_ms=float(np.percentile(lat, 50) * 1e3),
+               p95_ms=float(np.percentile(lat, 95) * 1e3),
+               questions_per_s=rates,
+               answers=[r.answer for r in results[:4]])
+    out["search_err"], out["doc_scores_err"] = check_rag_retrieval(
+        ex, searches, outputs)
+    item = data["train"].items[0]
+    req = vqa_request(0, item, server)
+    out["generator_vs_cpu"] = generator_vs_cpu(
+        ex, server, item["question"], req["image_features"],
+        req["pixel_values"])
+    stages, rows = vqa_stages(server, data, 8)
+    with torch.inference_mode():
+        batch = server.gen_batch(rows)
+        ret = ex.retrieve(batch)
+        gi, gm = ex._tensorize(ex.input_builder.build(batch["questions"],
+                                                      ret["contents"]),
+                               rc.gen_maxlen)
+        enc, m = ex.encode_generator(gi, gm, batch["pixel_values"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cached = ex.decode(gen.cross_kv(enc), m)
+        torch.cuda.synchronize()
+        t_cached = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recomputed = ex.decode(enc, m)
+        torch.cuda.synchronize()
+        t_rec = time.perf_counter() - t0
+        same = torch.equal(cached[0], recomputed[0])
+        lp_err = (cached[1] - recomputed[1]).abs().max().item()
+        print(f"decode of one dispatch ({enc.shape[0]} sequences x "
+              f"{rc.num_beams} beams): cross-attention keys and values "
+              f"cached {t_cached * 1e3:.1f} ms vs projected every step "
+              f"{t_rec * 1e3:.1f} ms (the beams' rows grouped); tokens "
+              f"identical: {same}, log-probs {lp_err:.3g} apart", flush=True)
+        if not same or lp_err > 1e-4 or not torch.isfinite(cached[1]).all():
+            raise AssertionError("cached cross-attention K/V disagree with "
+                                 "K/V projected every step")
+        out["kv_cache_lp_err"] = lp_err
+        split_ms = {name: time_ms(fn, iters=3, warmup=1)
+                    for name, fn in stages.items()}
+        out["whole_generate_ms"] = time_ms(lambda: ex.generate(batch),
+                                           iters=3, warmup=1)
+    out["dispatch_split_ms"] = split_ms
+    print(f"dispatch of 8 questions, ms by stage (CUDA events): "
+          + ", ".join(f"{n} {v:.2f}" for n, v in split_ms.items())
+          + f"; the whole generate {out['whole_generate_ms']:.1f}",
+          flush=True)
+    kernel_shape(k1, "K1-f32", "rag serve f32 B=8 Lq=64 N=16387 Ld=220",
+                 8, 64, 16387, 220, 128, torch.float32, torch.float32,
+                 maxsim)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"peak max_memory_allocated {out['peak_bytes'] / 2**30:.2f} GiB; "
+          f"phase {out['seconds']:.1f} s ({smi})", flush=True)
+    server.stop()
+    del server, ex, gen, enc, searches, outputs
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2106,6 +2648,8 @@ def main():
     preflmr = {name: preflmr_slice(path, maxsim, k1, sweeps, smi)
                for name, path in (("exact", PREFLMR_CONFIG),
                                   ("hierarchical", PREFLMR_HIER_CONFIG))}
+    phase("16 RAVQA-v2 answer serve (BLIP-2 Flan-T5-XL over FLMR, K1-f32)")
+    rag_serve = rag_serve_slice(maxsim, k1, smi)
     phase("report")
 
     def entry(name, source, replaces, launches, measured):
@@ -2140,6 +2684,7 @@ def main():
         next(iter(k1["K1-f32"]["shapes"]))]["f32_bound_ms"]
     kernels["K1-f32"]["launches_preflmr_serve"] = \
         preflmr["exact"]["launches"]["K1-f32"]
+    kernels["K1-f32"]["launches_rag_serve"] = rag_serve["launches"]["K1-f32"]
 
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (bf16, tensor cores)", "coarse_sweep.cu",
@@ -2215,7 +2760,8 @@ def main():
                       "stage2_experiment": experiment,
                       "train_step_vs_cpu": train_step,
                       "train_slice": train_slice,
-                      "preflmr_serve": preflmr}), flush=True)
+                      "preflmr_serve": preflmr,
+                      "rag_serve": rag_serve}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

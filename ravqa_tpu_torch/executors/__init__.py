@@ -2,7 +2,10 @@ from .base import (BaseExecutor, MetricsLogger, Optimizer, TrainConfig,
                    make_optimizer, make_schedule)
 from .callbacks import CheckpointManager, EarlyStopping
 from .flmr_executor import FLMRExecutor
+from .rag_executor import (RagConfig, RagExecutor,
+                           load_static_retrieval_from_predictions)
 
 __all__ = ["BaseExecutor", "MetricsLogger", "Optimizer", "TrainConfig",
            "make_optimizer", "make_schedule", "CheckpointManager",
-           "EarlyStopping", "FLMRExecutor"]
+           "EarlyStopping", "FLMRExecutor", "RagConfig", "RagExecutor",
+           "load_static_retrieval_from_predictions"]

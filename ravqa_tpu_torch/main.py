@@ -1,11 +1,14 @@
 """CLI entry point of the PyTorch port: config-driven FLMR retrieval
-training, evaluation and serving.
+training, evaluation and serving, and RAVQA answer serving.
 
-Port of ravqa_tpu/main.py for FLMR retrieval configs: `--mode train`
+Port of ravqa_tpu/main.py. For FLMR retrieval configs: `--mode train`
 (the trainer, validation through `run_eval` every `train.val_every` steps,
 then `<log_dir>/<experiment_name>/ckpt`), `--mode test` / `eval` (the
 checkpoint, an index of the corpus, search, `<split>_metrics.json`,
-`<split>_predictions.json` and the prediction table), `--mode serve` and
+`<split>_predictions.json` and the prediction table), `--mode serve`
+(a RetrievalServer, POST /search) and `prepare_data`. For RAG configs
+(`executor.ExecutorClass` RagExecutor): `--mode serve` (a VQAServer over
+live FLMR retrieval and a T5 or BLIP-2 generator, POST /answer) and
 `prepare_data`. Examples, on an NVIDIA GPU:
 
     python -m ravqa_tpu_torch.main --config configs/synthetic_flmr.json \
@@ -14,15 +17,19 @@ checkpoint, an index of the corpus, search, `<split>_metrics.json`,
         --mode eval --experiment_name dev
     python -m ravqa_tpu_torch.main \
         --config configs/synthetic_flmr_base_serve.json --mode serve
+    python -m ravqa_tpu_torch.main \
+        --config configs/synthetic_rag_blip2_serve.json --mode serve
 
-`--device` chooses where the model and index live (default "cuda"; pass
-"cpu" for the plain PyTorch path). RAG configs and `--num_devices` are not
+`--device` chooses where the models and index live (default "cuda"; pass
+"cpu" for the plain PyTorch path). RAG training and evaluation
+(`--mode train/test/eval` on a RAG config) and `--num_devices` are not
 ported yet (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 from typing import Optional
@@ -142,9 +149,93 @@ def build_executor(cfg: Config, device, log_dir: Optional[str] = None,
                         inference_only=inference_only)
 
 
+def build_rag_executor(cfg: Config, data, device,
+                       log_dir: Optional[str] = None, quiet: bool = True):
+    """RAVQA / RAVQA-v2 executor from a config (executor.ExecutorClass
+    RagExecutor): the FLMR retriever (weights from a CPU generator of the
+    config's seed, as build_executor's), the corpus index encoded on
+    `device`, and the `model_config.generator` (type "t5", or "blip2" with
+    its vision, qformer and t5 blocks), built on `device` with weights
+    drawn there from a generator seeded seed + 1, at the flax
+    initializers' scales. `model_config.rag` keys fill RagConfig; the
+    module flags use_gt_docs_for_training, ignore_knowledge_passages and
+    force_existence, num_knowledge_passages(_in_training) and
+    static_retrieval (with index_files.static_results) are read as the
+    JAX package's build_rag_executor reads them."""
+    from .data import corpus_doc_batches
+    from .executors import FLMRExecutor, RagConfig, RagExecutor
+    from .executors.rag_executor import \
+        load_static_retrieval_from_predictions
+    from .models import FLMRRetriever, T5Config, T5Model
+    from .models.blip2 import (Blip2Config, Blip2T5, Blip2VisionConfig,
+                               QFormerConfig)
+
+    mc = cfg.model_config
+    seed = cfg.get("seed", 0)
+    retriever = FLMRRetriever(_flmr_config_from(mc))
+    retriever.reset_parameters(torch.Generator().manual_seed(seed))
+    gen_cfg = dict(mc.get("generator", {}))
+    gen_type = gen_cfg.pop("type", "t5")
+    tok = data["tokenizer"]
+    gen_cfg.setdefault("vocab_size", tok.vocab_size + 8)
+    gen_cfg.setdefault("eos_token_id", tok.sep_token_id)
+    # built on the meta device, then given memory and drawn on `device`:
+    # a full-width generator never passes through the host
+    if gen_type == "blip2":
+        # with a "t5" block the flat keys above stay unread, as in JAX
+        nqt = gen_cfg.pop("num_query_tokens", 32)
+        generator = Blip2T5(Blip2Config(
+            vision=Blip2VisionConfig(**gen_cfg.pop("vision", {})),
+            qformer=QFormerConfig(**gen_cfg.pop("qformer", {})),
+            t5=T5Config(**gen_cfg.pop("t5", gen_cfg)),
+            num_query_tokens=nqt), device="meta")
+    else:
+        generator = T5Model(T5Config(**gen_cfg), device="meta")
+    generator = generator.to_empty(device=device)
+    generator.reset_parameters(
+        torch.Generator(device=device).manual_seed(seed + 1))
+    corpus = data["passages"]["full_passages"]
+    index = FLMRExecutor(retriever, device=device,
+                         inference_only=True).build_index(
+        corpus_doc_batches(corpus, data["doc_tokenizer"], batch_size=64))
+    rag_keys = {f.name for f in dataclasses.fields(RagConfig)}
+    rag_kwargs = {k: v for k, v in mc.get("rag", {}).items()
+                  if k in rag_keys}
+    rag_kwargs["generator_type"] = gen_type
+    modules = mc.get("modules", [])
+    for flag in ("use_gt_docs_for_training", "ignore_knowledge_passages",
+                 "force_existence"):
+        if flag in modules:
+            rag_kwargs[flag] = True
+    if mc.get("num_knowledge_passages_in_training"):
+        rag_kwargs["n_docs_in_training"] = \
+            mc["num_knowledge_passages_in_training"]
+    if mc.get("num_knowledge_passages"):
+        rag_kwargs.setdefault("n_docs", mc["num_knowledge_passages"])
+    static_map = None
+    if "static_retrieval" in modules:
+        paths = mc.get("index_files", {}).get("static_results", [])
+        if not paths:
+            raise ValueError("the static_retrieval module needs "
+                             "model_config.index_files.static_results")
+        static_map = {}
+        for path in paths:
+            static_map.update(
+                load_static_retrieval_from_predictions(path, corpus.ids))
+    return RagExecutor(retriever, generator, gen_tokenizer=tok,
+                       rag_cfg=RagConfig(**rag_kwargs),
+                       query_tokenizer=data["query_tokenizer"], index=index,
+                       passage_contents=corpus.contents,
+                       static_retrieval=static_map, device=device,
+                       log_dir=log_dir, seed=seed, quiet=quiet)
+
+
 def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     """RetrievalServer from a config: encode the corpus into an index on
-    `device`, build the searcher, wrap both in the micro-batcher.
+    `device`, build the searcher, wrap both in the micro-batcher. A RAG
+    config gives a VQAServer instead (build_rag_executor; the checkpoint
+    loaded, then the LoRA merged once by prepare_for_serving; a BLIP-2
+    generator's requests carry pixels of its vision config's image size).
     Loads `train.load_model_path` (a params file or a checkpoint
     directory), else <log_dir>/ckpt/params.msgpack (the JAX package's
     checkpoint) or <log_dir>/ckpt/params.npz, when present.
@@ -156,7 +247,7 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     centroid_prune, coarse_query_len, stage1_kernel, preset)."""
     from .data import corpus_doc_batches
     from .retrieval import LateInteractionSearcher
-    from .serving import RetrievalServer, ServeConfig
+    from .serving import RetrievalServer, ServeConfig, VQAServer
 
     sv = cfg.get("serve", Config())
     sc = ServeConfig(max_batch=sv.get("max_batch", 32),
@@ -164,10 +255,24 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
                      k=sv.get("k", 10),
                      max_queue=sv.get("max_queue", 0))
     mc = cfg.model_config
-    ex = build_executor(cfg, device, inference_only=True)
+    rag = _is_rag(cfg)
+    ex = (build_rag_executor(cfg, data, device, log_dir) if rag
+          else build_executor(cfg, device, inference_only=True))
     if not _load_checkpoint(ex, cfg, log_dir):
         print("serve: no checkpoint found (set train.load_model_path) "
               "— serving randomly initialized weights", flush=True)
+    if rag:
+        ex.prepare_for_serving()
+        vis = (ex.model.generator.cfg.vision
+               if ex.rag_cfg.generator_type == "blip2" else None)
+        server = VQAServer(
+            ex, data["query_tokenizer"],
+            image_feature_dim=mc.get("vision_embedding_size", 768),
+            pixel_shape=(None if vis is None else
+                         (vis.image_size, vis.image_size, 3)),
+            config=sc)
+        server.warm_up()
+        return server
     corpus = data["passages"]["full_passages"]
     index = ex.build_index(
         corpus_doc_batches(corpus, data["doc_tokenizer"], batch_size=64))
@@ -199,6 +304,10 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
         config=sc)
     server.warm_up()
     return server
+
+
+def _is_rag(cfg: Config) -> bool:
+    return cfg.get("executor", Config()).get("ExecutorClass") == "RagExecutor"
 
 
 def _load_checkpoint(ex, cfg, log_dir: Optional[str]) -> bool:
@@ -360,11 +469,13 @@ def run_test(cfg, args, data, log_dir: str) -> int:
 
 
 def run_serve(cfg, args, data, log_dir: str) -> int:
-    from .serving import make_http_server
+    from .serving import VQAServer, make_http_server
     server = build_server(cfg, data, args.device, log_dir)
     httpd = make_http_server(server, args.host, args.port)
-    print(f"RetrievalServer on {args.device} listening on {args.host}:"
-          f"{httpd.server_address[1]} (POST /search, GET /healthz)",
+    what = (("VQAServer", "/answer") if isinstance(server, VQAServer)
+            else ("RetrievalServer", "/search"))
+    print(f"{what[0]} on {args.device} listening on {args.host}:"
+          f"{httpd.server_address[1]} (POST {what[1]}, GET /healthz)",
           flush=True)
     try:
         httpd.serve_forever()
@@ -385,9 +496,10 @@ def main(argv=None):
     if args.use_dummy_data:
         # the reference flag truncates the OK-VQA loader's items; the port
         # has no OK-VQA loader yet, and SyntheticOKVQA ignores the flag
-        raise NotImplementedError(f"--use_dummy_data {_NOT_PORTED}: A7")
-    if cfg.get("executor", Config()).get("ExecutorClass") == "RagExecutor":
-        raise NotImplementedError(f"RAG configs {_NOT_PORTED}: A6")
+        raise NotImplementedError(f"--use_dummy_data {_NOT_PORTED}: A3")
+    if _is_rag(cfg) and args.mode in ("train", "test", "eval"):
+        raise NotImplementedError(
+            f"--mode {args.mode} on a RAG config {_NOT_PORTED}: A6")
     if args.num_devices:
         raise NotImplementedError(f"--num_devices {_NOT_PORTED}: A4")
     log_dir = os.path.join(args.log_dir, args.experiment_name)

@@ -1,24 +1,42 @@
 from .bert import BertConfig, BertModel
-from .convert import (flatten_params, flax_to_state_dict, load_params,
-                      load_params_npz, read_flax_msgpack, save_params,
-                      state_dict_to_flax, write_flax_msgpack)
+from .blip2 import (Blip2Config, Blip2T5, Blip2VisionConfig,
+                    Blip2VisionModel, QFormer, QFormerConfig)
+from .convert import (flatten_params, flax_to_state_dict,
+                      generator_to_flax, generator_to_state_dict,
+                      load_params, load_params_npz, lora_to_flax,
+                      lora_to_torch, rag_params_to_torch, read_flax_msgpack,
+                      read_params_tree, save_params, state_dict_to_flax,
+                      write_flax_msgpack)
 from .flmr import (FLMRModelConfig, FLMRRetriever, l2_normalize,
                    punctuation_skiplist_ids, skiplist_mask)
+from .generation import beam_generate, greedy_generate
+from .lora import count_lora_params, init_lora, merge_lora
 from .mapping import (MappingMLP, TransformerMapping,
                       TransformerMappingLayer, VisionMapping)
+from .rag import GeneratorInputBuilder, select_answers_by_joint_score
+from .t5 import T5Config, T5Model, shift_right
 from .transformer import (EncoderConfig, EncoderLayer, MlpBlock,
                           MultiHeadAttention, TransformerEncoder,
                           attention_bias_from_mask, gelu, quick_gelu)
 from .vit import (CLIPVisionModel, ViTConfig, clip_preprocess,
                   convert_hf_clip_vision_params)
 
-__all__ = ["BertConfig", "BertModel", "flatten_params", "flax_to_state_dict",
-           "load_params", "load_params_npz", "read_flax_msgpack",
+__all__ = ["BertConfig", "BertModel", "Blip2Config", "Blip2T5",
+           "Blip2VisionConfig", "Blip2VisionModel", "QFormer",
+           "QFormerConfig", "flatten_params", "flax_to_state_dict",
+           "generator_to_flax", "generator_to_state_dict",
+           "load_params", "load_params_npz", "lora_to_flax",
+           "lora_to_torch", "rag_params_to_torch", "read_flax_msgpack",
+           "read_params_tree",
            "save_params", "state_dict_to_flax", "write_flax_msgpack",
            "FLMRModelConfig", "FLMRRetriever",
            "l2_normalize", "punctuation_skiplist_ids", "skiplist_mask",
+           "beam_generate", "greedy_generate", "count_lora_params",
+           "init_lora", "merge_lora",
            "MappingMLP", "TransformerMapping", "TransformerMappingLayer",
-           "VisionMapping", "EncoderConfig", "EncoderLayer",
+           "VisionMapping", "GeneratorInputBuilder",
+           "select_answers_by_joint_score", "T5Config", "T5Model",
+           "shift_right", "EncoderConfig", "EncoderLayer",
            "MlpBlock", "MultiHeadAttention", "TransformerEncoder",
            "attention_bias_from_mask", "gelu", "quick_gelu",
            "CLIPVisionModel", "ViTConfig", "clip_preprocess",

@@ -20,6 +20,13 @@ A Flax params tree (nested dicts of numpy arrays, as
 ``state_dict_to_flax`` is the way back, so a tree the port trained loads
 into the JAX package.
 
+The RAG generators (T5Model, Blip2T5) have their own pair,
+``generator_to_state_dict`` / ``generator_to_flax`` (T5's DenseGeneral
+q/k/v (d_model, H, d_kv) and o (H, d_kv, d_model) kernels, the BLIP-2
+patch kernel HWIO <-> OIHW, ``encoder_<i>`` / ``decoder_<i>`` stacks), and
+their LoRA trees ``lora_to_torch`` / ``lora_to_flax``; ``rag_params_to_torch``
+splits the JAX RagExecutor's tree.
+
 Imports no flax and no msgpack. The JAX package writes a params tree as
 flax msgpack (``save_params``, and ``params.msgpack`` in a
 ``save_checkpoint`` directory); ``read_flax_msgpack`` decodes the subset
@@ -161,6 +168,151 @@ def state_dict_to_flax(state_dict: dict, num_heads: dict[str, int]) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(a)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# the RAG generators (T5Model, Blip2T5), their LoRA trees and the RAG tree
+# ---------------------------------------------------------------------------
+
+_GEN_LIST = re.compile(r"^(encoder|decoder|layer)_(\d+)$")
+_GEN_BARE = ("class_embedding", "position_embedding", "query_tokens")
+
+
+def _gen_torch_names(path: list[str]) -> list[str]:
+    """Flax module names -> the port's: encoder_<i> / decoder_<i> ->
+    encoder.<i> / decoder.<i>, layer_<i> -> layers.<i>."""
+    names = []
+    for p in path:
+        m = _GEN_LIST.match(p)
+        if m:
+            names += ["layers" if m.group(1) == "layer" else m.group(1),
+                      m.group(2)]
+        else:
+            names.append(p)
+    return names
+
+
+def _gen_flax_path(name: str) -> list[str]:
+    """The inverse of _gen_torch_names, on a dotted module name."""
+    parts = name.split(".") if name else []
+    path = []
+    i = 0
+    while i < len(parts):
+        if parts[i] in ("encoder", "decoder", "layers") \
+                and i + 1 < len(parts) and parts[i + 1].isdigit():
+            stem = "layer" if parts[i] == "layers" else parts[i]
+            path.append(f"{stem}_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    return path
+
+
+def generator_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's T5Model or Blip2T5 params tree (nested dicts of
+    numpy arrays) -> the port's state_dict (float32 CPU tensors):
+    T5's DenseGeneral q/k/v kernels (d_model, H, d_kv) and o (H, d_kv,
+    d_model) flatten to Linear weights; Dense kernels transpose; the
+    patch embedding's HWIO kernel becomes the Conv2d's OIHW; Embed
+    tables, LayerNorm scales and RMSNorm weights map to `weight`; the
+    class and position embeddings and the query tokens keep their names."""
+    sd = {}
+    for key, value in flatten_params(params).items():
+        *path, leaf = key.split("/")
+        names = _gen_torch_names(path)
+        a = np.asarray(value, np.float32)
+        if leaf in _GEN_BARE:
+            sd[".".join(names + [leaf])] = torch.tensor(a)
+            continue
+        if leaf == "kernel":
+            if a.ndim == 4:                       # (kh, kw, in, out)
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 3 and path[-1] == "o":  # (H, d_kv, d_model)
+                a = a.reshape(-1, a.shape[-1]).T
+            elif a.ndim == 3:                     # (d_model, H, d_kv)
+                a = a.reshape(a.shape[0], -1).T
+            else:
+                a = a.T
+        elif leaf not in ("scale", "embedding", "weight", "bias"):
+            raise KeyError(f"unknown generator parameter {key}")
+        sd[".".join(names + ["bias" if leaf == "bias" else "weight"])] = \
+            torch.tensor(np.ascontiguousarray(a))
+    return sd
+
+
+def generator_to_flax(model: torch.nn.Module) -> dict:
+    """The inverse of generator_to_state_dict: a T5Model's or Blip2T5's
+    parameters -> the JAX package's params tree (float32 numpy), the
+    attention kernels split by the T5 config's heads."""
+    from .t5 import T5Attention
+    nn = torch.nn
+    modules = dict(model.named_modules())
+    tree: dict = {}
+    for name, m in modules.items():
+        path = _gen_flax_path(name)
+        parent = modules.get(name.rpartition(".")[0])
+        for pname, p in m.named_parameters(recurse=False):
+            a = p.detach().to(device="cpu", dtype=torch.float32).numpy()
+            leaf = pname
+            if isinstance(m, nn.Linear) and pname == "weight":
+                leaf, a = "kernel", a.T
+                if isinstance(parent, T5Attention):
+                    h, d = parent.cfg.num_heads, parent.cfg.d_kv
+                    a = (a.reshape(h, d, -1) if path[-1] == "o"
+                         else a.reshape(a.shape[0], h, d))
+            elif isinstance(m, nn.Conv2d) and pname == "weight":
+                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+            elif isinstance(m, nn.LayerNorm) and pname == "weight":
+                leaf = "scale"
+            elif isinstance(m, nn.Embedding):
+                leaf = "embedding"
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = np.ascontiguousarray(a)
+    return tree
+
+
+def lora_to_torch(params: dict) -> dict:
+    """The JAX package's LoRA tree (lora_a (in, r) / lora_b (r, out) leaves
+    under the adapted kernel's path) -> the port's LoRA dict, keyed by the
+    adapted Linear's weight name (models/lora.py)."""
+    out: dict = {}
+    for key, value in flatten_params(params).items():
+        *path, leaf = key.split("/")
+        if leaf not in ("lora_a", "lora_b"):
+            raise KeyError(f"unknown LoRA parameter {key}")
+        name = ".".join(_gen_torch_names(path) + ["weight"])
+        out.setdefault(name, {})[leaf] = torch.tensor(
+            np.asarray(value, np.float32))
+    return out
+
+
+def lora_to_flax(lora: dict) -> dict:
+    """The inverse of lora_to_torch."""
+    tree: dict = {}
+    for name, entry in lora.items():
+        node = tree
+        for part in _gen_flax_path(name.rpartition(".")[0]):
+            node = node.setdefault(part, {})
+        for leaf, t in entry.items():
+            node[leaf] = t.detach().to(device="cpu",
+                                       dtype=torch.float32).numpy()
+    return tree
+
+
+def rag_params_to_torch(params: dict):
+    """The JAX RagExecutor's params tree {"retriever": ..., "generator":
+    gen} (LoRA merged, or none) or {"generator": {"base": gen, "lora":
+    lora}} -> (the retriever's state_dict, the generator's, the LoRA dict
+    or None)."""
+    gen = params["generator"]
+    lora = None
+    if set(gen) == {"base", "lora"}:
+        gen, lora = gen["base"], lora_to_torch(gen["lora"])
+    return (flax_to_state_dict(params["retriever"]),
+            generator_to_state_dict(gen), lora)
 
 
 def load_params_npz(path: str) -> dict[str, torch.Tensor]:
@@ -377,17 +529,30 @@ def save_params(state_dict: dict, path: str,
         f.write(data)
 
 
-def load_params(path: str) -> dict[str, torch.Tensor]:
-    """Read a params file into the port's state_dict: a flattened-key
+def read_params_tree(path: str) -> dict:
+    """A params file as a nested tree of numpy arrays: a flattened-key
     ``.npz``, or a flax msgpack params tree (the JAX package's
     ``save_params`` file or a ``save_checkpoint`` directory's
     ``params.msgpack``; a tree under a single "params" key is unwrapped)."""
     if zipfile.is_zipfile(path):
-        return load_params_npz(path)
+        tree: dict = {}
+        with np.load(path) as z:
+            for key in z.files:
+                *path_, leaf = key.split("/")
+                node = tree
+                for p in path_:
+                    node = node.setdefault(p, {})
+                node[leaf] = z[key]
+        return tree
     with open(path, "rb") as f:
         tree = read_flax_msgpack(f.read())
     if not isinstance(tree, dict):
         raise ValueError(f"{path}: not a params tree")
     if set(tree) == {"params"} and isinstance(tree["params"], dict):
         tree = tree["params"]
-    return flax_to_state_dict(tree)
+    return tree
+
+
+def load_params(path: str) -> dict[str, torch.Tensor]:
+    """Read a params file (read_params_tree) into the port's state_dict."""
+    return flax_to_state_dict(read_params_tree(path))

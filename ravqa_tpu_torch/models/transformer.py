@@ -89,8 +89,8 @@ class MultiHeadAttention(nn.Module):
         q = self.query(x).view(b, t, nh, hd)
         k = self.key(src).view(b, src.shape[1], nh, hd)
         v = self.value(src).view(b, src.shape[1], nh, hd)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5,
-                              k).float()
+        logits = upcast(torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5,
+                                     k))
         if attention_bias is not None:
             logits = logits + attention_bias
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
@@ -115,10 +115,16 @@ class MlpBlock(nn.Module):
                        generator)
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or in float64 when it is float64 (a float64 reference
+    run of a model keeps its softmaxes and norms in float64)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm computed in float32, cast back to the input type."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
-                        ln.bias.float(), ln.eps).to(x.dtype)
+    return F.layer_norm(upcast(x), ln.normalized_shape, upcast(ln.weight),
+                        upcast(ln.bias), ln.eps).to(x.dtype)
 
 
 class EncoderLayer(nn.Module):

@@ -5,6 +5,7 @@
         configs/synthetic_flmr_base_serve.json \\
         configs/synthetic_preflmr_vitl_serve.json \\
         configs/synthetic_preflmr_vitl_serve_hier.json \\
+        configs/synthetic_rag_blip2_serve.json \\
         --out chiprun_out/profile_serve.json
 
 For each config, build_server as the entry point does (random weights from
@@ -22,6 +23,14 @@ the config's seed), then:
      whose requests carry 224 x 224 x 3 images) the tower's kernel time is
      split into the ViT, the text tower (BERT and the linear) and the
      transformer mapping, each profiled alone on the same batch.
+A RAG config (a VQAServer: FLMR retrieval, then a T5 or BLIP-2 generator)
+gets instead 3 closed bursts of 2 full batches (`serve.max_batch`
+questions, each with seeded 768-d features and, for BLIP-2, its image),
+questions/s, and the kernel time of one full dispatch split by stage
+(vqa_stages: the query tower, the search, ViT-g, the Q-Former and
+projection, the T5 encoder, the cross-attention keys and values, the beam
+search), each profiled alone on the dispatch's own inputs, beside the whole
+dispatch's kernel time over its wall time.
 Prints one line per measurement and writes everything as JSON to --out.
 """
 
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 
 from .main import build_pipeline, build_server, load_config
+from .serving import VQAServer
 
 BATCH = 32
 BURSTS = 3
@@ -131,15 +141,32 @@ def _vision(r) -> dict:
     return {"image_features": r["image_features"]}
 
 
+def vqa_request(i: int, item: dict, server) -> dict:
+    """submit()'s image arguments of VQA request i: seeded features of the
+    server's width (seed 20,000 + i) and, where the server takes pixels,
+    the item's image (float32)."""
+    out = {}
+    if server.image_feature_dim:
+        out["image_features"] = np.random.default_rng(20_000 + i).normal(
+            size=server.image_feature_dim).astype(np.float32)
+    if server.pixel_shape is not None:
+        out["pixel_values"] = np.asarray(item["image"], np.float32)
+    return out
+
+
 def bursts(server, data, n=256):
     """BURSTS closed bursts of n requests (the data's questions and images
-    in turn) submitted at once. Returns [{"req_per_s", "dispatches"}]."""
+    in turn; vqa_request's for a VQAServer) submitted at once. Returns
+    [{"req_per_s", "dispatches"}]."""
     out = []
     reqs = _requests(data, n)
+    vqa = isinstance(server, VQAServer)
     for _ in range(BURSTS):
         d0 = server.dispatches
         t0 = time.perf_counter()
-        futs = [server.submit(r["question"], **_vision(r)) for r in reqs]
+        futs = [server.submit(r["question"], **(
+            vqa_request(i, r, server) if vqa else _vision(r)))
+            for i, r in enumerate(reqs)]
         for f in futs:
             f.result(120)
         wall = time.perf_counter() - t0
@@ -148,12 +175,100 @@ def bursts(server, data, n=256):
     return out
 
 
+def vqa_stages(server, data, b: int) -> tuple:
+    """The stages of a VQAServer dispatch of b questions (vqa_request's
+    images), each as a function of the dispatch's own inputs, computed
+    once here: {stage: fn}, and the dispatch's rows for _dispatch."""
+    ex = server.ex
+    gen = ex.model.generator
+    rows = []
+    for i, r in enumerate(_requests(data, b)):
+        ids, mask = server.qt.tensorize([r["question"]])
+        img = vqa_request(i, r, server)
+        rows.append((r["question"], np.asarray(ids)[0], np.asarray(mask)[0],
+                     img.get("image_features"), img.get("pixel_values"),
+                     None))
+    batch = server.gen_batch(rows)
+    with torch.inference_mode():
+        ret = ex.retrieve(batch)
+        gi, gm = ex._tensorize(ex.input_builder.build(batch["questions"],
+                                                      ret["contents"]),
+                               ex.rag_cfg.gen_maxlen)
+        q = ex.encode_query(batch)
+        n_docs = ret["rows"].shape[1]
+        ids = torch.as_tensor(gi, dtype=torch.long, device=ex.device)
+        mask = torch.as_tensor(gm, device=ex.device)
+        enc, enc_mask = ex.encode_generator(gi, gm,
+                                            batch.get("pixel_values"))
+        kv = gen.cross_kv(enc)
+    stages = {"retrieval: query tower": lambda: ex.encode_query(batch),
+              "retrieval: search": lambda: ex.searcher.search_device(
+                  q, n_docs)}
+    if ex.rag_cfg.generator_type == "blip2":
+        px = torch.as_tensor(batch["pixel_values"], device=ex.device)
+        with torch.inference_mode():
+            img = gen.vision_model(px)
+            qtok = gen.query_tokens.expand(b, *gen.query_tokens.shape)
+            vis = gen.encode_image(px).repeat_interleave(n_docs, dim=0)
+        stages["ViT-g"] = lambda: gen.vision_model(px)
+        stages["Q-Former and projection"] = lambda: gen.language_projection(
+            gen.qformer(qtok, img))
+        stages["T5 encoder"] = lambda: gen.encode_tokens(vis, ids, mask)
+    else:
+        stages["T5 encoder"] = lambda: gen.encode(ids, mask)
+    stages["cross-attention K/V"] = lambda: gen.cross_kv(enc)
+    stages["decode"] = lambda: ex.decode(kv, enc_mask)
+    return stages, rows
+
+
+def profile_vqa(server, data) -> dict:
+    """A VQAServer's bursts, and one full dispatch's kernel time by stage
+    against its wall time."""
+    b = server.cfg.max_batch
+    res = {"bursts": bursts(server, data, n=2 * b)}
+    print(f"bursts of {2 * b}:", res["bursts"], flush=True)
+    stages, rows = vqa_stages(server, data, b)
+    with torch.inference_mode():
+        split = {name: sum(kernel_times(fn, n=2).values())
+                 for name, fn in stages.items()}
+
+        def dispatch():
+            server._dispatch([r + (Future(),) for r in rows])
+
+        device_ms = sum(kernel_times(dispatch, n=2).values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            dispatch()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    res["profile"] = {"batch": b, "device_ms_per_dispatch": split,
+                      "dispatch_device_ms": device_ms,
+                      "dispatch_wall_ms": wall_ms,
+                      "device_busy_share": device_ms / wall_ms}
+    print(f"profile, device ms per dispatch of {b}: "
+          + ", ".join(f"{n} {ms:.3f}" for n, ms in split.items()),
+          flush=True)
+    print(f"dispatch: {device_ms:.3f} ms of kernels in {wall_ms:.3f} ms of "
+          f"wall ({device_ms / wall_ms:.1%} busy)", flush=True)
+    return res
+
+
 def profile_config(path: str) -> dict:
     cfg = load_config(path)
     t0 = time.perf_counter()
     data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
                                         explode=True)
     server = build_server(cfg, data, "cuda")
+    if isinstance(server, VQAServer):
+        res = {"config": path, "setup_s": time.perf_counter() - t0,
+               "docs": server.ex.index.num_docs}
+        print(f"{path}: VQA, {res['docs']} docs, set-up "
+              f"{res['setup_s']:.1f} s", flush=True)
+        try:
+            res.update(profile_vqa(server, data))
+        finally:
+            server.stop()
+        return res
     s, ex, k = server.searcher, server.ex, server.cfg.k
     res = {"config": path, "mode": s.mode, "preset": s.preset,
            "docs": s.index.num_docs,

@@ -1,8 +1,8 @@
-"""Retrieval serving: dynamic micro-batching over encode -> search.
+"""Serving: dynamic micro-batching over encode -> search (RetrievalServer)
+and over retrieve -> generate (VQAServer).
 
 Port of ravqa_tpu/serving.py (ServeConfig, ServerOverloaded,
-_MicroBatchServer, RetrievalServer, make_http_server). The VQA server
-comes with the generation stack (ROADMAP.md A12).
+_MicroBatchServer, RetrievalServer, VQAServer, make_http_server).
 
 - Batching window: the dispatcher thread collects up to `max_batch`
   requests or waits at most `max_wait_ms`.
@@ -48,6 +48,13 @@ class RetrievalResult:
     pids: np.ndarray           # (k,) passage ids
     scores: np.ndarray         # (k,) MaxSim scores
     contents: Optional[list] = None
+
+
+@dataclasses.dataclass
+class VQAResult:
+    answer: str
+    doc_scores: np.ndarray     # (n_docs,) retrieval scores
+    passages: Optional[list] = None   # retrieved contents
 
 
 class _MicroBatchServer:
@@ -221,6 +228,99 @@ class RetrievalServer(_MicroBatchServer):
                           if self.id2content is not None else None)))
 
 
+class VQAServer(_MicroBatchServer):
+    """End-to-end VQA serving through a RagExecutor: live (or static)
+    retrieval, greedy or beam decoding per (question, passage), the answer
+    picked by the joint doc and generation score (the deployment form of
+    the reference's RagModelForBlip.generate, rag_model_blip.py:735-824).
+
+    serve = VQAServer(rag_executor, query_tokenizer, image_feature_dim=768,
+                      pixel_shape=(224, 224, 3))
+    ans = serve.submit("what animal is this?", image_features=f,
+                       pixel_values=img).result()
+    ans.answer, ans.passages, ans.doc_scores
+    """
+
+    def __init__(self, rag_executor, query_tokenizer,
+                 image_feature_dim: int = 0,
+                 pixel_shape: Optional[tuple] = None,
+                 config: Optional[ServeConfig] = None):
+        """image_feature_dim: the retriever's image features per request;
+        pixel_shape: (H, W, 3) when the generator is BLIP-2 (raw pixels ride
+        with each request), None for a text-only generator. `dispatches`
+        counts the batches run."""
+        self.ex = rag_executor
+        self.qt = query_tokenizer
+        self.image_feature_dim = image_feature_dim
+        self.pixel_shape = None if pixel_shape is None else tuple(pixel_shape)
+        self.dispatches = 0
+        super().__init__(config if config is not None
+                         else ServeConfig(max_batch=8))
+
+    def submit(self, question: str,
+               image_features: Optional[np.ndarray] = None,
+               pixel_values: Optional[np.ndarray] = None,
+               question_id=None) -> Future:
+        """Tokenize on the caller's thread, enqueue, return a Future.
+        Missing image features or pixels are zeros of the server's shape;
+        an image of another shape, or one the server does not take, raises
+        ValueError here. question_id keys a static-retrieval executor's
+        map (an unknown or None id gets dummy passages)."""
+        feats_shape = ((self.image_feature_dim,) if self.image_feature_dim
+                       else None)
+        image_features = _checked(image_features, feats_shape,
+                                  "image_features")
+        pixel_values = _checked(pixel_values, self.pixel_shape,
+                                "pixel_values")
+        ids, mask = self.qt.tensorize([question])
+        return self._enqueue((question, np.asarray(ids)[0],
+                              np.asarray(mask)[0], image_features,
+                              pixel_values, question_id))
+
+    def answer_batch(self, questions: Sequence[str],
+                     image_features: Optional[np.ndarray] = None
+                     ) -> list[VQAResult]:
+        """Blocking convenience wrapper."""
+        feats = ([None] * len(questions) if image_features is None
+                 else list(image_features))
+        futs = [self.submit(t, f) for t, f in zip(questions, feats)]
+        return [f.result() for f in futs]
+
+    @staticmethod
+    def gen_batch(rows) -> dict:
+        """The executor's generate() batch of (question, ids, mask,
+        features, pixels, question_id, ...) rows."""
+        out = {"questions": [r[0] for r in rows],
+               "question_ids": [r[5] for r in rows],
+               "query_input_ids": np.stack([r[1] for r in rows]),
+               "query_attention_mask": np.stack([r[2] for r in rows])}
+        for key, slot in (("image_features", 3), ("pixel_values", 4)):
+            if rows[0][slot] is not None:
+                out[key] = np.stack([r[slot] for r in rows])
+        return out
+
+    def warm_up(self) -> None:
+        """Answer one blank question, so that the first request does not
+        pay for the kernel build and library set-up."""
+        ids, mask = self.qt.tensorize([""])
+        feats = (np.zeros((self.image_feature_dim,), np.float32)
+                 if self.image_feature_dim else None)
+        pixels = (np.zeros(self.pixel_shape, np.float32)
+                  if self.pixel_shape is not None else None)
+        self.ex.generate(self.gen_batch([("", np.asarray(ids)[0],
+                                          np.asarray(mask)[0], feats,
+                                          pixels, None)]))
+
+    def _dispatch(self, batch):
+        self.dispatches += 1
+        out = self.ex.generate(self.gen_batch(batch))
+        for i, (*_, fut) in enumerate(batch):
+            fut.set_result(VQAResult(
+                answer=out["predictions"][i],
+                doc_scores=np.asarray(out["doc_scores"])[i],
+                passages=out["retrieved_contents"][i]))
+
+
 def _checked(value, shape: Optional[tuple],
              name: str) -> Optional[np.ndarray]:
     """A request's image input as float32 of the server's `shape` (zeros
@@ -241,15 +341,19 @@ def _checked(value, shape: Optional[tuple],
 # ---------------------------------------------------------------------------
 # HTTP front end (stdlib only): GET /healthz; POST /search {"query": str,
 # "image_features": [float]?, "pixel_values": [[[float]]]? (H x W x 3),
-# "timeout_s": float?}.
+# "timeout_s": float?} to a RetrievalServer; POST /answer {"question": str,
+# "image_features"?, "pixel_values"?, "question_id"?, "timeout_s"?} to a
+# VQAServer.
 # ---------------------------------------------------------------------------
 
-def make_http_server(server: RetrievalServer, host: str = "0.0.0.0",
-                     port: int = 8080):
-    """Wrap a RetrievalServer in a ThreadingHTTPServer. Call
+def make_http_server(server, host: str = "0.0.0.0", port: int = 8080):
+    """Wrap a RetrievalServer or a VQAServer in a ThreadingHTTPServer. Call
     .serve_forever() (blocking) or run it on a thread and .shutdown()."""
     import json
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    is_vqa = isinstance(server, VQAServer)
+    route = "/answer" if is_vqa else "/search"
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):                    # quiet access log
@@ -265,7 +369,8 @@ def make_http_server(server: RetrievalServer, host: str = "0.0.0.0",
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._json(200, {"ok": True, "mode": "retrieval"})
+                self._json(200, {"ok": True,
+                                 "mode": "vqa" if is_vqa else "retrieval"})
             else:
                 self._json(404, {"error": "not found"})
 
@@ -275,11 +380,18 @@ def make_http_server(server: RetrievalServer, host: str = "0.0.0.0",
                 req = json.loads(self.rfile.read(n) or b"{}")
             except (ValueError, json.JSONDecodeError):
                 return self._json(400, {"error": "bad json"})
-            if self.path != "/search":
+            if self.path != route:
                 return self._json(404, {"error": "not found"})
             try:
-                fut = server.submit(req["query"], req.get("image_features"),
-                                    req.get("pixel_values"))
+                if is_vqa:
+                    fut = server.submit(req["question"],
+                                        req.get("image_features"),
+                                        req.get("pixel_values"),
+                                        question_id=req.get("question_id"))
+                else:
+                    fut = server.submit(req["query"],
+                                        req.get("image_features"),
+                                        req.get("pixel_values"))
             except KeyError as e:
                 return self._json(400, {"error": f"missing field {e}"})
             except (TypeError, ValueError) as e:       # malformed image
@@ -289,7 +401,14 @@ def make_http_server(server: RetrievalServer, host: str = "0.0.0.0",
             except Exception as e:                     # surface, don't die
                 return self._json(500, {"error": str(e)})
             try:
-                res = fut.result(timeout=req.get("timeout_s", 60))
+                res = fut.result(timeout=req.get("timeout_s",
+                                                 120 if is_vqa else 60))
+                if is_vqa:
+                    return self._json(200, {
+                        "answer": res.answer,
+                        "doc_scores": np.asarray(res.doc_scores,
+                                                 np.float64).tolist(),
+                        "passages": res.passages})
                 return self._json(200, {
                     "pids": np.asarray(res.pids).tolist(),
                     "scores": np.asarray(res.scores, np.float64).tolist(),

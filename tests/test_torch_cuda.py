@@ -1172,3 +1172,85 @@ def test_train_step_on_cuda_matches_cpu():
         assert p.device.type == "cuda"
         torch.testing.assert_close(p.detach().cpu(), want[n], rtol=0,
                                    atol=2 * lr)
+
+
+# -- the RAG serve: K1 at its shape, the T5 decode and beam search -------------
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_maxsim_split_route_at_the_rag_shape(negative):
+    """K1 on a float32 index at the RAG serve's query batch (B=8, Lq=64,
+    Ld=220) against its plain version."""
+    q, tok, mask = make((8, 64, 1031, 220, 128), torch.float32,
+                        torch.float32, negative=negative)
+    before = maxsim.maxsim_search.split_launches
+    got = maxsim.maxsim_search(q, tok, mask,
+                               planes=maxsim.split_index_bf16(tok))
+    torch.cuda.synchronize()
+    assert maxsim.maxsim_search.split_launches == before + 1
+    _close(got, maxsim.maxsim_search_torch(q, tok, mask), 64)
+
+
+def _t5_pair():
+    """A tiny gated-GELU T5 (untied head) with one set of weights, on the
+    card and on the CPU."""
+    from ravqa_tpu_torch.models import T5Config, T5Model
+    cfg = T5Config.tiny(feed_forward_proj="gated-gelu",
+                        tie_word_embeddings=False, vocab_size=64)
+    cpu = T5Model(cfg)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    card = T5Model(cfg).cuda()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    ids = rng.integers(2, 64, (3, 9))
+    mask = np.ones((3, 9), np.int64)
+    mask[1, 5:] = 0
+    return {"cuda": card, "cpu": cpu}, ids, mask
+
+
+def test_t5_decode_step_on_cuda_matches_cpu():
+    """The encoder and five decode steps (self-attention cache, cached
+    cross-attention keys and values) on the card against the CPU."""
+    models, ids, mask = _t5_pair()
+    tok = np.random.default_rng(1).integers(2, 64, (3, 5))
+    out = {}
+    with torch.no_grad():
+        for dev, m in models.items():
+            enc = m.encode(torch.tensor(ids, device=dev),
+                           torch.tensor(mask, device=dev))
+            kv, cache = m.cross_kv(enc), m.init_cache(3, 5)
+            steps = []
+            for t in range(5):
+                logits, cache = m.decode_step(
+                    torch.tensor(tok[:, t:t + 1], device=dev), kv,
+                    torch.tensor(mask, device=dev), cache)
+                steps.append(logits)
+            out[dev] = [enc.cpu()] + [s.cpu() for s in steps]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_beams", [1, 5])
+def test_t5_beam_search_on_cuda_matches_cpu(n_beams):
+    """Greedy and 5-beam search over the same weights on the card and on
+    the CPU: identical tokens, log-probs within 1e-4."""
+    from ravqa_tpu_torch.models import beam_generate, greedy_generate
+    models, ids, mask = _t5_pair()
+    out = {}
+    with torch.no_grad():
+        for dev, m in models.items():
+            mk = torch.tensor(mask, device=dev)
+            kv = m.cross_kv(m.encode(torch.tensor(ids, device=dev), mk))
+
+            def step(tok, cache, m=m, kv=kv, mk=mk):
+                return m.decode_step(tok, kv, mk, cache)
+            if n_beams == 1:
+                toks, lp = greedy_generate(step, m.init_cache(3, 6), 3, 6,
+                                           0, 1)
+            else:
+                toks, lp = beam_generate(step,
+                                         lambda n, m=m: m.init_cache(n, 6),
+                                         3, n_beams, 6, 0, 1)
+            out[dev] = (toks.cpu(), lp.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-4)

@@ -55,6 +55,29 @@ PREFLMR_TINY_OPTS = [
     "model_config.mapping_network_prefix_length=4",
     "model_config.transformer_mapping_hidden=32",
     "model_config.transformer_mapping_num_heads=4"]
+RAG_CONFIG = os.path.join(REPO, "configs", "synthetic_rag_blip2_serve.json")
+# the RAVQA-v2 serve config cut to tiny widths over 64 passages with 32 x 32
+# images (tests/test_torch_rag.py serves the same cut)
+RAG_TINY_OPTS = [
+    "data_pipeline.raw.setup_kwargs.n_docs=64",
+    "data_pipeline.raw.setup_kwargs.vision_dim=16",
+    "data_pipeline.raw.setup_kwargs.emit_pixels=32",
+    "data_pipeline.loaders.setup_kwargs.query_maxlen=16",
+    "data_pipeline.loaders.setup_kwargs.doc_maxlen=16",
+    "model_config.bert={'vocab_size': 512, 'hidden_size': 64, "
+    "'num_layers': 2, 'num_heads': 4, 'intermediate_size': 128, "
+    "'max_position_embeddings': 64}",
+    "model_config.dim=32", "model_config.vision_embedding_size=16",
+    "model_config.mapping_network_prefix_length=4",
+    "model_config.generator={'type': 'blip2', 'num_query_tokens': 4, "
+    "'vision': {'image_size': 32, 'patch_size': 8, 'hidden_size': 32, "
+    "'num_layers': 2, 'num_heads': 4, 'intermediate_size': 64}, "
+    "'qformer': {'hidden_size': 32, 'num_layers': 2, 'num_heads': 4, "
+    "'intermediate_size': 64, 'encoder_hidden_size': 32}, "
+    "'t5': {'vocab_size': 512, 'd_model': 64, 'd_kv': 16, 'd_ff': 128, "
+    "'num_layers': 2, 'num_heads': 4, 'feed_forward_proj': 'gated-gelu', "
+    "'tie_word_embeddings': False}}",
+    "model_config.rag.gen_maxlen=24"]
 HIER_OPTS = ["data_pipeline.raw.setup_kwargs.n_docs=512",
              "model_config.search_mode=hierarchical", "serve.preset=fast",
              "serve.block_size=8", "serve.n_summary=4",
@@ -281,8 +304,10 @@ def test_serve_slice_imports_no_jax(tmp_path):
     gets a blank image of the ViT's own size), the HF key mappings, the
     training slice (train, then eval from its checkpoint, and entry()),
     the residual codec, the stage-2 kernels' module and the stage-2
-    experiment, in one process: nothing of the JAX package (ravqa_tpu) or
-    of jax/jaxlib/flax loads."""
+    experiment, and the RAG serve slice (build_server on a tiny cut of
+    configs/synthetic_rag_blip2_serve.json: a VQAServer over FLMR retrieval
+    and BLIP-2, one answer; RAG training refused), in one process: nothing
+    of the JAX package (ravqa_tpu) or of jax/jaxlib/flax loads."""
     code = (
         "import sys, numpy as np\n"
         "from ravqa_tpu_torch.config import apply_overrides, load_config\n"
@@ -318,6 +343,21 @@ def test_serve_slice_imports_no_jax(tmp_path):
         "    r = s.submit('cat dog sky', pixel_values=px).result(120)\n"
         "    assert r.pids.shape == (10,)\n"
         "s.stop()\n"
+        f"cfg = apply_overrides(load_config({RAG_CONFIG!r}),\n"
+        f"                      {RAG_TINY_OPTS!r})\n"
+        "data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,\n"
+        "                                    explode=True)\n"
+        "s = build_server(cfg, data, 'cpu')\n"
+        "r = s.submit('cat dog sky').result(120)\n"
+        "s.stop()\n"
+        "assert len(r.passages) == 5 and isinstance(r.answer, str)\n"
+        "try:\n"
+        f"    main(['--config', {RAG_CONFIG!r}, '--mode', 'train',\n"
+        "          '--device', 'cpu'])\n"
+        "except NotImplementedError as e:\n"
+        "    assert 'A6' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('RAG training must be refused')\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('ravqa_tpu', 'jax', 'jaxlib', 'flax')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -356,15 +396,42 @@ def test_profile_serve_needs_a_gpu():
     ["--config", os.path.join(REPO, "configs", "synthetic_rag.json"),
      "--mode", "eval"],
     ["--config", os.path.join(REPO, "configs", "synthetic_rag.json"),
-     "--mode", "serve"],
+     "--mode", "train"],
     ["--config", CONFIG, "--mode", "train", "--use_dummy_data"],
+    ["--config", os.path.join(REPO, "configs", "synthetic_rag.json"),
+     "--mode", "test"],
 ])
 def test_unported_modes_raise(argv):
-    """Data parallelism (A4), RAG configs (A6) and the OK-VQA loader's
-    --use_dummy_data (A7) are not ported yet."""
+    """Data parallelism (A4), RAG training and evaluation (train, test and
+    eval on a RAG config: A6) and the OK-VQA loader's --use_dummy_data (A3)
+    are not ported yet. RAG serving is (test_rag_configs_serve)."""
     from ravqa_tpu_torch.main import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("name,opts", [
+    ("synthetic_rag.json", []),
+    ("synthetic_rag_blip2_serve.json", RAG_TINY_OPTS)])
+def test_rag_configs_serve(name, opts):
+    """A RAG config, once refused, builds a VQAServer (T5 or BLIP-2) that
+    answers; --mode prepare_data runs on it too."""
+    from ravqa_tpu_torch.main import build_pipeline, build_server, main
+    from ravqa_tpu_torch.serving import VQAServer
+    path = os.path.join(REPO, "configs", name)
+    cfg = apply_overrides(load_config(path), opts)
+    data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
+                                        explode=True)
+    server = build_server(cfg, data, "cpu")
+    try:
+        assert isinstance(server, VQAServer)
+        res = server.submit("cat dog sky").result(timeout=120)
+        assert len(res.passages) == server.ex.rag_cfg.n_docs
+        assert np.isfinite(res.doc_scores).all()
+    finally:
+        server.stop()
+    assert main(["--config", path, "--mode", "prepare_data",
+                 "--opts"] + opts) == 0
 
 
 @pytest.mark.parametrize("name", ["synthetic_flmr_pixels.json",
