@@ -191,6 +191,50 @@ Phases, in order; any failure raises and the script exits non-zero:
      Prints the dispatch split (device ms by stage, CUDA events), K1-f32
      at B=8, questions/s over the bursts, p50/p95 latency, peak memory
      and the phase's seconds beside the card's name and power limit.
+ 17. RAVQA-v2 joint training and answer evaluation: build_rag_executor on
+     configs/synthetic_rag_blip2_train.json (the published recipe of
+     configs/okvqa/rag_blip2_with_flmr.json: phase 16's BLIP-2 Flan-T5-XL
+     with T5 remat, LoRA rank 8 on 144 adapters, 4,718,592 parameters, the
+     3.94e9 base frozen; Approach6 with loss weights nll 1 / rag 0 /
+     additional 0; freeze_question_encoder and force_existence; batch 8 x
+     accumulation 4, lr 6e-4, retriever_lr 1e-4, weight decay 0.05, linear;
+     FLMR-base live retrieval through K1-f32 over 16,384 passages).
+     (a) two optimizer steps (8 micro-batches of 8 questions) through fit:
+     every loss finite; K1-f32 launched exactly once per micro-batch, on the
+     split route (counts set to 0 just before, read just after); every
+     retrieved row against the plain search of the same query embeddings
+     (all on the card's plain version, 8 on a CPU copy; tie-aware top-5,
+     1e-3); every LoRA B nonzero after the first update; optimizer state
+     for the trainable set only; the generator base bit-identical after
+     (a), (b) and (d) (against a host copy). (b) one micro-batch with rag
+     and additional weights 1: the loss and its parts finite, the query
+     tower's trainable modules (linear, mapping network, its BERT) with
+     finite, nonzero grads. (d) one fixed micro-batch, 3 optimizer steps on
+     it (accumulation 1): its loss falls. (e) run_rag_eval over the 16 test
+     questions through generate: the metrics JSON written, K1-f32 once a
+     dispatch, the predictions equal to generate's called directly. (c) a
+     copy with the T5 stacks cut to 4 + 4 layers (ViT-g, Q-Former and every
+     width whole), rag and additional weights 1, on the card, on the CPU
+     and on the CPU with the generator in float64, from the same weights,
+     a micro-batch of 2 questions (10 sequences), one train_step each: the
+     loss and its parts, card vs CPU (rtol 1e-4); the AdamW update (phase
+     13's rule); the retriever's backward for one upstream gradient, card
+     vs CPU (phase 13's 1e-4); the worst LoRA grad, the worst retriever
+     grad and the grad norm no farther from float64 than 2x the CPU's
+     float32 plus 1e-4 (the random T5's conditioning, as in phase 16); the
+     second step's loss on the
+     card's updated parameters, card vs CPU (rtol 1e-4; the runs' losses
+     after their own updates printed); remat on and off on the card (loss
+     rtol 1e-5, grads 1e-5 of the largest). (f) that copy's checkpoint
+     saved and loaded into a fresh executor (random weights until then):
+     identical answers, step and optimizer count (the full model's file
+     would be 15.8 GB of the same format); refresh_index with the trained
+     retriever, then one search on the new index through K1-f32 against
+     the plain search. Prints each micro-batch's split by stage (CUDA
+     events, profile_train.RagStageTimer) and the optimizer updates' ms,
+     questions/s trained, peak memory, the evaluation's, the checkpoint's
+     and the refresh's seconds and the phase's, beside the card's name and
+     power limit.
 Every phase prints its seconds. The line before the last is the kernels'
 JSON record: each kernel's launches on its path, its error against its
 plain version, its time and its plain version's, and its bound, the least
@@ -222,6 +266,8 @@ PREFLMR_CONFIG = os.path.join(HERE, "configs",
 PREFLMR_HIER_CONFIG = os.path.join(HERE, "configs",
                                    "synthetic_preflmr_vitl_serve_hier.json")
 RAG_CONFIG = os.path.join(HERE, "configs", "synthetic_rag_blip2_serve.json")
+RAG_TRAIN_CONFIG = os.path.join(HERE, "configs",
+                                "synthetic_rag_blip2_train.json")
 # float32 scores of L2-normalized embeddings at Lq <= 64: the kernel and
 # the plain version sum the same products in different orders, which moves
 # a score by ~1e-5; 1e-3 leaves room without hiding a wrong max or mask
@@ -1425,26 +1471,67 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def grad_agreement(model, ref):
-    """Worst per-parameter gradient error of `model` against `ref` (the same
-    module run on the CPU), as GRAD_RTOL measures it. Returns (error,
-    parameter name, the models' grad norms)."""
-    from ravqa_tpu_torch.executors.base import global_norm
+def grad_errors(model, ref) -> dict:
+    """Each parameter's gradient error of `model` against `ref` (the same
+    module run on the CPU), as GRAD_RTOL measures it: max |grad - ref
+    grad| over max(the ref grad's largest |value|, 1e-3 of ref's largest
+    grad), in float64."""
     got = {n: p.grad for n, p in model.named_parameters()
            if p.grad is not None}
-    want = {n: p.grad for n, p in ref.named_parameters()
+    want = {n: p.grad.double() for n, p in ref.named_parameters()
             if p.grad is not None}
     if set(got) != set(want):
         raise AssertionError("the card and the CPU grads cover different "
                              "parameters")
     floor = 1e-3 * max(g.abs().max().item() for g in want.values())
-    worst = (0.0, "")
-    for n, g in want.items():
-        err = (got[n].cpu() - g).abs().max().item() / max(
-            g.abs().max().item(), floor)
-        worst = max(worst, (err, n))
-    return worst + ((global_norm(list(got.values())).item(),
-                     global_norm(list(want.values())).item()),)
+    return {n: (got[n].cpu().double() - g).abs().max().item()
+            / max(g.abs().max().item(), floor) for n, g in want.items()}
+
+
+def grad_agreement(model, ref):
+    """Worst grad_errors of `model` against `ref`. Returns (error,
+    parameter name, the models' grad norms)."""
+    from ravqa_tpu_torch.executors.base import global_norm
+    errs = grad_errors(model, ref)
+    name = max(errs, key=errs.get)
+    norms = [global_norm([p.grad for p in m.parameters()
+                          if p.grad is not None]).item()
+             for m in (model, ref)]
+    return errs[name], name, tuple(norms)
+
+
+def update_agreement(model, ref, before, lr_of):
+    """A first Adam update on the card against the CPU's. It moves a
+    coordinate by lr * g / (|g| + eps): about lr whatever the grad's size,
+    so a grad near 0 that rounds to the other sign on one device moves it
+    the other way. Where the CPU's grad is well above rounding (over 1e-3
+    of its parameter's largest and 1e-6, far past eps), both devices must
+    make the same move: within 2 ulp of the parameter (one rounding of the
+    update each) plus 1e-3 lr. A wrong learning rate, a skipped update or
+    a flipped sign is ~lr off. `before`: the CPU parameters before the
+    update by name (the others are not checked); lr_of(name). Returns
+    (worst past 2 ulp in lr, the least move in lr, coordinates checked,
+    coordinates of the parameters checked, coordinates past 1e-3 lr)."""
+    import torch
+    want_sd = ref.state_dict()
+    worst, moved, n_sig, n_all, far = 0.0, np.inf, 0, 0, 0
+    for n, p in model.named_parameters():
+        g = ref.get_parameter(n).grad
+        if n not in before or g is None:
+            continue
+        got, want, lr = p.detach().cpu(), want_sd[n], lr_of(n)
+        d = (got - want).abs()
+        ulp = torch.nextafter(want.abs(), torch.full_like(want, np.inf)) \
+            - want.abs()
+        sig = g.abs() > max(1e-3 * g.abs().max().item(), 1e-6)
+        if sig.any():
+            worst = max(worst, (d - 2 * ulp)[sig].max().item() / lr)
+            moved = min(moved, (want - before[n]).abs()[sig].min().item()
+                        / lr)
+        n_sig += int(sig.sum())
+        n_all += sig.numel()
+        far += int((d > 1e-3 * lr).sum())
+    return worst, moved, n_sig, n_all, far
 
 
 def training_step_vs_cpu(config_path, device="cuda"):
@@ -1505,28 +1592,8 @@ def training_step_vs_cpu(config_path, device="cuda"):
     lr = {n: (ex.train_cfg.mapping_lr if n.startswith("vision_projection")
               and ex.train_cfg.mapping_lr is not None else ex.train_cfg.lr)
           for n in before}
-    # A first Adam update moves a coordinate by lr * g / (|g| + eps): about
-    # lr whatever the grad's size, so a grad near 0 that rounds to the
-    # other sign on one device moves it the other way. Where the CPU's grad
-    # is well above rounding (over 1e-3 of its parameter's largest and
-    # 1e-6, far past eps), both devices must make the same move: within 2
-    # ulp of the parameter (one rounding of the update each) plus 1e-3 lr.
-    # A wrong learning rate, a skipped update or a flipped sign is ~lr off.
-    worst, moved, far, n_sig, n_all = 0.0, np.inf, 0, 0, 0
-    for n, p in ex.model.named_parameters():
-        got, want = p.detach().cpu(), ex_cpu.model.state_dict()[n]
-        g = ex_cpu.model.get_parameter(n).grad
-        d = (got - want).abs()
-        ulp = torch.nextafter(want.abs(), torch.full_like(want, np.inf)) \
-            - want.abs()
-        sig = g.abs() > max(1e-3 * g.abs().max().item(), 1e-6)
-        if sig.any():
-            worst = max(worst, ((d - 2 * ulp)[sig].max().item()) / lr[n])
-            moved = min(moved, (want - before[n]).abs()[sig].min().item()
-                        / lr[n])
-        n_sig += int(sig.sum())
-        n_all += sig.numel()
-        far += int((d > 1e-3 * lr[n]).sum())
+    worst, moved, n_sig, n_all, far = update_agreement(
+        ex.model, ex_cpu.model, before, lr.get)
     dl = abs(float(m["loss"]) - float(m_cpu["loss"]))
     dn = abs(float(m["grad_norm"]) - float(m_cpu["grad_norm"]))
     # a second step on the same batch: its loss reads the first update
@@ -2562,6 +2629,564 @@ def rag_serve_slice(maxsim, k1, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: RAVQA-v2 joint training and answer evaluation
+# ---------------------------------------------------------------------------
+
+def record_rag_searches(ex):
+    """Keep each live retrieval's (query embeddings, scores, rows): wraps
+    the executor's searcher.search_device until the returned undo() is
+    called (refresh_index replaces the searcher: record again after it)."""
+    s = ex.searcher
+    search = s.search_device
+    searches = []
+
+    def recording(q, k):
+        scores, rows = search(q, k)
+        searches.append((q.detach(), scores, rows))
+        return scores, rows
+
+    s.search_device = recording
+
+    def undo():
+        del s.search_device
+    return searches, undo
+
+
+def check_rows(searches, index, k, n_cpu=8):
+    """Each recorded search's rows against the plain MaxSim of the same
+    query embeddings over the same index (tie-aware top-k, 1e-3): every
+    query on the card's plain version, the first n_cpu on a CPU copy.
+    Returns (max |score error|, seconds of the CPU search)."""
+    import torch
+    from ravqa_tpu_torch.ops import maxsim
+    q = torch.cat([x[0] for x in searches])
+    scores = torch.cat([x[1] for x in searches]).cpu().numpy()
+    rows = torch.cat([x[2] for x in searches]).cpu().numpy()
+    with torch.inference_mode():
+        dv, dr = (t.cpu().numpy() for t in torch.topk(
+            maxsim.maxsim_search_torch(q, index.tokens, index.mask), k,
+            dim=1))
+        cpu = cpu_copy(index)
+        t0 = time.perf_counter()
+        wv, wr = (t.numpy() for t in torch.topk(maxsim.maxsim_search_torch(
+            q[:n_cpu].cpu(), cpu.tokens, cpu.mask), k, dim=1))
+        t_cpu = time.perf_counter() - t0
+    bad = [i for i in range(len(q))
+           if not _tie_aware(rows[i], scores[i], dr[i], dv[i], ATOL)]
+    bad += [i for i in range(min(n_cpu, len(q)))
+            if not _tie_aware(rows[i], scores[i], wr[i], wv[i], ATOL)]
+    if bad:
+        raise AssertionError(f"retrieved rows disagree with the plain search "
+                             f"on queries {sorted(set(bad))}")
+    err = max(float(np.abs(scores - dv).max()),
+              float(np.abs(scores[:n_cpu] - wv).max()))
+    return err, t_cpu
+
+
+def _cut_executor(ex, gen_cfg, device, seed, weights=True, **rag):
+    """A RagExecutor on `device` over a copy of ex's retriever and a
+    generator of gen_cfg (the full model's own weights where they exist,
+    shared with it on the card; with weights=False a fresh random draw),
+    ex's index and corpus, rag_cfg with the changes `rag`, and
+    accumulation 1."""
+    import copy
+    import torch
+    from ravqa_tpu_torch.executors import RagExecutor
+    from ravqa_tpu_torch.models.blip2 import Blip2T5
+    gen = Blip2T5(gen_cfg, device="meta")
+    if weights:
+        keep = gen.state_dict().keys()
+        gen.load_state_dict({k: v.to(device) for k, v in
+                             ex.model.generator.state_dict().items()
+                             if k in keep}, assign=True)
+    else:
+        gen = gen.to_empty(device=device)
+        gen.reset_parameters(torch.Generator(device=device).manual_seed(
+            seed + 7))
+    retriever = copy.deepcopy(ex.model.retriever).to(device)
+    index = ex.index if torch.device(device) == ex.device else None
+    return RagExecutor(
+        retriever, gen, ex.gen_tokenizer,
+        dataclasses.replace(ex.rag_cfg, **rag),
+        train_cfg=dataclasses.replace(ex.train_cfg, accumulate_grad_batches=1,
+                                      modules=tuple(
+                                          m for m in ex.train_cfg.modules
+                                          if m != "freeze_generator_base")),
+        query_tokenizer=ex.query_tokenizer, index=index,
+        passage_contents=ex.passage_contents, passage_ids=ex.passage_ids,
+        device=device, seed=seed, quiet=True)
+
+
+def _to_device(batch, device):
+    import torch
+    return {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+            for k, v in batch.items()}
+
+
+def rag_train_vs_cpu(ex, raw2):
+    """Phase 17 (c): the generator with its T5 stacks cut to RAG_CUT_LAYERS
+    + RAG_CUT_LAYERS layers (ViT-g and Q-Former whole, every width full),
+    rag and additional loss weights 1, from the same weights: float32 on
+    the card, float32 on the CPU, and a CPU reference with the generator
+    and the LoRA in float64 (the retriever float32). A micro-batch of 2
+    questions (retrieved on the card), one train_step each. Gates: the
+    loss and its parts, card vs CPU rtol 1e-4; the AdamW update, card vs
+    CPU (update_agreement); the retriever's backward for one upstream
+    gradient of the doc scores, card vs CPU (phase 13's GRAD_RTOL); the
+    step's worst LoRA grad, its worst retriever grad (which carries the
+    generator's rounding through the doc scores) and the grad norm: the
+    card no farther from the float64 run than F64_FACTOR times the CPU's
+    float32 plus GRAD_RTOL (the random model's conditioning parts two
+    float32 runs, as in phase 16); the second step's loss on the
+    card's updated parameters, card vs CPU rtol 1e-4 (each run's own
+    update moves the coordinates whose grads are below float32's rounding
+    by about lr in a direction the rounding picks, so the three runs'
+    second losses are printed, not held to each other); remat on and off
+    on the card (loss rtol 1e-5, grads 1e-5 of the largest). Returns the
+    errors and the trained card executor."""
+    import torch
+    gen_cfg = ex.model.generator.cfg
+    cut_cfg = dataclasses.replace(gen_cfg, t5=dataclasses.replace(
+        gen_cfg.t5, num_layers=RAG_CUT_LAYERS,
+        num_decoder_layers=RAG_CUT_LAYERS))
+    weights = dict(rag_weight=1.0, additional_weight=1.0)
+    card = _cut_executor(ex, cut_cfg, "cuda", 11, **weights)
+    cpu = _cut_executor(ex, cut_cfg, "cpu", 11, **weights)
+    ref = _cut_executor(ex, cut_cfg, "cpu", 11, **weights)
+    ref.model.generator.double()
+    ref.model.lora.double()
+    batch = card.make_train_batch(next(raw2))
+    on_cpu = _to_device(batch, "cpu")
+    out = {"sequences": int(batch["gen_input_ids"].shape[0])}
+    # remat on and off on the card, on the same batch and weights
+    lm = card.model.generator.language_model
+    remat = {}
+    for on in (True, False):
+        lm.cfg = dataclasses.replace(lm.cfg, remat=on)
+        card.model.zero_grad(set_to_none=True)
+        loss, _ = card.loss_fn(batch)
+        loss.backward()
+        remat[on] = (loss.item(), {n: p.grad.clone() for n, p in
+                                   card.model.named_parameters()
+                                   if p.grad is not None})
+    lm.cfg = dataclasses.replace(lm.cfg, remat=True)
+    card.model.zero_grad(set_to_none=True)
+    largest = max(g.abs().max().item() for g in remat[False][1].values())
+    out["remat_loss_rel_err"] = abs(remat[True][0] - remat[False][0]) / abs(
+        remat[False][0])
+    out["remat_grad_rel_err"] = max(
+        (remat[True][1][n] - g).abs().max().item()
+        for n, g in remat[False][1].items()) / largest
+    del remat
+    # the retriever's backward alone: the paired doc scores' grads for one
+    # upstream gradient, card vs CPU (phase 13's GRAD_RTOL)
+    g_up = torch.from_numpy(np.random.default_rng(3).normal(
+        size=tuple(batch["doc_tokens"].shape[:2])).astype(np.float32))
+    for e, b in ((card, batch), (cpu, on_cpu)):
+        e.model.zero_grad(set_to_none=True)
+        ds = e.doc_scores(b, b["doc_tokens"], b["doc_masks"])
+        ds.backward(g_up.to(ds.device))
+    r_err, r_name, _ = grad_agreement(card.model.retriever,
+                                      cpu.model.retriever)
+    card.model.zero_grad(set_to_none=True)
+    cpu.model.zero_grad(set_to_none=True)
+    before = {n: p.detach().clone() for n, p in cpu.model.named_parameters()
+              if p.requires_grad}
+    t0 = time.perf_counter()
+    m = card.train_step(batch)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu = cpu.train_step(on_cpu)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_ref = ref.train_step(on_cpu)
+    t_ref = time.perf_counter() - t0
+    for key in ("loss", "nll_loss", "rag_loss", "additional_loss"):
+        a, b = float(m[key]), float(m_cpu[key])
+        if not np.isfinite(a):
+            raise AssertionError(f"a non-finite {key} on the card: {a}")
+        out[f"{key}_rel_err"] = abs(a - b) / max(abs(b), 1e-30)
+    tc = card.train_cfg
+    worst, moved, n_sig, _, _ = update_agreement(
+        card.model, cpu.model, before,
+        lambda n: tc.retriever_lr if n.startswith("retriever.") else tc.lr)
+    # the step's grads against the float64 run, the worst of each part:
+    # the retriever's carry the generator's rounding through the doc
+    # scores' upstream gradient
+    vs64 = {}
+    for part in ("lora", "retriever"):
+        e_card = grad_errors(card.model.get_submodule(part),
+                              ref.model.get_submodule(part))
+        e_cpu = grad_errors(cpu.model.get_submodule(part),
+                             ref.model.get_submodule(part))
+        worst_n = max(e_card, key=e_card.get)
+        vs64[part] = {"card": e_card[worst_n], "param": worst_n,
+                      "cpu_same_param": e_cpu[worst_n],
+                      "cpu": max(e_cpu.values())}
+    norm = {k: float(v["grad_norm"]) for k, v in
+            (("card", m), ("cpu", m_cpu), ("ref", m_ref))}
+    with torch.no_grad():
+        l2 = {"card": float(card.loss_fn(batch)[0]),
+              "cpu": float(cpu.loss_fn(on_cpu)[0]),
+              "ref": float(ref.loss_fn(on_cpu)[0])}
+        # the card's updated parameters, run on the CPU
+        trained = dict(card.model.named_parameters())
+        for n, p in cpu.model.named_parameters():
+            if p.requires_grad:
+                p.copy_(trained[n])
+        l2_same = abs(l2["card"] - float(cpu.loss_fn(on_cpu)[0])) / abs(
+            l2["card"])
+
+    def vs_ref(d):
+        return {k: abs(d[k] - d["ref"]) / abs(d["ref"])
+                for k in ("card", "cpu")}
+    norm_err, l2_err = vs_ref(norm), vs_ref(l2)
+    out.update(grad_rel_err_vs_f64=vs64,
+               retriever_backward_rel_err=r_err,
+               retriever_backward_worst=r_name,
+               grad_norm_rel_err_vs_f64=norm_err,
+               step2_loss_rel_err_vs_f64=l2_err,
+               step2_loss_rel_err_same_params=l2_same, update_err_lr=worst,
+               update_least_move_lr=moved, update_coords=n_sig,
+               card_step_s=t_card, cpu_step_s=t_cpu, f64_step_s=t_ref)
+    print(f"the generator with its T5 stacks cut to {RAG_CUT_LAYERS} + "
+          f"{RAG_CUT_LAYERS} (ViT-g, Q-Former whole), rag and additional "
+          f"weights 1, a micro-batch of {out['sequences']} sequences, card vs "
+          f"CPU: loss {float(m['loss']):.6f} vs {float(m_cpu['loss']):.6f}; "
+          f"rel err loss {out['loss_rel_err']:.3g}, nll "
+          f"{out['nll_loss_rel_err']:.3g}, rag {out['rag_loss_rel_err']:.3g}"
+          f", additional {out['additional_loss_rel_err']:.3g}; the AdamW "
+          f"update on {n_sig} coordinates: max past 2 ulp {worst:.3g} lr "
+          f"(each moved >= {moved:.3g} lr); the retriever's backward for "
+          f"one upstream gradient, card vs CPU {r_err:.3g} ({r_name}). "
+          f"Against the float64 run, card / CPU float32: " + "; ".join(
+              f"worst {k} grad {v['card']:.3g} ({v['param']}; "
+              f"{v['cpu_same_param']:.3g} on the CPU) / {v['cpu']:.3g}"
+              for k, v in vs64.items()) + f"; grad norm "
+          f"{norm_err['card']:.3g} / {norm_err['cpu']:.3g}; the second "
+          f"step's loss after each run's own update {l2_err['card']:.3g} / "
+          f"{l2_err['cpu']:.3g} ({l2['card']:.6f}, {l2['cpu']:.6f}, float64 "
+          f"{l2['ref']:.6f}), on the card's updated parameters card vs CPU "
+          f"{l2_same:.3g}; "
+          f"remat on vs off: loss {out['remat_loss_rel_err']:.3g} apart "
+          f"(relative), grads {out['remat_grad_rel_err']:.3g} of the "
+          f"largest; train_step {t_card:.2f} s on the card, {t_cpu:.1f} s "
+          f"on the CPU, {t_ref:.1f} s in float64", flush=True)
+    gates = {
+        "loss and parts": all(out[f"{k}_rel_err"] <= 1e-4 for k in (
+            "loss", "nll_loss", "rag_loss", "additional_loss")),
+        "update": n_sig > 0 and worst <= 1e-3,
+        "retriever backward": r_err <= GRAD_RTOL,
+        "grads vs float64": all(v["card"] <= F64_FACTOR * v["cpu"]
+                                + GRAD_RTOL for v in vs64.values()),
+        "grad norm": norm_err["card"] <= F64_FACTOR * norm_err["cpu"] + 1e-4,
+        "second step's loss": l2_same <= 1e-4,
+        "remat": out["remat_loss_rel_err"] <= 1e-5
+        and out["remat_grad_rel_err"] <= 1e-5}
+    if not all(gates.values()):
+        raise AssertionError(f"RAG training on the card disagrees with the "
+                             f"CPU, or remat changes it: "
+                             f"{[k for k, v in gates.items() if not v]}")
+    del cpu, ref
+    return out, card
+
+
+def rag_train_slice(maxsim, smi):
+    """Phase 17: RAVQA-v2 joint training and answer evaluation at the
+    published recipe (configs/synthetic_rag_blip2_train.json). Returns the
+    phase's numbers (K1-f32's launches under "launches")."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from ravqa_tpu_torch.data import corpus_doc_batches
+    from ravqa_tpu_torch.executors import FLMRExecutor, refresh_index
+    from ravqa_tpu_torch.executors.base import make_optimizer
+    from ravqa_tpu_torch.main import (build_pipeline, build_rag_executor,
+                                      load_config, rag_batches,
+                                      rag_eval_batches, run_rag_eval)
+    from ravqa_tpu_torch.profile_train import RagStageTimer
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(RAG_TRAIN_CONFIG)
+    data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
+                                        explode=True)
+    ex = build_rag_executor(cfg, data, "cuda", quiet=True)
+    gen, rc, tc = ex.model.generator, ex.rag_cfg, ex.train_cfg
+    gc_ = gen.cfg
+    lora = ex.lora
+    n_lora = sum(t.numel() for e in lora.values() for t in e.values())
+    trainable = {id(p) for p in ex.optimizer.trainable}
+    recipe = (gc_.vision.hidden_size, gc_.vision.num_layers,
+              gc_.qformer.num_layers, gc_.num_query_tokens, gc_.t5.d_model,
+              gc_.t5.num_layers, gc_.t5.n_dec, gc_.t5.d_ff, gc_.t5.remat,
+              rc.n_docs, rc.gen_maxlen, rc.label_maxlen, rc.lora_rank,
+              rc.lora_alpha, rc.loss_type, rc.nll_weight, rc.rag_weight,
+              rc.additional_weight, rc.force_existence, tc.lr, tc.retriever_lr,
+              tc.weight_decay, tc.schedule, tc.accumulate_grad_batches,
+              cfg.train.batch_size, len(lora), n_lora)
+    if recipe != (1408, 39, 12, 32, 2048, 24, 24, 5120, True, 5, 512, 10, 8,
+                  32.0, "Approach6", 1.0, 0.0, 0.0, True, 6e-4, 1e-4, 0.05,
+                  "linear", 4, 8, 144, 4718592) \
+            or "freeze_question_encoder" not in tc.modules \
+            or ex.searcher.mode != "exact":
+        raise AssertionError(f"RAG training is not the published recipe: "
+                             f"{recipe}")
+    if any(p.requires_grad or id(p) in trainable
+           for p in gen.parameters()):
+        raise AssertionError("a generator base weight is trainable")
+    bs, accum = cfg.train.batch_size, tc.accumulate_grad_batches
+    print(f"set-up {time.perf_counter() - t_phase:.1f} s: {len(lora)} LoRA "
+          f"adapters, {n_lora} LoRA parameters, "
+          f"{sum(p.numel() for p in ex.optimizer.trainable)} trainable in "
+          f"all; generator base {sum(p.numel() for p in gen.parameters())} "
+          f"frozen; {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+          f"card", flush=True)
+    out = {"lora_params": n_lora,
+           "trainable_params": sum(p.numel() for p in ex.optimizer.trainable)}
+    t0 = time.perf_counter()
+    base = [p.detach().cpu() for p in gen.parameters()]
+    out["base_snapshot_s"] = time.perf_counter() - t0
+    raw = rag_batches(data["train"], bs, seed=cfg.get("seed", 0))
+
+    # (a) the published step: two optimizer steps of 4 micro-batches of 8
+    n_micro = 2 * accum
+    searches, undo = record_rag_searches(ex)
+    timer = RagStageTimer(ex)
+    maxsim.maxsim_search.launches = 0
+    maxsim.maxsim_search.split_launches = 0
+    batches = (ex.make_train_batch(b) for b in raw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        ex.fit(batches, steps=accum, log_every=1)
+        b_after_first = min(float(e["lora_b"].detach().abs().max())
+                            for e in ex.lora.values())
+        ex.fit(batches, steps=accum, log_every=1)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        launches = maxsim.maxsim_search.launches
+        split = maxsim.maxsim_search.split_launches
+        steps = timer.steps()
+    finally:
+        timer.close()
+        undo()
+    logged = [r for r in ex.logger.history if "train/loss" in r]
+    losses = [r["train/loss"] for r in logged]
+    print(f"{n_micro} micro-batches of {bs} questions ({n_micro // accum} "
+          f"optimizer steps) through fit in {t_fit:.1f} s: "
+          f"{n_micro * bs / t_fit:.3f} questions/s trained; losses "
+          f"{[round(x, 4) for x in losses]}; K1-f32 launches {launches} "
+          f"({split} on the split route); the smallest LoRA B's largest "
+          f"|value| after the first update {b_after_first:.3g}", flush=True)
+    for i, st in enumerate(steps):
+        print(f"  micro-batch {i}: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in st.items()) + " ms", flush=True)
+    if len(losses) != n_micro or not np.all(np.isfinite(
+            losses + [r["train/grad_norm"] for r in logged])):
+        raise AssertionError(f"{len(losses)} logged steps, losses {losses}")
+    if launches != n_micro or split != launches:
+        raise AssertionError(f"K1-f32 launched {launches} times ({split} "
+                             f"split) for {n_micro} micro-batches")
+    if not b_after_first > 0:
+        raise AssertionError("a LoRA B is still zero after the first update")
+    state = ex.optimizer.adamw.state
+    held = {id(p) for p in state}
+    if held != trainable or ex.optimizer.updates != 2 or any(
+            a.shape != p.shape for a, p in zip(ex.optimizer.acc,
+                                               ex.optimizer.trainable)) \
+            or len(ex.optimizer.acc) != len(ex.optimizer.trainable):
+        raise AssertionError("optimizer state is held outside the trainable "
+                             "set")
+    out["search_err"], out["search_cpu_s"] = check_rows(
+        searches, ex.index, rc.n_docs)
+    print(f"live retrieval: {len(searches)} searches' rows vs the plain "
+          f"search (all on the card, 8 on a CPU copy in "
+          f"{out['search_cpu_s']:.1f} s): max |score err| "
+          f"{out['search_err']:.3g}", flush=True)
+    out.update(launches={"K1-f32": launches}, micro_batches=n_micro,
+               losses=losses, fit_s=t_fit,
+               questions_per_s=n_micro * bs / t_fit,
+               micro_batch_stages_ms=steps,
+               update_ms=[st["optimizer step"] for st in
+                          steps[accum - 1::accum]],
+               peak_bytes_train=torch.cuda.max_memory_allocated())
+    del searches
+
+    # (b) the loss paths at full width: rag and additional weights 1
+    ex.rag_cfg = dataclasses.replace(rc, rag_weight=1.0,
+                                     additional_weight=1.0)
+    batch = ex.make_train_batch(next(raw))
+    ex.model.zero_grad(set_to_none=True)
+    loss, parts = ex.loss_fn(batch)
+    loss.backward()
+    ex.rag_cfg = rc
+    r = ex.model.retriever
+    tower = {"linear": r.linear, "vision_projection": r.vision_projection,
+             "query BERT": r.query_bert}
+    norms = {}
+    for name, mod in tower.items():
+        # (the BERT's pooler, which the query does not read, has none)
+        grads = [p.grad for p in mod.parameters()
+                 if id(p) in trainable and p.grad is not None]
+        if not grads or any(not torch.isfinite(g).all() for g in grads):
+            raise AssertionError(f"the query tower's {name} has no grad or "
+                                 f"a non-finite one")
+        norms[name] = float(torch.sqrt(sum(g.square().sum() for g in grads)))
+    parts = {k: float(v) for k, v in parts.items()}
+    loss = float(loss.detach())
+    print(f"the loss paths at full width (rag and additional weights 1): "
+          f"loss {loss:.6f}, " + ", ".join(
+              f"{k} {v:.6f}" for k, v in parts.items())
+          + "; the query tower's trainable grads' norms " + ", ".join(
+              f"{k} {v:.3g}" for k, v in norms.items()), flush=True)
+    if not (np.isfinite(loss) and all(np.isfinite(list(parts.values())))
+            and all(v > 0 for v in norms.values())):
+        raise AssertionError("a loss path gave a non-finite value or no "
+                             "grad")
+    out["loss_paths"] = dict(parts, loss=loss, tower_grad_norms=norms)
+    ex.model.zero_grad(set_to_none=True)
+    del batch, loss
+
+    # (d) learning: 3 optimizer steps on one fixed micro-batch
+    ex.optimizer = make_optimizer(dataclasses.replace(
+        tc, accumulate_grad_batches=1), ex.model)
+    fixed = ex.make_train_batch(next(raw))
+    learn = [float(ex.train_step(fixed)["loss"]) for _ in range(3)]
+    with torch.no_grad():
+        learn.append(float(ex.loss_fn(fixed)[0]))
+    print(f"one fixed micro-batch, 3 optimizer steps (accumulation 1): loss "
+          f"{' -> '.join(f'{x:.6f}' for x in learn)}", flush=True)
+    if not learn[-1] < learn[0]:
+        raise AssertionError(f"the loss did not fall: {learn}")
+    out["learning_losses"] = learn
+    del fixed
+    if not all(torch.equal(p.detach().cpu(), b)
+               for p, b in zip(gen.parameters(), base)):
+        raise AssertionError("a generator base weight changed in training")
+    del base
+    print("the generator base weights are bit-identical after training",
+          flush=True)
+
+    tmp = tempfile.mkdtemp(dir=HERE, prefix=".chip_smoke_rag_")
+    try:
+        # (e) evaluation through generate (K1 once a dispatch)
+        evaluated, generate = [], ex.generate
+
+        def recording(b):
+            o = generate(b)
+            evaluated.append((b, o["predictions"]))
+            return o
+        ex.generate = recording
+        maxsim.maxsim_search.launches = 0
+        maxsim.maxsim_search.split_launches = 0
+        t0 = time.perf_counter()
+        try:
+            metrics = run_rag_eval(cfg, ex, data, tmp, "test")
+        finally:
+            del ex.generate
+        out["eval_s"] = time.perf_counter() - t0
+        eval_launches = maxsim.maxsim_search.launches
+        eval_split = maxsim.maxsim_search.split_launches
+        n_test = len(data["test"].items)
+        with open(os.path.join(tmp, "test_rag_metrics.json")) as f:
+            written = json.load(f)
+        direct = [ex.generate(b)["predictions"] for b, _ in evaluated]
+        print(f"run_rag_eval: {n_test} questions in {len(evaluated)} "
+              f"dispatches, {out['eval_s']:.1f} s; metrics {metrics}; "
+              f"K1-f32 launches {eval_launches} ({eval_split} split)",
+              flush=True)
+        if written != metrics or eval_launches != len(evaluated) \
+                or eval_split != eval_launches or n_test < 16 \
+                or direct != [p for _, p in evaluated] \
+                or len(evaluated) != -(-n_test // bs):
+            raise AssertionError("the RAG evaluation disagrees with generate "
+                                 "or missed K1")
+        out.update(eval_metrics=metrics, eval_dispatches=len(evaluated),
+                   eval_launches=eval_launches,
+                   eval_answers=evaluated[0][1][:4])
+
+        # (c) the card against the CPU, at full width and 4 + 4 T5 layers
+        raw2 = rag_batches(data["train"], 2, seed=1)
+        out["vs_cpu"], card = rag_train_vs_cpu(ex, raw2)
+
+        # (f) the 4 + 4 copy's checkpoint, loaded by a fresh executor
+        t0 = time.perf_counter()
+        card.save_checkpoint(os.path.join(tmp, "ckpt"))
+        t_save = time.perf_counter() - t0
+        fresh = _cut_executor(ex, card.model.generator.cfg, "cuda", 12,
+                              weights=False)
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(os.path.join(tmp, "ckpt"))
+        t_load = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(tmp, "ckpt", "params.msgpack"))
+        qb = next(rag_eval_batches(data["test"], bs))
+        want, got = card.generate(qb), fresh.generate(qb)
+        same = (got["predictions"] == want["predictions"]
+                and np.array_equal(got["all_generations"],
+                                   want["all_generations"])
+                and np.array_equal(got["doc_scores"], want["doc_scores"]))
+        print(f"checkpoint of the {RAG_CUT_LAYERS} + {RAG_CUT_LAYERS} copy: "
+              f"params.msgpack "
+              f"{size / 1e9:.2f} GB, saved in {t_save:.1f} s, loaded into a "
+              f"fresh executor in {t_load:.1f} s; the same answers: {same} "
+              f"(step {fresh.step}, optimizer updates "
+              f"{fresh.optimizer.updates})", flush=True)
+        if not same or fresh.step != card.step \
+                or fresh.optimizer.updates != card.optimizer.updates:
+            raise AssertionError("the reloaded checkpoint answers "
+                                 "differently")
+        out["checkpoint"] = {"bytes": size, "save_s": t_save,
+                             "load_s": t_load}
+        del card, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) refresh_index with the trained retriever, then K1 on it
+    t0 = time.perf_counter()
+    old = ex.index
+    refresh_index(ex, FLMRExecutor(ex.model.retriever, device="cuda",
+                                   inference_only=True),
+                  corpus_doc_batches(data["passages"]["full_passages"],
+                                     data["doc_tokenizer"], batch_size=64))
+    torch.cuda.synchronize()
+    out["refresh_s"] = time.perf_counter() - t0
+    if ex.index is old or torch.equal(ex.index.tokens, old.tokens):
+        raise AssertionError("refresh_index left the index as it was")
+    del old
+    searches, undo = record_rag_searches(ex)
+    maxsim.maxsim_search.launches = 0
+    maxsim.maxsim_search.split_launches = 0
+    try:
+        ex.retrieve(next(raw))
+    finally:
+        undo()
+    refreshed = (maxsim.maxsim_search.launches,
+                 maxsim.maxsim_search.split_launches)
+    out["refreshed_search_err"], _ = check_rows(searches, ex.index,
+                                                rc.n_docs)
+    print(f"refresh_index: {out['refresh_s']:.1f} s ({ex.index.num_docs} "
+          f"passages re-encoded); one search on the new index: K1-f32 launches "
+          f"{refreshed[0]} ({refreshed[1]} split), rows vs the plain search "
+          f"max |score err| {out['refreshed_search_err']:.3g}", flush=True)
+    if refreshed != (1, 1):
+        raise AssertionError(f"the refreshed search launched K1 "
+                             f"{refreshed}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"peak max_memory_allocated {out['peak_bytes'] / 2**30:.2f} GiB "
+          f"({out['peak_bytes_train'] / 2**30:.2f} in the published step); "
+          f"phase {out['seconds']:.1f} s ({smi})", flush=True)
+    del ex, gen, lora, batches, raw
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2650,6 +3275,9 @@ def main():
                                   ("hierarchical", PREFLMR_HIER_CONFIG))}
     phase("16 RAVQA-v2 answer serve (BLIP-2 Flan-T5-XL over FLMR, K1-f32)")
     rag_serve = rag_serve_slice(maxsim, k1, smi)
+    phase("17 RAVQA-v2 joint training and evaluation (BLIP-2 Flan-T5-XL "
+          "LoRA + FLMR, K1-f32)")
+    rag_train = rag_train_slice(maxsim, smi)
     phase("report")
 
     def entry(name, source, replaces, launches, measured):
@@ -2685,6 +3313,10 @@ def main():
     kernels["K1-f32"]["launches_preflmr_serve"] = \
         preflmr["exact"]["launches"]["K1-f32"]
     kernels["K1-f32"]["launches_rag_serve"] = rag_serve["launches"]["K1-f32"]
+    # phase 17: once per training micro-batch's live retrieval, once per
+    # evaluation dispatch
+    kernels["K1-f32"]["launches_rag_train"] = rag_train["launches"]["K1-f32"]
+    kernels["K1-f32"]["launches_rag_eval"] = rag_train["eval_launches"]
 
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (bf16, tensor cores)", "coarse_sweep.cu",
@@ -2761,7 +3393,8 @@ def main():
                       "train_step_vs_cpu": train_step,
                       "train_slice": train_slice,
                       "preflmr_serve": preflmr,
-                      "rag_serve": rag_serve}), flush=True)
+                      "rag_serve": rag_serve,
+                      "rag_train": rag_train}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -28,7 +28,11 @@ class SyntheticOKVQA(BaseTransform):
     """setup: n_docs=64, n_questions=32, vision_dim=16, seed=0,
     n_patches=0 (> 0: (n_patches, vision_dim) patch features per question),
     emit_pixels=0 (> 0: an (S, S, 3) uint8 image per question, which then
-    carries no image features: an in-graph ViT takes the pixels)."""
+    carries no image features: an in-graph ViT takes the pixels),
+    features_with_pixels=False (True: an item with an image keeps its image
+    features too, as the RAVQA-v2 recipe's data carry both: the features
+    for FLMR's mapping network, the pixels for BLIP-2; not in the JAX
+    package's copy, and off leaves every item as there)."""
 
     WORDS = ["cat", "dog", "sky", "sun", "tree", "fish", "bird", "car",
              "red", "blue", "big", "old", "hot", "wet", "sad", "fast",
@@ -64,7 +68,8 @@ class SyntheticOKVQA(BaseTransform):
             if pixels:
                 items[-1]["image"] = rng.integers(
                     0, 255, (pixels, pixels, 3)).astype(np.uint8)
-                del items[-1]["image_features"]
+                if not getattr(self, "features_with_pixels", False):
+                    del items[-1]["image_features"]
         n_train = max(1, int(0.8 * n_q))
         return {"train": items[:n_train], "test": items[n_train:],
                 "passages": {"train_passages": corpus,

@@ -3,9 +3,10 @@ from .base import (BaseExecutor, MetricsLogger, Optimizer, TrainConfig,
 from .callbacks import CheckpointManager, EarlyStopping
 from .flmr_executor import FLMRExecutor
 from .rag_executor import (RagConfig, RagExecutor,
-                           load_static_retrieval_from_predictions)
+                           load_static_retrieval_from_predictions,
+                           refresh_index)
 
 __all__ = ["BaseExecutor", "MetricsLogger", "Optimizer", "TrainConfig",
            "make_optimizer", "make_schedule", "CheckpointManager",
            "EarlyStopping", "FLMRExecutor", "RagConfig", "RagExecutor",
-           "load_static_retrieval_from_predictions"]
+           "load_static_retrieval_from_predictions", "refresh_index"]

@@ -30,6 +30,7 @@ starts afresh and "ckpt_opt_state_missing" is logged.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -52,6 +53,9 @@ CHECKPOINT_FILES = ("params.msgpack", "params.npz")
 class TrainConfig:
     lr: float = 1e-5
     mapping_lr: Optional[float] = None     # separate LR for mapping network
+    retriever_lr: Optional[float] = None   # separate LR for the retriever
+    #   in joint RAG training (reference RAG_BLIP2_with_FLMR: lr 6e-4 for
+    #   the generator, retriever_lr 1e-4)
     weight_decay: float = 0.0
     warmup_steps: int = 0
     total_steps: int = 10000
@@ -125,17 +129,22 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def _group(cfg: TrainConfig, name: str) -> str:
+    """The learning-rate group of a parameter, as make_optimizer's labels
+    in the JAX package: the mapping network (within the first two name
+    parts), else the RAG executor's retriever, else the base rate."""
     parts = name.split(".")
     if cfg.mapping_lr is not None and "vision_projection" in parts[:2]:
         return "mapping"
+    if cfg.retriever_lr is not None and parts[0] == "retriever":
+        return "retriever"
     return "base"
 
 
 class Optimizer:
     """make_optimizer's transformation over a module's parameters: AdamW
-    with the mapping-network learning-rate group, global-norm clipping,
-    gradient accumulation and freeze masks. step() reads the trainable
-    parameters' .grad."""
+    with the mapping-network and retriever learning-rate groups, global-norm
+    clipping, gradient accumulation and freeze masks. step() reads the
+    trainable parameters' .grad."""
 
     def __init__(self, cfg: TrainConfig, model: nn.Module):
         self.cfg = cfg
@@ -144,8 +153,9 @@ class Optimizer:
         for name, p in model.named_parameters():
             if mask[name]:
                 groups.setdefault(_group(cfg, name), []).append(p)
-        lrs = {"base": cfg.lr, "mapping": cfg.mapping_lr}
-        order = [g for g in ("base", "mapping") if g in groups]
+        lrs = {"base": cfg.lr, "mapping": cfg.mapping_lr,
+               "retriever": cfg.retriever_lr}
+        order = [g for g in ("base", "mapping", "retriever") if g in groups]
         self.trainable = [p for g in order for p in groups[g]]
         self.schedules = [make_schedule(cfg, lrs[g]) for g in order]
         self.adamw = None
@@ -374,9 +384,9 @@ class BaseExecutor:
     def _fit_loop(self, batches, steps, log_every, val_every, val_fn,
                   ckpt_manager, early_stopping) -> dict:
         last_metrics: dict = {}
-        for i, batch in enumerate(batches):
-            if steps is not None and i >= steps:
-                break
+        # islice: the batch after the last step is not drawn (the JAX loop
+        # draws it and drops it, which for RAG training is a live retrieval)
+        for i, batch in enumerate(itertools.islice(batches, steps)):
             metrics = self.train_step(batch)
             if (i + 1) % log_every == 0 or (steps and i == steps - 1):
                 last_metrics = {k: float(v) for k, v in metrics.items()}

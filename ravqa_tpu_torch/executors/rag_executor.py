@@ -1,35 +1,49 @@
-"""RAVQA-v2 executor, inference half: retrieve, then generate an answer.
+"""RAVQA-v2 executor: retrieve-then-generate training, and generation.
 
-Port of the inference half of ravqa_tpu/executors/rag_executor.py
-(reference RagBlipExecutor + RagModelForBlip, src/models/rag/
-rag_model_blip.py):
+Port of ravqa_tpu/executors/rag_executor.py (reference RagBlipExecutor +
+RagModelForBlip, src/models/rag/rag_model_blip.py):
 
 - live retrieval: the FLMR query tower, then LateInteractionSearcher over
   the corpus index (K1 on a float32 index on the card; the pruned modes'
   kernels with `search_mode`); the retrieved docs' tokens and masks are
-  gathered on the device for the in-graph re-scoring;
+  gathered on the device for the in-graph re-scoring. In training
+  (retrieve(training=True)) the published recipe's flags apply:
+  use_gt_docs_for_training draws each passage slot from the question's
+  positives, n_docs_in_training keeps a random subset of the top n_docs,
+  both from the executor's numpy default_rng(seed) in the JAX order;
 - static retrieval: a precomputed {question_id: [(row, score), ...]} map
   (FLMR prediction dumps, load_static_retrieval_from_predictions);
+- training: make_train_batch (live retrieval, the retrieval labels, the
+  labels: force_existence's per-doc selected answers or the gold answer
+  repeated), loss_fn (the query re-encoded with gradients and each
+  (question, doc) pair scored by paired MaxSim, ops.maxsim.maxsim_pair_xla;
+  the generator's teacher-forced logits; models.rag.rag_loss_components),
+  train_step_rag and fit through BaseExecutor's trainer, refresh_index;
 - generate: the query encoded again and each (question, doc) pair scored
-  by paired MaxSim (ops.maxsim.maxsim_pair_xla); a T5 or BLIP-2 generator
-  encodes "Question: .. Knowledge: .. Answer:" per pair (BLIP-2 with the
-  question's image); greedy or beam decoding; the answer is the one of
-  the doc maximizing log g(z|x) + log p(y|x,z).
+  by paired MaxSim; a T5 or BLIP-2 generator encodes "Question: ..
+  Knowledge: .. Answer:" per pair (BLIP-2 with the question's image);
+  greedy or beam decoding; the answer is the one of the doc maximizing
+  log g(z|x) + log p(y|x,z).
 
 BLIP-2 encodes each image once and repeats its projected query tokens for
-the question's docs, where the JAX package repeats the image n_docs times
-before the vision tower: the rows are independent, so the output is the
-same. The decoder reads each layer's cross-attention keys and values
-computed once per (question, doc) sequence (models/t5.py cross_kv), which
-the beams of that sequence share, where the JAX step recomputes them from
-the encoder output repeated over the beams at every step.
+the question's docs, in training and generation, where the JAX package
+repeats the image n_docs times before the vision tower: the rows are
+independent, so the output is the same. The decoder reads each layer's
+cross-attention keys and values computed once per (question, doc)
+sequence (models/t5.py cross_kv), which the beams of that sequence share,
+where the JAX step recomputes them from the encoder output repeated over
+the beams at every step.
 
-LoRA stays a separate dict until prepare_for_serving merges it into the
-generator once, in place; before that, each generate runs the generator
-on the merged weights (torch.func.functional_call), as the JAX package
-merges per call. Training (make_train_batch, the RAG losses,
-train_step_rag, refresh_index) is not ported: fit and train_step raise
-(ROADMAP.md A6).
+LoRA (rag_cfg.use_lora) lives in model.lora (models.lora.LoRAParams) and
+trains with the retriever; the generator's own weights are frozen: they
+take no grad (requires_grad False, the JAX executor's stop_gradient) and
+no optimizer state (freeze_generator_base). Each generator call runs on
+the merged weights W + (alpha / rank) * (A @ B)^T
+(torch.func.functional_call), the JAX package's arithmetic, and gradients
+reach A and B through the merge; T5's remat recomputes a block on the same
+merged tensors. prepare_for_serving merges the LoRA into the weights once,
+in place, and drops the optimizer; an executor built inference_only
+starts merged (a fresh LoRA has B = 0) and cannot train.
 """
 
 from __future__ import annotations
@@ -47,14 +61,16 @@ from ..models.convert import (generator_to_flax, lora_to_flax,
                               rag_params_to_torch, read_params_tree,
                               state_dict_to_flax, write_flax_msgpack)
 from ..models.generation import beam_generate, greedy_generate
-from ..models.lora import init_lora, lora_delta, merge_lora
-from ..models.rag import GeneratorInputBuilder, select_answers_by_joint_score
+from ..models.lora import LoRAParams, init_lora, lora_delta, merge_lora
+from ..models.rag import (GeneratorInputBuilder, get_retrieval_labels,
+                          most_frequent, rag_loss_components,
+                          select_answers_by_joint_score)
+from ..models.t5 import shift_right
 from ..ops.maxsim import maxsim_pair_xla
 from ..retrieval import LateInteractionSearcher, TokenIndex
-from .base import CHECKPOINT_FILES, BaseExecutor, TrainConfig, _num_heads
+from .base import (CHECKPOINT_FILES, BaseExecutor, TrainConfig, _num_heads,
+                   make_optimizer)
 
-_TRAINING = ("RAG training is not ported yet to ravqa_tpu_torch (see "
-             "ROADMAP.md, Queue A: A6)")
 LORA_TARGETS = ("self_attn/q", "self_attn/v", "cross_attn/q", "cross_attn/v")
 
 
@@ -83,8 +99,8 @@ class RagConfig:
     #   drive the pruning stages
     search_preset: str = "reference"      # LateInteractionSearcher preset
     coarse_int8: Optional[bool] = None    # int8 pruning-stage summaries
-    # published-config behaviours (reference rag_model_blip.py), read by
-    # RAG training (A6); generation does not use them:
+    # published-config behaviours (reference rag_model_blip.py), read in
+    # training; generation does not use them:
     n_docs_in_training: Optional[int] = None  # :552-557
     use_gt_docs_for_training: bool = False    # :559-573
     ignore_knowledge_passages: bool = False   # :617 (the input builder's)
@@ -112,7 +128,8 @@ def _make_searcher(index: TokenIndex, mesh, rag_cfg: RagConfig):
 
 class RagModel(nn.Module):
     """The retriever and the generator as one module: the executor's
-    model (state_dict names retriever.* and generator.*)."""
+    model (state_dict names retriever.* and generator.*, and lora.* while
+    the executor trains a LoRA)."""
 
     def __init__(self, retriever: nn.Module, generator: nn.Module):
         super().__init__()
@@ -136,10 +153,12 @@ class _Method(nn.Module):
 class RagExecutor(BaseExecutor):
     """Retrieve-then-generate on one device. retriever: an FLMRRetriever;
     generator: a T5Model, or a Blip2T5 with rag_cfg.generator_type
-    "blip2"; both carry their weights. The executor holds no optimizer.
-    With rag_cfg.use_lora, LoRA is initialized (B = 0, A from a CPU
-    generator seeded seed + 1) on the q and v projections of the
-    generator's self- and cross-attention (the JAX executor's targets)."""
+    "blip2"; both carry their weights. With rag_cfg.use_lora, LoRA is
+    initialized (B = 0, A from a CPU generator seeded seed + 1) on the q
+    and v projections of the generator's self- and cross-attention (the
+    JAX executor's targets). passage_ids (the corpus' ids, in index order)
+    serve use_gt_docs_for_training. inference_only builds no optimizer and
+    no LoRA (see the module docstring)."""
 
     def __init__(self, retriever: nn.Module, generator: nn.Module,
                  gen_tokenizer, rag_cfg: RagConfig,
@@ -147,31 +166,54 @@ class RagExecutor(BaseExecutor):
                  query_tokenizer=None,
                  index: Optional[TokenIndex] = None,
                  passage_contents: Optional[Sequence[str]] = None,
+                 passage_ids: Optional[Sequence] = None,
                  static_retrieval: Optional[dict] = None,
                  input_builder: Optional[GeneratorInputBuilder] = None,
                  mesh=None, device=None, log_dir: Optional[str] = None,
-                 seed: int = 0, quiet: bool = False):
-        # prepare_for_serving runs inside BaseExecutor.__init__ (no
-        # optimizer): no LoRA exists then, so it only drops the optimizer
-        self.lora = None
-        self._lora_premerged = False
+                 seed: int = 0, quiet: bool = False,
+                 inference_only: bool = False):
         self.gen_tokenizer = gen_tokenizer
         self.query_tokenizer = query_tokenizer
         self.rag_cfg = rag_cfg
-        self.index = index
+        self.mesh = mesh
         self.passage_contents = passage_contents
+        self.passage_ids = passage_ids
         self.static_retrieval = static_retrieval
         self.input_builder = input_builder or GeneratorInputBuilder(
             ignore_knowledge=rag_cfg.ignore_knowledge_passages)
-        super().__init__(RagModel(retriever, generator), train_cfg, device,
-                         log_dir, seed, quiet=quiet, inference_only=True)
-        self.searcher = (_make_searcher(index, mesh, rag_cfg)
-                         if index is not None else None)
+        self._rng = np.random.default_rng(seed)
+        model = RagModel(retriever, generator)
+        # a fresh LoRA has B = 0, so merged it is the base itself: an
+        # inference executor starts merged and draws none
+        self._lora_premerged = rag_cfg.use_lora and inference_only
+        train_cfg = train_cfg or TrainConfig()
         if rag_cfg.use_lora:
-            self.lora = init_lora(
-                generator, rank=rag_cfg.lora_rank, targets=LORA_TARGETS,
-                generator=torch.Generator().manual_seed(seed + 1))
+            if not inference_only:
+                model.lora = LoRAParams(init_lora(
+                    generator, rank=rag_cfg.lora_rank, targets=LORA_TARGETS,
+                    generator=torch.Generator().manual_seed(seed + 1)))
+            generator.requires_grad_(False)
+            train_cfg = dataclasses.replace(
+                train_cfg, modules=tuple(train_cfg.modules)
+                + ("freeze_generator_base",))
+        super().__init__(model, train_cfg, device, log_dir, seed,
+                         quiet=quiet, inference_only=inference_only)
+        self._set_index(index)
         self._call = _Method(generator)
+
+    def _set_index(self, index: Optional[TokenIndex]) -> None:
+        """Use `index`: its searcher, and the corpus passage id -> index
+        row map of use_gt_docs_for_training."""
+        self.index = index
+        self.searcher = (_make_searcher(index, self.mesh, self.rag_cfg)
+                         if index is not None else None)
+        self._pid2row = None
+        if self.passage_ids is not None and index is not None:
+            corpus2row = {int(c): r for r, c in enumerate(
+                np.asarray(index.pids).tolist()) if c >= 0}
+            self._pid2row = {str(pid): corpus2row[i]
+                             for i, pid in enumerate(self.passage_ids)
+                             if i in corpus2row}
 
     @property
     def _gcfg(self):
@@ -179,14 +221,45 @@ class RagExecutor(BaseExecutor):
         return cfg.t5 if self.rag_cfg.generator_type == "blip2" else cfg
 
     # -- parameters -----------------------------------------------------------
+    @property
+    def lora(self) -> Optional[dict]:
+        """{adapted weight name: {"lora_a", "lora_b"}}, the parameters of
+        model.lora; None without a LoRA or once it is merged."""
+        module = getattr(self.model, "lora", None)
+        return None if module is None else module.entries()
+
+    @lora.setter
+    def lora(self, lora: Optional[dict]) -> None:
+        """Set the LoRA: copied into model.lora's parameters when it has
+        the same entries (the optimizer keeps them); else model.lora is
+        replaced (None: removed) and the optimizer rebuilt."""
+        current = self.lora
+        if lora is not None and current is not None \
+                and current.keys() == lora.keys():
+            with torch.no_grad():
+                for name, entry in lora.items():
+                    for key, t in entry.items():
+                        current[name][key].copy_(t)
+            return
+        if current is not None:
+            del self.model.lora
+        if lora is not None:
+            self.model.lora = LoRAParams(
+                {name: {k: t.detach().to(self.device)
+                        for k, t in entry.items()}
+                 for name, entry in lora.items()})
+        if self.optimizer is not None:
+            self.optimizer = make_optimizer(self.train_cfg, self.model)
+
     def _gen(self, method: str, *args):
         """generator.<method>(*args), on the LoRA-merged weights while the
         LoRA is not merged in place."""
-        if self.lora is None:
+        lora = self.lora
+        if lora is None:
             return getattr(self.model.generator, method)(*args)
         cfg = self.rag_cfg
         params = dict(self.model.generator.named_parameters())
-        merged = merge_lora({k: params[k] for k in self.lora}, self.lora,
+        merged = merge_lora({k: params[k] for k in lora}, lora,
                             alpha=cfg.lora_alpha, rank=cfg.lora_rank)
         return torch.func.functional_call(
             self._call, {f"module.{k}": v for k, v in merged.items()},
@@ -196,22 +269,17 @@ class RagExecutor(BaseExecutor):
         """The deployment form: the LoRA merged into the generator's
         weights once, in place (generate then runs the generator as it is,
         with no per-call merge), and the optimizer dropped."""
-        if self.lora is not None:
+        lora = self.lora
+        if lora is not None:
             cfg = self.rag_cfg
             params = dict(self.model.generator.named_parameters())
             with torch.no_grad():       # one weight's update alive at a time
-                for name, entry in self.lora.items():
+                for name, entry in lora.items():
                     params[name].add_(lora_delta(entry, cfg.lora_alpha,
                                                  cfg.lora_rank))
-            self.lora = None
+            del self.model.lora
             self._lora_premerged = True
         super().prepare_for_serving()
-
-    def train_step(self, batch) -> dict:
-        raise NotImplementedError(_TRAINING)
-
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
 
     # -- checkpoints ----------------------------------------------------------
     def load_params_tree(self, params: dict) -> None:
@@ -237,17 +305,35 @@ class RagExecutor(BaseExecutor):
             self.prepare_for_serving()
 
     def load_checkpoint(self, path: str) -> None:
-        """A params file (flax msgpack or flattened-key .npz) or a
-        checkpoint directory's params.msgpack / params.npz, written by the
-        JAX RagExecutor or by save_checkpoint."""
-        if os.path.isdir(path):
-            found = [os.path.join(path, f) for f in CHECKPOINT_FILES
-                     if os.path.exists(os.path.join(path, f))]
-            if not found:
-                raise FileNotFoundError(f"{path} holds none of "
-                                        f"{CHECKPOINT_FILES}")
-            path = found[0]
-        self.load_params_tree(read_params_tree(path))
+        """A params file (flax msgpack or flattened-key .npz), or a
+        checkpoint directory written by the JAX RagExecutor or by
+        save_checkpoint: its params.msgpack / params.npz, step.json, and
+        where present the port's optimizer.pt (a training executor without
+        it starts a fresh optimizer and logs "ckpt_opt_state_missing", as
+        BaseExecutor.load_checkpoint) and rng.pt."""
+        if not os.path.isdir(path):
+            self.load_params_tree(read_params_tree(path))
+            return
+        found = [os.path.join(path, f) for f in CHECKPOINT_FILES
+                 if os.path.exists(os.path.join(path, f))]
+        if not found:
+            raise FileNotFoundError(f"{path} holds none of "
+                                    f"{CHECKPOINT_FILES}")
+        self.load_params_tree(read_params_tree(found[0]))
+        step_path = os.path.join(path, "step.json")
+        if os.path.exists(step_path):
+            with open(step_path) as f:
+                self.step = int(json.load(f)["step"])
+        if self.optimizer is not None:
+            opt_path = os.path.join(path, "optimizer.pt")
+            if os.path.exists(opt_path):
+                self.optimizer.load_state_dict(
+                    torch.load(opt_path, map_location=self.device))
+            else:
+                self.logger.log({"ckpt_opt_state_missing": 1}, self.step)
+        rng_path = os.path.join(path, "rng.pt")
+        if os.path.exists(rng_path):
+            self.generator.set_state(torch.load(rng_path))
 
     def params_tree(self) -> dict:
         """The JAX RagExecutor's params tree of this executor's weights."""
@@ -255,17 +341,24 @@ class RagExecutor(BaseExecutor):
         if self.lora is not None:
             gen = {"base": gen, "lora": lora_to_flax(self.lora)}
         return {"retriever": state_dict_to_flax(
-                    self.model.retriever.state_dict(), _num_heads(self.model.retriever)),
+                    self.model.retriever.state_dict(),
+                    _num_heads(self.model.retriever)),
                 "generator": gen}
 
     def save_checkpoint(self, path: str, backend: str = "msgpack"):
-        """params.msgpack (the JAX package's format) and step.json."""
+        """params.msgpack (the JAX package's format: its RagExecutor loads
+        it), step.json, and the port's optimizer.pt (while the executor
+        trains) and rng.pt."""
         if backend != "msgpack":
             raise NotImplementedError(f"checkpoint backend {backend!r} is "
                                       "not ported (msgpack only)")
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "params.msgpack"), "wb") as f:
             f.write(write_flax_msgpack(self.params_tree()))
+        if self.optimizer is not None:
+            torch.save(self.optimizer.state_dict(),
+                       os.path.join(path, "optimizer.pt"))
+        torch.save(self.generator.get_state(), os.path.join(path, "rng.pt"))
         with open(os.path.join(path, "step.json"), "w") as f:
             json.dump({"step": self.step}, f)
 
@@ -278,14 +371,28 @@ class RagExecutor(BaseExecutor):
             self._t(batch["query_attention_mask"]),
             None if feats is None else self._t(feats, torch.float32))
 
-    @torch.inference_mode()
-    def retrieve(self, batch) -> dict:
-        """rows (B, n_docs) numpy (-1: a dummy passage), the docs' token
-        embeddings (B, n_docs, Ld, dim) and masks (B, n_docs, Ld), float32
-        on the index's device (dummy docs all zero), and their contents
-        ("" for a dummy)."""
-        n_docs = self.rag_cfg.n_docs
-        if self.static_retrieval is not None:
+    @torch.no_grad()
+    def retrieve(self, batch, training: bool = False) -> dict:
+        """rows (B, n) numpy (-1: a dummy passage), the docs' token
+        embeddings (B, n, Ld, dim) and masks (B, n, Ld), float32 on the
+        index's device (dummy docs all zero), and their contents ("" for a
+        dummy). n is n_docs, or n_docs_in_training in training.
+
+        training=True applies the reference's training-only behaviours:
+        use_gt_docs_for_training (rag_model_blip.py:559-573: each slot an
+        independently drawn positive, when the batch has pos_item_ids) and
+        the n_docs_in_training random subset (:552-557)."""
+        cfg = self.rag_cfg
+        n_docs = cfg.n_docs
+        pos_ids = batch.get("pos_item_ids")
+        if training and cfg.use_gt_docs_for_training \
+                and pos_ids is not None and self._pid2row is not None:
+            rows = np.array(
+                [[self._pid2row.get(
+                    str(pos[self._rng.integers(len(pos))]), -1)
+                  for _ in range(n_docs)] if pos else [-1] * n_docs
+                 for pos in pos_ids], np.int64)
+        elif self.static_retrieval is not None:
             rows = []
             for q in batch["question_ids"]:
                 ann = self.static_retrieval.get(str(q))
@@ -303,6 +410,12 @@ class RagExecutor(BaseExecutor):
             _, found = self.searcher.search_device(self.encode_query(batch),
                                                    k=n_docs)
             rows = found.cpu().numpy()
+        if training and cfg.n_docs_in_training \
+                and cfg.n_docs_in_training < rows.shape[1]:
+            cols = np.stack([self._rng.permutation(rows.shape[1])
+                             [:cfg.n_docs_in_training]
+                             for _ in range(rows.shape[0])])
+            rows = np.take_along_axis(rows, cols, axis=1)
         # dummies: static -1 rows, and live rows on index padding (pid -1,
         # when n_docs > num_docs), which would otherwise serve
         # passage_contents[-1]
@@ -329,6 +442,84 @@ class RagExecutor(BaseExecutor):
             ids[i, :len(row)] = row
             mask[i, :len(row)] = 1
         return ids, mask
+
+    def _labels(self, texts, maxlen):
+        """Label ids (N, maxlen): each text's tokens cut to maxlen - 1, EOS,
+        then -100."""
+        tk = self.gen_tokenizer
+        eos = getattr(tk, "eos_token_id", None) or tk.sep_token_id
+        out = np.full((len(texts), maxlen), -100, np.int32)
+        for i, t in enumerate(texts):
+            row = tk.encode(t, add_special_tokens=False)[:maxlen - 1] + [eos]
+            out[i, :len(row)] = row
+        return out
+
+    # -- training -------------------------------------------------------------
+    def make_train_batch(self, batch) -> dict:
+        """A training micro-batch on the device: live retrieval
+        (retrieve(training=True)), the retrieval labels, the generator's
+        inputs and the labels (force_existence: each doc's selected answer;
+        else the gold answer repeated per doc). batch: questions, answers,
+        query_input_ids, query_attention_mask, image_features,
+        pixel_values (BLIP-2), question_ids (static retrieval),
+        pos_item_ids (use_gt_docs_for_training)."""
+        cfg = self.rag_cfg
+        ret = self.retrieve(batch, training=True)
+        answers = batch["answers"]
+        retrieval_labels, selected = get_retrieval_labels(answers,
+                                                          ret["contents"])
+        gi, gm = self._tensorize(
+            self.input_builder.build(batch["questions"], ret["contents"]),
+            cfg.gen_maxlen)
+        if cfg.force_existence:
+            label_texts = selected
+        else:
+            n = ret["rows"].shape[1]
+            label_texts = [most_frequent([a for a in ans if a != ""])
+                           for ans in answers for _ in range(n)]
+        feats = batch.get("image_features")
+        out = {"query_input_ids": self._t(batch["query_input_ids"],
+                                          torch.long),
+               "query_attention_mask": self._t(batch["query_attention_mask"]),
+               "image_features": (None if feats is None else
+                                  self._t(feats, torch.float32)),
+               "doc_tokens": ret["doc_tokens"], "doc_masks": ret["doc_masks"],
+               "gen_input_ids": self._t(gi, torch.long),
+               "gen_attention_mask": self._t(gm),
+               "labels": self._t(self._labels(label_texts, cfg.label_maxlen),
+                                 torch.long),
+               "retrieval_labels": self._t(retrieval_labels)}
+        if cfg.generator_type == "blip2":
+            out["pixel_values"] = self._t(batch["pixel_values"],
+                                          torch.float32)
+        return out
+
+    def loss_fn(self, batch, generator=None):
+        """rag_loss_components of a make_train_batch batch: the query
+        re-encoded with gradients, the doc scores by paired MaxSim, the
+        generator's teacher-forced logits for shift_right(labels) on the
+        LoRA-merged weights. Returns (loss, {nll_loss, rag_loss,
+        additional_loss})."""
+        cfg, gcfg = self.rag_cfg, self._gcfg
+        doc_scores = self.doc_scores(batch, batch["doc_tokens"],
+                                     batch["doc_masks"])
+        args = (batch["gen_input_ids"], batch["gen_attention_mask"],
+                shift_right(batch["labels"], gcfg.decoder_start_token_id,
+                            gcfg.pad_token_id))
+        if cfg.generator_type == "blip2":
+            args = (batch["pixel_values"],) + args
+        out = rag_loss_components(
+            self._gen("forward", *args), doc_scores, batch["labels"],
+            retrieval_labels=batch["retrieval_labels"],
+            loss_type=cfg.loss_type, rag_loss_weight=cfg.rag_weight,
+            additional_loss_weight=cfg.additional_weight,
+            nll_loss_weight=cfg.nll_weight)
+        return out["loss"], {k: v.detach() for k, v in out.items()
+                             if k != "loss"}
+
+    def train_step_rag(self, batch) -> dict:
+        """make_train_batch, then one micro-step of the trainer."""
+        return self.train_step(self.make_train_batch(batch))
 
     # -- generation -----------------------------------------------------------
     def doc_scores(self, batch, doc_tokens, doc_masks) -> torch.Tensor:
@@ -427,3 +618,16 @@ def load_static_retrieval_from_predictions(json_path: str,
                                                     -float(rank)))))
         out[str(p["question_id"])] = rows
     return out
+
+
+def refresh_index(executor: RagExecutor, flmr_executor,
+                  doc_batches) -> None:
+    """Re-encode the corpus with the executor's current retriever and swap
+    its index and searcher in place (live retrieval during joint training
+    otherwise searches an index of the retriever as it was).
+    flmr_executor: an FLMRExecutor whose model takes the retriever's
+    weights; doc_batches: corpus_doc_batches of the corpus in index
+    order."""
+    flmr_executor.model.load_state_dict(
+        executor.model.retriever.state_dict())
+    executor._set_index(flmr_executor.build_index(list(doc_batches)))

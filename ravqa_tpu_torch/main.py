@@ -1,5 +1,6 @@
 """CLI entry point of the PyTorch port: config-driven FLMR retrieval
-training, evaluation and serving, and RAVQA answer serving.
+training, evaluation and serving, and RAVQA training, evaluation and
+answer serving.
 
 Port of ravqa_tpu/main.py. For FLMR retrieval configs: `--mode train`
 (the trainer, validation through `run_eval` every `train.val_every` steps,
@@ -7,9 +8,13 @@ then `<log_dir>/<experiment_name>/ckpt`), `--mode test` / `eval` (the
 checkpoint, an index of the corpus, search, `<split>_metrics.json`,
 `<split>_predictions.json` and the prediction table), `--mode serve`
 (a RetrievalServer, POST /search) and `prepare_data`. For RAG configs
-(`executor.ExecutorClass` RagExecutor): `--mode serve` (a VQAServer over
-live FLMR retrieval and a T5 or BLIP-2 generator, POST /answer) and
-`prepare_data`. Examples, on an NVIDIA GPU:
+(`executor.ExecutorClass` RagExecutor): `--mode train` (joint training
+of the LoRA and the retriever over live retrieval, validation through
+`run_rag_eval` every `train.val_every` steps, then the checkpoint),
+`--mode test` / `eval` (the checkpoint, then generation over the split,
+`<split>_rag_metrics.json` with exact match and VQA accuracy), `--mode
+serve` (a VQAServer over live FLMR retrieval and a T5 or BLIP-2
+generator, POST /answer) and `prepare_data`. Examples, on an NVIDIA GPU:
 
     python -m ravqa_tpu_torch.main --config configs/synthetic_flmr.json \
         --mode train --experiment_name dev --opts train.lr=1e-4
@@ -18,12 +23,13 @@ live FLMR retrieval and a T5 or BLIP-2 generator, POST /answer) and
     python -m ravqa_tpu_torch.main \
         --config configs/synthetic_flmr_base_serve.json --mode serve
     python -m ravqa_tpu_torch.main \
+        --config configs/synthetic_rag_blip2_train.json --mode train
+    python -m ravqa_tpu_torch.main \
         --config configs/synthetic_rag_blip2_serve.json --mode serve
 
 `--device` chooses where the models and index live (default "cuda"; pass
-"cpu" for the plain PyTorch path). RAG training and evaluation
-(`--mode train/test/eval` on a RAG config) and `--num_devices` are not
-ported yet (ROADMAP.md, Queue A).
+"cpu" for the plain PyTorch path). `--num_devices` (ROADMAP.md A4) and
+`--use_dummy_data` (A3) are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import json
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 # load_config is re-exported: callers of the port (chip_smoke.py) load a
@@ -150,7 +157,8 @@ def build_executor(cfg: Config, device, log_dir: Optional[str] = None,
 
 
 def build_rag_executor(cfg: Config, data, device,
-                       log_dir: Optional[str] = None, quiet: bool = True):
+                       log_dir: Optional[str] = None, quiet: bool = True,
+                       inference_only: bool = False):
     """RAVQA / RAVQA-v2 executor from a config (executor.ExecutorClass
     RagExecutor): the FLMR retriever (weights from a CPU generator of the
     config's seed, as build_executor's), the corpus index encoded on
@@ -161,9 +169,13 @@ def build_rag_executor(cfg: Config, data, device,
     module flags use_gt_docs_for_training, ignore_knowledge_passages and
     force_existence, num_knowledge_passages(_in_training) and
     static_retrieval (with index_files.static_results) are read as the
-    JAX package's build_rag_executor reads them."""
+    JAX package's build_rag_executor reads them, and `train.*` (lr,
+    retriever_lr, weight_decay, schedule, warmup_steps, total_steps,
+    accumulate_grad_batches; the model's module flags) into its
+    TrainConfig. inference_only builds no optimizer and no LoRA
+    (serving, evaluation)."""
     from .data import corpus_doc_batches
-    from .executors import FLMRExecutor, RagConfig, RagExecutor
+    from .executors import FLMRExecutor, RagConfig, RagExecutor, TrainConfig
     from .executors.rag_executor import \
         load_static_retrieval_from_predictions
     from .models import FLMRRetriever, T5Config, T5Model
@@ -222,12 +234,24 @@ def build_rag_executor(cfg: Config, data, device,
         for path in paths:
             static_map.update(
                 load_static_retrieval_from_predictions(path, corpus.ids))
+    tc = cfg.get("train", Config())
+    train_cfg = TrainConfig(lr=tc.get("lr", 1e-5),
+                            retriever_lr=tc.get("retriever_lr"),
+                            weight_decay=tc.get("weight_decay", 0.0),
+                            schedule=tc.get("schedule", "constant"),
+                            warmup_steps=tc.get("warmup_steps", 0),
+                            total_steps=tc.get("total_steps", 1000),
+                            modules=tuple(modules),
+                            accumulate_grad_batches=tc.get(
+                                "accumulate_grad_batches", 1))
     return RagExecutor(retriever, generator, gen_tokenizer=tok,
-                       rag_cfg=RagConfig(**rag_kwargs),
+                       rag_cfg=RagConfig(**rag_kwargs), train_cfg=train_cfg,
                        query_tokenizer=data["query_tokenizer"], index=index,
                        passage_contents=corpus.contents,
+                       passage_ids=corpus.ids,
                        static_retrieval=static_map, device=device,
-                       log_dir=log_dir, seed=seed, quiet=quiet)
+                       log_dir=log_dir, seed=seed, quiet=quiet,
+                       inference_only=inference_only)
 
 
 def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
@@ -256,8 +280,8 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
                      max_queue=sv.get("max_queue", 0))
     mc = cfg.model_config
     rag = _is_rag(cfg)
-    ex = (build_rag_executor(cfg, data, device, log_dir) if rag
-          else build_executor(cfg, device, inference_only=True))
+    ex = (build_rag_executor(cfg, data, device, log_dir, inference_only=True)
+          if rag else build_executor(cfg, device, inference_only=True))
     if not _load_checkpoint(ex, cfg, log_dir):
         print("serve: no checkpoint found (set train.load_model_path) "
               "— serving randomly initialized weights", flush=True)
@@ -422,6 +446,118 @@ def run_eval(cfg, ex, data, log_dir: str, split: str = "valid") -> dict:
     return metrics
 
 
+def rag_batches(dataset, batch_size: int, seed: int = 0):
+    """RAG training batches from a RetrievalDataset, endlessly: each epoch
+    a permutation from numpy default_rng(seed), whole batches only;
+    question ids, questions, answers, pos_item_ids, query tokens and the
+    items' image features and pixels (the JAX main.py's rag_batches)."""
+    rng = np.random.default_rng(seed)
+    items = dataset.items
+    while True:
+        order = rng.permutation(len(items))
+        for s in range(0, len(order) - batch_size + 1, batch_size):
+            yield _rag_batch(dataset, [items[i] for i in
+                                       order[s:s + batch_size]])
+
+
+def rag_eval_batches(dataset, batch_size: int):
+    """Evaluation batches in dataset order; the last one is padded by
+    repeating its last item, and the pads carry question_id None, so each
+    question is counted once (the JAX main.py's rag_eval_batches)."""
+    items = dataset.items
+    n = len(items)
+    for s in range(0, n, batch_size):
+        chunk = [items[i] for i in range(s, min(s + batch_size, n))]
+        qids = [it["question_id"] for it in chunk]
+        while len(chunk) < batch_size:
+            chunk.append(chunk[-1])
+            qids.append(None)
+        batch = _rag_batch(dataset, chunk)
+        batch["question_ids"] = qids
+        yield batch
+
+
+def _rag_batch(dataset, chunk) -> dict:
+    from .data.datasets import _attach_vision
+    parsed = [dataset.parser.parse(it, dataset.input_modules) for it in chunk]
+    qi, qm = dataset.qt.tensorize([p["text_sequence"] for p in parsed])
+    batch = {"question_ids": [it["question_id"] for it in chunk],
+             "questions": [it["question"] for it in chunk],
+             "answers": [it["answers"] for it in chunk],
+             "pos_item_ids": [it.get("pos_item_ids") for it in chunk],
+             "query_input_ids": qi, "query_attention_mask": qm}
+    _attach_vision(batch, chunk, parsed)
+    return batch
+
+
+def run_rag_eval(cfg, ex, data, log_dir: str, split: str = "test") -> dict:
+    """Generate an answer for each question of the split (batches of
+    train.batch_size), score exact match and VQA accuracy, log them under
+    `<split>/` and write <split>_rag_metrics.json under log_dir."""
+    from .metrics import exact_match, vqa_accuracy
+    ds = data.get(split) or data["test"]
+    preds, answers = [], []
+    bs = cfg.get("train", Config()).get("batch_size", 8)
+    for batch in rag_eval_batches(ds, min(bs, len(ds.items))):
+        out = ex.generate(batch)
+        for qid, p, a in zip(batch["question_ids"], out["predictions"],
+                             batch["answers"]):
+            if qid is None:                     # the padded tail's repeats
+                continue
+            preds.append(p)
+            answers.append(a)
+    if len(preds) != len(ds.items):
+        raise AssertionError(f"{len(preds)} predictions for "
+                             f"{len(ds.items)} questions")
+    metrics = {"exact_match": exact_match(preds, answers),
+               "vqa_accuracy": vqa_accuracy(preds, answers)}
+    ex.logger.log(metrics, ex.step, prefix=f"{split}/")
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, f"{split}_rag_metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    return metrics
+
+
+def run_rag_train(cfg, args, data, log_dir: str) -> int:
+    """Joint RAG training: `train.total_steps` micro-batches of
+    `train.batch_size` questions, each retrieved live with the current
+    retriever (so no batch is prepared ahead), validating every
+    `train.val_every` through run_rag_eval, then <log_dir>/ckpt.
+    `train.load_model_path` starts from a checkpoint."""
+    tc = cfg.get("train", Config())
+    ex = build_rag_executor(cfg, data, args.device, log_dir, quiet=False)
+    if tc.get("load_model_path"):
+        ex.load_checkpoint(tc.get("load_model_path"))
+    raw = rag_batches(data["train"], tc.get("batch_size", 8),
+                      seed=cfg.get("seed", 0))
+    ckpt_manager, early_stopping = _callbacks_from(cfg, log_dir)
+    ex.fit((ex.make_train_batch(b) for b in raw),
+           steps=tc.get("total_steps", 100),
+           log_every=tc.get("log_every", 20),
+           val_every=tc.get("val_every"),
+           val_fn=(lambda: run_rag_eval(cfg, ex, data, log_dir, "valid"))
+           if tc.get("val_every") else None,
+           ckpt_manager=ckpt_manager, early_stopping=early_stopping)
+    ex.save_checkpoint(os.path.join(log_dir, "ckpt"))
+    return 0
+
+
+def run_rag_test(cfg, args, data, log_dir: str) -> int:
+    """Evaluate the checkpoint (train.load_model_path, else <log_dir>/ckpt)
+    on the test split (--mode test) or the valid split (--mode eval). The
+    JAX package's RAG test mode evaluates the executor as built, without
+    the checkpoint (ROADMAP.md C17)."""
+    ex = build_rag_executor(cfg, data, args.device, log_dir, quiet=False,
+                            inference_only=True)
+    if not _load_checkpoint(ex, cfg, log_dir):
+        print(f"{args.mode}: no checkpoint found — evaluating randomly "
+              "initialized weights", flush=True)
+    metrics = run_rag_eval(cfg, ex, data, log_dir,
+                           "test" if args.mode == "test" else "valid")
+    print(json.dumps(metrics, indent=2))
+    return 0
+
+
 def run_train(cfg, args, data, log_dir: str) -> int:
     """Train `train.total_steps` micro-steps (the remaining ones when
     `train.auto_resume` finds <log_dir>/ckpt), validating every
@@ -497,9 +633,6 @@ def main(argv=None):
         # the reference flag truncates the OK-VQA loader's items; the port
         # has no OK-VQA loader yet, and SyntheticOKVQA ignores the flag
         raise NotImplementedError(f"--use_dummy_data {_NOT_PORTED}: A3")
-    if _is_rag(cfg) and args.mode in ("train", "test", "eval"):
-        raise NotImplementedError(
-            f"--mode {args.mode} on a RAG config {_NOT_PORTED}: A6")
     if args.num_devices:
         raise NotImplementedError(f"--num_devices {_NOT_PORTED}: A4")
     log_dir = os.path.join(args.log_dir, args.experiment_name)
@@ -511,6 +644,9 @@ def main(argv=None):
         return 0
     if args.mode == "serve":
         return run_serve(cfg, args, data, log_dir)
+    if _is_rag(cfg):
+        return (run_rag_train if args.mode == "train" else run_rag_test)(
+            cfg, args, data, log_dir)
     if args.mode == "train":
         return run_train(cfg, args, data, log_dir)
     return run_test(cfg, args, data, log_dir)

@@ -1,3 +1,6 @@
-from .retrieval_metrics import positive_id_scores, pseudo_relevance_scores
+from .retrieval_metrics import (exact_match, positive_id_scores,
+                                pseudo_relevance_scores)
+from .vqa import TextCleaner, normalize_answer, vqa_accuracy
 
-__all__ = ["positive_id_scores", "pseudo_relevance_scores"]
+__all__ = ["TextCleaner", "exact_match", "normalize_answer",
+           "positive_id_scores", "pseudo_relevance_scores", "vqa_accuracy"]

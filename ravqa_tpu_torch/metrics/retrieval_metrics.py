@@ -1,14 +1,16 @@
-"""Retrieval metrics: pseudo-relevance (string match) and ground-truth
-Recall/Precision@K.
+"""Retrieval metrics: pseudo-relevance (string match), ground-truth
+Recall/Precision@K, and the exact match of generated answers.
 
-The port's own copy of pseudo_relevance_scores and positive_id_scores from
-ravqa_tpu/metrics/retrieval_metrics.py (reference
+The port's own copy of pseudo_relevance_scores, positive_id_scores and
+exact_match from ravqa_tpu/metrics/retrieval_metrics.py (:1-86; reference
 metrics_processors.py:481-604): a top-K passage "hits" if any answer string
 appears (case-insensitive substring) in its content; recall@K is the share
 of questions with a hit in the top K, precision@K the hits over K averaged
 over questions; gold_* variants use the single gold answer. Ground truth:
-a hit iff the retrieved passage id is one of pos_item_ids.
-tests/test_torch_eval.py holds the copy to the original.
+a hit iff the retrieved passage id is one of pos_item_ids. exact_match:
+the share of predictions equal to one of their answers, both stripped and
+lowercased. tests/test_torch_eval.py and tests/test_torch_rag_train.py
+hold the copies to the originals.
 """
 
 from __future__ import annotations
@@ -73,3 +75,13 @@ def positive_id_scores(
             out[f"{field}_recall_at_{k}"] += float(nh > 0)
             out[f"{field}_precision_at_{k}"] += nh / k
     return {name: v / max(n, 1) for name, v in out.items()}
+
+
+def exact_match(predictions: Sequence[str], answers: Sequence[Sequence[str]],
+                normalize=lambda s: s.strip().lower()) -> float:
+    """EM over multiple acceptable answers (reference compute_exact_match)."""
+    n = len(predictions)
+    hit = sum(
+        any(normalize(p) == normalize(a) for a in ans)
+        for p, ans in zip(predictions, answers))
+    return hit / max(n, 1)

@@ -10,10 +10,11 @@ from .convert import (flatten_params, flax_to_state_dict,
 from .flmr import (FLMRModelConfig, FLMRRetriever, l2_normalize,
                    punctuation_skiplist_ids, skiplist_mask)
 from .generation import beam_generate, greedy_generate
-from .lora import count_lora_params, init_lora, merge_lora
+from .lora import LoRAParams, count_lora_params, init_lora, merge_lora
 from .mapping import (MappingMLP, TransformerMapping,
                       TransformerMappingLayer, VisionMapping)
-from .rag import GeneratorInputBuilder, select_answers_by_joint_score
+from .rag import (GeneratorInputBuilder, get_retrieval_labels, most_frequent,
+                  rag_loss_components, select_answers_by_joint_score)
 from .t5 import T5Config, T5Model, shift_right
 from .transformer import (EncoderConfig, EncoderLayer, MlpBlock,
                           MultiHeadAttention, TransformerEncoder,
@@ -32,9 +33,10 @@ __all__ = ["BertConfig", "BertModel", "Blip2Config", "Blip2T5",
            "FLMRModelConfig", "FLMRRetriever",
            "l2_normalize", "punctuation_skiplist_ids", "skiplist_mask",
            "beam_generate", "greedy_generate", "count_lora_params",
-           "init_lora", "merge_lora",
+           "init_lora", "merge_lora", "LoRAParams",
            "MappingMLP", "TransformerMapping", "TransformerMappingLayer",
-           "VisionMapping", "GeneratorInputBuilder",
+           "VisionMapping", "GeneratorInputBuilder", "get_retrieval_labels",
+           "most_frequent", "rag_loss_components",
            "select_answers_by_joint_score", "T5Config", "T5Model",
            "shift_right", "EncoderConfig", "EncoderLayer",
            "MlpBlock", "MultiHeadAttention", "TransformerEncoder",

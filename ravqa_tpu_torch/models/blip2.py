@@ -281,7 +281,14 @@ class Blip2T5(nn.Module):
 
     def forward(self, pixel_values, input_ids, attention_mask,
                 decoder_input_ids):
-        enc, mask = self.encode(pixel_values, input_ids, attention_mask)
+        """Teacher-forced logits (N, Td, V) of N = B * g text rows over B
+        images: each image is encoded once and its projected tokens serve
+        its g consecutive rows (a question's passages), where the JAX
+        package repeats the pixels g times before the vision tower; the
+        rows are independent, so the logits are the same."""
+        vis = self.encode_image(pixel_values)
+        vis = vis.repeat_interleave(input_ids.shape[0] // vis.shape[0], dim=0)
+        enc, mask = self.encode_tokens(vis, input_ids, attention_mask)
         return self.language_model.decode(decoder_input_ids, enc, mask)
 
     # decoding helpers: T5Model's API, for generation.py

@@ -11,6 +11,12 @@ carries both trees across). A target matches as a substring of the
 Linear's name with "/" between its parts ("self_attn/q" matches
 "language_model/encoder/0/self_attn/q"), as the JAX package matches its
 parameter paths.
+
+For training, LoRAParams holds the same dict as parameters of a module
+(the RAG executor's model.lora), so the optimizer and autograd see them;
+the merge stays the JAX arithmetic, done per call with the merged weights
+swapped in (torch.func.functional_call): gradients reach A and B through
+W + (alpha / rank) * (A @ B)^T, and none reach W.
 """
 
 from __future__ import annotations
@@ -48,6 +54,27 @@ def init_lora(model: nn.Module, rank: int = 8,
                      "lora_b": torch.zeros(rank, m.out_features,
                                            dtype=w.dtype, device=w.device)}
     return lora
+
+
+class LoRAParams(nn.Module):
+    """A LoRA dict as parameters: one child per adapted weight, named by
+    the weight's name with "/" for "." (a module name holds no "."), with
+    the parameters lora_a and lora_b. entries() gives the dict back, its
+    tensors the parameters themselves."""
+
+    def __init__(self, lora: Mapping):
+        super().__init__()
+        self.adapters = nn.ModuleDict()
+        for name, entry in lora.items():
+            m = nn.Module()
+            m.lora_a = nn.Parameter(entry["lora_a"])
+            m.lora_b = nn.Parameter(entry["lora_b"])
+            self.adapters[name.replace(".", "/")] = m
+
+    def entries(self) -> dict:
+        return {key.replace("/", "."): {"lora_a": m.lora_a,
+                                        "lora_b": m.lora_b}
+                for key, m in self.adapters.items()}
 
 
 def lora_delta(entry: Mapping, alpha: float, rank: int) -> torch.Tensor:

@@ -24,6 +24,14 @@ stacks are the ModuleLists ``encoder`` and ``decoder`` (the JAX package's
 parameters across. ``reset_parameters`` draws weights at the scales of the
 flax initializers (lecun-normal kernels, embeddings of std d^-1/2) from a
 generator on the modules' device.
+
+With ``remat`` and grad enabled (training), each encoder and decoder
+block runs under torch.utils.checkpoint (non-reentrant): the backward
+keeps the blocks' inputs and recomputes one block at a time. The block's
+parameters go into the checkpoint as inputs, and the recompute runs the
+block on those same tensors (torch.func.functional_call), so a caller that
+swapped weights in for the forward (the executor's LoRA merge) gets its
+recompute on them too.
 """
 
 from __future__ import annotations
@@ -60,7 +68,8 @@ class T5Config:
     pad_token_id: int = 0
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
-    remat: bool = False    # the JAX training option; inference ignores it
+    remat: bool = False    # recompute each block in the backward (only
+    #   when grad is enabled: the JAX package's nn.remat(T5Block))
 
     @property
     def n_dec(self) -> int:
@@ -280,6 +289,21 @@ class T5Block(nn.Module):
         return x + self.ff(self.ln2(x)), position_bias, new_cache
 
 
+def run_block(blk: nn.Module, remat: bool, *args):
+    """blk(*args), under non-reentrant checkpointing when `remat` and grad
+    is enabled, with the parameters it holds now as the checkpoint's
+    inputs (see the module docstring)."""
+    if not (remat and torch.is_grad_enabled()):
+        return blk(*args)
+    from torch.utils.checkpoint import checkpoint
+    names, tensors = zip(*blk.named_parameters())
+
+    def run(*flat):
+        return torch.func.functional_call(
+            blk, dict(zip(names, flat[:len(names)])), flat[len(names):])
+    return checkpoint(run, *tensors, *args, use_reentrant=False)
+
+
 def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
     return ((1.0 - mask.float()) * -1e9)[:, None, None, :]
 
@@ -321,7 +345,8 @@ class T5Model(nn.Module):
             else None
         pos = None
         for blk in self.encoder:
-            x, pos, _ = blk(x, self_bias=bias, position_bias=pos)
+            x, pos, _ = run_block(blk, self.cfg.remat, x, None, bias, None,
+                                  pos)
         return self.encoder_final_ln(x)
 
     def decode(self, decoder_input_ids, enc, enc_mask=None,
@@ -334,8 +359,8 @@ class T5Model(nn.Module):
         cross_bias = _mask_bias(enc_mask) if enc_mask is not None else None
         pos = None
         for blk in self.decoder:
-            x, pos, _ = blk(x, enc=enc, self_bias=self_bias,
-                            cross_bias=cross_bias, position_bias=pos)
+            x, pos, _ = run_block(blk, self.cfg.remat, x, enc, self_bias,
+                                  cross_bias, pos)
         return self._logits(self.decoder_final_ln(x))
 
     def _logits(self, x):

@@ -5,7 +5,10 @@ reference's freeze flags (freeze_colbert_doc_encoder / freeze_mapping_network
 / freeze_question_encoder / freeze_image_encoder, FLMR.py:52-68,
 FLMR_executor.py:290-365) become a name -> trainable map without touching
 the model. The port's module names follow the Flax tree, so the prefixes
-are the JAX package's with "." for "/". gather_with_local_grads and FSDP
+are the JAX package's with "." for "/", but for the generator: the JAX
+RagExecutor's tree holds "generator/base" and "generator/lora", the port's
+RagModel holds the base as "generator" and the LoRA as "lora", so
+freeze_generator_base freezes "generator". gather_with_local_grads and FSDP
 come with data parallelism (ROADMAP.md A4).
 """
 
@@ -21,7 +24,7 @@ FREEZE_FLAG_PREFIXES = {
     "freeze_question_encoder": ("query_encoder",),
     "freeze_mapping_network": ("vision_projection",),
     "freeze_image_encoder": ("vision_model",),
-    "freeze_generator_base": ("generator.base",),
+    "freeze_generator_base": ("generator",),
 }
 
 

@@ -1254,3 +1254,81 @@ def test_t5_beam_search_on_cuda_matches_cpu(n_beams):
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["t5", "blip2"])
+def test_rag_train_step_on_cuda_matches_cpu(kind):
+    """A RAG training micro-batch on the card and on the CPU from the same
+    weights (configs/synthetic_rag.json's tiny T5, or a tiny BLIP-2 cut of
+    configs/synthetic_rag_blip2_train.json), the CPU's retrieved batch on
+    both: two train steps (the loss, its parts and the grad norm rtol 1e-4;
+    every LoRA and retriever grad within 1e-4 of the largest), then the
+    parameters within 2 lr; retrieval on the card launched K1."""
+    import os
+    from ravqa_tpu_torch.config import apply_overrides, load_config
+    from ravqa_tpu_torch.main import (build_pipeline, build_rag_executor,
+                                      rag_batches)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if kind == "t5":
+        cfg = load_config(os.path.join(repo, "configs", "synthetic_rag.json"))
+    else:
+        cfg = apply_overrides(load_config(os.path.join(
+            repo, "configs", "synthetic_rag_blip2_train.json")), [
+            "data_pipeline.raw.setup_kwargs.n_docs=64",
+            "data_pipeline.raw.setup_kwargs.vision_dim=16",
+            "data_pipeline.raw.setup_kwargs.emit_pixels=32",
+            "data_pipeline.loaders.setup_kwargs.query_maxlen=16",
+            "data_pipeline.loaders.setup_kwargs.doc_maxlen=16",
+            "model_config.bert={'vocab_size': 512, 'hidden_size': 64, "
+            "'num_layers': 2, 'num_heads': 4, 'intermediate_size': 128, "
+            "'max_position_embeddings': 64}",
+            "model_config.dim=32", "model_config.vision_embedding_size=16",
+            "model_config.mapping_network_prefix_length=4",
+            "model_config.generator={'type': 'blip2', "
+            "'num_query_tokens': 4, 'vision': {'image_size': 32, "
+            "'patch_size': 8, 'hidden_size': 32, 'num_layers': 2, "
+            "'num_heads': 4, 'intermediate_size': 64}, 'qformer': "
+            "{'hidden_size': 32, 'num_layers': 2, 'num_heads': 4, "
+            "'intermediate_size': 64, 'encoder_hidden_size': 32}, 't5': "
+            "{'vocab_size': 512, 'd_model': 64, 'd_kv': 16, 'd_ff': 128, "
+            "'num_layers': 2, 'num_heads': 4, 'feed_forward_proj': "
+            "'gated-gelu', 'tie_word_embeddings': False, 'remat': True}}",
+            "model_config.rag.gen_maxlen=24",
+            "model_config.rag.rag_weight=1.0",
+            "model_config.rag.additional_weight=1.0",
+            "train.accumulate_grad_batches=1"])
+    data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
+                                        explode=True)
+    cpu = build_rag_executor(cfg, data, "cpu")
+    card = build_rag_executor(cfg, data, "cuda")
+    card.model.load_state_dict(cpu.model.state_dict())
+    raw = rag_batches(data["train"], 4)
+    maxsim.maxsim_search.launches = 0
+    card.retrieve(next(raw))
+    assert maxsim.maxsim_search.launches == 1
+    before = {n: p.detach().clone() for n, p in cpu.model.named_parameters()}
+    for _ in range(2):
+        batch = cpu.make_train_batch(next(raw))
+        on_card = {k: (v.cuda() if isinstance(v, torch.Tensor) else v)
+                   for k, v in batch.items()}
+        m_cpu, m = cpu.train_step(batch), card.train_step(on_card)
+        for key in ("loss", "nll_loss", "rag_loss", "additional_loss",
+                    "grad_norm"):
+            torch.testing.assert_close(m[key].cpu(), m_cpu[key], rtol=1e-4,
+                                       atol=1e-6, msg=key)
+        grads = {n: p.grad for n, p in cpu.model.named_parameters()
+                 if p.grad is not None}
+        largest = max(g.abs().max().item() for g in grads.values())
+        for n, p in card.model.named_parameters():
+            if n in grads:
+                torch.testing.assert_close(p.grad.cpu(), grads[n], rtol=1e-4,
+                                           atol=1e-4 * largest, msg=n)
+    tc = cpu.train_cfg
+    for n, p in card.model.named_parameters():
+        lr = tc.retriever_lr if (n.startswith("retriever.")
+                                 and tc.retriever_lr is not None) else tc.lr
+        torch.testing.assert_close(p.detach().cpu(),
+                                   cpu.model.get_parameter(n).detach(),
+                                   rtol=0, atol=2 * 2 * lr, msg=n)
+    assert any(not torch.equal(p.detach(), before[n])
+               for n, p in cpu.model.named_parameters())

@@ -304,7 +304,7 @@ def test_prepare_for_serving_leaves_generate_unchanged(world):
     jex.prepare_for_serving()
     _assert_same(before, after)
     _assert_same(_jax_generate(jex, batch), after)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(RuntimeError, match="inference_only"):
         tex.train_step(batch)
 
 

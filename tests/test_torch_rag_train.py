@@ -1,0 +1,818 @@
+"""The port's RAG training and evaluation against the JAX package's, at
+tiny width.
+
+Both packages build the same synthetic world (SyntheticOKVQA, 48
+passages), a tiny FLMR retriever with a separate question encoder, a tiny
+T5 or BLIP-2 generator with LoRA and the corpus index. One JAX RagExecutor
+per generator kind is built once and its params tree, the LoRA included,
+comes into each port executor through models/convert.py
+(RagExecutor.load_params_tree); the port's index holds the JAX index's
+token embeddings. Then the same batches go to both: the RAG losses, the
+retrieval labels, make_train_batch, train_step_rag (two updates of
+accumulation 2, retriever_lr, freeze_question_encoder), refresh_index,
+run_rag_eval, a port checkpoint loaded by the JAX executor, and the CLI.
+
+Tolerances: rag_loss_components' loss and components rtol 1e-5, their
+grads with respect to seq_logits and doc_scores within 1e-5 of the
+largest; the train step's (C13, tests/test_torch_train.py): losses and
+grad norms rtol 1e-4, every LoRA and retriever grad rtol 1e-4 and atol
+1e-5 of the largest, the parameters after each update within 2 lr a step
+(Adam moves a coordinate by about lr whatever its grad's size, so grads
+that differ in their rounding alone part it by up to lr); make_train_batch
+arrays, retrieval labels, labels, predictions and metrics identical; the
+refreshed index's tokens 1e-5; remat on against off 1e-6 of the largest.
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ravqa_tpu import models as jax_models
+from ravqa_tpu.config import Config as JaxConfig
+from ravqa_tpu.data import DataPipeline as JaxPipeline
+from ravqa_tpu.data.datasets import corpus_doc_batches as jax_doc_batches
+from ravqa_tpu.executors import FLMRExecutor as JaxFLMRExecutor
+from ravqa_tpu.executors import RagConfig as JaxRagConfig
+from ravqa_tpu.executors import RagExecutor as JaxRagExecutor
+from ravqa_tpu.executors import TrainConfig as JaxTrainConfig
+from ravqa_tpu.executors.rag_executor import _make_searcher as jax_searcher
+from ravqa_tpu.executors.rag_executor import refresh_index as jax_refresh
+from ravqa_tpu.metrics import retrieval_metrics as jax_rm
+from ravqa_tpu.metrics import vqa as jax_vqa
+from ravqa_tpu.models import blip2 as jax_blip2
+from ravqa_tpu.models import rag as jax_rag
+from ravqa_tpu.parallel import trainable_mask as jax_trainable_mask
+from ravqa_tpu_torch.config import Config
+from ravqa_tpu_torch.data import DataPipeline, corpus_doc_batches
+from ravqa_tpu_torch.executors import (FLMRExecutor, RagConfig, RagExecutor,
+                                       TrainConfig, refresh_index)
+from ravqa_tpu_torch.executors.base import Optimizer
+from ravqa_tpu_torch.metrics import retrieval_metrics as rm
+from ravqa_tpu_torch.metrics import vqa
+from ravqa_tpu_torch.models import (BertConfig, FLMRModelConfig,
+                                    FLMRRetriever, T5Config, T5Model,
+                                    flax_to_state_dict, lora_to_torch,
+                                    state_dict_to_flax)
+from ravqa_tpu_torch.models import rag
+from ravqa_tpu_torch.models.blip2 import (Blip2Config, Blip2T5,
+                                          Blip2VisionConfig, QFormerConfig)
+from ravqa_tpu_torch.retrieval import build_index_from_embeddings
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RAG_CONFIG = os.path.join(REPO, "configs", "synthetic_rag.json")
+PIPELINE = {
+    "raw": {"transform_name": "SyntheticOKVQA",
+            "setup_kwargs": {"n_docs": 48, "n_questions": 16,
+                             "vision_dim": 8}},
+    "loaders": {"transform_name": "PrepareDataloaders", "input_node": "raw",
+                "setup_kwargs": {"query_maxlen": 12, "doc_maxlen": 12,
+                                 "nway": 2}},
+}
+# 3 passages a question (2 with n_docs_in_training), 4 label tokens
+BASE = dict(n_docs=3, gen_maxlen=24, label_maxlen=4, max_decode_len=4,
+            use_lora=True, lora_rank=2, loss_type="Approach6",
+            rag_weight=1.0, additional_weight=1.0)
+HIER = dict(search_mode="hierarchical", search_preset="fast",
+            n_candidates=8)
+# the published recipe's trainer (rag_blip2_with_flmr.json) at a tiny lr
+# horizon: two LR groups, weight decay, linear decay, accumulation 2
+TRAIN = dict(lr=1e-3, retriever_lr=1e-4, weight_decay=0.05,
+             schedule="linear", total_steps=8, accumulate_grad_batches=2,
+             modules=("freeze_question_encoder",))
+# of the largest grad of its part of the model. C13 takes 1e-5 of the
+# model's largest, which here is the LoRA's, ~1000x the retriever's. The
+# random tiny T5's float32 LoRA grads sit up to 1.3e-5 of their largest from
+# a float64 run in either package (measured on the CPU), and the two
+# packages' differ by as much; the retriever's (the frozen question encoder
+# included, whose grads only the grad norm reads) by up to 5.2e-5 of theirs
+ATOL_GRAD = {"lora": 3e-5, "retriever": 1e-4}
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+# ---------------------------------------------------------------------------
+# the world: data, JAX weights, the JAX index, one JAX executor per kind
+# ---------------------------------------------------------------------------
+
+def _jax_retriever_cfg(vocab):
+    return jax_models.FLMRModelConfig.tiny(
+        bert=jax_models.BertConfig.tiny(vocab_size=vocab), vision_dim=8,
+        prefix_len=2, dim=16, nway=2, separate_question_encoder=True)
+
+
+def _jax_generator(kind, vocab, eos):
+    if kind == "t5":
+        gen = jax_models.T5Model(jax_models.T5Config.tiny(
+            vocab_size=vocab, eos_token_id=eos,
+            feed_forward_proj="gated-gelu", tie_word_embeddings=False))
+        return gen, gen.init(jax.random.PRNGKey(1),
+                             jnp.ones((2, 8), jnp.int32),
+                             jnp.ones((2, 8), jnp.int32),
+                             jnp.ones((2, 3), jnp.int32))["params"]
+    gen = jax_blip2.Blip2T5(jax_blip2.Blip2Config(
+        vision=jax_blip2.Blip2VisionConfig.tiny(),
+        qformer=jax_blip2.QFormerConfig.tiny(),
+        t5=jax_models.T5Config.tiny(vocab_size=vocab, eos_token_id=eos),
+        num_query_tokens=2))
+    return gen, gen.init(jax.random.PRNGKey(2),
+                         jnp.ones((1, 32, 32, 3), jnp.float32),
+                         jnp.ones((1, 6), jnp.int32),
+                         jnp.ones((1, 6), jnp.int32),
+                         jnp.ones((1, 2), jnp.int32))["params"]
+
+
+@pytest.fixture(scope="module")
+def world():
+    jw = JaxPipeline(PIPELINE).get_data("loaders", explode=True)
+    tw = DataPipeline(PIPELINE).get_data("loaders", explode=True)
+    vocab = jw["tokenizer"].vocab_size + 8
+    eos = jw["tokenizer"].sep_token_id
+    retriever = jax_models.FLMRRetriever(_jax_retriever_cfg(vocab))
+    rp = retriever.init(
+        jax.random.PRNGKey(0),
+        query_input_ids=jnp.ones((2, 12), jnp.int32),
+        query_attention_mask=jnp.ones((2, 12), jnp.int32),
+        image_features=jnp.ones((2, 8), jnp.float32),
+        doc_input_ids=jnp.ones((4, 12), jnp.int32),
+        doc_attention_mask=jnp.ones((4, 12), jnp.int32))["params"]
+    corpus = jw["passages"]["full_passages"]
+    fe = JaxFLMRExecutor(retriever, rp, JaxTrainConfig(lr=1e-3), quiet=True)
+    jindex = fe.build_index(jax_doc_batches(corpus, jw["doc_tokenizer"],
+                                            batch_size=16))
+    return dict(jw=jw, tw=tw, vocab=vocab, eos=eos, retriever=retriever,
+                rp=rp, jindex=jindex, corpus=corpus, fe=fe, jex={})
+
+
+def _jax_executor(w, kind):
+    """The world's JAX executor of `kind` (built once, its jitted train
+    step and generate reused), reset to its initial state, with rag_cfg
+    `BASE` and retrieval as given by _set_retrieval."""
+    if kind not in w["jex"]:
+        gen, gp = _jax_generator(kind, w["vocab"], w["eos"])
+        jex = JaxRagExecutor(
+            w["retriever"], w["rp"], gen, gp,
+            gen_tokenizer=w["jw"]["tokenizer"],
+            rag_cfg=JaxRagConfig(generator_type=kind, **BASE),
+            train_cfg=JaxTrainConfig(**TRAIN), index=w["jindex"],
+            passage_contents=w["corpus"].contents,
+            passage_ids=w["corpus"].ids, quiet=True)
+        # the JAX train step's grads and update, compiled apart: the grads
+        # are compared too (jex.train_step would compile its own copy)
+        grad_fn = jax.jit(jax.value_and_grad(
+            lambda p, b: jex.loss_fn(p, b, None), has_aux=True))
+        w["jex"][kind] = (jex, jax.device_get(jex.state), grad_fn,
+                          jax.jit(jex.tx.update))
+    jex, state0, jex.grad_fn, jex.tx_update = w["jex"][kind]
+    jex.state = jax.device_put(state0)
+    jex._rng = np.random.default_rng(0)
+    return jex
+
+
+def _static_map(w):
+    """question_id -> 2 passages (row, score); question 3 is missing (it
+    gets dummy passages)."""
+    n = len(w["corpus"])
+    return {it["question_id"]: [((7 * int(it["question_id"])) % n, 1.0),
+                                ((7 * int(it["question_id"]) + 5) % n, 0.5)]
+            for it in w["jw"]["train"].items
+            if it["question_id"] != "3"}
+
+
+def _set_retrieval(w, jex, kind, retrieval, flags):
+    """Point the JAX executor at `retrieval` ("exact", "hierarchical" or
+    "static") with the training flags `flags`; returns the port's
+    RagConfig and static map for the same."""
+    rag_kw = dict(BASE, generator_type=kind, **flags,
+                  **(HIER if retrieval == "hierarchical" else {}))
+    jex.rag_cfg = JaxRagConfig(**rag_kw)
+    jex.searcher = jax_searcher(jex.index, None, jex.rag_cfg)
+    static = _static_map(w) if retrieval == "static" else None
+    jex.static_retrieval = static
+    return RagConfig(**rag_kw), static
+
+
+def _port_modules(w, kind, remat=False):
+    retriever = FLMRRetriever(FLMRModelConfig.tiny(
+        bert=BertConfig.tiny(vocab_size=w["vocab"]), vision_dim=8,
+        prefix_len=2, dim=16, nway=2, separate_question_encoder=True))
+    if kind == "t5":
+        gen = T5Model(T5Config.tiny(vocab_size=w["vocab"],
+                                    eos_token_id=w["eos"],
+                                    feed_forward_proj="gated-gelu",
+                                    tie_word_embeddings=False, remat=remat))
+    else:
+        gen = Blip2T5(Blip2Config(
+            vision=Blip2VisionConfig.tiny(), qformer=QFormerConfig.tiny(),
+            t5=T5Config.tiny(vocab_size=w["vocab"], eos_token_id=w["eos"],
+                             remat=remat),
+            num_query_tokens=2))
+    return retriever, gen
+
+
+def _port_index(w):
+    j = w["jindex"]
+    return build_index_from_embeddings(
+        np.array(j.tokens, np.float32)[:j.num_docs],
+        np.array(j.mask)[:j.num_docs], pad_multiple=8,
+        dtype=torch.float32)
+
+
+def _port_executor(w, kind, rag_cfg, static=None, params=None, remat=False,
+                   train=TRAIN, **kw):
+    retriever, gen = _port_modules(w, kind, remat)
+    tex = RagExecutor(retriever, gen, w["tw"]["tokenizer"], rag_cfg,
+                      train_cfg=TrainConfig(**train),
+                      query_tokenizer=w["tw"]["query_tokenizer"],
+                      index=_port_index(w),
+                      passage_contents=w["corpus"].contents,
+                      passage_ids=w["corpus"].ids, static_retrieval=static,
+                      device="cpu", quiet=True, **kw)
+    if params is not None:
+        tex.load_params_tree(params)
+    return tex
+
+
+def _batch(w, idxs, kind):
+    """Questions with varied answers: the gold one twice, another word of
+    the vocabulary twice (a frequency tie), a third once and an empty
+    string, so force_existence picks other answers on some docs."""
+    items = [w["jw"]["train"].items[i] for i in idxs]
+    qi, qm = w["jw"]["query_tokenizer"].tensorize(
+        [it["question"] for it in items])
+    rng = np.random.default_rng(len(idxs) + idxs[0])
+    vocab = sorted({x for c in w["corpus"].contents for x in c.split()})
+    answers = []
+    for it in items:
+        other, third = rng.choice(vocab, 2, replace=False)
+        answers.append([it["answers"][0], str(other), it["answers"][0],
+                        str(other), str(third), ""])
+    out = {"question_ids": [it["question_id"] for it in items],
+           "questions": [it["question"] for it in items],
+           "answers": answers,
+           "pos_item_ids": [it["pos_item_ids"] for it in items],
+           "query_input_ids": np.asarray(qi),
+           "query_attention_mask": np.asarray(qm),
+           "image_features": np.stack([it["image_features"]
+                                       for it in items])}
+    if kind == "blip2":
+        out["pixel_values"] = rng.normal(
+            size=(len(items), 32, 32, 3)).astype(np.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# losses and labels
+# ---------------------------------------------------------------------------
+
+LOSS_TYPES = ("Approach1", "Approach2", "Approach3", "Approach4",
+              "Approach5", "Approach6", "NoPR")
+
+
+@pytest.mark.parametrize("labels", [True, False])
+@pytest.mark.parametrize("loss_type", LOSS_TYPES)
+def test_rag_loss_components_match_jax(loss_type, labels):
+    """Loss, components and the grads with respect to seq_logits and
+    doc_scores: 3 questions x 4 docs, 5 target positions with padded tails,
+    one all-pad row; the first target token is the argmax on some rows, so
+    every merged-label case occurs."""
+    rng = np.random.default_rng(LOSS_TYPES.index(loss_type))
+    b, n, t, v = 3, 4, 5, 11
+    logits = rng.normal(size=(b * n, t, v)).astype(np.float32) * 2
+    scores = rng.normal(size=(b, n)).astype(np.float32) * 3
+    target = rng.integers(0, v, (b * n, t)).astype(np.int32)
+    target[::2, 0] = logits[::2, 0].argmax(-1)
+    for r, keep in enumerate(rng.integers(1, t + 1, b * n)):
+        target[r, keep:] = -100
+    target[5] = -100                               # an all-pad row
+    rl = (rng.random((b, n)) < 0.5).astype(np.float32)
+    kw = dict(loss_type=loss_type, rag_loss_weight=0.7,
+              additional_loss_weight=1.3, nll_loss_weight=0.9)
+
+    def jloss(lg, sc):
+        out = jax_rag.rag_loss_components(
+            lg, sc, jnp.asarray(target),
+            retrieval_labels=jnp.asarray(rl) if labels else None, **kw)
+        return out["loss"], out
+
+    (jl, jout), (jg_l, jg_s) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(logits),
+                                             jnp.asarray(scores))
+    lg = torch.tensor(logits, requires_grad=True)
+    sc = torch.tensor(scores, requires_grad=True)
+    out = rag.rag_loss_components(
+        lg, sc, torch.tensor(target),
+        retrieval_labels=torch.tensor(rl) if labels else None, **kw)
+    out["loss"].backward()
+    for key in ("loss", "nll_loss", "rag_loss", "additional_loss"):
+        np.testing.assert_allclose(float(out[key].detach()), float(jout[key]),
+                                   rtol=1e-5, atol=1e-7, err_msg=key)
+    if labels:
+        assert float(out["additional_loss"].detach()) != 0.0 \
+            or loss_type == "Approach5"
+    for got, want in ((lg.grad, jg_l), (sc.grad, jg_s)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_retrieval_labels_and_most_frequent_match_jax():
+    """Identical labels and selected answers, frequency ties included:
+    most_frequent breaks them by the set's order in both packages."""
+    answers = [["cat", "dog", "cat", "dog", "", "sun"],
+               ["Red", "red", "blue"], ["tree", "tree"],
+               ["a b", "b", "c", "b", "a b"]]
+    docs = [["a dog sat", "the cat", "sun and moon", ""],
+            ["RED car", "blue sky", "green", "red blue"],
+            ["no", "tree top", "trees", "x"],
+            ["a b c", "b only", "nothing", "c"]]
+    want = jax_rag.get_retrieval_labels(answers, docs)
+    got = rag.get_retrieval_labels(answers, docs)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    for ans in answers + [["x", "y"], ["y", "x", "x", "y"]]:
+        filtered = [a for a in ans if a]
+        assert rag.most_frequent(filtered) == jax_rag.most_frequent(filtered)
+    match = lambda a, d: a[:2] in d.lower()          # noqa: E731
+    want = jax_rag.get_retrieval_labels(answers, docs, match_fn=match)
+    got = rag.get_retrieval_labels(answers, docs, match_fn=match)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+
+
+def test_vqa_metrics_copy_matches_jax():
+    """The port's metrics/vqa.py and exact_match against the originals on
+    a table of answers: contractions, punctuation, digits and articles,
+    degenerate answer sets, partial agreement."""
+    table = [
+        ("two", ["2"] * 10), ("Two dogs!", ["two dogs"] * 3 + ["dog"] * 7),
+        ("dont", ["don't", "dont", "do not"] + ["x"] * 7),
+        ("the cat", ["cat", "a cat", "cats", "the cat"] * 2 + ["", "cat"]),
+        ("3.5", ["3.5", "35", "3,5"] * 3 + ["3.5"]),
+        ("yes", ["yes", "no"] * 5), ("", ["", "none", "0"]),
+        ("New York", ["new york"] * 4 + ["ny"] * 6),
+        ("a/b (c)", ["a b c", "ab c", "a/b (c)"] * 3 + ["x"]),
+        ("  tab\there ", ["tab here"] * 10)]
+    for pred, ans in table:
+        assert vqa.vqa_accuracy_single(pred, ans) == \
+            jax_vqa.vqa_accuracy_single(pred, ans)
+        assert vqa.normalize_answer(pred) == jax_vqa.normalize_answer(pred)
+        assert vqa.process_punctuation(pred) == \
+            jax_vqa.process_punctuation(pred)
+        assert vqa.process_digit_article(pred) == \
+            jax_vqa.process_digit_article(pred)
+    preds, answers = zip(*table)
+    assert vqa.vqa_accuracy(preds, answers) == \
+        jax_vqa.vqa_accuracy(preds, answers)
+    assert rm.exact_match(preds, answers) == \
+        jax_rm.exact_match(preds, answers)
+    assert vqa.TextCleaner().clean_texts(list(preds)) == \
+        jax_vqa.TextCleaner().clean_texts(list(preds))
+    assert (vqa.CONTRACTIONS, vqa.MANUAL_MAP, vqa.ARTICLES, vqa.PUNCT) == \
+        (jax_vqa.CONTRACTIONS, jax_vqa.MANUAL_MAP, jax_vqa.ARTICLES,
+         jax_vqa.PUNCT)
+
+
+# ---------------------------------------------------------------------------
+# make_train_batch and train_step_rag
+# ---------------------------------------------------------------------------
+
+BATCH_CASES = {
+    "t5-exact-force_existence": ("t5", "exact",
+                                 dict(force_existence=True)),
+    "t5-hierarchical-n_docs_in_training": ("t5", "hierarchical",
+                                           dict(n_docs_in_training=2)),
+    "t5-static-use_gt_docs": ("t5", "static",
+                              dict(use_gt_docs_for_training=True)),
+    "blip2-exact-use_gt_docs-n_docs_in_training": (
+        "blip2", "exact", dict(use_gt_docs_for_training=True,
+                               n_docs_in_training=2)),
+    "blip2-hierarchical-force_existence": ("blip2", "hierarchical",
+                                           dict(force_existence=True)),
+    "blip2-static": ("blip2", "static", {}),
+}
+
+
+def _numpy_batch(b):
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in b.items() if v is not None}
+
+
+@pytest.mark.parametrize("case", sorted(BATCH_CASES))
+def test_make_train_batch_matches_jax(world, case):
+    """Two batches in a row (the training flags draw from each executor's
+    default_rng(0) in the same order): every array identical, but the
+    doc tokens, which are the same index rows (the port's index holds the
+    JAX index's tokens)."""
+    kind, retrieval, flags = BATCH_CASES[case]
+    jex = _jax_executor(world, kind)
+    rag_cfg, static = _set_retrieval(world, jex, kind, retrieval, flags)
+    tex = _port_executor(world, kind, rag_cfg, static,
+                         params=jax.device_get(jex.state.params))
+    for idxs in ([0, 1, 2, 3], [4, 5, 6, 7]):
+        batch = _batch(world, idxs, kind)
+        want = {k: np.asarray(v) for k, v in
+                jex.make_train_batch(batch).items()}
+        got = _numpy_batch(tex.make_train_batch(batch))
+        assert got.keys() == want.keys()
+        n = 2 if flags.get("n_docs_in_training") else 3
+        assert got["labels"].shape == (4 * n, 4)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _jax_train_step(jex, jbatch):
+    """JAX BaseExecutor's step_fn (executors/base.py _build_train_step) on
+    the executor's state, from the compiled grads and update. Returns (the
+    metrics, the grads)."""
+    (loss, metrics), grads = jex.grad_fn(jex.state.params, jbatch)
+    updates, opt_state = jex.tx_update(grads, jex.state.opt_state,
+                                       jex.state.params)
+    jex.state = jex.state.replace(
+        step=jex.state.step + 1,
+        params=optax.apply_updates(jex.state.params, updates),
+        opt_state=opt_state)
+    return dict(metrics, loss=loss, grad_norm=optax.global_norm(grads)), \
+        grads
+
+
+def _jax_grads(jex, grads):
+    grads = jax.device_get(grads)
+    return {**{f"retriever.{k}": v for k, v in
+               flax_to_state_dict(grads["retriever"]).items()},
+            **{f"lora:{k}:{leaf}": t for k, e in
+               lora_to_torch(grads["generator"]["lora"]).items()
+               for leaf, t in e.items()}}
+
+
+def _port_grads(tex, batch):
+    names = {**{f"retriever.{k}": p for k, p in
+                tex.model.retriever.named_parameters()},
+             **{f"lora:{k}:{leaf}": p for k, e in tex.lora.items()
+                for leaf, p in e.items()}}
+    loss, _ = tex.loss_fn(batch)
+    params = [p for p in names.values() if p.requires_grad]
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    got = dict.fromkeys(names)
+    for (name, p) in names.items():
+        got[name] = torch.zeros_like(p)
+    for p, g in zip(params, grads):
+        name = next(n for n, q in names.items() if q is p)
+        if g is not None:
+            got[name] = g
+    return got
+
+
+def _port_params(tex):
+    return {**{f"retriever.{k}": p.detach() for k, p in
+               tex.model.retriever.named_parameters()},
+            **{f"lora:{k}:{leaf}": p.detach() for k, e in tex.lora.items()
+               for leaf, p in e.items()}}
+
+
+def _jax_params(jex):
+    params = jax.device_get(jex.state.params)
+    return {**{f"retriever.{k}": v for k, v in
+               flax_to_state_dict(params["retriever"]).items()},
+            **{f"lora:{k}:{leaf}": t for k, e in
+               lora_to_torch(params["generator"]["lora"]).items()
+               for leaf, t in e.items()}}
+
+
+def _assert_grads_close(got, want, where):
+    """Each grad elementwise within rtol 1e-4 and ATOL_GRAD of the largest
+    grad of its part of the model (the LoRA's grads are ~100x the
+    retriever's)."""
+    want = {k: np.asarray(v, np.float64) for k, v in want.items()}
+    scale = {part: max(np.abs(v).max() for k, v in want.items()
+                       if k.startswith(part))
+             for part in ("lora", "retriever")}
+    for name, g in got.items():
+        part = "lora" if name.startswith("lora") else "retriever"
+        np.testing.assert_allclose(g.detach().double().numpy(), want[name],
+                                   rtol=1e-4,
+                                   atol=ATOL_GRAD[part] * scale[part],
+                                   err_msg=f"{where} {name}")
+
+
+TRAIN_CASES = {
+    "t5-exact": ("t5", "exact", {}),
+    "t5-hierarchical-fast": ("t5", "hierarchical", {}),
+    "t5-static": ("t5", "static", dict(force_existence=True)),
+    "blip2-exact": ("blip2", "exact", dict(force_existence=True)),
+    "blip2-hierarchical-fast": ("blip2", "hierarchical", {}),
+    "blip2-static": ("blip2", "static", {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_train_step_rag_matches_jax(world, case):
+    """Four micro-steps (two updates: accumulation 2) of train_step_rag
+    from the JAX executor's parameters and LoRA: each step's losses and
+    grad norm, every LoRA and retriever grad, and after each update the
+    parameters (then set to the JAX ones again, so that the second window
+    starts where JAX's does); the generator base holds no grad and no
+    optimizer state, and the trainable set is the JAX trainable_mask's."""
+    kind, retrieval, flags = TRAIN_CASES[case]
+    jex = _jax_executor(world, kind)
+    rag_cfg, static = _set_retrieval(world, jex, kind, retrieval, flags)
+    tex = _port_executor(world, kind, rag_cfg, static,
+                         params=jax.device_get(jex.state.params))
+    lrs = {"lora": TRAIN["lr"], "retriever": TRAIN["retriever_lr"]}
+    for step, idxs in enumerate(([0, 1, 2, 3], [4, 5, 6, 7],
+                                 [8, 9, 10, 11], [2, 5, 8, 11])):
+        batch = _batch(world, idxs, kind)
+        jbatch = {k: jnp.asarray(v) for k, v in
+                  jex.make_train_batch(batch).items()}
+        tbatch = tex.make_train_batch(batch)
+        jm, jgrads = _jax_train_step(jex, jbatch)
+        _assert_grads_close(_port_grads(tex, tbatch),
+                            _jax_grads(jex, jgrads), f"step {step}")
+        tm = tex.train_step(tbatch)
+        for key in ("loss", "nll_loss", "rag_loss", "additional_loss",
+                    "grad_norm"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=1e-4, atol=1e-6,
+                                       err_msg=f"step {step} {key}")
+        if step % 2 == 1:                         # an update was made
+            want_p = _jax_params(jex)
+            for name, p in _port_params(tex).items():
+                lr = lrs["lora" if name.startswith("lora") else "retriever"]
+                np.testing.assert_allclose(
+                    p.numpy(), np.asarray(want_p[name]), rtol=0,
+                    atol=2 * lr, err_msg=f"step {step} {name}")
+            # the next window starts from the same parameters (in place:
+            # the optimizer keeps its own state), so its grads compare as
+            # tightly as the first's
+            tex.load_params_tree(jax.device_get(jex.state.params))
+    assert tex.optimizer.updates == 2
+    assert any(float(e["lora_b"].detach().abs().max()) > 0
+               for e in tex.lora.values())
+    # the trainable set: the JAX mask, leaf for leaf
+    trainable = {id(p) for p in tex.optimizer.trainable}
+    assert all(p.grad is None and id(p) not in trainable
+               for p in tex.model.generator.parameters())
+    assert len(tex.optimizer.adamw.state) == len(tex.optimizer.trainable)
+    jmask = jax.device_get(jax_trainable_mask(
+        jex.state.params, list(jex.train_cfg.modules)))
+    assert not any(jax.tree.leaves(jmask["generator"]["base"]))
+    assert all(jax.tree.leaves(jmask["generator"]["lora"]))
+    as_flax = state_dict_to_flax(
+        {k: torch.full(p.shape, float(id(p) in trainable))
+         for k, p in tex.model.retriever.named_parameters()},
+        {"query_encoder": 4, "doc_encoder": 4})
+    for path, on in jax.tree_util.tree_flatten_with_path(
+            jmask["retriever"])[0]:
+        node = as_flax
+        for key in path:
+            node = node[key.key]
+        assert np.all(np.asarray(node) == float(on)), path
+    assert sum(p.numel() for p in tex.optimizer.trainable) == sum(
+        np.size(x) for x, on in zip(jax.tree.leaves(jex.state.params),
+                                    jax.tree.leaves(jmask)) if on)
+    assert sum(x.numel() for e in tex.lora.values() for x in e.values()) \
+        == sum(np.size(x) for x in jax.tree.leaves(
+            jex.state.params["generator"]["lora"]))
+
+
+@pytest.mark.parametrize("kind", ["t5", "blip2"])
+def test_remat_gives_the_same_loss_and_grads(world, kind):
+    """T5Config.remat recomputes each encoder and decoder block in the
+    backward on the LoRA-merged weights: the same loss and grads as
+    without it (and its blocks do run under checkpointing)."""
+    jex = _jax_executor(world, kind)
+    rag_cfg, _ = _set_retrieval(world, jex, kind, "exact", {})
+    params = jax.device_get(jex.state.params)
+    rng = np.random.default_rng(3)
+    params["generator"]["lora"] = jax.tree.map(
+        lambda x: rng.normal(size=x.shape).astype(np.float32) * 0.3,
+        params["generator"]["lora"])
+    out = {}
+    for remat in (False, True):
+        tex = _port_executor(world, kind, rag_cfg, params=params,
+                             remat=remat)
+        batch = tex.make_train_batch(_batch(world, [0, 1, 2], kind))
+        calls = []
+        import torch.utils.checkpoint as ckpt
+        orig = ckpt.checkpoint
+
+        def counting(*a, **k):
+            calls.append(1)
+            return orig(*a, **k)
+        ckpt.checkpoint = counting
+        try:
+            out[remat] = (float(tex.loss_fn(batch)[0].detach()),
+                          _port_grads(tex, batch))
+        finally:
+            ckpt.checkpoint = orig
+        # two forwards (loss_fn, _port_grads) over 2 + 2 T5 blocks
+        assert len(calls) == (8 if remat else 0)
+    assert out[True][0] == pytest.approx(out[False][0], rel=1e-6)
+    scale = max(float(g.abs().max()) for g in out[False][1].values())
+    assert scale > 0
+    for name, g in out[False][1].items():
+        torch.testing.assert_close(out[True][1][name], g, rtol=0,
+                                   atol=1e-6 * scale, msg=name)
+
+
+def test_retriever_lr_zero_param_group():
+    """The twin of tests/test_rag_flags.py::test_retriever_lr_param_group:
+    retriever_lr=0 leaves the retriever's parameters as they are while the
+    generator's update."""
+    module = torch.nn.Module()
+    for name in ("retriever", "generator"):
+        child = torch.nn.Module()
+        child.w = torch.nn.Parameter(torch.ones(4))
+        module.add_module(name, child)
+    opt = Optimizer(TrainConfig(lr=0.1, retriever_lr=0.0), module)
+    for p in module.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    assert torch.equal(module.retriever.w.detach(), torch.ones(4))
+    assert not torch.allclose(module.generator.w.detach(), torch.ones(4))
+    assert [g["lr"] for g in opt.adamw.param_groups] == [0.1, 0.0]
+
+
+# ---------------------------------------------------------------------------
+# refresh, evaluation, checkpoints, the CLI
+# ---------------------------------------------------------------------------
+
+def test_refresh_index_matches_jax(world):
+    """After a train step the retriever has moved: refresh_index encodes
+    the corpus with it and swaps the index and the searcher; the tokens
+    agree with the JAX refresh of the same retriever (1e-5) and the
+    searcher searches the new index."""
+    jex = _jax_executor(world, "t5")
+    rag_cfg, _ = _set_retrieval(world, jex, "t5", "exact", {})
+    tex = _port_executor(world, "t5", rag_cfg,
+                         params=jax.device_get(jex.state.params),
+                         train=dict(TRAIN, accumulate_grad_batches=1,
+                                    modules=()))
+    tex.train_step_rag(_batch(world, [0, 1, 2, 3], "t5"))
+    old_index, old_searcher = tex.index, tex.searcher
+    docs = list(corpus_doc_batches(world["corpus"],
+                                   world["tw"]["doc_tokenizer"], 16))
+    refresh_index(tex, FLMRExecutor(_port_modules(world, "t5")[0],
+                                    device="cpu", inference_only=True),
+                  docs)
+    assert tex.index is not old_index and tex.searcher is not old_searcher
+    assert tex.searcher.index is tex.index
+    assert not torch.allclose(tex.index.tokens, old_index.tokens)
+    jex.state = jex.state.replace(params={
+        "retriever": state_dict_to_flax(
+            tex.model.retriever.state_dict(),
+            {"query_encoder": 4, "doc_encoder": 4}),
+        "generator": jex.state.params["generator"]})
+    jfe = JaxFLMRExecutor(world["retriever"], world["rp"],
+                          JaxTrainConfig(lr=1e-3), quiet=True)
+    jax_refresh(jex, jfe, jax_doc_batches(world["corpus"],
+                                          world["jw"]["doc_tokenizer"], 16))
+    j = jex.index
+    np.testing.assert_allclose(
+        tex.index.tokens[:j.num_docs].numpy(),
+        np.asarray(j.tokens, np.float32)[:j.num_docs], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(tex.index.pids[:j.num_docs],
+                                  np.asarray(j.pids)[:j.num_docs])
+    w = world
+    w["jex"].pop("t5")              # its index was swapped: rebuild it
+
+
+def _eval_config(bs):
+    return {"train": {"batch_size": bs}}
+
+
+def test_run_rag_eval_matches_jax(world, tmp_path):
+    """run_rag_eval on the 4 test questions in batches of 3 (the second
+    padded with repeats of the last question, question_id None): the
+    predictions of every question once, in order, and the metrics JSON
+    identical to the JAX run_rag_eval's on the same weights."""
+    from ravqa_tpu import main as jax_main
+    from ravqa_tpu_torch import main as torch_main
+    jex = _jax_executor(world, "blip2")
+    rag_cfg, _ = _set_retrieval(world, jex, "blip2", "exact", {})
+    params = jax.device_get(jex.state.params)
+    rng = np.random.default_rng(5)
+    params["generator"]["lora"] = jax.tree.map(
+        lambda x: rng.normal(size=x.shape).astype(np.float32) * 0.3,
+        params["generator"]["lora"])
+    jex.state = jex.state.replace(params=jax.device_put(params))
+    tex = _port_executor(world, "blip2", rag_cfg, params=params)
+    data = {}
+    for name, w_ in (("jax", world["jw"]), ("port", world["tw"])):
+        ds = w_["test"]
+        for it in ds.items:
+            it.setdefault("image", np.random.default_rng(
+                int(it["question_id"])).integers(0, 255, (32, 32, 3))
+                .astype(np.uint8))
+        data[name] = {"test": ds}
+    seen = {"jax": [], "port": []}
+    for name, ex in (("jax", jex), ("port", tex)):
+        generate = ex.generate
+
+        def recording(batch, generate=generate, name=name):
+            out = generate(batch)
+            seen[name].append((list(batch["question_ids"]),
+                               list(out["predictions"])))
+            return out
+        ex.generate = recording
+    (tmp_path / "j").mkdir()
+    try:
+        want = jax_main.run_rag_eval(JaxConfig(_eval_config(3)), jex,
+                                     data["jax"], str(tmp_path / "j"))
+        got = torch_main.run_rag_eval(Config(_eval_config(3)), tex,
+                                      data["port"], str(tmp_path / "p"))
+    finally:
+        del jex.generate, tex.generate
+    assert got == want
+    with open(tmp_path / "p" / "test_rag_metrics.json") as f:
+        assert json.load(f) == want
+    assert seen["port"] == seen["jax"]
+    qids = [q for batch_qids, _ in seen["port"] for q in batch_qids]
+    n = len(world["tw"]["test"].items)
+    assert len(qids) == 6 and qids[n:] == [None] * (6 - n)
+    assert [q for q in qids if q is not None] == [
+        it["question_id"] for it in world["tw"]["test"].items]
+
+
+def test_port_trained_checkpoint_loads_into_jax(world, tmp_path):
+    """A port executor trained two updates (LoRA B nonzero) saves its
+    checkpoint; the JAX RagExecutor loads it (params.msgpack, step.json)
+    and generates the same answers; a fresh port executor loads it too,
+    the optimizer's state included."""
+    jex = _jax_executor(world, "t5")
+    rag_cfg, _ = _set_retrieval(world, jex, "t5", "exact", {})
+    tex = _port_executor(world, "t5", rag_cfg,
+                         params=jax.device_get(jex.state.params))
+    for idxs in ([0, 1, 2, 3], [4, 5, 6, 7], [8, 9, 10, 11], [1, 2, 3, 4]):
+        tex.train_step_rag(_batch(world, idxs, "t5"))
+    assert all(float(e["lora_b"].detach().abs().max()) > 0
+               for e in tex.lora.values())
+    tex.save_checkpoint(str(tmp_path / "ckpt"))
+    assert sorted(os.listdir(tmp_path / "ckpt")) == [
+        "optimizer.pt", "params.msgpack", "rng.pt", "step.json"]
+    jex.load_checkpoint(str(tmp_path / "ckpt"))
+    assert int(jex.state.step) == 4
+    batch = _batch(world, [11, 1, 6], "t5")
+    want, got = jex.generate(batch), tex.generate(batch)
+    assert got["predictions"] == want["predictions"]
+    np.testing.assert_array_equal(got["all_generations"],
+                                  np.asarray(want["all_generations"]))
+    fresh = _port_executor(world, "t5", rag_cfg)
+    fresh.load_checkpoint(str(tmp_path / "ckpt"))
+    assert fresh.step == 4 and fresh.optimizer.updates == 2
+    assert fresh.generate(batch)["predictions"] == got["predictions"]
+    for name, p in _port_params(fresh).items():
+        torch.testing.assert_close(p, _port_params(tex)[name], rtol=0,
+                                   atol=0)
+    w = world
+    w["jex"].pop("t5")                  # its state was replaced: rebuild
+
+
+def test_cli_rag_train_then_test_matches_jax(tmp_path):
+    """The port's CLI on configs/synthetic_rag.json (--device cpu):
+    --mode train (2 steps), then --mode test from its checkpoint. The
+    test_rag_metrics.json equals the JAX package's run_rag_eval on the
+    same checkpoint and index (the JAX CLI's own test mode evaluates the
+    executor as built, without the checkpoint: ROADMAP.md C17)."""
+    from ravqa_tpu import main as jax_main
+    from ravqa_tpu.config import load_config as jax_load_config
+    from ravqa_tpu.retrieval import \
+        build_index_from_embeddings as jax_index_from_embeddings
+    from ravqa_tpu_torch import main as torch_main
+    args = ["--config", RAG_CONFIG, "--device", "cpu", "--log_dir",
+            str(tmp_path), "--experiment_name", "r"]
+    assert torch_main.main(args + ["--mode", "train", "--opts",
+                                   "train.total_steps=2"]) == 0
+    assert torch_main.main(args + ["--mode", "test"]) == 0
+    log_dir = tmp_path / "r"
+    with open(log_dir / "test_rag_metrics.json") as f:
+        got = json.load(f)
+    assert set(got) == {"exact_match", "vqa_accuracy"}
+    cfg = jax_load_config(RAG_CONFIG)
+    data = jax_main.build_pipeline(cfg, cache_dir=None).get_data(
+        cfg.data_pipeline_output_node, explode=True)
+    jex = jax_main.build_rag_executor(cfg, data, None, str(tmp_path / "j"),
+                                      quiet=True)
+    jex.load_checkpoint(str(log_dir / "ckpt"))
+    # the port's index: the corpus encoded by the retriever as built
+    tcfg = torch_main.load_config(RAG_CONFIG)
+    tdata = torch_main.build_pipeline(tcfg).get_data(
+        tcfg.data_pipeline_output_node, explode=True)
+    tex = torch_main.build_rag_executor(tcfg, tdata, "cpu",
+                                        inference_only=True)
+    n = tex.index.num_docs
+    jex.index = jax_index_from_embeddings(
+        tex.index.tokens[:n].numpy(), tex.index.mask[:n].numpy(),
+        pad_multiple=8, dtype=jnp.float32)
+    jex.searcher = jax_searcher(jex.index, None, jex.rag_cfg)
+    want = jax_main.run_rag_eval(cfg, jex, data, str(tmp_path / "j"),
+                                 "test")
+    assert got == want

@@ -78,6 +78,8 @@ RAG_TINY_OPTS = [
     "'num_layers': 2, 'num_heads': 4, 'feed_forward_proj': 'gated-gelu', "
     "'tie_word_embeddings': False}}",
     "model_config.rag.gen_maxlen=24"]
+# training also reads each question's image features (the retriever's)
+RAG_TRAIN_OPTS = ["data_pipeline.raw.setup_kwargs.features_with_pixels=True"]
 HIER_OPTS = ["data_pipeline.raw.setup_kwargs.n_docs=512",
              "model_config.search_mode=hierarchical", "serve.preset=fast",
              "serve.block_size=8", "serve.n_summary=4",
@@ -306,8 +308,9 @@ def test_serve_slice_imports_no_jax(tmp_path):
     the residual codec, the stage-2 kernels' module and the stage-2
     experiment, and the RAG serve slice (build_server on a tiny cut of
     configs/synthetic_rag_blip2_serve.json: a VQAServer over FLMR retrieval
-    and BLIP-2, one answer; RAG training refused), in one process: nothing
-    of the JAX package (ravqa_tpu) or of jax/jaxlib/flax loads."""
+    and BLIP-2, one answer; then a RAG train step on the same cut), in one
+    process: nothing of the JAX package (ravqa_tpu) or of jax/jaxlib/flax
+    loads."""
     code = (
         "import sys, numpy as np\n"
         "from ravqa_tpu_torch.config import apply_overrides, load_config\n"
@@ -351,13 +354,14 @@ def test_serve_slice_imports_no_jax(tmp_path):
         "r = s.submit('cat dog sky').result(120)\n"
         "s.stop()\n"
         "assert len(r.passages) == 5 and isinstance(r.answer, str)\n"
-        "try:\n"
-        f"    main(['--config', {RAG_CONFIG!r}, '--mode', 'train',\n"
-        "          '--device', 'cpu'])\n"
-        "except NotImplementedError as e:\n"
-        "    assert 'A6' in str(e)\n"
-        "else:\n"
-        "    raise AssertionError('RAG training must be refused')\n"
+        "from ravqa_tpu_torch.main import build_rag_executor, rag_batches\n"
+        f"cfg = apply_overrides(load_config({RAG_CONFIG!r}),\n"
+        f"                      {RAG_TINY_OPTS + RAG_TRAIN_OPTS!r})\n"
+        "data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,\n"
+        "                                    explode=True)\n"
+        "ex = build_rag_executor(cfg, data, 'cpu')\n"
+        "m = ex.train_step_rag(next(rag_batches(data['train'], 2)))\n"
+        "assert np.isfinite(float(m['loss'])) and ex.step == 1\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('ravqa_tpu', 'jax', 'jaxlib', 'flax')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -393,21 +397,59 @@ def test_profile_serve_needs_a_gpu():
 
 @pytest.mark.parametrize("argv", [
     ["--config", CONFIG, "--mode", "train", "--num_devices", "2"],
-    ["--config", os.path.join(REPO, "configs", "synthetic_rag.json"),
-     "--mode", "eval"],
-    ["--config", os.path.join(REPO, "configs", "synthetic_rag.json"),
-     "--mode", "train"],
     ["--config", CONFIG, "--mode", "train", "--use_dummy_data"],
-    ["--config", os.path.join(REPO, "configs", "synthetic_rag.json"),
-     "--mode", "test"],
 ])
 def test_unported_modes_raise(argv):
-    """Data parallelism (A4), RAG training and evaluation (train, test and
-    eval on a RAG config: A6) and the OK-VQA loader's --use_dummy_data (A3)
-    are not ported yet. RAG serving is (test_rag_configs_serve)."""
+    """Data parallelism (A4) and the OK-VQA loader's --use_dummy_data (A3)
+    are not ported yet. RAG training and evaluation are
+    (test_rag_train_test_eval_modes), and RAG serving
+    (test_rag_configs_serve)."""
     from ravqa_tpu_torch.main import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv + ["--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def rag_trained(tmp_path_factory):
+    """--mode train on configs/synthetic_rag.json (3 steps, a validation at
+    step 3): its log directory."""
+    from ravqa_tpu_torch.main import main
+    log_dir = tmp_path_factory.mktemp("rag")
+    assert main(["--config", os.path.join(REPO, "configs",
+                                          "synthetic_rag.json"),
+                 "--mode", "train", "--device", "cpu", "--log_dir",
+                 str(log_dir), "--experiment_name", "r", "--opts",
+                 "train.total_steps=3", "train.val_every=3"]) == 0
+    return log_dir
+
+
+@pytest.mark.parametrize("mode", ["train", "test", "eval"])
+def test_rag_train_test_eval_modes(rag_trained, mode, capsys):
+    """train, test and eval on a RAG config (once refused, ROADMAP.md A6):
+    training writes the checkpoint (params, optimizer and step) and logs
+    finite losses and the validation's metrics; test and eval load that
+    checkpoint and write <split>_rag_metrics.json (SyntheticOKVQA has no
+    valid split, so both score the test questions)."""
+    from ravqa_tpu_torch.main import main
+    run = rag_trained / "r"
+    if mode == "train":
+        assert sorted(os.listdir(run / "ckpt")) == [
+            "optimizer.pt", "params.msgpack", "rng.pt", "step.json"]
+        assert json.load(open(run / "ckpt" / "step.json")) == {"step": 3}
+        logged = [json.loads(line) for line in open(run / "metrics.jsonl")]
+        train = [r for r in logged if "train/loss" in r]
+        assert train and all(np.isfinite(r["train/loss"]) for r in train)
+        assert any("valid/vqa_accuracy" in r for r in logged)
+        return
+    assert main(["--config", os.path.join(REPO, "configs",
+                                          "synthetic_rag.json"),
+                 "--mode", mode, "--device", "cpu", "--log_dir",
+                 str(rag_trained), "--experiment_name", "r"]) == 0
+    assert "no checkpoint found" not in capsys.readouterr().out
+    split = "test" if mode == "test" else "valid"
+    metrics = json.load(open(run / f"{split}_rag_metrics.json"))
+    assert set(metrics) == {"exact_match", "vqa_accuracy"}
+    assert all(0.0 <= v <= 1.0 for v in metrics.values())
 
 
 @pytest.mark.parametrize("name,opts", [
