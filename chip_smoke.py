@@ -235,6 +235,43 @@ Phases, in order; any failure raises and the script exits non-zero:
      questions/s trained, peak memory, the evaluation's, the checkpoint's
      and the refresh's seconds and the phase's, beside the card's name and
      power limit.
+ 18. WIT mapping-network pretraining: a synthetic WIT dump in the real
+     formats (ravqa_tpu_torch.scripts.synthetic_wit: 15,360 train and
+     1,024 test rows, one passage each, 768-d features by image_url)
+     written into a .chip_smoke_wit_* directory, then `main --mode train`
+     (32 steps of 8, one validation) and `--mode test` from its
+     checkpoint, in-process, on configs/synthetic_flmr_wit_pretrain.json
+     (configs/wit/flmr_wit_pretraining.json at its widths: BERT-base
+     frozen, vision-only queries of the mapping network's 32 tokens,
+     16,384 passages). Gates: every loss finite; only vision_projection
+     moves (the checkpoint against the seed's weights; Adam's state for it
+     alone); the test run reads the wit node from the node cache
+     (LoadWITData runs once); K1-f32 on the split route in each
+     evaluation (counts set to 0 just before each run, read just after);
+     the evaluation's ranking against a plain search (16 queries on a CPU
+     copy of the index without the token columns no passage keeps, all on
+     the card's plain version; tie-aware top-10, 1e-3); the test metrics
+     equal the final validation's; the vision-only query tower card vs
+     CPU (1e-4). Then DPR at BERT-base on the corpus' captions and
+     passages: 8 train steps on the card, evaluate_retrieval on the card
+     and on a CPU copy over 48 captions and 96 passages (ids equal but for
+     ties). Prints the step ms, peak memory, the encode and search
+     seconds, K1 at Lq = 32 (at the eval's B and against its plain version
+     at B=64, beside its bound) and pos_item_ids_recall@K.
+ 19. PreFLMR multi-task training and evaluation: the model of
+     configs/synthetic_preflmr_vitl_serve.json with freeze_image_encoder
+     (ViT-L/14 frozen; the BERT-base towers and both mappings train) over
+     three M2KR tasks (okvqa, wit, infoseek: SyntheticOKVQA worlds of
+     4,096 passages, 256 train and 64 test questions with 224 x 224
+     images, each with its instruction), one train_step card vs CPU (phase
+     13's tolerances), then train_m2kr for 24 steps of 8 at temperature 4
+     with evaluate_m2kr at 12 and 24. Gates: per-task losses finite; the
+     sampled task names equal numpy default_rng(seed)'s draws; the ViT
+     bit-identical without grads; each task evaluation's ranking against a
+     plain search (as in 18); K1-f32 once per task evaluation (6; counts
+     set to 0 just before, read just after); each task's metric keys.
+     Prints the step ms, questions/s trained, peak memory, each
+     evaluation's seconds and K1 at Lq = 320, N = 4,096 beside its bound.
 Every phase prints its seconds. The line before the last is the kernels'
 JSON record: each kernel's launches on its path, its error against its
 plain version, its time and its plain version's, and its bound, the least
@@ -268,6 +305,7 @@ PREFLMR_HIER_CONFIG = os.path.join(HERE, "configs",
 RAG_CONFIG = os.path.join(HERE, "configs", "synthetic_rag_blip2_serve.json")
 RAG_TRAIN_CONFIG = os.path.join(HERE, "configs",
                                 "synthetic_rag_blip2_train.json")
+WIT_CONFIG = os.path.join(HERE, "configs", "synthetic_flmr_wit_pretrain.json")
 # float32 scores of L2-normalized embeddings at Lq <= 64: the kernel and
 # the plain version sum the same products in different orders, which moves
 # a score by ~1e-5; 1e-3 leaves room without hiding a wrong max or mask
@@ -893,6 +931,20 @@ def cpu_copy(index):
         if isinstance(getattr(index, f.name), torch.Tensor)})
 
 
+def exact_cpu_copy(index):
+    """A CPU copy of a float index for a plain exhaustive search, without
+    the token columns past the last one any doc's mask keeps: a masked
+    token never takes a max (an all-masked doc keeps its -9999 x Lq), so
+    the answers are the same, and the CPU's work follows the longest
+    passage, not doc_maxlen."""
+    mask = index.mask.cpu()
+    ld = int(mask.bool().any(dim=0).nonzero().max()) + 1
+    return dataclasses.replace(
+        cpu_copy(dataclasses.replace(index, tokens=None)),
+        tokens=index.tokens[:, :ld].contiguous().cpu(),
+        mask=mask[:, :ld].contiguous())
+
+
 def record_searches(server):
     """Keep every dispatch's query embeddings and search result: wraps the
     server's searcher.search_device until check_served. Returns the list
@@ -933,9 +985,13 @@ def check_served(server, index, record, scores, pids):
         raise AssertionError("the served answers are not the dispatches' "
                              "search results")
     # a CUDA searcher takes the kernel route (use_pallas True), which the
-    # CPU copy runs through the kernels' plain versions
+    # CPU copy runs through the kernels' plain versions; an exact search of
+    # a float index runs on exact_cpu_copy
+    float_exact = s.mode == "exact" and index.scales is None \
+        and index.tokens is not None and index.tokens.is_floating_point()
     cpu = LateInteractionSearcher(
-        cpu_copy(index), use_pallas=s.use_pallas, mode=s.mode,
+        exact_cpu_copy(index) if float_exact else cpu_copy(index),
+        use_pallas=s.use_pallas, mode=s.mode,
         preset=s.preset,
         n_candidates=s.n_candidates, n_blocks=s.n_blocks,
         coarse_query_len=s.coarse_query_len, group_size=s.group_size,
@@ -1577,9 +1633,23 @@ def training_step_vs_cpu(config_path, device="cuda"):
     cfg = load_config(config_path)
     data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
                                         explode=True)
-    batch = data["train"].collate([0, 1])
-    ex = build_executor(cfg, device)
-    ex_cpu = build_executor(cfg, "cpu")
+    out = {"entry_loss": loss_err, "entry_grad_rel_err": err,
+           "entry_grad_worst": name}
+    out.update(executor_step_vs_cpu(
+        build_executor(cfg, device), build_executor(cfg, "cpu"),
+        data["train"].collate([0, 1]), f"batch of 2, {config_path}",
+        device))
+    return out
+
+
+def executor_step_vs_cpu(ex, ex_cpu, batch, label, device="cuda"):
+    """One train_step of an executor on the card and of its copy (the same
+    weights) on the CPU, on one batch: the loss and the grad norm (rtol
+    1e-4), every grad (grad_agreement), the first Adam update
+    (update_agreement: within 2 ulp plus 1e-3 lr where the grad is well
+    above rounding); then a second step on the same batch, its loss (rtol
+    1e-4). Returns the errors."""
+    import torch
     before = {n: p.detach().cpu().clone()
               for n, p in ex_cpu.model.named_parameters()}
     m = ex.train_step(batch)
@@ -1599,7 +1669,7 @@ def training_step_vs_cpu(config_path, device="cuda"):
     # a second step on the same batch: its loss reads the first update
     m2, m2_cpu = ex.train_step(batch), ex_cpu.train_step(batch)
     dl2 = abs(float(m2["loss"]) - float(m2_cpu["loss"]))
-    print(f"train_step (batch of 2, {config_path}): loss "
+    print(f"train_step ({label}): loss "
           f"{float(m['loss']):.6f} on {device}, {float(m_cpu['loss']):.6f} on "
           f"the CPU; grad norm {float(m['grad_norm']):.6f} vs "
           f"{float(m_cpu['grad_norm']):.6f}; worst grad {g_err:.3g} "
@@ -1617,9 +1687,8 @@ def training_step_vs_cpu(config_path, device="cuda"):
             and n_sig > 0 and worst <= 1e-3
             and dl2 <= 1e-4 * abs(float(m2_cpu["loss"]))):
         raise AssertionError("train_step on the card disagrees with the CPU")
-    return {"entry_loss": loss_err, "entry_grad_rel_err": err,
-            "entry_grad_worst": name, "step_loss_err": dl,
-            "step_grad_norm_err": dn, "step_grad_rel_err": g_err,
+    return {"step_loss_err": dl, "step_grad_norm_err": dn,
+            "step_grad_rel_err": g_err, "step_grad_worst": g_name,
             "step_update_err_lr": worst, "step_update_coords": n_sig,
             "step_coords_past_1e-3_lr": far, "step2_loss_err": dl2}
 
@@ -1697,6 +1766,44 @@ class _Recorder:
             setattr(cls, name, fn)
 
 
+def _drive_main(maxsim, argv, key, device="cuda"):
+    """main(argv) in-process under a _Recorder, with the counts of K1-K4
+    set to 0 just before and read just after ("K1 split": the float32
+    index's route). Returns (the recorder, {wall_s, launches, encode_s,
+    search_s, eval_s, peak_bytes on the card})."""
+    import torch
+    from ravqa_tpu_torch.main import main as port_main
+    counted = (maxsim.maxsim_search, maxsim.coarse_sweep,
+               maxsim.coarse_sweep_int8, maxsim.stage1_sweep)
+    for w in counted:
+        w.launches = 0
+    maxsim.maxsim_search.split_launches = 0
+    rec = _Recorder(device)
+    card = torch.device(device).type == "cuda"
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        if port_main(argv) != 0:
+            raise AssertionError(f"main {argv} failed")
+    finally:
+        rec.restore()
+    out = {"wall_s": time.perf_counter() - t0,
+           "launches": dict(zip(("K1", "K2", "K3", "K4"),
+                                (w.launches for w in counted))),
+           "encode_s": rec.encodes,
+           "search_s": [x["s"] for x in rec.searches],
+           "eval_s": [e[0] for e in rec.evals]}
+    out["launches"]["K1 split"] = maxsim.maxsim_search.split_launches
+    if card:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"{key}: {out['wall_s']:.1f} s; launches {out['launches']}; "
+          f"corpus encodes {[round(x, 2) for x in rec.encodes]} s, searches "
+          f"{[round(x, 3) for x in out['search_s']]} s", flush=True)
+    return rec, out
+
+
 def _recall_precision(m):
     return {k: v for k, v in m.items()
             if k.startswith(("recall_at_", "precision_at_"))}
@@ -1706,7 +1813,8 @@ def check_eval_search(search, index, n_check=16):
     """The exact evaluation's answers against a plain search of a CPU copy
     of the same index on the same query embeddings (tie-aware top-10, max
     abs 1e-3), for the first n_check queries; all of them against the
-    plain version on the index's own device. Returns max |score error|."""
+    plain version on the index's own device (exact_cpu_copy). Returns max
+    |score error|."""
     import torch
     from ravqa_tpu_torch.ops import maxsim
     q, scores, pids = search["q"], search["scores"][:, :K], \
@@ -1715,7 +1823,7 @@ def check_eval_search(search, index, n_check=16):
     with torch.inference_mode():
         dev = maxsim.maxsim_search_torch(q, index.tokens, index.mask)
         dv, dr = (t.cpu().numpy() for t in torch.topk(dev, K, dim=1))
-        cpu = cpu_copy(index)
+        cpu = exact_cpu_copy(index)
         t0 = time.perf_counter()
         want = maxsim.maxsim_search_torch(q[:n_check].cpu(), cpu.tokens,
                                           cpu.mask)
@@ -1828,42 +1936,15 @@ def training_slice(config_path, smi, device="cuda"):
     memory and the evaluations' seconds beside the card's name and power
     limit."""
     import tempfile
-    import torch
-    from ravqa_tpu_torch.main import main as port_main, load_config
+    from ravqa_tpu_torch.main import load_config
     from ravqa_tpu_torch.models import read_flax_msgpack
     from ravqa_tpu_torch.ops import maxsim
     cfg = load_config(config_path)
     tc, pc = cfg.train, cfg.data_pipeline.loaders.setup_kwargs
-    counted = (maxsim.maxsim_search, maxsim.coarse_sweep,
-               maxsim.coarse_sweep_int8, maxsim.stage1_sweep)
-    names = ("K1", "K2", "K3", "K4")
     out = {}
 
     def drive(argv, key):
-        for w in counted:
-            w.launches = 0
-        maxsim.maxsim_search.split_launches = 0
-        rec = _Recorder(device)
-        if torch.device(device).type == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        try:
-            if port_main(argv) != 0:
-                raise AssertionError(f"main {argv} failed")
-        finally:
-            rec.restore()
-        wall = time.perf_counter() - t0
-        launches = dict(zip(names, (w.launches for w in counted)))
-        launches["K1 split"] = maxsim.maxsim_search.split_launches
-        out[key] = {"wall_s": wall, "launches": launches,
-                    "encode_s": rec.encodes,
-                    "search_s": [s["s"] for s in rec.searches]}
-        if torch.device(device).type == "cuda":
-            out[key]["peak_bytes"] = torch.cuda.max_memory_allocated()
-        print(f"{key}: {wall:.1f} s; launches {launches}; corpus encodes "
-              f"{[round(s, 2) for s in rec.encodes]} s, searches "
-              f"{[round(s['s'], 3) for s in rec.searches]} s", flush=True)
+        rec, out[key] = _drive_main(maxsim, argv, key, device)
         return rec
 
     with tempfile.TemporaryDirectory(dir=HERE,
@@ -3187,6 +3268,441 @@ def rag_train_slice(maxsim, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: WIT mapping-network pretraining (and DPR on the same corpus)
+# ---------------------------------------------------------------------------
+
+WIT_TRAIN_ROWS, WIT_TEST_ROWS = 15360, 1024
+
+
+def wit_pretrain_slice(maxsim, k1, smi):
+    """Phase 18: `main --mode train`, then `--mode test` from its
+    checkpoint, in-process on configs/synthetic_flmr_wit_pretrain.json at
+    its widths over a synthetic WIT dump written into a .chip_smoke_wit_*
+    directory (ravqa_tpu_torch.scripts.synthetic_wit: 15,360 train and
+    1,024 test rows, one passage each, 768-d features by image_url). Gates:
+    every loss finite; only vision_projection moves (the checkpoint
+    against the seed's weights: the BERT tower and the linear
+    bit-identical; Adam's state for the mapping network only); the test
+    run reads the wit node from the cache (LoadWITData runs once); K1-f32
+    launched in each evaluation (counts set to 0 just before each run,
+    read just after; all on the split route); the evaluation's ranking
+    against a plain search (check_eval_search, 16 queries on a trimmed
+    CPU copy); the test metrics equal the final validation's; the
+    vision-only query tower card vs CPU on 16 items (max abs 1e-4). Then
+    DPR (dpr_on_wit). Prints the step ms, peak memory, the encode and
+    search seconds, K1 at Lq = 32 beside its bound, recall."""
+    import tempfile
+    import torch
+    from ravqa_tpu_torch.config import apply_overrides
+    from ravqa_tpu_torch.data import TRANSFORM_REGISTRY, query_eval_batches
+    from ravqa_tpu_torch.main import (build_executor, build_pipeline,
+                                      load_config)
+    from ravqa_tpu_torch.models import load_params
+    from ravqa_tpu_torch.scripts.synthetic_wit import write_synthetic_wit
+    out = {}
+    with tempfile.TemporaryDirectory(dir=HERE,
+                                     prefix=".chip_smoke_wit_") as tmp:
+        t0 = time.perf_counter()
+        paths = write_synthetic_wit(os.path.join(tmp, "data"),
+                                    WIT_TRAIN_ROWS, WIT_TEST_ROWS, 768)
+        out["write_s"] = time.perf_counter() - t0
+        opts = [f"data_pipeline.wit.setup_kwargs.tsv_path.train="
+                f"{paths['train']}",
+                f"data_pipeline.wit.setup_kwargs.tsv_path.test="
+                f"{paths['test']}",
+                f"data_pipeline.features.setup_kwargs.features_path="
+                f"{paths['features']}"]
+        cfg = apply_overrides(load_config(WIT_CONFIG), opts)
+        tc = cfg.train
+        common = ["--config", WIT_CONFIG, "--device", "cuda", "--log_dir",
+                  tmp, "--experiment_name", "wit", "--opts"] + opts
+        load, runs = TRANSFORM_REGISTRY["LoadWITData"], []
+        orig = load.__call__
+
+        def counted(self, *a):
+            runs.append(1)
+            return orig(self, *a)
+        load.__call__ = counted
+        try:
+            rec, tr = _drive_main(maxsim, common + ["--mode", "train"],
+                                  "wit train")
+            wit_runs_train = len(runs)
+            rec_t, te = _drive_main(maxsim, common + ["--mode", "test"],
+                                    "wit test")
+            wit_runs = len(runs)
+        finally:
+            load.__call__ = orig
+        out.update(train=tr, test=te)
+        if wit_runs_train != 1 or wit_runs != 1:
+            raise AssertionError(f"LoadWITData ran {wit_runs} times (the "
+                                 "test run must read the cache)")
+        cached = os.listdir(os.path.join(tmp, "wit", "cache"))
+        if len(cached) != 1 or not cached[0].endswith(".torch.pkl"):
+            raise AssertionError(f"node cache holds {cached}")
+        steps = rec.steps
+        losses = [x[1] for x in steps]
+        if len(steps) != tc.total_steps or not np.all(np.isfinite(
+                losses + [x[2] for x in steps])):
+            raise AssertionError(f"{len(steps)} steps, losses {losses}")
+        if len(rec.evals) != tc.total_steps // tc.val_every \
+                or len(rec_t.evals) != 1:
+            raise AssertionError("WIT evaluations missing")
+        for key, r in (("train", tr), ("test", te)):
+            ln = r["launches"]
+            if ln["K1"] < 1 or ln["K1 split"] != ln["K1"]:
+                raise AssertionError(f"WIT {key} launches {ln}")
+        final = rec.evals[-1][1]
+        got = rec_t.evals[-1][1]
+        strip = lambda m: {k: v for k, v in m.items()  # noqa: E731
+                           if not k.startswith("_")}
+        if strip(got) != strip(final):
+            raise AssertionError("the test metrics differ from the final "
+                                 "validation's")
+        out["recall"] = {k: v for k, v in strip(final).items()
+                         if k.startswith("pos_item_ids_recall_at_")}
+        q = rec_t.searches[-1]["q"]
+        if q.shape[1:] != (cfg.model_config.mapping_network_prefix_length,
+                           cfg.model_config.dim):
+            raise AssertionError(f"vision-only queries of shape {q.shape}")
+        index = got["_index"]
+        te["err"] = check_eval_search(rec_t.searches[-1], index)
+        # K1 at the evaluation's own launch, and against its plain
+        # version at B=64 (random inputs, kernel_shape)
+        planes = index.token_planes()
+        te["k1_eval_ms"] = time_ms(lambda: maxsim.maxsim_search(
+            q, index.tokens, index.mask, planes=planes), iters=5)
+        shape = (f"wit eval f32 vision-only B=64 Lq={q.shape[1]} "
+                 f"N={index.tokens.shape[0]} Ld={index.tokens.shape[1]}")
+        kernel_shape(k1, "K1-f32", shape, 64, q.shape[1],
+                     index.tokens.shape[0], index.tokens.shape[1],
+                     q.shape[2], torch.float32, torch.float32, maxsim)
+        out["k1_shape"] = shape
+        del index, planes, got, final, rec_t
+
+        # only the mapping network moved; Adam's state is its alone
+        init = build_executor(cfg, "cpu", inference_only=True)
+        start = {n: p.detach() for n, p in init.model.named_parameters()}
+        ckpt = os.path.join(tmp, "wit", "ckpt")
+        trained = load_params(os.path.join(ckpt, "params.msgpack"))
+        moved = sorted(n for n in start if not torch.equal(trained[n],
+                                                           start[n]))
+        if not moved or any(not n.startswith("vision_projection")
+                            for n in moved):
+            raise AssertionError(f"WIT pretraining moved {moved}")
+        n_mapping = sum(1 for n in start if n.startswith("vision_projection"))
+        opt = torch.load(os.path.join(ckpt, "optimizer.pt"),
+                         map_location="cpu", weights_only=False)
+        if len(opt["adamw"]["state"]) != n_mapping:
+            raise AssertionError("optimizer state beyond the mapping network")
+        # the vision-only query tower, card vs CPU, on the trained weights
+        data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
+                                            explode=True)
+        card = build_executor(cfg, "cuda", inference_only=True)
+        init.model.load_state_dict(trained)
+        card.model.load_state_dict(trained)
+        batch = next(query_eval_batches(data["test"], 16))
+        q_card = card.encode_queries([batch])
+        q_cpu = init.encode_queries([batch])
+        out["tower_err"] = float(np.abs(q_card - q_cpu).max())
+        if out["tower_err"] > TOWER_ATOL:
+            raise AssertionError(f"the vision-only tower on the card differs "
+                                 f"from the CPU by {out['tower_err']}")
+        del card, init, trained, start
+        ms = [x[0] * 1e3 for x in steps[2:]]
+        tr.update(step_ms_median=float(np.median(ms)), step_ms_min=min(ms),
+                  step_ms_max=max(ms), losses=losses, moved=moved,
+                  questions_per_s=tc.batch_size / float(np.median(ms)) * 1e3)
+        out["corpus"] = len(data["passages"]["full_passages"])
+        print(f"{smi}: WIT train step {tr['step_ms_median']:.1f} ms median "
+              f"(min {min(ms):.1f}, max {max(ms):.1f}; batch "
+              f"{tc.batch_size}, nway 2, frozen towers), peak "
+              f"{tr.get('peak_bytes', 0) / 2**30:.2f} GiB; corpus of "
+              f"{out['corpus']} passages: encodes "
+              f"{[round(x, 2) for x in tr['encode_s'] + te['encode_s']]} s, "
+              f"searches {tr['search_s'] + te['search_s']} s; K1 at the "
+              f"eval's launch (B={q.shape[0]}) {te['k1_eval_ms']:.2f} ms; "
+              f"moved {len(moved)} tensors (vision_projection), tower "
+              f"card vs CPU {out['tower_err']:.3g}", flush=True)
+        print(f"WIT pos_item_ids_recall@K {out['recall']}; losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+        del rec, q
+        out["dpr"] = dpr_on_wit(data, smi)
+    return out
+
+
+DPR_STEPS, DPR_EVAL_DOCS, DPR_EVAL_QUERIES = 8, 96, 48
+
+
+def dpr_on_wit(data, smi):
+    """DPR at BERT-base on the WIT corpus' text: a caption is the query and
+    its row's passage the positive (nway 2, in-batch negatives), 8 train
+    steps of 8 on the card; then the trained model's evaluate_retrieval on
+    the card and on a CPU copy over the first 48 test items and a corpus of
+    their 48 passages and 48 others (the CPU's BERT-base encode is what
+    limits the size): retrieved ids equal except at ties (a swap of two
+    scores within 1e-4), metrics printed."""
+    import copy
+    import torch
+    from ravqa_tpu_torch.executors import DPRExecutor, TrainConfig
+    from ravqa_tpu_torch.models import BertConfig, DPRModelConfig, DPRRetriever
+    qt, dt = data["query_tokenizer"], data["doc_tokenizer"]
+    corpus = data["passages"]["full_passages"]
+    model = DPRRetriever(DPRModelConfig(bert=BertConfig(), nway=2))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    ex = DPRExecutor(model, TrainConfig(lr=2e-5), device="cuda", quiet=True)
+    rng = np.random.default_rng(0)
+    items = data["train"].items
+    losses, ms = [], []
+    for _ in range(DPR_STEPS):
+        pick = [items[i] for i in rng.choice(len(items), 8, replace=False)]
+        docs = []
+        for it in pick:
+            docs += [corpus.content_of(it["pos_item_ids"][0]),
+                     corpus.contents[int(rng.integers(len(corpus)))]]
+        qi, qm = qt.tensorize([it["img_caption"] for it in pick])
+        di, dm = dt.tensorize(docs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = ex.train_step({"query_input_ids": qi, "query_attention_mask": qm,
+                           "doc_input_ids": di, "doc_attention_mask": dm})
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"DPR losses {losses}")
+    test = data["test"].items[:DPR_EVAL_QUERIES]
+    pids = [it["pos_item_ids"][0] for it in test]
+    pids += [p for p in corpus.ids if p not in set(pids)][
+        :DPR_EVAL_DOCS - len(pids)]
+    contents = [corpus.content_of(p) for p in pids]
+    qi, qm = qt.tensorize([it["img_caption"] for it in test])
+    di, dm = dt.tensorize(contents)
+    queries = [{"query_input_ids": qi, "query_attention_mask": qm}]
+    docs = [{"doc_input_ids": di[s:s + 32], "doc_attention_mask": dm[s:s + 32]}
+            for s in range(0, len(pids), 32)]
+    kw = dict(passage_ids=pids, pos_item_ids=[[p] for p in pids[:len(test)]],
+              ks=(1, 5, 10))
+    t0 = time.perf_counter()
+    got = ex.evaluate_retrieval(queries, docs, **kw)
+    t_card = time.perf_counter() - t0
+    cpu = DPRExecutor(copy.deepcopy(ex.model).cpu(), TrainConfig(),
+                      device="cpu", quiet=True, inference_only=True)
+    t0 = time.perf_counter()
+    want = cpu.evaluate_retrieval(queries, docs, **kw)
+    t_cpu = time.perf_counter() - t0
+    q_cpu, d_cpu = cpu.encode_queries(queries), cpu.encode_items(docs)
+    scores = q_cpu @ d_cpu.T
+    col = {p: i for i, p in enumerate(pids)}
+    bad = []
+    for i, (g, w) in enumerate(zip(got["_retrieved_pids"],
+                                   want["_retrieved_pids"])):
+        gs = scores[i, [col[p] for p in g]]
+        ws = scores[i, [col[p] for p in w]]
+        if g != w and not np.allclose(gs, ws, rtol=0, atol=1e-4):
+            bad.append(i)
+    if bad:
+        raise AssertionError(f"DPR retrieval on the card differs from the "
+                             f"CPU on queries {bad}")
+    metrics = {k: v for k, v in got.items() if not k.startswith("_")}
+    out = {"losses": losses, "step_ms": float(np.median(ms[2:])),
+           "eval_card_s": t_card, "eval_cpu_s": t_cpu, "metrics": metrics,
+           "same_ids": sum(g == w for g, w in zip(got["_retrieved_pids"],
+                                                   want["_retrieved_pids"])),
+           "queries": len(test)}
+    print(f"{smi}: DPR (BERT-base x 2) train step {out['step_ms']:.1f} ms "
+          f"median, losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"evaluate_retrieval {t_card:.2f} s on the card, {t_cpu:.1f} s on "
+          f"the CPU, {out['same_ids']} of {len(test)} queries' ids "
+          f"identical (the rest tie); {metrics}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: PreFLMR multi-task training and evaluation over M2KR tasks
+# ---------------------------------------------------------------------------
+
+M2KR_TASKS = ("okvqa", "wit", "infoseek")
+M2KR_STEPS, M2KR_BATCH, M2KR_VAL_EVERY, M2KR_SEED = 24, 8, 12, 0
+
+
+def _m2kr_world(cfg, seed):
+    """A SyntheticOKVQA world of 4,096 docs, 256 train and 64 test
+    questions with 224 x 224 images, through the config's loaders."""
+    from ravqa_tpu_torch.config import apply_overrides
+    from ravqa_tpu_torch.main import build_pipeline
+    c = apply_overrides(cfg, [
+        "data_pipeline.raw.setup_kwargs.n_docs=4096",
+        "data_pipeline.raw.setup_kwargs.n_questions=320",
+        f"data_pipeline.raw.setup_kwargs.seed={seed}"])
+    return build_pipeline(c).get_data(c.data_pipeline_output_node,
+                                      explode=True)
+
+
+def m2kr_slice(maxsim, k1, smi):
+    """Phase 19: PreFLMR (configs/synthetic_preflmr_vitl_serve.json's
+    model: CLIP ViT-L/14 in the graph, frozen by freeze_image_encoder; the
+    BERT-base towers, the mapping and the transformer mapping train)
+    trained by train_m2kr over three M2KR tasks (okvqa, wit, infoseek:
+    SyntheticOKVQA worlds of seeds 0-2, each with its DEFAULT_INSTRUCTIONS
+    prompt), 24 steps of 8 at temperature 4 with evaluate_m2kr every 12
+    (two rounds of 3 indexes and 3 K1 launches). Gates: one train_step
+    card vs CPU first (executor_step_vs_cpu); every per-task loss finite;
+    the sampled task names equal numpy default_rng(seed)'s draws over the
+    mixture weights; the ViT bit-identical and without grads; each task's
+    evaluation against a plain search of a trimmed CPU copy of its index
+    (check_eval_search); K1-f32 launched once per task evaluation (counts
+    set to 0 just before, read just after; the split route); each task's
+    metric keys and "_flat". Prints the step ms, questions/s, peak memory,
+    each evaluation's seconds and K1 at Lq = 320 beside its bound."""
+    import torch
+    from ravqa_tpu_torch.config import apply_overrides
+    from ravqa_tpu_torch.executors import FLMRExecutor, m2kr
+    from ravqa_tpu_torch.main import build_executor, load_config
+    from ravqa_tpu_torch.retrieval import LateInteractionSearcher
+    cfg = load_config(PREFLMR_CONFIG)
+    cfg = apply_overrides(cfg, [
+        "model_config.modules=" + repr(list(cfg.model_config.modules)
+                                       + ["freeze_image_encoder"])])
+    t0 = time.perf_counter()
+    worlds = [_m2kr_world(cfg, s) for s in range(len(M2KR_TASKS))]
+    tasks = [m2kr.M2KRTask(name, w["test"], w["passages"]["full_passages"],
+                           train_dataset=w["train"])
+             for name, w in zip(M2KR_TASKS, worlds)]
+    m2kr.apply_task_instructions(tasks)
+    out = {"data_s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ex = build_executor(cfg, "cuda", quiet=True)
+    vit = {n: p.detach().clone()
+           for n, p in ex.model.vision_model.named_parameters()}
+    if any(p.requires_grad for p in ex.model.vision_model.parameters()):
+        raise AssertionError("the frozen ViT requires grad")
+    # one full-width step on the card against the CPU, from the seed's
+    # weights, on two okvqa questions with their instruction
+    cpu = build_executor(cfg, "cpu", quiet=True)
+    out["step_vs_cpu"] = executor_step_vs_cpu(
+        ex, cpu, tasks[0].train_dataset.collate([0, 1]),
+        "PreFLMR ViT-L, batch of 2 with the okvqa instruction", "cuda")
+    del cpu
+    # the run: every task's sampled name, each step, each evaluation
+    names, probs = [], m2kr.task_mixture_weights(tasks, temperature=4.0)
+    loader = m2kr.multitask_loader
+
+    def recorded(*a, **k):
+        for name, batch in loader(*a, **k):
+            names.append(name)
+            yield name, batch
+    evals, checks = [], []
+    orig_eval = FLMRExecutor.evaluate_retrieval
+    orig_search = LateInteractionSearcher.search
+    searched = []
+
+    def search(self, q, k):
+        r = orig_search(self, q, k)
+        searched.append({"q": torch.as_tensor(q).detach(), "scores": r[0],
+                         "pids": r[1], "s": 0.0})
+        return r
+
+    def evaluate(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = orig_eval(self, *a, **k)
+        torch.cuda.synchronize()
+        evals.append(time.perf_counter() - t)
+        checks.append(check_eval_search(searched[-1], r["_index"]))
+        searched.clear()
+        return r
+    step_s = []
+    orig_step = FLMRExecutor.train_step
+
+    def step(self, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = orig_step(self, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return m
+    maxsim.maxsim_search.launches = 0
+    maxsim.maxsim_search.split_launches = 0
+    m2kr.multitask_loader = recorded
+    FLMRExecutor.evaluate_retrieval = evaluate
+    LateInteractionSearcher.search = search
+    FLMRExecutor.train_step = step
+    t0 = time.perf_counter()
+    try:
+        res = m2kr.train_m2kr(ex, tasks, steps=M2KR_STEPS,
+                              batch_size=M2KR_BATCH, temperature=4.0,
+                              seed=M2KR_SEED, val_every=M2KR_VAL_EVERY,
+                              log_every=M2KR_VAL_EVERY)
+    finally:
+        m2kr.multitask_loader = loader
+        FLMRExecutor.evaluate_retrieval = orig_eval
+        LateInteractionSearcher.search = orig_search
+        FLMRExecutor.train_step = orig_step
+    out["wall_s"] = time.perf_counter() - t0
+    launches = maxsim.maxsim_search.launches
+    split = maxsim.maxsim_search.split_launches
+    n_evals = len(tasks) * (M2KR_STEPS // M2KR_VAL_EVERY)
+    if launches != n_evals or split != launches or len(evals) != n_evals:
+        raise AssertionError(f"K1 launched {launches} times ({split} split) "
+                             f"for {len(evals)} task evaluations")
+    rng = np.random.default_rng(M2KR_SEED)
+    want = [M2KR_TASKS[int(rng.choice(len(tasks), p=probs))]
+            for _ in range(M2KR_STEPS)]
+    if names != want:
+        raise AssertionError(f"sampled tasks {names}, host draws {want}")
+    losses = [v for h in ex.logger.history for k, v in h.items()
+              if k.endswith("/loss")]
+    if not losses or not all(np.isfinite(losses)) or not all(
+            np.isfinite(v) for v in res["per_task_loss"].values()):
+        raise AssertionError(f"per-task losses {res['per_task_loss']}")
+    for n, p in ex.model.vision_model.named_parameters():
+        if p.grad is not None or not torch.equal(p.detach(), vit[n]):
+            raise AssertionError(f"the frozen ViT's {n} moved or has a grad")
+    for r in res["eval_history"]:
+        for t in tasks:
+            keys = {f"pos_item_ids_recall_at_{k}" for k in t.ks}
+            if t.use_answers:
+                keys |= {f"recall_at_{k}" for k in t.ks}
+            if not keys <= set(r[t.name]) or any(
+                    f"{t.name}/{k}" not in r["_flat"] for k in r[t.name]):
+                raise AssertionError(f"{t.name} metrics {sorted(r[t.name])}")
+    del vit
+    ms = [x * 1e3 for x in step_s[2:]]
+    out.update(
+        launches={"K1-f32": launches, "K1 split": split},
+        sampled=names, per_task_loss=res["per_task_loss"],
+        per_task_batches=res["per_task_batches"],
+        step_ms_median=float(np.median(ms)), step_ms_min=min(ms),
+        step_ms_max=max(ms),
+        questions_per_s=M2KR_BATCH / float(np.median(ms)) * 1e3,
+        eval_s=evals, eval_err=max(checks),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        metrics=[{t: r[t] for t in M2KR_TASKS} for r in res["eval_history"]])
+    lq = (worlds[0]["query_tokenizer"].query_maxlen + ex.model.cfg.prefix_len
+          + ex.model.cfg.vit.num_patches)
+    if lq != LQ_PREFLMR:
+        raise AssertionError(f"PreFLMR query of {lq} tokens")
+    ld = worlds[0]["doc_tokenizer"].doc_maxlen
+    shape = f"m2kr eval f32 B=64 Lq={lq} N=4096 Ld={ld}"
+    kernel_shape(k1, "K1-f32", shape, 64, lq, 4096, ld, 128,
+                 torch.float32, torch.float32, maxsim)
+    out["k1_shape"] = shape
+    print(f"{smi}: M2KR train step {out['step_ms_median']:.1f} ms median "
+          f"(min {min(ms):.1f}, max {max(ms):.1f}; batch {M2KR_BATCH}, "
+          f"nway {ex.model.cfg.nway}, Lq {lq}), "
+          f"{out['questions_per_s']:.1f} questions/s trained; peak "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB; task evaluations "
+          f"{[round(x, 2) for x in evals]} s; K1-f32 {launches} launches "
+          f"(split {split}); sampled {res['per_task_batches']}", flush=True)
+    recall = [{t: r[t]["pos_item_ids_recall_at_10"] for t in M2KR_TASKS}
+              for r in res["eval_history"]]
+    print(f"M2KR per-task loss {res['per_task_loss']}; "
+          f"pos_item_ids_recall@10 by round {recall}", flush=True)
+    del ex, worlds, tasks
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3278,6 +3794,12 @@ def main():
     phase("17 RAVQA-v2 joint training and evaluation (BLIP-2 Flan-T5-XL "
           "LoRA + FLMR, K1-f32)")
     rag_train = rag_train_slice(maxsim, smi)
+    phase("18 WIT mapping-network pretraining (BERT-base frozen, vision-only "
+          "queries, K1-f32) and DPR")
+    wit = wit_pretrain_slice(maxsim, k1, smi)
+    phase("19 PreFLMR multi-task training and evaluation over M2KR tasks "
+          "(ViT-L/14 frozen, Lq=320, K1-f32)")
+    m2kr_run = m2kr_slice(maxsim, k1, smi)
     phase("report")
 
     def entry(name, source, replaces, launches, measured):
@@ -3317,6 +3839,11 @@ def main():
     # evaluation dispatch
     kernels["K1-f32"]["launches_rag_train"] = rag_train["launches"]["K1-f32"]
     kernels["K1-f32"]["launches_rag_eval"] = rag_train["eval_launches"]
+    # phase 18: once per WIT validation (training) and in the test run;
+    # phase 19: once per M2KR task evaluation (3 tasks, 2 rounds)
+    kernels["K1-f32"]["launches_wit_pretrain"] = {
+        k: wit[k]["launches"]["K1"] for k in ("train", "test")}
+    kernels["K1-f32"]["launches_m2kr"] = m2kr_run["launches"]["K1-f32"]
 
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (bf16, tensor cores)", "coarse_sweep.cu",
@@ -3394,7 +3921,9 @@ def main():
                       "train_slice": train_slice,
                       "preflmr_serve": preflmr,
                       "rag_serve": rag_serve,
-                      "rag_train": rag_train}), flush=True)
+                      "rag_train": rag_train,
+                      "wit_pretrain": wit,
+                      "m2kr": m2kr_run}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,6 +5,7 @@ from .datasets import (PassageCorpus, RetrievalDataset, corpus_doc_batches,
                        query_eval_batches)
 from .prefetch import prefetch, prefetch_to_device
 from . import transforms  # noqa: F401  (populates the registry)
+from . import wit_transforms  # noqa: F401  (the WIT pretraining nodes)
 
 __all__ = ["BaseTransform", "DataPipeline", "TRANSFORM_REGISTRY",
            "register_transform", "ModuleParser", "PassageCorpus",

@@ -11,9 +11,15 @@ Ports of ravqa_tpu/data/transforms.py:
   synthetic vocab when no vocab_path), the ColBERT query and doc
   tokenizers, the passages, and one RetrievalDataset per split ("valid"
   falls back to "test"), the JAX package's layout.
+- LoadImageFeatures (:297-311): per-image features from an .npz store
+  keyed by str(image_id), written into the items in place.
+- LoadM2KRData (:397-434): an M2KR-style task from a passages jsonl and
+  one queries jsonl per split, with optional per-question features.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 
@@ -110,4 +116,56 @@ class PrepareDataloaders(BaseTransform):
                 input_modules=getattr(self, "input_modules", None),
                 use_self_negatives=getattr(self, "use_self_negatives",
                                            False))
+        return out
+
+
+@register_transform
+class LoadImageFeatures(BaseTransform):
+    """Attach per-image features from a .npz store keyed by str(image_id).
+    setup: features_path (npz), feature_key='image_features'."""
+
+    def __call__(self, data):
+        store = np.load(self.features_path)
+        key = getattr(self, "feature_key", "image_features")
+        for split, items in data.items():
+            if not isinstance(items, list):
+                continue
+            for it in items:
+                it[key] = store[str(it["image_id"])]
+        return data
+
+
+@register_transform
+class LoadM2KRData(BaseTransform):
+    """An M2KR-style task: a passages jsonl ({passage_id, passage_content})
+    and a queries jsonl per split ({question_id, question, instruction?,
+    pos_item_ids, answers?}), each row kept whole with its question_id as
+    a string.
+
+    setup: queries_path {split: jsonl}, passages_path (jsonl),
+    features_path (optional npz keyed by question_id)."""
+
+    def __call__(self, *inputs):
+        pids, contents = [], []
+        with open(self.passages_path) as f:
+            for line in f:
+                row = json.loads(line)
+                pids.append(row["passage_id"])
+                contents.append(row["passage_content"])
+        corpus = PassageCorpus(pids, contents)
+        feats = None
+        if getattr(self, "features_path", None):
+            feats = np.load(self.features_path)
+        out = {"passages": {"train_passages": corpus,
+                            "full_passages": corpus}}
+        for split, path in self.queries_path.items():
+            items = []
+            with open(path) as f:
+                for line in f:
+                    it = dict(json.loads(line))
+                    it["question_id"] = str(it["question_id"])
+                    if feats is not None:
+                        it["image_features"] = feats[it["question_id"]]
+                    items.append(it)
+            out[split] = items
         return out

@@ -16,8 +16,12 @@ torch.optim.AdamW and ``BaseExecutor.train_step`` runs eagerly:
   (optax's running mean) and one update is made on the k-th; the schedule
   and Adam's count advance per update only;
 - frozen parameters (freeze_* module flags) get no update and no optimizer
-  state; a parameter no loss term reaches gets a zero grad, as it does
-  under jax.grad, so Adam's count and weight decay still apply to it.
+  state, and take no grad: the executor sets their requires_grad False,
+  so autograd computes no weight grad for a frozen tower (the JAX step
+  computes them and masks their updates; the trainable parameters' grads
+  and updates are the same either way). A trainable parameter no loss
+  term reaches gets a zero grad, as it does under jax.grad, so Adam's
+  count and weight decay still apply to it.
 
 A checkpoint directory holds params.msgpack (flax's format: the JAX
 package's load_params and load_checkpoint read it), step.json, and the
@@ -305,9 +309,10 @@ class BaseExecutor:
     CPU generator for dropout seeds.
 
     Subclasses define loss_fn(batch, generator) -> (loss, metrics dict).
-    inference_only=True builds no optimizer (a server never reads Adam's
-    moments; the constructor calls prepare_for_serving); train_step then
-    raises."""
+    The parameters that the train config's freeze flags freeze get
+    requires_grad False. inference_only=True builds no optimizer (a server
+    never reads Adam's moments; the constructor calls
+    prepare_for_serving); train_step then raises."""
 
     def __init__(self, model: nn.Module,
                  train_cfg: Optional[TrainConfig] = None, device=None,
@@ -320,6 +325,10 @@ class BaseExecutor:
             else next(model.parameters()).device)
         self.model = model.to(self.device).eval()
         self.train_cfg = train_cfg or TrainConfig()
+        for name, trainable in trainable_mask(
+                self.model, self.train_cfg.modules).items():
+            if not trainable:
+                self.model.get_parameter(name).requires_grad_(False)
         self.optimizer, self.inference_only = None, False
         if inference_only:
             self.prepare_for_serving()
@@ -342,7 +351,9 @@ class BaseExecutor:
         """One micro-step: loss, grads, the optimizer's step. Returns the
         metrics as tensors on the device (no host sync): loss_fn's,
         "loss" and "grad_norm", the global norm of every grad of this
-        micro-step, frozen parameters' included."""
+        micro-step. Frozen parameters take no grad, so it is the trainable
+        parameters' norm; the JAX step's also counts the frozen
+        parameters' grads (ROADMAP.md C21)."""
         if self.inference_only:
             raise RuntimeError(
                 "executor is inference_only: no optimizer state; rebuild "

@@ -2,7 +2,9 @@
 training, evaluation and serving, and RAVQA training, evaluation and
 answer serving.
 
-Port of ravqa_tpu/main.py. For FLMR retrieval configs: `--mode train`
+Port of ravqa_tpu/main.py. For FLMR retrieval configs, and the WIT
+mapping-network pretraining config (`executor.ExecutorClass`
+FLMRVisionPretrainingExecutor: vision-only queries): `--mode train`
 (the trainer, validation through `run_eval` every `train.val_every` steps,
 then `<log_dir>/<experiment_name>/ckpt`), `--mode test` / `eval` (the
 checkpoint, an index of the corpus, search, `<split>_metrics.json`,
@@ -22,6 +24,9 @@ generator, POST /answer) and `prepare_data`. Examples, on an NVIDIA GPU:
         --mode eval --experiment_name dev
     python -m ravqa_tpu_torch.main \
         --config configs/synthetic_flmr_base_serve.json --mode serve
+    python -m ravqa_tpu_torch.scripts.synthetic_wit
+    python -m ravqa_tpu_torch.main \
+        --config configs/synthetic_flmr_wit_pretrain.json --mode train
     python -m ravqa_tpu_torch.main \
         --config configs/synthetic_rag_blip2_train.json --mode train
     python -m ravqa_tpu_torch.main \
@@ -73,9 +78,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_pipeline(cfg: Config):
+def build_pipeline(cfg: Config, cache_dir: Optional[str] = None):
+    """The config's data pipeline; nodes with `cache` true are kept under
+    cache_dir (main() passes <log_dir>/cache, as the JAX package's does)."""
     from .data import DataPipeline
-    return DataPipeline(cfg.data_pipeline.to_dict())
+    return DataPipeline(cfg.data_pipeline.to_dict(), cache_dir=cache_dir,
+                        global_config=cfg)
 
 
 def _flmr_config_from(mc):
@@ -126,13 +134,22 @@ def build_executor(cfg: Config, device, log_dir: Optional[str] = None,
                    quiet: bool = True, inference_only: bool = False):
     """FLMR executor with weights drawn from the config's seed (a CPU
     torch.Generator, so one seed gives the same weights on every device)
-    and the trainer configured from `train.*`. inference_only builds no
-    optimizer (serving)."""
-    from .executors import FLMRExecutor, TrainConfig
+    and the trainer configured from `train.*`: an FLMRExecutor, or an
+    FLMRVisionPretrainingExecutor when `executor.ExecutorClass` names it
+    (the WIT recipe). Any other class raises, where the JAX package's
+    builds an FLMRExecutor for it (ROADMAP.md C20). inference_only builds
+    no optimizer (serving)."""
+    from .executors import (FLMRExecutor, FLMRVisionPretrainingExecutor,
+                            TrainConfig)
     from .models import FLMRRetriever
-    cls = cfg.get("executor", Config()).get("ExecutorClass", "FLMRExecutor")
-    if cls != "FLMRExecutor":
-        raise NotImplementedError(f"executor {cls!r} {_NOT_PORTED}")
+    name = cfg.get("executor", Config()).get("ExecutorClass", "FLMRExecutor")
+    classes = {"FLMRExecutor": FLMRExecutor,
+               "FLMRVisionPretrainingExecutor": FLMRVisionPretrainingExecutor}
+    if name not in classes:
+        raise NotImplementedError(
+            f"executor {name!r}: main.py builds FLMRExecutor, "
+            "FLMRVisionPretrainingExecutor and RagExecutor only (ROADMAP.md "
+            "C20; DPRExecutor is a library class in both packages)")
     mc = cfg.model_config
     model = FLMRRetriever(_flmr_config_from(mc))
     model.reset_parameters(
@@ -149,11 +166,11 @@ def build_executor(cfg: Config, device, log_dir: Optional[str] = None,
         modules=tuple(mc.get("modules", [])),
         accumulate_grad_batches=tc.get("accumulate_grad_batches", 1),
     )
-    return FLMRExecutor(model, train_cfg, device=device, log_dir=log_dir,
-                        seed=cfg.get("seed", 0), quiet=quiet,
-                        logger_backends=tuple(tc.get("logger_backends",
-                                                     ["jsonl"])),
-                        inference_only=inference_only)
+    return classes[name](model, train_cfg, device=device, log_dir=log_dir,
+                         seed=cfg.get("seed", 0), quiet=quiet,
+                         logger_backends=tuple(tc.get("logger_backends",
+                                                      ["jsonl"])),
+                         inference_only=inference_only)
 
 
 def build_rag_executor(cfg: Config, data, device,
@@ -637,8 +654,8 @@ def main(argv=None):
         raise NotImplementedError(f"--num_devices {_NOT_PORTED}: A4")
     log_dir = os.path.join(args.log_dir, args.experiment_name)
     os.makedirs(log_dir, exist_ok=True)
-    data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
-                                        explode=True)
+    data = build_pipeline(cfg, os.path.join(log_dir, "cache")).get_data(
+        cfg.data_pipeline_output_node, explode=True)
     if args.mode == "prepare_data":
         print("prepare_data done:", list(data))
         return 0

@@ -7,6 +7,7 @@ from .convert import (flatten_params, flax_to_state_dict,
                       lora_to_torch, rag_params_to_torch, read_flax_msgpack,
                       read_params_tree, save_params, state_dict_to_flax,
                       write_flax_msgpack)
+from .dpr import DPRModelConfig, DPRRetriever
 from .flmr import (FLMRModelConfig, FLMRRetriever, l2_normalize,
                    punctuation_skiplist_ids, skiplist_mask)
 from .generation import beam_generate, greedy_generate
@@ -30,6 +31,7 @@ __all__ = ["BertConfig", "BertModel", "Blip2Config", "Blip2T5",
            "lora_to_torch", "rag_params_to_torch", "read_flax_msgpack",
            "read_params_tree",
            "save_params", "state_dict_to_flax", "write_flax_msgpack",
+           "DPRModelConfig", "DPRRetriever",
            "FLMRModelConfig", "FLMRRetriever",
            "l2_normalize", "punctuation_skiplist_ids", "skiplist_mask",
            "beam_generate", "greedy_generate", "count_lora_params",

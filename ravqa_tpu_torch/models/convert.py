@@ -18,7 +18,9 @@ A Flax params tree (nested dicts of numpy arrays, as
   (models/vit.py).
 
 ``state_dict_to_flax`` is the way back, so a tree the port trained loads
-into the JAX package.
+into the JAX package. The same pair carries the DPR dual encoder
+(models/dpr.py: its ``query_encoder`` and ``item_encoder`` BertModels, one
+head count each).
 
 The RAG generators (T5Model, Blip2T5) have their own pair,
 ``generator_to_state_dict`` / ``generator_to_flax`` (T5's DenseGeneral
@@ -94,8 +96,8 @@ def _torch_value(path: list[str], a: np.ndarray) -> np.ndarray:
 
 
 def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
-    """JAX FLMR/BERT params tree (nested dicts or flattened "a/b/c" keys)
-    -> the port's state_dict (float32 CPU tensors)."""
+    """JAX FLMR/DPR/BERT params tree (nested dicts or flattened "a/b/c"
+    keys) -> the port's state_dict (float32 CPU tensors)."""
     flat = params if all(not isinstance(v, dict) for v in params.values()) \
         else flatten_params(params)
     sd = {}

@@ -1332,3 +1332,143 @@ def test_rag_train_step_on_cuda_matches_cpu(kind):
                                    rtol=0, atol=2 * 2 * lr, msg=n)
     assert any(not torch.equal(p.detach(), before[n])
                for n, p in cpu.model.named_parameters())
+
+
+# -- retriever pretraining: WIT vision-only, M2KR multi-task, DPR --------------
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_maxsim_split_route_at_the_wit_shape(negative):
+    """K1 on a float32 index at the WIT evaluation's query (the mapping
+    network's 32 tokens alone, B=32, Ld=220) against its plain version."""
+    q, tok, mask = make((32, 32, 1031, 220, 128), torch.float32,
+                        torch.float32, negative=negative)
+    before = maxsim.maxsim_search.split_launches
+    got = maxsim.maxsim_search(q, tok, mask,
+                               planes=maxsim.split_index_bf16(tok))
+    torch.cuda.synchronize()
+    assert maxsim.maxsim_search.split_launches == before + 1
+    _close(got, maxsim.maxsim_search_torch(q, tok, mask), 32)
+
+
+def test_pretraining_train_step_on_cuda_matches_cpu():
+    """FLMRVisionPretrainingExecutor.train_step at tiny width under the WIT
+    freezes, on the card and on the CPU from one state dict: loss and grad
+    norm to rtol 1e-5; only the mapping network moves (within 2 lr of the
+    CPU's), the rest bit-identical and without grads."""
+    from ravqa_tpu_torch.executors import (FLMRVisionPretrainingExecutor,
+                                           TrainConfig)
+    from ravqa_tpu_torch.models import FLMRModelConfig, FLMRRetriever
+    cfg = FLMRModelConfig.tiny(nway=2, query_mode="vision_only")
+    rng = np.random.default_rng(0)
+    batch = dict(
+        image_features=rng.normal(size=(4, 24)).astype(np.float32),
+        doc_input_ids=rng.integers(5, 512, (8, 12)).astype(np.int32),
+        doc_attention_mask=np.ones((8, 12), np.int32))
+    lr = 1e-3
+    tc = TrainConfig(lr=lr, modules=("freeze_colbert_doc_encoder",
+                                     "freeze_question_encoder"))
+    ex, before = {}, None
+    for dev in ("cuda", "cpu"):
+        model = FLMRRetriever(cfg)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ex[dev] = FLMRVisionPretrainingExecutor(model, tc, device=dev,
+                                                quiet=True)
+    m = {dev: e.train_step(batch) for dev, e in ex.items()}
+    for key in ("loss", "grad_norm", "ib_loss"):
+        torch.testing.assert_close(m["cuda"][key].cpu(), m["cpu"][key],
+                                   rtol=1e-5, atol=1e-6)
+    want = ex["cpu"].model.state_dict()
+    for n, p in ex["cuda"].model.named_parameters():
+        got = p.detach().cpu()
+        if n.startswith("vision_projection"):
+            assert not torch.equal(got, before[n])
+            torch.testing.assert_close(got, want[n], rtol=0, atol=2 * lr)
+        else:
+            assert p.grad is None and torch.equal(got, before[n]), n
+
+
+def test_m2kr_on_cuda_matches_cpu():
+    """train_m2kr (3 steps over two tiny tasks) and evaluate_m2kr on the
+    card and on the CPU from one state dict: the per-task losses (rtol
+    1e-5) and the evaluations' metrics; K1 launched once per task's
+    evaluation."""
+    from ravqa_tpu_torch.data import DataPipeline
+    from ravqa_tpu_torch.executors import FLMRExecutor, TrainConfig
+    from ravqa_tpu_torch.executors.m2kr import M2KRTask, train_m2kr
+    from ravqa_tpu_torch.models import (BertConfig, FLMRModelConfig,
+                                        FLMRRetriever)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tasks = []
+        for seed, name in enumerate(("okvqa", "wit")):
+            w = DataPipeline({
+                "raw": {"transform_name": "SyntheticOKVQA", "setup_kwargs": {
+                    "n_docs": 40, "n_questions": 20, "vision_dim": 8,
+                    "seed": seed}},
+                "loaders": {"transform_name": "PrepareDataloaders",
+                            "input_node": "raw", "setup_kwargs": {
+                                "query_maxlen": 16, "doc_maxlen": 12}},
+            }).get_data("loaders", explode=True)
+            tasks.append(M2KRTask(name, w["test"],
+                                  w["passages"]["full_passages"], ks=(1, 5),
+                                  train_dataset=w["train"]))
+        vocab = w["tokenizer"].vocab_size + 8
+        model = FLMRRetriever(FLMRModelConfig.tiny(
+            bert=BertConfig.tiny(vocab_size=vocab), vision_dim=8,
+            prefix_len=2, dim=16))
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        ex = FLMRExecutor(model, TrainConfig(lr=1e-3), device=dev,
+                          quiet=True)
+        before = maxsim.maxsim_search.launches
+        res = train_m2kr(ex, tasks, steps=3, batch_size=4, val_every=3,
+                         log_every=1)
+        out[dev] = (res, maxsim.maxsim_search.launches - before,
+                    [h for h in ex.logger.history if "step" in h])
+    assert out["cuda"][1] == 2 and out["cpu"][1] == 0
+    for t, c in zip(out["cuda"][2], out["cpu"][2]):
+        for k in c:
+            if k.endswith("/loss"):
+                np.testing.assert_allclose(t[k], c[k], rtol=1e-5, err_msg=k)
+    assert out["cuda"][0]["per_task_batches"] == \
+        out["cpu"][0]["per_task_batches"]
+    assert out["cuda"][0]["eval_history"][0]["_flat"].keys() == \
+        out["cpu"][0]["eval_history"][0]["_flat"].keys()
+
+
+def test_dpr_on_cuda_matches_cpu():
+    """DPRExecutor.train_step and evaluate_retrieval at tiny width on the
+    card and on the CPU from one state dict: loss and grad norm to rtol
+    1e-5, the parameters within 2 lr, the retrieved ids and metrics equal
+    (random embeddings: no ties)."""
+    from ravqa_tpu_torch.executors import DPRExecutor, TrainConfig
+    from ravqa_tpu_torch.models import (BertConfig, DPRModelConfig,
+                                        DPRRetriever)
+    rng = np.random.default_rng(0)
+    batch = dict(query_input_ids=rng.integers(5, 512, (3, 8)),
+                 query_attention_mask=np.ones((3, 8), np.int64),
+                 doc_input_ids=rng.integers(5, 512, (6, 12)),
+                 doc_attention_mask=np.ones((6, 12), np.int64))
+    docs = [{"doc_input_ids": rng.integers(5, 512, (30, 12)),
+             "doc_attention_mask": np.ones((30, 12), np.int64)}]
+    queries = [{"query_input_ids": rng.integers(5, 512, (5, 8)),
+                "query_attention_mask": np.ones((5, 8), np.int64)}]
+    lr = 1e-3
+    ex, m, ev = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        model = DPRRetriever(DPRModelConfig.tiny(bert=BertConfig.tiny()))
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        ex[dev] = DPRExecutor(model, TrainConfig(lr=lr), device=dev,
+                              quiet=True)
+        m[dev] = ex[dev].train_step(batch)
+        ev[dev] = ex[dev].evaluate_retrieval(
+            queries, docs, passage_ids=list(range(30)),
+            pos_item_ids=[[i] for i in range(5)], ks=(1, 5))
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m["cuda"][key].cpu(), m["cpu"][key],
+                                   rtol=1e-5, atol=1e-6)
+    want = ex["cpu"].model.state_dict()
+    for n, p in ex["cuda"].model.named_parameters():
+        torch.testing.assert_close(p.detach().cpu(), want[n], rtol=0,
+                                   atol=2 * lr)
+    assert ev["cuda"] == ev["cpu"]

@@ -89,8 +89,10 @@ TRAIN = dict(lr=1e-3, retriever_lr=1e-4, weight_decay=0.05,
 # model's largest, which here is the LoRA's, ~1000x the retriever's. The
 # random tiny T5's float32 LoRA grads sit up to 1.3e-5 of their largest from
 # a float64 run in either package (measured on the CPU), and the two
-# packages' differ by as much; the retriever's (the frozen question encoder
-# included, whose grads only the grad norm reads) by up to 5.2e-5 of theirs
+# packages' differ by as much; the retriever's by up to 5.2e-5 of theirs.
+# The frozen question encoder takes no grad in the port (requires_grad
+# False), so the grads and the grad norm compare over the trainable set
+# (the JAX step's norm also counts the frozen grads: ROADMAP.md C21)
 ATOL_GRAD = {"lora": 3e-5, "retriever": 1e-4}
 
 
@@ -432,16 +434,20 @@ def test_make_train_batch_matches_jax(world, case):
 def _jax_train_step(jex, jbatch):
     """JAX BaseExecutor's step_fn (executors/base.py _build_train_step) on
     the executor's state, from the compiled grads and update. Returns (the
-    metrics, the grads)."""
+    metrics, with the grad norm over the trainable parameters as the
+    port's counts it, and the grads)."""
     (loss, metrics), grads = jex.grad_fn(jex.state.params, jbatch)
     updates, opt_state = jex.tx_update(grads, jex.state.opt_state,
                                        jex.state.params)
+    mask = jax_trainable_mask(jex.state.params, list(jex.train_cfg.modules))
+    trainable = jax.tree.map(lambda g, m: g if m else jnp.zeros_like(g),
+                             grads, mask)
     jex.state = jex.state.replace(
         step=jex.state.step + 1,
         params=optax.apply_updates(jex.state.params, updates),
         opt_state=opt_state)
-    return dict(metrics, loss=loss, grad_norm=optax.global_norm(grads)), \
-        grads
+    return dict(metrics, loss=loss,
+                grad_norm=optax.global_norm(trainable)), grads
 
 
 def _jax_grads(jex, grads):
@@ -461,9 +467,8 @@ def _port_grads(tex, batch):
     loss, _ = tex.loss_fn(batch)
     params = [p for p in names.values() if p.requires_grad]
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    got = dict.fromkeys(names)
-    for (name, p) in names.items():
-        got[name] = torch.zeros_like(p)
+    got = {name: torch.zeros_like(p) for name, p in names.items()
+           if p.requires_grad}
     for p, g in zip(params, grads):
         name = next(n for n, q in names.items() if q is p)
         if g is not None:
@@ -488,10 +493,10 @@ def _jax_params(jex):
 
 
 def _assert_grads_close(got, want, where):
-    """Each grad elementwise within rtol 1e-4 and ATOL_GRAD of the largest
-    grad of its part of the model (the LoRA's grads are ~100x the
-    retriever's)."""
-    want = {k: np.asarray(v, np.float64) for k, v in want.items()}
+    """Each grad of `got` (the trainable parameters') elementwise within
+    rtol 1e-4 and ATOL_GRAD of the largest grad of its part of the model
+    (the LoRA's grads are ~100x the retriever's)."""
+    want = {k: np.asarray(want[k], np.float64) for k in got}
     scale = {part: max(np.abs(v).max() for k, v in want.items()
                        if k.startswith(part))
              for part in ("lora", "retriever")}

@@ -80,6 +80,16 @@ RAG_TINY_OPTS = [
     "model_config.rag.gen_maxlen=24"]
 # training also reads each question's image features (the retriever's)
 RAG_TRAIN_OPTS = ["data_pipeline.raw.setup_kwargs.features_with_pixels=True"]
+WIT_CONFIG = os.path.join(REPO, "configs", "synthetic_flmr_wit_pretrain.json")
+# a tiny cut of the WIT pretraining config, over an 8-d synthetic dump
+WIT_TINY_OPTS = [
+    "model_config.vision_embedding_size=8",
+    "model_config.bert={'num_layers': 1, 'hidden_size': 32, 'num_heads': 2, "
+    "'intermediate_size': 64}",
+    "model_config.dim=16", "model_config.mapping_network_prefix_length=4",
+    "data_pipeline.loaders.setup_kwargs.doc_maxlen=24",
+    "data_pipeline.loaders.setup_kwargs.query_maxlen=8",
+    "train.total_steps=2", "train.val_every=2", "train.batch_size=4"]
 HIER_OPTS = ["data_pipeline.raw.setup_kwargs.n_docs=512",
              "model_config.search_mode=hierarchical", "serve.preset=fast",
              "serve.block_size=8", "serve.n_summary=4",
@@ -308,9 +318,11 @@ def test_serve_slice_imports_no_jax(tmp_path):
     the residual codec, the stage-2 kernels' module and the stage-2
     experiment, and the RAG serve slice (build_server on a tiny cut of
     configs/synthetic_rag_blip2_serve.json: a VQAServer over FLMR retrieval
-    and BLIP-2, one answer; then a RAG train step on the same cut), in one
-    process: nothing of the JAX package (ravqa_tpu) or of jax/jaxlib/flax
-    loads."""
+    and BLIP-2, one answer; then a RAG train step on the same cut), WIT
+    pretraining (train, then test, on a tiny cut of
+    configs/synthetic_flmr_wit_pretrain.json over a synthetic WIT dump),
+    evaluate_m2kr and a DPR train step and evaluation, in one process:
+    nothing of the JAX package (ravqa_tpu) or of jax/jaxlib/flax loads."""
     code = (
         "import sys, numpy as np\n"
         "from ravqa_tpu_torch.config import apply_overrides, load_config\n"
@@ -362,6 +374,42 @@ def test_serve_slice_imports_no_jax(tmp_path):
         "ex = build_rag_executor(cfg, data, 'cpu')\n"
         "m = ex.train_step_rag(next(rag_batches(data['train'], 2)))\n"
         "assert np.isfinite(float(m['loss'])) and ex.step == 1\n"
+        "from ravqa_tpu_torch.scripts.synthetic_wit import "
+        "write_synthetic_wit\n"
+        f"p = write_synthetic_wit({str(tmp_path / 'wit')!r}, 16, 8, 8)\n"
+        f"wit = ['--config', {WIT_CONFIG!r}, '--device', 'cpu',\n"
+        f"       '--log_dir', {str(tmp_path)!r}, '--experiment_name', 'w',\n"
+        "       '--opts', 'data_pipeline.wit.setup_kwargs.tsv_path.train='\n"
+        "       + p['train'], 'data_pipeline.wit.setup_kwargs.tsv_path.test='\n"
+        "       + p['test'], 'data_pipeline.features.setup_kwargs.'\n"
+        "       'features_path=' + p['features']]\n"
+        f"wit += {WIT_TINY_OPTS!r}\n"
+        "assert main(wit[:2] + ['--mode', 'train'] + wit[2:]) == 0\n"
+        "assert main(wit[:2] + ['--mode', 'test'] + wit[2:]) == 0\n"
+        "from ravqa_tpu_torch.executors.m2kr import M2KRTask, evaluate_m2kr\n"
+        "from ravqa_tpu_torch.main import build_executor\n"
+        f"cfg = load_config({CONFIG!r})\n"
+        "data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,\n"
+        "                                    explode=True)\n"
+        "r = evaluate_m2kr(build_executor(cfg, 'cpu'), [M2KRTask(\n"
+        "    'okvqa', data['test'], data['passages']['full_passages'])])\n"
+        "assert 'okvqa/pos_item_ids_recall_at_5' in r['_flat']\n"
+        "from ravqa_tpu_torch.executors import DPRExecutor, TrainConfig\n"
+        "from ravqa_tpu_torch.models import (BertConfig, DPRModelConfig,\n"
+        "                                    DPRRetriever)\n"
+        "d = DPRRetriever(DPRModelConfig.tiny(bert=BertConfig.tiny(\n"
+        "    vocab_size=data['tokenizer'].vocab_size + 8)))\n"
+        "d.reset_parameters(__import__('torch').Generator().manual_seed(0))\n"
+        "dx = DPRExecutor(d, TrainConfig(lr=1e-3), device='cpu', quiet=True)\n"
+        "m = dx.train_step(data['train'].collate([0, 1]))\n"
+        "assert np.isfinite(float(m['loss'])) and dx.step == 1\n"
+        "corpus = data['passages']['full_passages']\n"
+        "from ravqa_tpu_torch.data import corpus_doc_batches, "
+        "query_eval_batches\n"
+        "r = dx.evaluate_retrieval(query_eval_batches(data['test']),\n"
+        "    corpus_doc_batches(corpus, data['doc_tokenizer']), corpus.ids,\n"
+        "    pos_item_ids=[it['pos_item_ids'] for it in data['test'].items])\n"
+        "assert 'pos_item_ids_recall_at_5' in r\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('ravqa_tpu', 'jax', 'jaxlib', 'flax')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -398,12 +446,16 @@ def test_profile_serve_needs_a_gpu():
 @pytest.mark.parametrize("argv", [
     ["--config", CONFIG, "--mode", "train", "--num_devices", "2"],
     ["--config", CONFIG, "--mode", "train", "--use_dummy_data"],
+    ["--config", CONFIG, "--mode", "train", "--opts",
+     "executor.ExecutorClass=DPRExecutor"],
 ])
 def test_unported_modes_raise(argv):
     """Data parallelism (A4) and the OK-VQA loader's --use_dummy_data (A3)
     are not ported yet. RAG training and evaluation are
     (test_rag_train_test_eval_modes), and RAG serving
-    (test_rag_configs_serve)."""
+    (test_rag_configs_serve). An executor class that main.py does not
+    build raises (the JAX package's builds an FLMRExecutor for it:
+    ROADMAP.md C20)."""
     from ravqa_tpu_torch.main import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv + ["--device", "cpu"])

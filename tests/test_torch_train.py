@@ -208,9 +208,12 @@ def test_accumulation_matches_large_batch():
 
 
 def test_grad_norm_counts_frozen_grads():
-    """metrics["grad_norm"] is the norm of every grad of the micro-step,
-    frozen parameters' included (the JAX train step's optax.global_norm
-    of the full grads)."""
+    """metrics["grad_norm"] is the norm of every grad of the micro-step. A
+    frozen parameter takes none (the executor sets its requires_grad
+    False, so autograd computes no weight grad for a frozen tower): it
+    counts as zero, and the norm is the trainable parameters'. The JAX
+    train step's optax.global_norm also counts the frozen grads (ROADMAP.md
+    C21); the trainable grads and the update are the same in both."""
     values = _values(3)
     module = _Params(values)
 
@@ -221,7 +224,13 @@ def test_grad_norm_counts_frozen_grads():
     ex = Ex(module, tbase.TrainConfig(modules=("freeze_mapping_network",)),
             device="cpu", quiet=True)
     m = ex.train_step(None)
-    want = np.sqrt(sum((2 * v ** 2).sum() * 2 for leaves in values.values()
+    frozen = module.vision_projection.mlp
+    assert not frozen.requires_grad and frozen.grad is None
+    assert all(p.requires_grad for n, p in module.named_parameters()
+               if not n.startswith("vision_projection"))
+    want = np.sqrt(sum((2 * v ** 2).sum() * 2
+                       for top, leaves in values.items()
+                       if top != "vision_projection"
                        for v in leaves.values()))
     np.testing.assert_allclose(float(m["grad_norm"]), want, rtol=1e-5)
 
