@@ -272,6 +272,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      set to 0 just before, read just after); each task's metric keys.
      Prints the step ms, questions/s trained, peak memory, each
      evaluation's seconds and K1 at Lq = 320, N = 4,096 beside its bound.
+ 20. FLMR with ROIs from raw images (roi_slice): a synthetic OK-VQA world
+     (128 images of 480 x 640, 256 + 64 questions, 16,384 GoogleSearch
+     passages across the 112724 boundary, OCR JSONs); the VinVL detector
+     at vinvl_x152c4 width and depth (ResNeXt-152 C4, batch 8 on a 1,024^2
+     canvas, weights through convert_vinvl_params from a synthetic
+     maskrcnn state dict) writes predictions.tsv; the Oscar-base
+     captioner writes the caption JSON; then `main --mode train` on
+     configs/synthetic_flmr_roi_train.json (OCR on the objects, ROI crops,
+     the CLIP ViT-B/32 over every image and ROI, 24 steps of B = 30, a
+     validation) and `--mode test`. Gates: the detector card vs CPU on one
+     image (feature map, RPN outputs, box logits on fixed proposals: 1e-4
+     of their scale; the selection redone on the CPU from the card's
+     tensors equal; proposals and detections exact but for near-ties);
+     the detector's numbers with the caller's TF32 flags on; the
+     captioner's logits (1e-4) and greedy tokens card vs CPU; the ViT-B/32
+     crop features card vs CPU (1e-4); every loss finite; K1-f32 once in
+     each evaluation at Lq = 352; the ranking vs a plain search; the test
+     metrics equal the validation's; K1-f32 vs its plain version at
+     Lq = 352; one ROI train_step card vs CPU (phase 13's tolerances).
+     Prints the detector's ms a batch, images/s and peak, the caption
+     seconds, the ViT's crops/s, the step ms and peak, the evaluations'
+     seconds (corpus encode, K1) and K1 at Lq = 352 beside its bound.
 Every phase prints its seconds. The line before the last is the kernels'
 JSON record: each kernel's launches on its path, its error against its
 plain version, its time and its plain version's, and its bound, the least
@@ -282,6 +304,7 @@ no single PyTorch call computes any of these functions. The last line is
 {"ok": true, "device": {...}}.
 """
 
+import base64
 import dataclasses
 import json
 import os
@@ -3703,6 +3726,538 @@ def m2kr_slice(maxsim, k1, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: FLMR with ROIs from raw images (VinVL detection, Oscar
+# captioning, OCR, CLIP ViT-B/32 ROI features, training and test at
+# Lq = 352)
+# ---------------------------------------------------------------------------
+
+ROI_CONFIG = os.path.join(HERE, "configs", "synthetic_flmr_roi_train.json")
+ROI_IMAGES, ROI_TRAIN_Q, ROI_TEST_Q, ROI_PASSAGES = 128, 256, 64, 16384
+LQ_ROI = 352          # 32 text + (1 global + 9 ROI) x 32 mapping tokens
+DET_CANVAS = (1024, 1024)
+DET_CPU_CANVAS = (1024, 1024)      # the card-vs-CPU image's canvas
+DET_RTOL = 1e-4                    # of each tensor's largest magnitude
+TIE = 1e-5
+
+
+def _rel_err(got, want):
+    """max |got - want| over the largest |want| (a tensor's scale)."""
+    import torch
+    got, want = (torch.as_tensor(x).detach().float().cpu()
+                 for x in (got, want))
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def _discrete_agree(name, got, want, keys, thresh):
+    """Discrete picks (proposals or detections: `valid` and `labels`
+    exact, the boxes within 1e-3 px), card against CPU. Where they part,
+    the first row that differs must be a near-tie: its two picks' scores
+    (`keys`, the card's and the CPU's) within 1e-5, or one of the two
+    boxes within 1e-5 of the NMS threshold `thresh` in IoU with a box kept
+    before it (of its class, for detections). Returns the first differing
+    row or None."""
+    import torch
+    from ravqa_tpu_torch.ops.vision import box_iou
+    g = {k: v.detach().cpu() for k, v in got.items()}
+    w = {k: v.detach().cpu() for k, v in want.items()}
+    same = g["valid"] == w["valid"]
+    if "labels" in g:
+        same &= g["labels"] == w["labels"]
+    same &= (g["boxes"] - w["boxes"]).abs().amax(-1) <= 1e-3
+    if bool(same.all()):
+        return None
+    n_diff = int((~same).sum())
+    same, rows = same.flatten(), g["valid"].flatten()
+    row = int((~same).nonzero()[0])
+    gs, ws = (float(keys[0].flatten()[row]), float(keys[1].flatten()[row]))
+    boxes = w["boxes"].reshape(-1, 4)
+    before = torch.arange(len(rows)) < row
+    if "labels" in w:
+        labels = w["labels"].flatten()
+    margin = float("inf")
+    for pick in (g["boxes"].reshape(-1, 4)[row], boxes[row]):
+        kept = before & w["valid"].flatten()
+        if "labels" in w:
+            kept &= labels == labels[row]
+        if bool(kept.any()):
+            iou = box_iou(pick[None], boxes[kept])[0]
+            margin = min(margin, float((iou - thresh).abs().min()))
+    print(f"{name}: card and CPU part at pick {row} of {len(rows)} "
+          f"({n_diff} differ): scores {gs:.9g} vs {ws:.9g}, the nearest "
+          f"IoU to the threshold {thresh} {margin:.3g} away", flush=True)
+    if abs(gs - ws) > TIE and margin > TIE:
+        raise AssertionError(f"{name} on the card differ from the CPU at "
+                             f"pick {row}, not at a near-tie")
+    return row
+
+
+def detector_vs_cpu(ex, state_dict, image):
+    """The full-width detector on one image, card vs CPU from one state
+    dict at DET_CPU_CANVAS: the C4 feature map, the RPN's logits and
+    deltas, and the box head's logits and deltas on the card's proposals
+    (fixed) within DET_RTOL of their largest magnitudes; the card's
+    proposal and detection selection redone on the CPU from the card's own
+    continuous tensors, equal; the proposals and detections card vs CPU
+    (_discrete_agree: exact but for near-ties). Then the cuDNN TF32 check:
+    with torch.backends.cudnn.allow_tf32 and cuda.matmul.allow_tf32 set
+    True the card's forward gives the same float32 numbers (the model turns
+    TF32 off inside). Returns the errors and the CPU leg's seconds."""
+    import torch
+    from ravqa_tpu_torch.data.extraction import preprocess_for_detection
+    from ravqa_tpu_torch.models.detection import (AttrRCNN, rpn_proposals,
+                                                  select_detections)
+    cfg = ex.cfg
+    canvas, hw, _ = preprocess_for_detection(
+        image, DET_CPU_CANVAS, ex.min_size, ex.max_size)
+    x, h = torch.from_numpy(canvas)[None], torch.tensor([hw])
+    cpu = AttrRCNN(cfg, device="meta")
+    cpu.load_state_dict(state_dict, assign=True)
+    cpu.eval()
+    with torch.inference_mode():
+        card = ex.model(x.cuda(), h.cuda(), intermediates=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = cpu(x, h, intermediates=True)
+        cls_fixed, box_fixed = cpu.box_head(ref["feature_map"],
+                                            card["proposals"].cpu())
+        t_cpu = time.perf_counter() - t0
+        out = {"cpu_s": t_cpu}
+        for key, got, want in (
+                ("feature_map", card["feature_map"], ref["feature_map"]),
+                ("rpn_logits", card["rpn_logits"], ref["rpn_logits"]),
+                ("rpn_deltas", card["rpn_deltas"], ref["rpn_deltas"]),
+                ("cls_logits_fixed_proposals", card["cls_logits"],
+                 cls_fixed),
+                ("box_deltas_fixed_proposals", card["box_deltas"],
+                 box_fixed)):
+            out[key] = _rel_err(got, want)
+            if not out[key] <= DET_RTOL:
+                raise AssertionError(f"detector {key} card vs CPU "
+                                     f"{out[key]:.3g} of its scale")
+        # the selection on the CPU from the card's continuous tensors
+        c = {k: v.cpu() for k, v in card.items()}
+        props, pvalid, pscores = rpn_proposals(
+            c["rpn_logits"], c["rpn_deltas"],
+            cpu.anchors(c["feature_map"].shape[2], c["feature_map"].shape[3],
+                        "cpu"), h, cfg)
+        dets = dict(zip(("boxes", "scores", "labels", "valid"),
+                        select_detections(c["probs"], c["box_deltas"].float(),
+                                          c["proposals"],
+                                          c["proposal_valid"], h, cfg)))
+        out["selection_proposals_part_at"] = _discrete_agree(
+            "proposals selected on the CPU from the card's RPN outputs",
+            {"boxes": c["proposals"], "valid": c["proposal_valid"]},
+            {"boxes": props, "valid": pvalid},
+            (c["proposal_scores"], pscores), cfg.rpn_nms_thresh)
+        out["selection_detections_part_at"] = _discrete_agree(
+            "detections selected on the CPU from the card's box head", c,
+            dets, (c["scores"], dets["scores"]), cfg.box_nms_thresh)
+        out["proposals_part_at"] = _discrete_agree(
+            "proposals", {"boxes": card["proposals"],
+                          "valid": card["proposal_valid"]},
+            {"boxes": ref["proposals"], "valid": ref["proposal_valid"]},
+            (card["proposal_scores"], ref["proposal_scores"]),
+            cfg.rpn_nms_thresh)
+        out["detections_part_at"] = _discrete_agree(
+            "detections", card, ref, (card["scores"], ref["scores"]),
+            cfg.box_nms_thresh)
+        out["num_detections"] = int(card["num_detections"][0])
+        # TF32 on in the caller: the same float32 numbers
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = ex.model(x.cuda(), h.cuda(), intermediates=True)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        out["tf32_flag_err"] = max(_rel_err(tf32[k], card[k]) for k in (
+            "feature_map", "cls_logits", "features"))
+        if out["tf32_flag_err"] > 1e-6 or not torch.equal(
+                tf32["labels"], card["labels"]):
+            raise AssertionError(f"the detector's numbers move with the "
+                                 f"caller's TF32 flags "
+                                 f"({out['tf32_flag_err']:.3g})")
+    print(f"detector card vs CPU on one {DET_CPU_CANVAS[0]}x"
+          f"{DET_CPU_CANVAS[1]} canvas ({t_cpu:.1f} s on the CPU): feature "
+          f"map {out['feature_map']:.3g}, RPN logits {out['rpn_logits']:.3g}"
+          f", deltas {out['rpn_deltas']:.3g}, box logits on fixed proposals "
+          f"{out['cls_logits_fixed_proposals']:.3g}, deltas "
+          f"{out['box_deltas_fixed_proposals']:.3g} (of each one's scale); "
+          f"{out['num_detections']} detections; the card's selection redone "
+          f"on the CPU parts at {out['selection_proposals_part_at']} / "
+          f"{out['selection_detections_part_at']}; proposals part at "
+          f"{out['proposals_part_at']}, detections at "
+          f"{out['detections_part_at']}; with the caller's TF32 flags on "
+          f"{out['tf32_flag_err']:.3g}", flush=True)
+    return out
+
+
+def roi_detection(p, smi):
+    """The VinVL detector at vinvl_x152c4 widths and depth (ResNeXt-152
+    32x8d C4, 1,595 classes, 525 attributes, 6,000 -> 300 proposals, 100
+    detections with a floor of 10) on a 1,024^2 canvas, batch 8, its
+    weights through convert_vinvl_params from a synthetic maskrcnn state
+    dict, over every image of the world through the extraction script's
+    `extract`; predictions.tsv per split. Gates: at least the floor of
+    detections an image, finite 2,048-d features, rects inside their image;
+    detector_vs_cpu. Returns the numbers."""
+    import torch
+    from ravqa_tpu_torch.data.extraction import (VinVLFeatureExtractor,
+                                                 load_vg_labelmap,
+                                                 write_predictions_tsv)
+    from ravqa_tpu_torch.models.detection import (DetectorConfig,
+                                                  convert_vinvl_params)
+    from ravqa_tpu_torch.scripts.extract_vinvl_features import extract
+    from ravqa_tpu_torch.scripts.synthetic_okvqa import \
+        synthetic_vinvl_state_dict
+    cfg = DetectorConfig.vinvl_x152c4()
+    t0 = time.perf_counter()
+    sd = convert_vinvl_params(synthetic_vinvl_state_dict(cfg, seed=0), cfg)
+    lab, attr = load_vg_labelmap(p["labelmap"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ex = VinVLFeatureExtractor(cfg, sd, lab, attr, canvas_hw=DET_CANVAS,
+                               batch_size=8, device="cuda")
+    out = {"build_s": time.perf_counter() - t0,
+           "parameters": sum(v.numel() for v in sd.values())}
+    store = np.load(p["images"])
+    keys = [str(i) for i in p["image_ids"]]
+    images = {k: store[k] for k in keys}
+    batch_s = []
+    run_batch = ex.predict_batch
+
+    def timed(canvases, hws):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = run_batch(canvases, hws)             # ends in a copy to host
+        batch_s.append(time.perf_counter() - t)
+        return r
+    ex.predict_batch = timed
+    t0 = time.perf_counter()
+    preds = extract(ex, keys, images.__getitem__, log=lambda m: None)
+    out["extract_s"] = time.perf_counter() - t0
+    ex.predict_batch = run_batch
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    by_key = dict(zip(keys, preds))
+    for s in ("train", "test"):
+        ks = [str(i) for i in p["splits"][s]]
+        write_predictions_tsv(p[f"vinvl_{s}"], [k.zfill(12) for k in ks],
+                              [by_key[k] for k in ks])
+    for k, pred in by_key.items():
+        h, w = images[k].shape[:2]
+        objs = pred["objects"]
+        feats = [np.frombuffer(base64.b64decode(o["feature"]), np.float32)
+                 for o in objs]
+        if len(objs) < cfg.min_detections_per_img or any(
+                f.shape != (cfg.res5_out_channels,)
+                or not np.isfinite(f).all() for f in feats) or any(
+                not (0 <= o["rect"][0] <= o["rect"][2] <= w + 1
+                     and 0 <= o["rect"][1] <= o["rect"][3] <= h + 1)
+                for o in objs):
+            raise AssertionError(f"image {k}: {len(objs)} detections "
+                                 "outside the contract")
+    ms = [s * 1e3 for s in batch_s[1:]]
+    out.update(batch_ms_median=float(np.median(ms)), batch_ms_min=min(ms),
+               batch_ms_max=max(ms), first_batch_ms=batch_s[0] * 1e3,
+               images_per_s=8 / float(np.median(ms)) * 1e3,
+               detections=int(np.mean([len(v["objects"])
+                                       for v in preds])))
+    out["vs_cpu"] = detector_vs_cpu(ex, sd, images[keys[0]])
+    print(f"{smi}: VinVL X152-C4 ({out['parameters'] / 1e6:.1f}M "
+          f"parameters, built in {out['build_s']:.1f} s) over {len(keys)} "
+          f"480x640 images: {out['batch_ms_median']:.1f} ms a batch of 8 "
+          f"on a {DET_CANVAS[0]}^2 canvas (median of {len(ms)}; min "
+          f"{min(ms):.1f}, max {max(ms):.1f}; the first "
+          f"{out['first_batch_ms']:.0f}), {out['images_per_s']:.2f} "
+          f"images/s; peak {out['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{out['detections']} detections an image", flush=True)
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def roi_captioning(p, smi):
+    """The Oscar captioner at Oscar-base widths (BERT-base, 2,054-d
+    regions, 40 / 70 / 50) over every image's TSV row, through the
+    captioning script's `caption_rows` (batches of 16); the caption JSON
+    per split, keyed str(image_id) as LoadOKVQAData reads it (the script
+    keys it by the TSV's zero-padded key: ROADMAP C23). Gates: a batch's
+    first forward card vs CPU (1e-4 of the largest logit); the greedy
+    tokens of 4 rows identical card vs CPU, but where the CPU's own logits
+    at the first differing slot hold the two tokens within 1e-5 of the
+    largest logit (a near-tie). Returns the numbers."""
+    import torch
+    from ravqa_tpu_torch.models.captioner import (
+        CaptionerConfig, OscarCaptioner, caption_attention_mask,
+        convert_oscar_captioner_params, greedy_caption,
+        write_caption_predictions)
+    from ravqa_tpu_torch.scripts.run_captioning import (caption_inputs,
+                                                        caption_rows,
+                                                        load_tsv)
+    from ravqa_tpu_torch.scripts.synthetic_okvqa import \
+        synthetic_oscar_state_dict
+    from ravqa_tpu_torch.tokenization import WordPieceTokenizer
+    cfg = CaptionerConfig()
+    sd = convert_oscar_captioner_params(synthetic_oscar_state_dict(cfg), cfg)
+    model = OscarCaptioner(cfg, device="meta")
+    model.load_state_dict(sd, assign=True)
+    cpu = model.eval()
+    model = OscarCaptioner(cfg, device="cuda")
+    model.load_state_dict(sd)
+    model.eval()
+    tok = WordPieceTokenizer(p["vocab"])
+    rows = {}
+    for s in ("train", "test"):
+        rows.update(load_tsv(p[f"vinvl_{s}"]))
+    rows = list(rows.items())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caps = caption_rows(model, tok, rows, batch=16, log=lambda m: None)
+    torch.cuda.synchronize()
+    out = {"caption_s": time.perf_counter() - t0, "images": len(rows)}
+    for s in ("train", "test"):
+        write_caption_predictions(p[f"captions_{s}"], {
+            str(i): caps[str(i).zfill(12)] for i in p["splits"][s]})
+    x = caption_inputs(rows[:4], tok, cfg, 4)
+    xc = {k: torch.from_numpy(v) for k, v in x.items()}
+    xg = {k: v.cuda() for k, v in xc.items()}
+    with torch.inference_mode():
+        a = cfg.max_seq_a_len
+        text = np.concatenate([np.full((4, a), cfg.mask_token_id),
+                               x["tag_ids"]], -1)
+        text[:, 0] = cfg.cls_token_id
+        segs = np.concatenate([np.zeros((4, a)), np.ones(
+            (4, cfg.max_seq_len - a))], -1)
+        t, sg = torch.from_numpy(text).long(), torch.from_numpy(segs).long()
+        attn = caption_attention_mask(cfg, xc["tag_mask"], xc["img_mask"])
+        want = cpu(t, sg, xc["img_feats"], attn)
+        got = model(t.cuda(), sg.cuda(), xg["img_feats"], attn.cuda())
+        out["logits_err"] = _rel_err(got, want)
+        if not out["logits_err"] <= 1e-4:
+            raise AssertionError(f"captioner logits card vs CPU "
+                                 f"{out['logits_err']:.3g}")
+        args = ("tag_ids", "tag_mask", "img_feats", "img_mask")
+        cap_g, len_g = greedy_caption(model, *(xg[k][:2] for k in args))
+        t0 = time.perf_counter()
+        cap_c, len_c = greedy_caption(cpu, *(xc[k][:2] for k in args))
+        out["cpu_greedy_s"] = time.perf_counter() - t0
+        cap_g = cap_g.cpu()
+        out["tokens_part"] = []
+        for r in range(2):
+            diff = (cap_g[r] != cap_c[r]).nonzero()
+            if not len(diff):
+                continue
+            slot = int(diff[0])
+            # the CPU's logits at that slot, on the shared prefix
+            prefix = torch.cat([cap_c[r:r + 1, :slot], torch.full(
+                (1, a - slot), cfg.mask_token_id)], -1)
+            lg = cpu(torch.cat([prefix, xc["tag_ids"][r:r + 1].long()], -1),
+                     sg[:1], xc["img_feats"][r:r + 1], attn[r:r + 1])[0, slot]
+            gap = float(lg[cap_c[r, slot]] - lg[cap_g[r, slot]])
+            out["tokens_part"].append((r, slot, gap))
+            if gap > TIE * float(lg.abs().max()):
+                raise AssertionError(f"greedy tokens card vs CPU differ at "
+                                     f"row {r} slot {slot}, not at a tie")
+        same = [r for r in range(2)
+                if r not in {x[0] for x in out["tokens_part"]}]
+        if not torch.equal(len_g.cpu()[same], len_c[same]):
+            raise AssertionError("greedy caption lengths differ")
+    print(f"{smi}: Oscar-base captioner, {len(rows)} images in "
+          f"{out['caption_s']:.2f} s (batches of 16, 39 forwards each); "
+          f"logits card vs CPU {out['logits_err']:.3g}; greedy tokens of 2 "
+          f"rows card vs CPU {'identical' if not out['tokens_part'] else out['tokens_part']} "
+          f"(CPU greedy {out['cpu_greedy_s']:.1f} s)", flush=True)
+    del model, cpu
+    return out
+
+
+def vit_crops_vs_cpu(cfg, data_cpu, cache_path, n_items=4):
+    """The ViT-B/32 ROI features card vs CPU: the features node on the CPU
+    over n_items test items (their images and ROI crops) against the
+    card's features in the run's cache (1e-4 of their scale)."""
+    from ravqa_tpu_torch.data import TRANSFORM_REGISTRY
+    node = TRANSFORM_REGISTRY["ExtractImageFeaturesWithViT"]()
+    node.setup(**dict(cfg.data_pipeline.features.setup_kwargs,
+                      cache_path=None, device="cpu"))
+    items = [dict(it) for it in data_cpu["test"][:n_items]]
+    t0 = time.perf_counter()
+    node({"test": items, "roi_crops": data_cpu["roi_crops"]})
+    t_cpu = time.perf_counter() - t0
+    card = np.load(cache_path)
+    errs, n = [], 0
+    for it in items:
+        want = it["image_features"]
+        got = np.stack([card[str(it["image_id"])]]
+                       + [card[r] for r in it["ROIs"]])
+        got = np.concatenate([got, np.repeat(got[-1:], len(want) - len(got),
+                                             0)])[:len(want)]
+        errs.append(_rel_err(got, want))
+        n += 1 + len(it["ROIs"])
+    err = max(errs)
+    if not err <= 1e-4:
+        raise AssertionError(f"ViT-B/32 crop features card vs CPU {err:.3g}")
+    return {"err": err, "cpu_crops": n, "cpu_s": t_cpu}
+
+
+def roi_slice(maxsim, k1, smi):
+    """Phase 20: the FLMR-with-ROI user path from raw images. A synthetic
+    OK-VQA world from the seed (scripts/synthetic_okvqa.py: 128 RGB images
+    of 480 x 640, 256 train and 64 test questions, a GoogleSearch CSV of
+    16,384 passages across the 112724 boundary, annotations and OCR
+    JSONs); the VinVL detector (roi_detection) writes predictions.tsv; the
+    Oscar captioner (roi_captioning) writes the caption JSON; then `main
+    --mode train` on configs/synthetic_flmr_roi_train.json (OCR attached to
+    the objects, ROI crops, the CLIP ViT-B/32 over every image and its <= 9
+    ROIs on the card, 24 steps of B = 30 with nway 5, one validation) and
+    `--mode test` from its checkpoint. Gates: every loss finite; K1-f32
+    once in each exact evaluation, at Lq = 352, all on the split route;
+    the evaluation's ranking against a plain search (check_eval_search);
+    the test metrics equal the final validation's; K1-f32 held to its
+    plain version at Lq = 352 (kernel_shape); the ViT-B/32 crop features
+    card vs CPU (vit_crops_vs_cpu); one ROI train_step card vs CPU on a
+    batch of 2 (executor_step_vs_cpu). Prints the detector's ms a batch
+    and images/s, peak memory, the caption seconds, the ViT's crops/s, the
+    step ms and peak, the evaluation's seconds with the corpus encode and
+    K1 within them, K1 at Lq = 352 beside its bound, and the phase's
+    seconds."""
+    import tempfile
+    import torch
+    from ravqa_tpu_torch.config import apply_overrides
+    from ravqa_tpu_torch.data import TRANSFORM_REGISTRY
+    from ravqa_tpu_torch.main import (build_executor, build_pipeline,
+                                      load_config)
+    from ravqa_tpu_torch.scripts.synthetic_okvqa import (config_opts,
+                                                         write_synthetic_okvqa)
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=HERE,
+                                     prefix=".chip_smoke_roi_") as tmp:
+        t0 = time.perf_counter()
+        p = write_synthetic_okvqa(os.path.join(tmp, "data"), ROI_IMAGES,
+                                  ROI_TRAIN_Q, ROI_TEST_Q, ROI_PASSAGES)
+        out["write_s"] = time.perf_counter() - t0
+        out["detector"] = roi_detection(p, smi)
+        out["captioner"] = roi_captioning(p, smi)
+        cache_path = os.path.join(tmp, "vit_features.npz")
+        opts = config_opts(p) + [
+            f"data_pipeline.features.setup_kwargs.cache_path={cache_path}"]
+        cfg = apply_overrides(load_config(ROI_CONFIG), opts)
+        tc = cfg.train
+        common = ["--config", ROI_CONFIG, "--device", "cuda", "--log_dir",
+                  tmp, "--experiment_name", "roi", "--opts"] + opts
+        node = TRANSFORM_REGISTRY["ExtractImageFeaturesWithViT"]
+        vit_runs, orig = [], node.__call__
+
+        def timed(self, data):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = orig(self, data)
+            vit_runs.append((time.perf_counter() - t,
+                             len(np.load(cache_path).files)))
+            return r
+        node.__call__ = timed
+        try:
+            rec, tr = _drive_main(maxsim, common + ["--mode", "train"],
+                                  "roi train")
+            rec_t, te = _drive_main(maxsim, common + ["--mode", "test"],
+                                    "roi test")
+        finally:
+            node.__call__ = orig
+        out.update(train=tr, test=te)
+        steps = rec.steps
+        losses = [x[1] for x in steps]
+        if len(steps) != tc.total_steps or not np.all(np.isfinite(
+                losses + [x[2] for x in steps])):
+            raise AssertionError(f"{len(steps)} steps, losses {losses}")
+        if len(rec.evals) != tc.total_steps // tc.val_every \
+                or len(rec_t.evals) != 1:
+            raise AssertionError("ROI evaluations missing")
+        for key, r, n in (("train", tr, len(rec.evals)), ("test", te, 1)):
+            ln = r["launches"]
+            if ln["K1"] != n or ln["K1 split"] != ln["K1"]:
+                raise AssertionError(f"ROI {key} launches {ln}")
+        for search in rec.searches + rec_t.searches:
+            if search["q"].shape[1] != LQ_ROI:
+                raise AssertionError(f"ROI queries of {search['q'].shape[1]}"
+                                     " tokens")
+        strip = lambda m: {k: v for k, v in m.items()  # noqa: E731
+                           if not k.startswith("_")}
+        final, got = strip(rec.evals[-1][1]), strip(rec_t.evals[-1][1])
+        if got != final:
+            raise AssertionError("the test metrics differ from the final "
+                                 "validation's")
+        index = rec_t.evals[-1][1]["_index"]
+        te["err"] = check_eval_search(rec_t.searches[-1], index)
+        q = rec_t.searches[-1]["q"]
+        planes = index.token_planes()
+        te["k1_eval_ms"] = time_ms(lambda: maxsim.maxsim_search(
+            q, index.tokens, index.mask, planes=planes), iters=5)
+        n_docs, ld = index.tokens.shape[:2]
+        shape = f"roi eval f32 B=64 Lq={LQ_ROI} N={n_docs} Ld={ld}"
+        kernel_shape(k1, "K1-f32", shape, 64, LQ_ROI, n_docs, ld,
+                     q.shape[2], torch.float32, torch.float32, maxsim)
+        out["k1_shape"] = shape
+        out["metrics"] = final
+        del index, planes, rec_t
+        # the ViT's run in training (the test run reads its cache)
+        vit_s, n_crops = vit_runs[0]
+        if vit_runs[1][1] != n_crops:
+            raise AssertionError("the test run encoded crops again")
+        out["vit"] = {"s": vit_s, "crops": n_crops,
+                      "crops_per_s": n_crops / vit_s}
+        data_cpu = build_pipeline(cfg, os.path.join(tmp, "roi", "cache"),
+                                  "cpu").get_data("crops", explode=True)
+        out["vit"].update(vit_crops_vs_cpu(cfg, data_cpu, cache_path))
+        del data_cpu
+        # one ROI training step, card vs CPU, on a batch of 2
+        data = build_pipeline(cfg, os.path.join(tmp, "roi", "cache"),
+                              "cuda").get_data(cfg.data_pipeline_output_node,
+                                               explode=True)
+        batch = data["train"].collate([0, 1])
+        if batch["image_features"].shape[1:] != (10, 768):
+            raise AssertionError(f"ROI features of shape "
+                                 f"{batch['image_features'].shape}")
+        out["step_vs_cpu"] = executor_step_vs_cpu(
+            build_executor(cfg, "cuda"), build_executor(cfg, "cpu"), batch,
+            "FLMR with 9 ROIs, batch of 2", "cuda")
+        out["corpus"] = len(data["passages"]["full_passages"])
+        out["questions"] = {s: len(data[s].items) for s in ("train", "test")}
+        del data
+    ms = [x[0] * 1e3 for x in steps[2:]]
+    tr.update(step_ms_median=float(np.median(ms)), step_ms_min=min(ms),
+              step_ms_max=max(ms), losses=losses,
+              peak_bytes_after_2=rec.peak_after_2)
+    out["seconds"] = time.perf_counter() - t_phase
+    d, c, v = out["detector"], out["captioner"], out["vit"]
+    print(f"{smi}: ViT-B/32 {v['crops']} images and ROI crops in "
+          f"{v['s']:.2f} s ({v['crops_per_s']:.1f} crops/s with the host "
+          f"crop and resize); card vs CPU {v['err']:.3g} on "
+          f"{v['cpu_crops']} of them", flush=True)
+    print(f"{smi}: ROI train step {tr['step_ms_median']:.1f} ms median "
+          f"(min {min(ms):.1f}, max {max(ms):.1f}; batch {tc.batch_size}, "
+          f"nway {cfg.data_pipeline.loaders.setup_kwargs.nway}, Lq "
+          f"{LQ_ROI}), peak {tr.get('peak_bytes', 0) / 2**30:.2f} GiB "
+          f"({(rec.peak_after_2 or 0) / 2**30:.2f} after 2 steps); "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    print(f"{smi}: ROI evaluations {[round(e, 1) for e in tr['eval_s']]} s "
+          f"(train) and {[round(e, 1) for e in te['eval_s']]} s (test): "
+          f"corpus encodes {[round(x, 1) for x in tr['encode_s'] + te['encode_s']]}"
+          f" s, searches {tr['search_s'] + te['search_s']} s; K1-f32 at "
+          f"the eval's own launch (B={q.shape[0]}, Lq={LQ_ROI}) "
+          f"{te['k1_eval_ms']:.2f} ms; corpus {out['corpus']}, questions "
+          f"{out['questions']}; metrics {final}", flush=True)
+    print(f"{smi}: phase 20: world {out['write_s']:.1f} s, detector "
+          f"{d['extract_s']:.1f} s (+ {d['vs_cpu']['cpu_s']:.1f} s CPU "
+          f"leg), captions {c['caption_s']:.1f} s, train {tr['wall_s']:.1f}"
+          f" s, test {te['wall_s']:.1f} s; the phase "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3800,6 +4355,9 @@ def main():
     phase("19 PreFLMR multi-task training and evaluation over M2KR tasks "
           "(ViT-L/14 frozen, Lq=320, K1-f32)")
     m2kr_run = m2kr_slice(maxsim, k1, smi)
+    phase("20 FLMR with ROIs from raw images (VinVL X152-C4, Oscar, OCR, "
+          "ViT-B/32 crops; train and test, K1-f32 at Lq=352)")
+    roi = roi_slice(maxsim, k1, smi)
     phase("report")
 
     def entry(name, source, replaces, launches, measured):
@@ -3844,6 +4402,10 @@ def main():
     kernels["K1-f32"]["launches_wit_pretrain"] = {
         k: wit[k]["launches"]["K1"] for k in ("train", "test")}
     kernels["K1-f32"]["launches_m2kr"] = m2kr_run["launches"]["K1-f32"]
+    # phase 20: once per ROI evaluation (the validation, the test run),
+    # at Lq = 352
+    kernels["K1-f32"]["launches_roi"] = {
+        k: roi[k]["launches"]["K1"] for k in ("train", "test")}
 
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (bf16, tensor cores)", "coarse_sweep.cu",
@@ -3923,7 +4485,8 @@ def main():
                       "rag_serve": rag_serve,
                       "rag_train": rag_train,
                       "wit_pretrain": wit,
-                      "m2kr": m2kr_run}), flush=True)
+                      "m2kr": m2kr_run,
+                      "roi": roi}, default=str), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

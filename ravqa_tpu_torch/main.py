@@ -32,9 +32,19 @@ generator, POST /answer) and `prepare_data`. Examples, on an NVIDIA GPU:
     python -m ravqa_tpu_torch.main \
         --config configs/synthetic_rag_blip2_serve.json --mode serve
 
-`--device` chooses where the models and index live (default "cuda"; pass
-"cpu" for the plain PyTorch path). `--num_devices` (ROADMAP.md A4) and
-`--use_dummy_data` (A3) are not ported yet.
+FLMR with ROIs (configs/okvqa/flmr_with_roi.json; the VinVL, Oscar and
+OCR files from `python -m ravqa_tpu_torch.scripts.extract_vinvl_features`
+and `run_captioning`) trains and evaluates the same way:
+
+    python -m ravqa_tpu_torch.scripts.synthetic_okvqa
+    python -m ravqa_tpu_torch.main \
+        --config configs/synthetic_flmr_roi_train.json --mode train
+
+`--device` chooses where the models, the index and the data pipeline's
+ViT live (default "cuda"; pass "cpu" for the plain PyTorch path).
+`--use_dummy_data` sets `use_dummy_data` on every node (LoadOKVQAData
+keeps 20 items a split). `--num_devices` (ROADMAP.md A4) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -70,7 +80,7 @@ def parse_args(argv=None):
                    help="extra model_config.modules flags (reference "
                         "--modules)")
     p.add_argument("--use_dummy_data", action="store_true",
-                   help="truncate the OK-VQA data (not ported yet)")
+                   help="truncate the OK-VQA data to 20 items a split")
     p.add_argument("--num_devices", type=int, default=0,
                    help="data-parallel devices (not ported yet)")
     p.add_argument("--device", default="cuda",
@@ -78,10 +88,15 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_pipeline(cfg: Config, cache_dir: Optional[str] = None):
+def build_pipeline(cfg: Config, cache_dir: Optional[str] = None,
+                   device: Optional[str] = None):
     """The config's data pipeline; nodes with `cache` true are kept under
-    cache_dir (main() passes <log_dir>/cache, as the JAX package's does)."""
+    cache_dir (main() passes <log_dir>/cache, as the JAX package's does).
+    `device` reaches the nodes that run a model (ExtractImageFeaturesWithViT)
+    as their global_config's "device"."""
     from .data import DataPipeline
+    if device is not None:
+        cfg = Config({**cfg, "device": str(device)})
     return DataPipeline(cfg.data_pipeline.to_dict(), cache_dir=cache_dir,
                         global_config=cfg)
 
@@ -647,14 +662,15 @@ def main(argv=None):
         cfg.model_config.modules = list(cfg.model_config.get("modules", [])) \
             + list(args.modules)
     if args.use_dummy_data:
-        # the reference flag truncates the OK-VQA loader's items; the port
-        # has no OK-VQA loader yet, and SyntheticOKVQA ignores the flag
-        raise NotImplementedError(f"--use_dummy_data {_NOT_PORTED}: A3")
+        for node in cfg.data_pipeline.values():
+            if isinstance(node, dict) and "setup_kwargs" in node:
+                node.setup_kwargs["use_dummy_data"] = True
     if args.num_devices:
         raise NotImplementedError(f"--num_devices {_NOT_PORTED}: A4")
     log_dir = os.path.join(args.log_dir, args.experiment_name)
     os.makedirs(log_dir, exist_ok=True)
-    data = build_pipeline(cfg, os.path.join(log_dir, "cache")).get_data(
+    data = build_pipeline(cfg, os.path.join(log_dir, "cache"),
+                          args.device).get_data(
         cfg.data_pipeline_output_node, explode=True)
     if args.mode == "prepare_data":
         print("prepare_data done:", list(data))

@@ -1,7 +1,8 @@
 from .bert import BertConfig, BertModel
 from .blip2 import (Blip2Config, Blip2T5, Blip2VisionConfig,
                     Blip2VisionModel, QFormer, QFormerConfig)
-from .convert import (flatten_params, flax_to_state_dict,
+from .convert import (captioner_to_state_dict, detector_to_state_dict,
+                      flatten_params, flax_to_state_dict,
                       generator_to_flax, generator_to_state_dict,
                       load_params, load_params_npz, lora_to_flax,
                       lora_to_torch, rag_params_to_torch, read_flax_msgpack,
@@ -25,7 +26,8 @@ from .vit import (CLIPVisionModel, ViTConfig, clip_preprocess,
 
 __all__ = ["BertConfig", "BertModel", "Blip2Config", "Blip2T5",
            "Blip2VisionConfig", "Blip2VisionModel", "QFormer",
-           "QFormerConfig", "flatten_params", "flax_to_state_dict",
+           "QFormerConfig", "captioner_to_state_dict",
+           "detector_to_state_dict", "flatten_params", "flax_to_state_dict",
            "generator_to_flax", "generator_to_state_dict",
            "load_params", "load_params_npz", "lora_to_flax",
            "lora_to_torch", "rag_params_to_torch", "read_flax_msgpack",

@@ -22,6 +22,12 @@ into the JAX package. The same pair carries the DPR dual encoder
 (models/dpr.py: its ``query_encoder`` and ``item_encoder`` BertModels, one
 head count each).
 
+The offline extractors have their own one-way bridges:
+``detector_to_state_dict`` (the AttrRCNN tree: conv kernels HWIO, grouped
+(kh, kw, in / groups, out), -> OIHW; FrozenBN's folded scale and bias kept)
+and ``captioner_to_state_dict`` (the OscarCaptioner tree by this rule,
+plus its free LM bias; the decoder is tied to the word embeddings).
+
 The RAG generators (T5Model, Blip2T5) have their own pair,
 ``generator_to_state_dict`` / ``generator_to_flax`` (T5's DenseGeneral
 q/k/v (d_model, H, d_kv) and o (H, d_kv, d_model) kernels, the BLIP-2
@@ -315,6 +321,44 @@ def rag_params_to_torch(params: dict):
         gen, lora = gen["base"], lora_to_torch(gen["lora"])
     return (flax_to_state_dict(params["retriever"]),
             generator_to_state_dict(gen), lora)
+
+
+# ---------------------------------------------------------------------------
+# the offline extractors: the VinVL detector and the Oscar captioner
+# ---------------------------------------------------------------------------
+
+def detector_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's AttrRCNN params tree (models/detection.py) ->
+    the port's AttrRCNN state_dict: conv kernels (kh, kw, in / groups,
+    out) -> OIHW (out, in / groups, kh, kw); Dense kernels transpose;
+    the Embed table maps to `weight`; FrozenBN's folded (scale, bias) keep
+    their names. Module paths are the same names joined by dots."""
+    sd = {}
+    for key, value in flatten_params(params).items():
+        *path, leaf = key.split("/")
+        a = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            leaf = "weight"
+        elif leaf == "embedding":
+            leaf = "weight"
+        elif leaf not in ("scale", "bias"):
+            raise KeyError(f"unknown detector parameter {key}")
+        sd[".".join(path + [leaf])] = torch.tensor(np.ascontiguousarray(a))
+    return sd
+
+
+def captioner_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's OscarCaptioner params tree
+    (models/captioner.py) -> the port's OscarCaptioner state_dict: the
+    BERT embeddings, encoder and Dense layers by flax_to_state_dict's
+    rule, and the LM head's free bias `mlm_bias` by name. The decoder is
+    tied to the word embeddings in both, so it has no weight of its own."""
+    params = dict(params)
+    bias = params.pop("mlm_bias")
+    sd = flax_to_state_dict(params)
+    sd["mlm_bias"] = torch.tensor(np.asarray(bias, np.float32))
+    return sd
 
 
 def load_params_npz(path: str) -> dict[str, torch.Tensor]:

@@ -73,6 +73,26 @@ class FLMRModelConfig:
         return FLMRModelConfig(**base)
 
 
+@torch.no_grad()
+def init_normal_(model: nn.Module, generator: torch.Generator) -> None:
+    """Random init of a model's modules in order from `generator` (a CPU
+    generator, so one seed gives the same weights on every device): N(0,
+    0.02) weights, embeddings and a ViT's class and position embeddings,
+    zero biases, unit LayerNorm scales."""
+    for module in model.modules():
+        if isinstance(module, CLIPVisionModel):
+            for p in (module.class_embedding, module.position_embedding):
+                p.copy_(torch.randn(p.shape, generator=generator) * INIT_STD)
+        elif isinstance(module, nn.LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+        elif isinstance(module, (nn.Linear, nn.Embedding)):
+            w = torch.randn(module.weight.shape, generator=generator)
+            module.weight.copy_(w * INIT_STD)
+            if getattr(module, "bias", None) is not None:
+                module.bias.zero_()
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     """Rows whose squared norm is below `eps` become exactly zero; others
@@ -147,25 +167,9 @@ class FLMRRetriever(nn.Module):
         return (self.query_encoder if self.cfg.separate_question_encoder
                 else self.doc_encoder)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random init from `generator` (a CPU generator, so one seed gives
-        the same weights on every device): N(0, 0.02) weights, embeddings
-        and the ViT's class and position embeddings, zero biases, unit
-        LayerNorm scales."""
-        for module in self.modules():
-            if isinstance(module, CLIPVisionModel):
-                for p in (module.class_embedding, module.position_embedding):
-                    p.copy_(torch.randn(p.shape, generator=generator)
-                            * INIT_STD)
-            elif isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
-            elif isinstance(module, (nn.Linear, nn.Embedding)):
-                w = torch.randn(module.weight.shape, generator=generator)
-                module.weight.copy_(w * INIT_STD)
-                if getattr(module, "bias", None) is not None:
-                    module.bias.zero_()
+        """Random init from `generator` (init_normal_)."""
+        init_normal_(self, generator)
 
     def encode_images(self, pixel_values: torch.Tensor,
                       deterministic: bool = True,

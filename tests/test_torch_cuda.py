@@ -1472,3 +1472,175 @@ def test_dpr_on_cuda_matches_cpu():
         torch.testing.assert_close(p.detach().cpu(), want[n], rtol=0,
                                    atol=2 * lr)
     assert ev["cuda"] == ev["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the offline extractors and the ROI features (plain PyTorch on the card:
+# cuDNN convolutions, gathers, the greedy loops), card vs CPU
+# ---------------------------------------------------------------------------
+
+def _tiny_detector(device, **kw):
+    from ravqa_tpu_torch.models.detection import (AttrRCNN, DetectorConfig,
+                                                  convert_vinvl_params)
+    from ravqa_tpu_torch.scripts.synthetic_okvqa import \
+        synthetic_vinvl_state_dict
+    cfg = DetectorConfig.tiny(**kw)
+    model = AttrRCNN(cfg)
+    model.load_state_dict(convert_vinvl_params(
+        synthetic_vinvl_state_dict(cfg, seed=0), cfg))
+    return model.to(device).eval()
+
+
+def _detector_inputs():
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.normal(size=(2, 64, 96, 3)).astype(
+        np.float32) * 50)
+    return imgs, torch.tensor([[64, 96], [48, 80]], dtype=torch.int32)
+
+
+def test_vision_ops_on_cuda_match_cpu():
+    """nms (indices identical, a batch of images) and roi_align (1e-5 of
+    the map's scale, boxes past the map's edge included) on the card
+    against the CPU."""
+    from ravqa_tpu_torch.ops.vision import nms, roi_align
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 80, (3, 200, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(2, 30, (3, 200, 2))], -1).astype(np.float32))
+    scores = torch.from_numpy(rng.random((3, 200)).astype(np.float32))
+    got = nms(boxes.cuda(), scores.cuda(), 0.5, 60)
+    want = nms(boxes, scores, 0.5, 60)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    feat = torch.from_numpy(rng.normal(size=(12, 17, 32)).astype(np.float32))
+    rois = torch.tensor([[0.0, 0.0, 40.0, 30.0], [-20.0, -8.0, 300.0, 9.0],
+                         [100.0, 100.0, 260.0, 190.0], [5.5, 7.25, 6.0, 8.0]])
+    torch.testing.assert_close(
+        roi_align(feat.cuda(), rois.cuda(), 7, 2, 1 / 16).cpu(),
+        roi_align(feat, rois, 7, 2, 1 / 16), rtol=0, atol=1e-5)
+
+
+def test_detector_on_cuda_matches_cpu():
+    """AttrRCNN (tiny widths, weights from a synthetic maskrcnn state dict)
+    on the card and on the CPU: the feature map, the RPN's outputs and the
+    box head's logits within 1e-4 of their scale; proposals, detections
+    and attributes identical (boxes to 1e-3 px)."""
+    imgs, hw = _detector_inputs()
+    with torch.inference_mode():
+        got = _tiny_detector("cuda")(imgs.cuda(), hw.cuda(),
+                                     intermediates=True)
+        want = _tiny_detector("cpu")(imgs, hw, intermediates=True)
+    for key in ("feature_map", "rpn_logits", "rpn_deltas", "cls_logits",
+                "box_deltas", "features", "scores", "attr_scores"):
+        g, w = got[key].cpu(), want[key]
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max(), key
+    for key in ("proposal_valid", "labels", "valid", "attr_labels",
+                "num_detections"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    for key in ("proposals", "boxes"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
+                                   atol=1e-3)
+
+
+def test_detector_ignores_the_tf32_flags():
+    """With torch.backends.cudnn.allow_tf32 and cuda.matmul.allow_tf32 set
+    True by the caller, AttrRCNN.forward gives its float32 numbers (the
+    model turns TF32 off inside and gives the flags back); the same
+    backbone run under the caller's TF32 does differ, so the check can
+    fail."""
+    model = _tiny_detector("cuda", stem_channels=32, width_per_group=32,
+                           res2_out_channels=128)
+    imgs, hw = _detector_inputs()
+    x, h = imgs.cuda(), hw.cuda()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        with torch.inference_mode():
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            ref = model(x, h, intermediates=True)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            got = model(x, h, intermediates=True)
+            assert torch.backends.cudnn.allow_tf32
+            assert torch.backends.cuda.matmul.allow_tf32
+            tf32 = model.backbone(x.permute(0, 3, 1, 2).contiguous())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    for key in ("feature_map", "cls_logits", "features"):
+        w = ref[key]
+        assert (got[key] - w).abs().max() <= 1e-6 * w.abs().max(), key
+    w = ref["feature_map"]
+    assert (tf32 - w).abs().max() > 1e-5 * w.abs().max()
+
+
+def test_captioner_on_cuda_matches_cpu():
+    """OscarCaptioner (tiny widths, weights from a synthetic Oscar state
+    dict): the forward's logits within 1e-4 of their scale, and
+    greedy_caption's tokens and lengths identical, card vs CPU."""
+    from ravqa_tpu_torch.models import BertConfig
+    from ravqa_tpu_torch.models.captioner import (
+        CaptionerConfig, OscarCaptioner, caption_attention_mask,
+        convert_oscar_captioner_params, greedy_caption)
+    from ravqa_tpu_torch.scripts.synthetic_okvqa import \
+        synthetic_oscar_state_dict
+    cfg = CaptionerConfig.tiny(bert=BertConfig.tiny(vocab_size=300))
+    sd = convert_oscar_captioner_params(synthetic_oscar_state_dict(cfg), cfg)
+    rng = np.random.default_rng(0)
+    tags = cfg.max_seq_len - cfg.max_seq_a_len
+    tag_ids = torch.from_numpy(rng.integers(5, 300, (3, tags)))
+    tag_mask = torch.ones(3, tags, dtype=torch.int64)
+    tag_mask[1, 2:] = 0
+    img = torch.from_numpy(rng.normal(size=(3, cfg.max_img_seq_len,
+                                            cfg.img_feature_dim))
+                           .astype(np.float32))
+    img_mask = torch.ones(3, cfg.max_img_seq_len, dtype=torch.int64)
+    img_mask[2, 3:] = 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = OscarCaptioner(cfg).to(dev).eval()
+        model.load_state_dict(sd)
+        args = [t.to(dev) for t in (tag_ids, tag_mask, img, img_mask)]
+        text = torch.cat([torch.full((3, cfg.max_seq_a_len),
+                                     cfg.mask_token_id, device=dev),
+                          args[0]], -1)
+        segs = (torch.arange(cfg.max_seq_len, device=dev)
+                >= cfg.max_seq_a_len).long().expand(3, -1)
+        with torch.inference_mode():
+            logits = model(text, segs, args[2], caption_attention_mask(
+                cfg, args[1], args[3]))
+            out[dev] = (logits.cpu(),) + tuple(
+                t.cpu() for t in greedy_caption(model, *args))
+    w = out["cpu"][0]
+    assert (out["cuda"][0] - w).abs().max() <= 1e-4 * w.abs().max()
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+
+
+def test_vit_features_node_on_cuda_matches_cpu():
+    """ExtractImageFeaturesWithViT (the tiny ViT from the seed) over images
+    and their ROI crops on the card and on the CPU: the features within
+    1e-4 of their scale, the same rows."""
+    from ravqa_tpu_torch.data.transforms import (CropRegionOfInterestImages,
+                                                 ExtractImageFeaturesWithViT)
+    rng = np.random.default_rng(0)
+    images = {str(i): rng.integers(0, 255, (40 + i, 50, 3)).astype(np.uint8)
+              for i in range(3)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        data = {"train": [
+            {"question_id": str(i), "question": "the cat", "image_id": i,
+             "objects": [{"class": "cat", "rect": [2.0 * i, 3.0, 30.5, 33.0]},
+                         {"class": "dog", "rect": [0.0, 0.0, 12.0, 10.0]}]}
+            for i in range(3)]}
+        crop = CropRegionOfInterestImages()
+        crop.setup(max_objects=2)
+        node = ExtractImageFeaturesWithViT()
+        node.setup(image_loader=images.__getitem__, vit={"tiny": True},
+                   image_size=32, num_rois=3, device=dev, batch_size=4)
+        out[dev] = np.stack([it["image_features"]
+                             for it in node(crop(data))["train"]])
+    w = out["cpu"]
+    assert out["cuda"].shape == w.shape == (3, 4, 64)
+    assert np.abs(out["cuda"] - w).max() <= 1e-4 * np.abs(w).max()

@@ -95,6 +95,18 @@ HIER_OPTS = ["data_pipeline.raw.setup_kwargs.n_docs=512",
              "serve.block_size=8", "serve.n_summary=4",
              "serve.n_candidates=24"]
 
+ROI_CONFIG = os.path.join(REPO, "configs", "okvqa", "flmr_with_roi.json")
+# a tiny cut of flmr_with_roi.json over a synthetic OK-VQA world
+ROI_TINY_OPTS = [
+    "data_pipeline.loaders.setup_kwargs.doc_maxlen=16",
+    "data_pipeline.loaders.setup_kwargs.nway=2",
+    "model_config.bert={'vocab_size': 30522, 'hidden_size': 64, "
+    "'num_layers': 1, 'num_heads': 4, 'intermediate_size': 128, "
+    "'max_position_embeddings': 64}",
+    "model_config.mapping_network_prefix_length=2",
+    "model_config.num_negative_samples=1", "train.batch_size=4",
+    "train.total_steps=2", "train.val_every=2", "metrics.Ks=[1, 5]"]
+
 
 @pytest.fixture(autouse=True)
 def _threads():
@@ -321,8 +333,12 @@ def test_serve_slice_imports_no_jax(tmp_path):
     and BLIP-2, one answer; then a RAG train step on the same cut), WIT
     pretraining (train, then test, on a tiny cut of
     configs/synthetic_flmr_wit_pretrain.json over a synthetic WIT dump),
-    evaluate_m2kr and a DPR train step and evaluation, in one process:
-    nothing of the JAX package (ravqa_tpu) or of jax/jaxlib/flax loads."""
+    evaluate_m2kr and a DPR train step and evaluation, and FLMR with ROIs
+    (the VinVL detector and the Oscar captioner at tiny widths over a
+    synthetic OK-VQA world through the extraction scripts' loops, then
+    train and test on a tiny cut of configs/okvqa/flmr_with_roi.json, the
+    test with --use_dummy_data), in one process: nothing of the JAX
+    package (ravqa_tpu) or of jax/jaxlib/flax loads."""
     code = (
         "import sys, numpy as np\n"
         "from ravqa_tpu_torch.config import apply_overrides, load_config\n"
@@ -410,6 +426,27 @@ def test_serve_slice_imports_no_jax(tmp_path):
         "    corpus_doc_batches(corpus, data['doc_tokenizer']), corpus.ids,\n"
         "    pos_item_ids=[it['pos_item_ids'] for it in data['test'].items])\n"
         "assert 'pos_item_ids_recall_at_5' in r\n"
+        "import ravqa_tpu_torch.ops.vision\n"
+        "import ravqa_tpu_torch.scripts.extract_vinvl_features\n"
+        "from ravqa_tpu_torch.models.captioner import CaptionerConfig\n"
+        "from ravqa_tpu_torch.models.detection import DetectorConfig\n"
+        "from ravqa_tpu_torch.scripts.synthetic_okvqa import (\n"
+        "    VOCAB_SIZE, config_opts, extract_synthetic,\n"
+        "    write_synthetic_okvqa)\n"
+        f"w = write_synthetic_okvqa({str(tmp_path / 'okvqa')!r}, 4, 8, 4,\n"
+        "                          48, (40, 48))\n"
+        "det = DetectorConfig.tiny()\n"
+        "extract_synthetic(w, det, CaptionerConfig.tiny(\n"
+        "    img_feature_dim=det.res5_out_channels + 6,\n"
+        "    bert=BertConfig.tiny(vocab_size=VOCAB_SIZE)), 'cpu',\n"
+        "    canvas=(48, 48), batch=4, min_size=40, max_size=48,\n"
+        "    log=lambda m: None)\n"
+        f"roi = ['--config', {ROI_CONFIG!r}, '--device', 'cpu',\n"
+        f"       '--log_dir', {str(tmp_path)!r}, '--experiment_name',\n"
+        f"       'roi', '--opts'] + config_opts(w) + {ROI_TINY_OPTS!r}\n"
+        "assert main(roi[:2] + ['--mode', 'train'] + roi[2:]) == 0\n"
+        "assert main(roi[:2] + ['--mode', 'test', '--use_dummy_data']\n"
+        "            + roi[2:]) == 0\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('ravqa_tpu', 'jax', 'jaxlib', 'flax')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -445,16 +482,15 @@ def test_profile_serve_needs_a_gpu():
 
 @pytest.mark.parametrize("argv", [
     ["--config", CONFIG, "--mode", "train", "--num_devices", "2"],
-    ["--config", CONFIG, "--mode", "train", "--use_dummy_data"],
     ["--config", CONFIG, "--mode", "train", "--opts",
      "executor.ExecutorClass=DPRExecutor"],
 ])
 def test_unported_modes_raise(argv):
-    """Data parallelism (A4) and the OK-VQA loader's --use_dummy_data (A3)
-    are not ported yet. RAG training and evaluation are
-    (test_rag_train_test_eval_modes), and RAG serving
-    (test_rag_configs_serve). An executor class that main.py does not
-    build raises (the JAX package's builds an FLMRExecutor for it:
+    """Data parallelism (A4) is not ported yet. --use_dummy_data is
+    (tests/test_torch_okvqa_data.py::test_use_dummy_data_keeps_20_items),
+    RAG training and evaluation (test_rag_train_test_eval_modes), and RAG
+    serving (test_rag_configs_serve). An executor class that main.py does
+    not build raises (the JAX package's builds an FLMRExecutor for it:
     ROADMAP.md C20)."""
     from ravqa_tpu_torch.main import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
