@@ -30,8 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      requests from 4 threads, every answer checked against a plain search
      of the same index with the executor's own query embeddings, K1's
      launch count checked against the dispatches (every one on the float32
-     index's split route), the planes' bytes beside the index's, and the
-     towers on the card checked against the same module run on the CPU.
+     index's split route), every dispatch at the smallest of
+     ServeConfig.buckets() that holds it (padded with copies of its first
+     request), the planes' bytes beside the index's, and the towers on
+     the card checked against the same module run on the CPU.
   5. K2, K3 and K4 against their plain versions at the bench.py shape
      (B=32, Lq=32, dim=128; 112,640 docs x 8 summaries; 1,760 x 4 block
      summaries padded to 2,048; bs=64, n_blocks 16 and 32) and K2, K3 and
@@ -81,7 +83,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. the compressed serve slice: phase 7's index copied into an int8 index
      served in exact mode (K5) and a residual one (factored 64 x 128,
      nbits 2) served hierarchical fast (K3, K4, K6), each behind
-     RetrievalServer; 64 requests from 4 threads, every answer checked
+     RetrievalServer; 32 requests (int8: its plain search on the CPU
+     takes ~1 s a query) and 64 from 4 threads, every answer checked
      against the same search run by the plain versions on a CPU copy of
      the compressed index, on the query embeddings each dispatch searched
      (as in 7); each kernel launches at least once per dispatch;
@@ -199,7 +202,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      additional 0; freeze_question_encoder and force_existence; batch 8 x
      accumulation 4, lr 6e-4, retriever_lr 1e-4, weight decay 0.05, linear;
      FLMR-base live retrieval through K1-f32 over 16,384 passages).
-     (a) two optimizer steps (8 micro-batches of 8 questions) through fit:
+     (a) one optimizer step (4 micro-batches of 8 questions) through fit:
      every loss finite; K1-f32 launched exactly once per micro-batch, on the
      split route (counts set to 0 just before, read just after); every
      retrieved row against the plain search of the same query embeddings
@@ -209,13 +212,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      (a), (b) and (d) (against a host copy). (b) one micro-batch with rag
      and additional weights 1: the loss and its parts finite, the query
      tower's trainable modules (linear, mapping network, its BERT) with
-     finite, nonzero grads. (d) one fixed micro-batch, 3 optimizer steps on
+     finite, nonzero grads. (d) one fixed micro-batch, 2 optimizer steps on
      it (accumulation 1): its loss falls. (e) run_rag_eval over the 16 test
      questions through generate: the metrics JSON written, K1-f32 once a
      dispatch, the predictions equal to generate's called directly. (c) a
-     copy with the T5 stacks cut to 4 + 4 layers (ViT-g, Q-Former and every
-     width whole), rag and additional weights 1, on the card, on the CPU
-     and on the CPU with the generator in float64, from the same weights,
+     copy with the T5 stacks cut to 1 + 1 layers and ViT-g to its first 4
+     (RAG_TRAIN_CUT_LAYERS, RAG_TRAIN_CUT_VIT_LAYERS; the Q-Former and
+     every width whole), rag and additional weights
+     1, on the card, on the CPU and on the CPU with the generator in
+     float64, from the same weights,
      a micro-batch of 2 questions (10 sequences), one train_step each: the
      loss and its parts, card vs CPU (rtol 1e-4); the AdamW update (phase
      13's rule); the retriever's backward for one upstream gradient, card
@@ -294,6 +299,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      Prints the detector's ms a batch, images/s and peak, the caption
      seconds, the ViT's crops/s, the step ms and peak, the evaluations'
      seconds (corpus encode, K1) and K1 at Lq = 352 beside its bound.
+ 21. ColBERT-style text-retrieval training (triples_slice): a synthetic
+     MS MARCO-style world in the reference's formats (collection.tsv of
+     16,384 passages, a third titled; 256 train and 64 dev queries;
+     qrels) read back by Collection / Queries; an FLMR text-only student
+     at BERT-base width (dim 128, query_maxlen 32, doc_maxlen 180) ranks
+     the train queries through K1-f32; create_triples_from_ranking gives
+     each its positive and 31 negatives; a cross-encoder teacher at
+     cross-encoder/ms-marco-MiniLM-L-6-v2's widths (pooler_classifier, 6
+     x 384, 12 heads) scores them through Scorer.score_ranking into
+     distillation_scores.json, read back by load_distillation_scores and
+     turned into nway-8 rows by kd_triples_from_scores;
+     TriplesExecutor.train_on_triples takes 24 steps of 16 queries
+     (in-batch negatives, distillation weight 1); the dev queries are
+     evaluated through K1-f32 (B=64, Lq=32, N=16,384, Ld=180): MRR@10 and
+     success@{5,10,50}, the ranking TSV scored by
+     evaluate_msmarco_ranking. Gates: every loss and distill_kl finite;
+     K1-f32 once per evaluation, on the split route (counts set to 0 just
+     before, read just after); the dev ranking against a plain search
+     (check_eval_search); K1-f32 against its plain version at that shape
+     (kernel_shape); the teacher's scores on 64 pairs and an ELECTRA-base
+     linear_cls reranker's on 16, card vs CPU within 1e-4 of their scale,
+     and the Scorer's batched scores against the plain forward; one
+     TriplesExecutor step card vs CPU (executor_step_vs_cpu); the
+     distillation_scores.json round trip exact; evaluate_msmarco_ranking's
+     MRR@10 equal to mrr_at_k's; a torch.profiler trace of two steps
+     naming their annotate span. Prints the step ms (median of steps
+     3-24; train_step alone beside it), queries/s trained and peak memory
+     (device_memory_stats), the teacher's pairs/s, each evaluation's
+     encode and search seconds, K1-f32 beside its bound, the metrics.
 Every phase prints its seconds. The line before the last is the kernels'
 JSON record: each kernel's launches on its path, its error against its
 plain version, its time and its plain version's, and its bound, the least
@@ -426,8 +460,9 @@ def device_ms(fn, pattern, launches=1):
     `pattern`, `launches` of them a call, from torch.profiler's trace of 10
     calls: the kernel's own time, where CUDA events around a small launch
     also count the host's enqueue. It is the mean of the launches the trace
-    holds times `launches`: a trace late in a long run has been seen to
-    keep 1 of a kernel's 10 launches (the run prints how many it kept)."""
+    holds times `launches`: a trace loses its first launches, more late in
+    a long run, which kernel_events' burn-in takes up (the run prints how
+    many it kept where that was not all)."""
     from ravqa_tpu_torch.profile_serve import kernel_events
     hit = [v for k, v in kernel_events(fn, n=10).items()
            if pattern in k.lower()]
@@ -644,6 +679,16 @@ def serve_slice(config_path, device, maxsim):
     reqs, scores, pids, launches, dispatches = drive_requests(
         server, data, index, [maxsim.maxsim_search])
     launches = launches[0]
+    # each dispatch ran at the smallest of ServeConfig.buckets() that holds
+    # it, padded with copies of its first request
+    buckets = server.cfg.buckets()
+    sizes = server.sizes
+    print(f"dispatch sizes (requests -> padded): "
+          f"{sorted(set(sizes))}; buckets {buckets}", flush=True)
+    if len(sizes) != dispatches or any(
+            size != min(b for b in buckets if b >= n) for n, size in sizes):
+        raise AssertionError(f"dispatches {sizes} off the buckets "
+                             f"{buckets}")
     if maxsim.maxsim_search.split_launches != launches:
         raise AssertionError(f"{maxsim.maxsim_search.split_launches} of "
                              f"{launches} K1 launches took the float32 "
@@ -998,9 +1043,17 @@ def check_served(server, index, record, scores, pids):
     from ravqa_tpu_torch.retrieval import LateInteractionSearcher
     s = server.searcher
     del s.search_device                          # drop record_searches' wrap
-    q = torch.cat([r[0] for r in record])
-    got_s = torch.cat([r[1] for r in record]).cpu().numpy()
-    got_r = torch.cat([r[2] for r in record]).cpu().numpy()
+    # each dispatch ran at its bucket's size, its first request repeated
+    # past its own: keep the requests' rows (server.sizes, in dispatch
+    # order, ends with the recorded dispatches')
+    real = [n for n, _ in server.sizes[len(server.sizes) - len(record):]]
+    if len(real) != len(record) or any(
+            len(r[0]) != size for r, (_, size) in zip(
+                record, server.sizes[len(server.sizes) - len(record):])):
+        raise AssertionError("the recorded searches are not the dispatches")
+    q = torch.cat([r[0][:n] for r, n in zip(record, real)])
+    got_s = torch.cat([r[1][:n] for r, n in zip(record, real)]).cpu().numpy()
+    got_r = torch.cat([r[2][:n] for r, n in zip(record, real)]).cpu().numpy()
     served = sorted((p.tolist(), v.tobytes()) for p, v in zip(pids, scores))
     searched = sorted((index.pids[r].tolist(), v.tobytes())
                       for r, v in zip(got_r, got_s))
@@ -1340,13 +1393,15 @@ def compressed_serve_slice(maxsim, data, server, index):
           f"{_nbytes(res.records)} (float32 "
           f"{_nbytes(index.tokens)})", flush=True)
     out = {}
-    for name, idx, kw, wrappers in (
+    # the int8 copy's plain search on the CPU takes ~1 s a query: 32
+    # requests keep the phase inside the run's time
+    for name, idx, kw, wrappers, n in (
             ("int8 exact", i8, dict(mode="exact"),
-             [quant.maxsim_search_int8]),
+             [quant.maxsim_search_int8], 32),
             ("residual hierarchical fast", res,
              dict(mode="hierarchical", preset="fast"),
              [maxsim.coarse_sweep_int8, maxsim.stage1_sweep,
-              residual.maxsim_residual])):
+              residual.maxsim_residual], 64)):
         srv = RetrievalServer(server.ex, LateInteractionSearcher(idx, **kw),
                               data["query_tokenizer"],
                               image_feature_dim=server.image_feature_dim,
@@ -1356,7 +1411,7 @@ def compressed_serve_slice(maxsim, data, server, index):
         print(f"-- {name}", flush=True)
         record = record_searches(srv)
         _, scores, pids, launches, dispatches = drive_requests(
-            srv, data, idx, wrappers)
+            srv, data, idx, wrappers, n=n)
         if dispatches == 0 or min(launches) < dispatches:
             raise AssertionError(f"{name}: launches {launches} for "
                                  f"{dispatches} dispatches")
@@ -2308,17 +2363,21 @@ def check_rag_retrieval(ex, searches, outputs):
     search_err = doc_err = 0.0
     t0 = time.perf_counter()
     for (q, scores, rows), out in zip(searches, outputs):
-        got_s, got_r = scores.cpu().numpy(), rows.cpu().numpy()
-        want_s, want_r = (t.numpy() for t in
-                          cpu.search_device(q.cpu(), ex.rag_cfg.n_docs))
-        bad = [i for i in range(len(q)) if not _tie_aware(
+        # a dispatch padded to its bucket repeats its first request: each
+        # distinct query embedding is searched once
+        keep = [i for i in range(len(q))
+                if i == 0 or not torch.equal(q[i], q[0])]
+        got_s, got_r = scores.cpu().numpy()[keep], rows.cpu().numpy()[keep]
+        out_s = np.asarray(out["doc_scores"])[keep]
+        want_s, want_r = (t.numpy() for t in cpu.search_device(
+            q[keep].cpu(), ex.rag_cfg.n_docs))
+        bad = [keep[i] for i in range(len(keep)) if not _tie_aware(
             got_r[i], got_s[i], want_r[i], want_s[i], ATOL)]
         if bad:
             raise AssertionError(f"retrieved rows disagree with the plain "
                                  f"search on queries {bad}")
         search_err = max(search_err, float(np.abs(got_s - want_s).max()))
-        doc_err = max(doc_err, float(np.abs(out["doc_scores"]
-                                            - got_s).max()))
+        doc_err = max(doc_err, float(np.abs(out_s - got_s).max()))
     print(f"retrieval: {len(searches)} dispatches' rows vs the plain "
           f"search of a CPU copy ({time.perf_counter() - t0:.1f} s): max"
           f"|score err| {search_err:.3g}; generate's doc_scores vs the "
@@ -2343,6 +2402,13 @@ def check_rag_retrieval(ex, searches, outputs):
 # farther from float64 than F64_FACTOR times the CPU's float32 (1.4x on the
 # encoder output, 0.95x on the logits, measured on an H100).
 RAG_CUT_LAYERS = 4
+# phase 17's card-vs-CPU copy (and its checkpoint) keeps the first T5
+# layer of each stack and the first 4 of ViT-g's 39: its CPU legs in
+# float32 and float64 and the checkpoint's bytes set most of the phase's
+# time; every width stays whole, and phase 16 holds every layer of the
+# full generator card vs CPU
+RAG_TRAIN_CUT_LAYERS = 1
+RAG_TRAIN_CUT_VIT_LAYERS = 4
 GEN_RTOL = 1e-4
 F64_FACTOR = 2.0
 
@@ -2829,8 +2895,9 @@ def _to_device(batch, device):
 
 
 def rag_train_vs_cpu(ex, raw2):
-    """Phase 17 (c): the generator with its T5 stacks cut to RAG_CUT_LAYERS
-    + RAG_CUT_LAYERS layers (ViT-g and Q-Former whole, every width full),
+    """Phase 17 (c): the generator with its T5 stacks cut to
+    RAG_TRAIN_CUT_LAYERS + RAG_TRAIN_CUT_LAYERS layers and ViT-g to its
+    first RAG_TRAIN_CUT_VIT_LAYERS (the Q-Former whole, every width full),
     rag and additional loss weights 1, from the same weights: float32 on
     the card, float32 on the CPU, and a CPU reference with the generator
     and the LoRA in float64 (the retriever float32). A micro-batch of 2
@@ -2851,9 +2918,12 @@ def rag_train_vs_cpu(ex, raw2):
     errors and the trained card executor."""
     import torch
     gen_cfg = ex.model.generator.cfg
-    cut_cfg = dataclasses.replace(gen_cfg, t5=dataclasses.replace(
-        gen_cfg.t5, num_layers=RAG_CUT_LAYERS,
-        num_decoder_layers=RAG_CUT_LAYERS))
+    cut_cfg = dataclasses.replace(
+        gen_cfg, t5=dataclasses.replace(
+            gen_cfg.t5, num_layers=RAG_TRAIN_CUT_LAYERS,
+            num_decoder_layers=RAG_TRAIN_CUT_LAYERS),
+        vision=dataclasses.replace(gen_cfg.vision,
+                                   num_layers=RAG_TRAIN_CUT_VIT_LAYERS))
     weights = dict(rag_weight=1.0, additional_weight=1.0)
     card = _cut_executor(ex, cut_cfg, "cuda", 11, **weights)
     cpu = _cut_executor(ex, cut_cfg, "cpu", 11, **weights)
@@ -2955,8 +3025,10 @@ def rag_train_vs_cpu(ex, raw2):
                step2_loss_rel_err_same_params=l2_same, update_err_lr=worst,
                update_least_move_lr=moved, update_coords=n_sig,
                card_step_s=t_card, cpu_step_s=t_cpu, f64_step_s=t_ref)
-    print(f"the generator with its T5 stacks cut to {RAG_CUT_LAYERS} + "
-          f"{RAG_CUT_LAYERS} (ViT-g, Q-Former whole), rag and additional "
+    print(f"the generator with its T5 stacks cut to "
+          f"{RAG_TRAIN_CUT_LAYERS} + {RAG_TRAIN_CUT_LAYERS} and ViT-g to "
+          f"{RAG_TRAIN_CUT_VIT_LAYERS} layers (the Q-Former whole), rag and "
+          f"additional "
           f"weights 1, a micro-batch of {out['sequences']} sequences, card vs "
           f"CPU: loss {float(m['loss']):.6f} vs {float(m_cpu['loss']):.6f}; "
           f"rel err loss {out['loss_rel_err']:.3g}, nll "
@@ -3057,8 +3129,8 @@ def rag_train_slice(maxsim, smi):
     out["base_snapshot_s"] = time.perf_counter() - t0
     raw = rag_batches(data["train"], bs, seed=cfg.get("seed", 0))
 
-    # (a) the published step: two optimizer steps of 4 micro-batches of 8
-    n_micro = 2 * accum
+    # (a) the published step: one optimizer step of 4 micro-batches of 8
+    n_micro = accum
     searches, undo = record_rag_searches(ex)
     timer = RagStageTimer(ex)
     maxsim.maxsim_search.launches = 0
@@ -3070,7 +3142,6 @@ def rag_train_slice(maxsim, smi):
         ex.fit(batches, steps=accum, log_every=1)
         b_after_first = min(float(e["lora_b"].detach().abs().max())
                             for e in ex.lora.values())
-        ex.fit(batches, steps=accum, log_every=1)
         torch.cuda.synchronize()
         t_fit = time.perf_counter() - t0
         launches = maxsim.maxsim_search.launches
@@ -3100,7 +3171,7 @@ def rag_train_slice(maxsim, smi):
         raise AssertionError("a LoRA B is still zero after the first update")
     state = ex.optimizer.adamw.state
     held = {id(p) for p in state}
-    if held != trainable or ex.optimizer.updates != 2 or any(
+    if held != trainable or ex.optimizer.updates != 1 or any(
             a.shape != p.shape for a, p in zip(ex.optimizer.acc,
                                                ex.optimizer.trainable)) \
             or len(ex.optimizer.acc) != len(ex.optimizer.trainable):
@@ -3156,14 +3227,14 @@ def rag_train_slice(maxsim, smi):
     ex.model.zero_grad(set_to_none=True)
     del batch, loss
 
-    # (d) learning: 3 optimizer steps on one fixed micro-batch
+    # (d) learning: 2 optimizer steps on one fixed micro-batch
     ex.optimizer = make_optimizer(dataclasses.replace(
         tc, accumulate_grad_batches=1), ex.model)
     fixed = ex.make_train_batch(next(raw))
-    learn = [float(ex.train_step(fixed)["loss"]) for _ in range(3)]
+    learn = [float(ex.train_step(fixed)["loss"]) for _ in range(2)]
     with torch.no_grad():
         learn.append(float(ex.loss_fn(fixed)[0]))
-    print(f"one fixed micro-batch, 3 optimizer steps (accumulation 1): loss "
+    print(f"one fixed micro-batch, 2 optimizer steps (accumulation 1): loss "
           f"{' -> '.join(f'{x:.6f}' for x in learn)}", flush=True)
     if not learn[-1] < learn[0]:
         raise AssertionError(f"the loss did not fall: {learn}")
@@ -3234,7 +3305,8 @@ def rag_train_slice(maxsim, smi):
                 and np.array_equal(got["all_generations"],
                                    want["all_generations"])
                 and np.array_equal(got["doc_scores"], want["doc_scores"]))
-        print(f"checkpoint of the {RAG_CUT_LAYERS} + {RAG_CUT_LAYERS} copy: "
+        print(f"checkpoint of the {RAG_TRAIN_CUT_LAYERS} + "
+              f"{RAG_TRAIN_CUT_LAYERS} copy: "
               f"params.msgpack "
               f"{size / 1e9:.2f} GB, saved in {t_save:.1f} s, loaded into a "
               f"fresh executor in {t_load:.1f} s; the same answers: {same} "
@@ -4258,6 +4330,420 @@ def roi_slice(maxsim, k1, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: ColBERT-style text-retrieval training with distillation
+# ---------------------------------------------------------------------------
+
+TRIPLES_PASSAGES, TRIPLES_TRAIN_Q, TRIPLES_TEST_Q = 16384, 256, 64
+TRIPLES_TOPICS = 2048
+TRIPLES_STEPS, TRIPLES_BSIZE, TRIPLES_NWAY = 24, 16, 8
+TEACHER_DEPTH = 32         # the teacher scores each train query's top 32
+QUERY_MAXLEN, DOC_MAXLEN = 32, 180      # the ColBERT text defaults
+SCORE_RTOL = 1e-4          # a forward card vs CPU, of the scores' scale
+
+
+def write_text_world(out_dir, seed=0):
+    """A synthetic MS MARCO-style world in the reference's file formats:
+    vocab.txt (bert-base-uncased's 30,522-line layout,
+    scripts/synthetic_okvqa.write_vocab), collection.tsv (`pid \\t passage
+    [\\t title]`, a third of the rows titled), queries.train.tsv and
+    queries.dev.tsv (`qid \\t text`) and qrels.train.tsv / qrels.dev.tsv
+    (`qid 0 pid 1`). A passage draws 30-120 words from one of
+    TRIPLES_TOPICS topics of 24 filler words, a query six words of its one
+    positive passage. Returns the paths."""
+    from ravqa_tpu_torch.scripts.synthetic_okvqa import write_vocab
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    p = {k: os.path.join(out_dir, k) for k in (
+        "vocab.txt", "collection.tsv", "queries.train.tsv",
+        "queries.dev.tsv", "qrels.train.tsv", "qrels.dev.tsv")}
+    write_vocab(p["vocab.txt"], [])
+    with open(p["vocab.txt"]) as f:
+        words = [w for w in f.read().split("\n") if w.startswith("w")]
+    topics = rng.choice(len(words), (TRIPLES_TOPICS, 24))
+    topic_of = rng.integers(0, TRIPLES_TOPICS, TRIPLES_PASSAGES)
+    passages = []
+    with open(p["collection.tsv"], "w") as f:
+        for pid in range(TRIPLES_PASSAGES):
+            n = int(rng.integers(30, 120))      # MS MARCO's passages
+            text = " ".join(words[i] for i in rng.choice(
+                topics[topic_of[pid]], n))
+            title = (" ".join(words[i] for i in rng.choice(
+                topics[topic_of[pid]], 3)) if pid % 3 == 0 else "")
+            passages.append(text)
+            f.write(f"{pid}\t{text}\t{title}\n" if title
+                    else f"{pid}\t{text}\n")
+    pos = rng.choice(TRIPLES_PASSAGES, TRIPLES_TRAIN_Q + TRIPLES_TEST_Q,
+                     replace=False)
+    for split, qids in (("train", range(TRIPLES_TRAIN_Q)),
+                        ("dev", range(TRIPLES_TRAIN_Q, TRIPLES_TRAIN_Q
+                                      + TRIPLES_TEST_Q))):
+        with open(p[f"queries.{split}.tsv"], "w") as fq, \
+                open(p[f"qrels.{split}.tsv"], "w") as fr:
+            for qid in qids:
+                ws = passages[pos[qid]].split()
+                text = " ".join(rng.choice(ws, 6))
+                fq.write(f"{qid}\t{text}\n")
+                fr.write(f"{qid} 0 {pos[qid]} 1\n")
+    return p
+
+
+def _qrels(path):
+    out = {}
+    with open(path) as f:
+        for line in f:
+            qid, _, pid, _ = line.split()
+            out.setdefault(qid, []).append(pid)
+    return out
+
+
+def _query_batches(qt, texts, b=64):
+    for s in range(0, len(texts), b):
+        ids, mask = qt.tensorize(texts[s:s + b])
+        yield {"query_input_ids": ids, "query_attention_mask": mask}
+
+
+def _doc_batches(collection, dt, b=256):
+    """The collection's doc batches, tokenized once (both corpus encodes
+    read the same arrays)."""
+    return [dict(zip(("doc_input_ids", "doc_attention_mask"),
+                     dt.tensorize(texts)))
+            for _, texts in collection.enumerate_batches(b)]
+
+
+def _forward_vs_cpu(model, ids, mask, tt):
+    """A reranker's scores on the card against a CPU copy on the same
+    inputs: max |diff| over the CPU scores' largest |value|. Returns
+    (relative error, scores on the card)."""
+    import copy
+    import torch
+    cpu = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        t = [torch.as_tensor(x, dtype=torch.long) for x in (ids, mask, tt)]
+        got = model(*(x.cuda() for x in t)).cpu()
+        want = cpu(*t)
+    return float((got - want).abs().max() / want.abs().max()), got
+
+
+def triples_slice(maxsim, k1, smi):
+    """Phase 21: the ColBERTv2 recipe end to end at BERT-base width on
+    random weights (write_text_world's synthetic world): an FLMR text-only
+    student ranks the train queries through K1-f32;
+    create_triples_from_ranking gives each its positive and 31
+    negatives; a cross-encoder teacher at the widths of
+    cross-encoder/ms-marco-MiniLM-L-6-v2 scores them (Scorer.score_ranking
+    -> distillation_scores.json -> load_distillation_scores ->
+    kd_triples_from_scores, nway 8); TriplesExecutor.train_on_triples
+    takes TRIPLES_STEPS steps (bsize 16, in-batch negatives, distillation
+    weight 1); the dev queries are evaluated through K1-f32 (B=64, Lq=32,
+    N=16,384, Ld=180), MRR@10 and success@K computed, the ranking written
+    as TSV and scored by evaluate_msmarco_ranking. Gates: in the module's
+    docstring, phase 21. Returns the phase's numbers."""
+    import gc
+    import tempfile
+    import torch
+    from ravqa_tpu_torch.data.colbert_data import (
+        Collection, Queries, Triples, create_triples_from_ranking)
+    from ravqa_tpu_torch.executors import TrainConfig
+    from ravqa_tpu_torch.executors.triples_executor import TriplesExecutor
+    from ravqa_tpu_torch.metrics.retrieval_metrics import (
+        evaluate_msmarco_ranking, mrr_at_k, save_ranking_tsv, success_at_k)
+    from ravqa_tpu_torch.models import (BertConfig, CrossEncoderReranker,
+                                        FLMRModelConfig, FLMRRetriever,
+                                        RerankerConfig, RerankerTokenizer)
+    from ravqa_tpu_torch.models.flmr import init_normal_
+    from ravqa_tpu_torch.retrieval.distill import (Scorer,
+                                                   kd_triples_from_scores,
+                                                   load_distillation_scores)
+    from ravqa_tpu_torch.tokenization import (DocTokenizer, QueryTokenizer,
+                                              WordPieceTokenizer)
+    from ravqa_tpu_torch.utils import (StepTimer, annotate,
+                                       device_memory_stats, trace)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=HERE,
+                                     prefix=".chip_smoke_triples_") as tmp:
+        t0 = time.perf_counter()
+        p = write_text_world(os.path.join(tmp, "world"))
+        collection = Collection.from_tsv(p["collection.tsv"])
+        train_q = Queries.from_tsv(p["queries.train.tsv"])
+        dev_q = Queries.from_tsv(p["queries.dev.tsv"])
+        train_pos, dev_pos = (_qrels(p[f"qrels.{s}.tsv"])
+                              for s in ("train", "dev"))
+        out["write_s"] = time.perf_counter() - t0
+        if (len(collection), len(train_q), len(dev_q)) != (
+                TRIPLES_PASSAGES, TRIPLES_TRAIN_Q, TRIPLES_TEST_Q):
+            raise AssertionError("the text world did not read back whole")
+        tok = WordPieceTokenizer(p["vocab.txt"])    # native where built
+        qt, dt = QueryTokenizer(tok, QUERY_MAXLEN), DocTokenizer(tok,
+                                                                 DOC_MAXLEN)
+        t0 = time.perf_counter()
+        docs = _doc_batches(collection, dt)
+        out["tokenize_s"] = time.perf_counter() - t0
+        out["native_wordpiece"] = tok._fast is not None
+        cfg = FLMRModelConfig(bert=BertConfig(vocab_size=tok.vocab_size),
+                              dim=128, query_mode="text_only",
+                              nway=TRIPLES_NWAY, use_ib_negatives=True)
+        student = FLMRRetriever(cfg)
+        student.reset_parameters(torch.Generator().manual_seed(21))
+        init = {k: v.clone() for k, v in student.state_dict().items()}
+        tc = TrainConfig(lr=1e-5, weight_decay=0.0, schedule="constant")
+
+        def executor(device, state=None):
+            m = FLMRRetriever(cfg)
+            m.load_state_dict(state or init)
+            return TriplesExecutor(m, tc, device=device, quiet=True,
+                                   distill_weight=1.0, query_tokenizer=qt,
+                                   doc_tokenizer=dt)
+        ex = executor("cuda")
+        del student
+        rec = _Recorder("cuda")
+        try:
+            # (1) the student's ranking of the train queries (K1-f32)
+            qids = list(train_q.qid2text)
+            maxsim.maxsim_search.launches = 0
+            maxsim.maxsim_search.split_launches = 0
+            r0 = ex.evaluate_retrieval(
+                _query_batches(qt, [train_q.qid2text[q] for q in qids]),
+                docs, collection.pids,
+                pos_item_ids=[train_pos[q] for q in qids],
+                ks=(TEACHER_DEPTH,))
+            rank_launches = (maxsim.maxsim_search.launches,
+                             maxsim.maxsim_search.split_launches)
+            del r0["_index"]
+            rows = create_triples_from_ranking(
+                r0["_retrieved_pids"], [train_pos[q] for q in qids], qids,
+                n_negatives=TEACHER_DEPTH - 1, seed=0)
+
+            # (2) the teacher: MiniLM-L-6 widths, pooler + classifier
+            tcfg = RerankerConfig(vocab_size=tok.vocab_size,
+                                  embedding_size=384, hidden_size=384,
+                                  num_layers=6, num_heads=12,
+                                  intermediate_size=1536,
+                                  max_position_embeddings=512,
+                                  head="pooler_classifier")
+            teacher = CrossEncoderReranker(tcfg)
+            with torch.no_grad():
+                init_normal_(teacher, torch.Generator().manual_seed(22))
+            teacher = teacher.cuda().eval()
+            rt = RerankerTokenizer(tok, total_maxlen=DOC_MAXLEN)
+            scorer = Scorer(teacher, rt, bsize=256)
+            pairs = [(r[0], pid) for r in rows for pid in r[1:]]
+            texts = dict(zip(collection.pids, collection.passages))
+            scores_path = os.path.join(tmp, "distillation_scores.json")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            by_qid = scorer.score_ranking([q for q, _ in pairs],
+                                          [d for _, d in pairs],
+                                          train_q.qid2text, texts,
+                                          scores_path)
+            out["teacher_s"] = time.perf_counter() - t0
+            out["teacher_pairs_per_s"] = len(pairs) / out["teacher_s"]
+            loaded = load_distillation_scores(scores_path)
+            if loaded != by_qid:
+                raise AssertionError("distillation_scores.json does not "
+                                     "round-trip")
+            kd = kd_triples_from_scores(loaded, nway=TRIPLES_NWAY, seed=0)
+            ids, mask, tt = rt.tensorize([train_q.qid2text[q]
+                                          for q, _ in pairs[:64]],
+                                         [texts[d] for _, d in pairs[:64]])
+            out["teacher_err"], got = _forward_vs_cpu(teacher, ids, mask, tt)
+            want_scores = np.asarray([s for q in list(by_qid)[:2]
+                                      for s, _ in by_qid[q]], np.float32)
+            # the Scorer's batched, length-sorted scores against the plain
+            # forward of the same pairs
+            out["scorer_vs_forward"] = float(np.abs(
+                want_scores - got.numpy()[:len(want_scores)]).max()
+                / np.abs(want_scores).max())
+            print(f"teacher (MiniLM-L-6 widths, {tcfg.num_layers} x "
+                  f"{tcfg.hidden_size}): {len(pairs)} pairs of "
+                  f"{len(rows)} queries scored in {out['teacher_s']:.2f} s, "
+                  f"{out['teacher_pairs_per_s']:.0f} pairs/s ({smi}); card "
+                  f"vs CPU on 64 pairs {out['teacher_err']:.3g} of the "
+                  f"scale; Scorer vs the plain forward "
+                  f"{out['scorer_vs_forward']:.3g}; {len(kd)} KD rows of "
+                  f"nway {TRIPLES_NWAY}", flush=True)
+            if out["teacher_err"] > SCORE_RTOL \
+                    or out["scorer_vs_forward"] > SCORE_RTOL:
+                raise AssertionError("the teacher's scores on the card "
+                                     "disagree with the CPU")
+            del teacher, scorer
+
+            # (3) training: StepTimer around each step, device memory
+            timer, step = StepTimer(), ex.train_step
+
+            def timed_step(batch):
+                m = step(batch)
+                timer.tick(m["loss"])
+                return m
+            ex.train_step = timed_step
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            timer.tick()
+            ex.train_on_triples(Triples(kd), train_q, collection,
+                                bsize=TRIPLES_BSIZE, steps=TRIPLES_STEPS,
+                                log_every=1)
+            out["train_s"] = time.perf_counter() - t0
+            del ex.train_step
+            peak = device_memory_stats()[0]["allocated_bytes.all.peak"]
+            logged = [r for r in ex.logger.history if "train/loss" in r]
+            keys = ("loss", "nway_loss", "ib_loss", "distill_kl",
+                    "grad_norm")
+            series = {k: [r[f"train/{k}"] for r in logged] for k in keys}
+            if len(logged) != TRIPLES_STEPS or not all(
+                    np.all(np.isfinite(v)) for v in series.values()):
+                raise AssertionError(f"{len(logged)} steps; {series}")
+            ms = [t * 1e3 for t in timer.times[3:]]       # steps 3-24
+            # train_step alone (the recorder's, to the card's finish),
+            # without Triples.batches and make_batch's tokenization
+            alone = [x[0] * 1e3 for x in rec.steps[2:]]
+            out.update(step_ms_median=float(np.median(ms)),
+                       train_step_ms_median=float(np.median(alone)),
+                       attended_tokens=rec.steps[-1][3],
+                       step_ms_min=min(ms), step_ms_max=max(ms),
+                       queries_per_s=TRIPLES_BSIZE / float(np.median(ms))
+                       * 1e3, peak_bytes=peak, losses=series,
+                       timer=timer.summary(skip_first=3))
+            print(f"{smi}: triples step {out['step_ms_median']:.1f} ms "
+                  f"median of steps 3-{TRIPLES_STEPS} (min {min(ms):.1f}, "
+                  f"max {max(ms):.1f}; bsize {TRIPLES_BSIZE}, nway "
+                  f"{TRIPLES_NWAY}, Lq {QUERY_MAXLEN}, Ld {DOC_MAXLEN}, "
+                  f"in-batch negatives, distillation 1.0; train_step alone "
+                  f"{out['train_step_ms_median']:.1f} ms, the rest the "
+                  f"batches' tokenization): "
+                  f"{out['queries_per_s']:.1f} queries/s trained, peak "
+                  f"{peak / 2**30:.2f} GiB; loss "
+                  f"{series['loss'][0]:.4f} -> {series['loss'][-1]:.4f}, "
+                  f"distill_kl {series['distill_kl'][0]:.4f} -> "
+                  f"{series['distill_kl'][-1]:.4f}", flush=True)
+
+            # (4) the evaluation of the dev queries (K1-f32 at B=64)
+            dqids = list(dev_q.qid2text)
+            n_search = len(rec.searches)
+            maxsim.maxsim_search.launches = 0
+            maxsim.maxsim_search.split_launches = 0
+            res = ex.evaluate_retrieval(
+                _query_batches(qt, [dev_q.qid2text[q] for q in dqids]),
+                docs, collection.pids,
+                pos_item_ids=[dev_pos[q] for q in dqids], ks=(5, 10, 50))
+            eval_launches = (maxsim.maxsim_search.launches,
+                             maxsim.maxsim_search.split_launches)
+        finally:
+            rec.restore()
+        out["launches"] = {"rank": rank_launches[0],
+                           "eval": eval_launches[0]}
+        if rank_launches != (1, 1) or eval_launches != (1, 1):
+            raise AssertionError(f"K1-f32 launches (all, split): ranking "
+                                 f"{rank_launches}, evaluation "
+                                 f"{eval_launches}; one split launch each")
+        search = rec.searches[n_search]
+        index = res["_index"]
+        q = search["q"]
+        if tuple(q.shape) != (TRIPLES_TEST_Q, QUERY_MAXLEN, 128) or tuple(
+                index.tokens.shape) != (TRIPLES_PASSAGES, DOC_MAXLEN, 128):
+            raise AssertionError(f"queries {tuple(q.shape)}, index "
+                                 f"{tuple(index.tokens.shape)}")
+        out["eval_err"] = check_eval_search(search, index)
+        got = res["_retrieved_pids"]
+        pos = [dev_pos[qq] for qq in dqids]
+        metrics = {"mrr@10": mrr_at_k(got, pos, 10),
+                   **{f"success@{k}": success_at_k(got, pos, k)
+                      for k in (5, 10, 50)}}
+        ranking = os.path.join(tmp, "ranking.tsv")
+        save_ranking_tsv(ranking, dqids, got, search["scores"])
+        ms_eval = evaluate_msmarco_ranking(ranking, p["qrels.dev.tsv"])
+        if abs(ms_eval["mrr@10"] - metrics["mrr@10"]) > 1e-12 \
+                or ms_eval["num_judged_queries"] != TRIPLES_TEST_Q:
+            raise AssertionError(f"evaluate_msmarco_ranking {ms_eval} vs "
+                                 f"mrr_at_k {metrics}")
+        out.update(metrics=metrics, msmarco=ms_eval,
+                   encode_s=rec.encodes,
+                   search_s=[x["s"] for x in rec.searches])
+        planes = index.token_planes()
+        out["k1_eval_ms"] = time_ms(lambda: maxsim.maxsim_search(
+            q, index.tokens, index.mask, planes=planes), iters=5)
+        print(f"{smi}: evaluations (train ranking B={TRIPLES_TRAIN_Q}, "
+              f"dev B={TRIPLES_TEST_Q}): corpus encodes "
+              f"{[round(x, 2) for x in rec.encodes]} s, searches "
+              f"{[round(x['s'], 3) for x in rec.searches]} s; K1-f32 at the "
+              f"dev eval's launch {out['k1_eval_ms']:.2f} ms; metrics "
+              f"{metrics}; evaluate_msmarco_ranking {ms_eval}", flush=True)
+        del index, planes, res, search, q
+        rec.searches.clear()
+        shape = (f"triples eval f32 text-only B={TRIPLES_TEST_Q} "
+                 f"Lq={QUERY_MAXLEN} N={TRIPLES_PASSAGES} Ld={DOC_MAXLEN}")
+        kernel_shape(k1, "K1-f32", shape, TRIPLES_TEST_Q, QUERY_MAXLEN,
+                     TRIPLES_PASSAGES, DOC_MAXLEN, 128, torch.float32,
+                     torch.float32, maxsim)
+        out["k1_shape"] = shape
+        out["k1"] = k1["K1-f32"]["shapes"][shape]
+
+        # (5) a trace of two steps, with their span
+        trace_dir = os.path.join(tmp, "trace")
+        batches = Triples(kd).batches(train_q, collection,
+                                      bsize=TRIPLES_BSIZE, nway=TRIPLES_NWAY,
+                                      seed=1)
+        with trace(trace_dir):
+            for _ in range(2):
+                with annotate("triples_step"):
+                    float(ex.train_step(ex.make_batch(next(batches)))["loss"])
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        spans = sum(e.get("name") == "triples_step"
+                    and e.get("cat") == "user_annotation" for e in events)
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        out["trace"] = {"spans": spans, "device_kernels": kernels,
+                        "bytes": os.path.getsize(os.path.join(
+                            trace_dir, "trace.json"))}
+        print(f"trace of 2 steps: {out['trace']}", flush=True)
+        if spans != 2:
+            raise AssertionError("the trace does not name the annotate span")
+
+        # (6) one TriplesExecutor step, card vs CPU (phase 13's gates), on
+        # a KD batch of 2 queries from the trained weights
+        state = {k: v.detach().cpu().clone()
+                 for k, v in ex.model.state_dict().items()}
+        batch = ex.make_batch(next(Triples(kd).batches(
+            train_q, collection, bsize=2, nway=TRIPLES_NWAY, seed=2)))
+        del ex
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(executor_step_vs_cpu(
+            executor("cuda", state), executor("cpu", state), batch,
+            f"TriplesExecutor, 2 queries x nway {TRIPLES_NWAY}, "
+            f"distillation 1.0"))
+
+        # (7) an ELECTRA-base linear_cls reranker, card vs CPU, 16 pairs
+        ecfg = RerankerConfig(vocab_size=tok.vocab_size, embedding_size=768,
+                              hidden_size=768, num_layers=12, num_heads=12,
+                              intermediate_size=3072, head="linear_cls")
+        electra = CrossEncoderReranker(ecfg)
+        with torch.no_grad():
+            init_normal_(electra, torch.Generator().manual_seed(23))
+        electra = electra.cuda().eval()
+        ids, mask, tt = rt.tensorize([train_q.qid2text[q]
+                                      for q, _ in pairs[:16]],
+                                     [texts[d] for _, d in pairs[:16]])
+        out["electra_err"], _ = _forward_vs_cpu(electra, ids, mask, tt)
+        print(f"ELECTRA-base reranker (linear_cls, {ecfg.num_layers} x "
+              f"{ecfg.hidden_size}) on 16 pairs "
+              f"of {ids.shape[1]} tokens: card vs CPU "
+              f"{out['electra_err']:.3g} of the scale", flush=True)
+        if out["electra_err"] > SCORE_RTOL:
+            raise AssertionError("the ELECTRA reranker on the card "
+                                 "disagrees with the CPU")
+        del electra
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{smi}: phase 21: world {out['write_s']:.1f} s, tokenized "
+          f"{out['tokenize_s']:.1f} s (native WordPiece "
+          f"{out['native_wordpiece']}), teacher "
+          f"{out['teacher_s']:.1f} s, training {out['train_s']:.1f} s; the "
+          f"phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4358,6 +4844,10 @@ def main():
     phase("20 FLMR with ROIs from raw images (VinVL X152-C4, Oscar, OCR, "
           "ViT-B/32 crops; train and test, K1-f32 at Lq=352)")
     roi = roi_slice(maxsim, k1, smi)
+    phase("21 ColBERT-style text-retrieval training: the cross-encoder "
+          "teacher's distillation scores, TriplesExecutor with KL "
+          "distillation, evaluation through K1-f32 at Ld=180")
+    triples = triples_slice(maxsim, k1, smi)
     phase("report")
 
     def entry(name, source, replaces, launches, measured):
@@ -4406,6 +4896,9 @@ def main():
     # at Lq = 352
     kernels["K1-f32"]["launches_roi"] = {
         k: roi[k]["launches"]["K1"] for k in ("train", "test")}
+    # phase 21: once for the student's ranking of the train queries, once
+    # for the dev evaluation (B=64, Lq=32, Ld=180)
+    kernels["K1-f32"]["launches_triples"] = triples["launches"]
 
     for key, name, source, replaces, launches in (
             ("K2", "coarse_sweep (bf16, tensor cores)", "coarse_sweep.cu",
@@ -4486,7 +4979,8 @@ def main():
                       "rag_train": rag_train,
                       "wit_pretrain": wit,
                       "m2kr": m2kr_run,
-                      "roi": roi}, default=str), flush=True)
+                      "roi": roi,
+                      "triples": triples}, default=str), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -298,7 +298,8 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     `model_config.search_mode` picks exact, two_stage or
     hierarchical search (the pruned modes build summaries with
     `serve.n_summary` and block summaries with `serve.block_size`);
-    `serve.*` keys set the micro-batching parameters and the searcher's
+    `serve.*` keys set the micro-batching parameters (batch_buckets among
+    them) and the searcher's
     knobs (n_candidates, approx_topk, approx_recall, coarse_int8,
     centroid_prune, coarse_query_len, stage1_kernel, preset)."""
     from .data import corpus_doc_batches
@@ -306,10 +307,12 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     from .serving import RetrievalServer, ServeConfig, VQAServer
 
     sv = cfg.get("serve", Config())
+    bb = sv.get("batch_buckets")
     sc = ServeConfig(max_batch=sv.get("max_batch", 32),
                      max_wait_ms=sv.get("max_wait_ms", 2.0),
                      k=sv.get("k", 10),
-                     max_queue=sv.get("max_queue", 0))
+                     max_queue=sv.get("max_queue", 0),
+                     batch_buckets=tuple(bb) if bb else None)
     mc = cfg.model_config
     rag = _is_rag(cfg)
     ex = (build_rag_executor(cfg, data, device, log_dir, inference_only=True)

@@ -1,6 +1,7 @@
 from .bert import BertConfig, BertModel
 from .blip2 import (Blip2Config, Blip2T5, Blip2VisionConfig,
-                    Blip2VisionModel, QFormer, QFormerConfig)
+                    Blip2VisionModel, QFormer, QFormerConfig,
+                    convert_hf_blip2_params)
 from .convert import (captioner_to_state_dict, detector_to_state_dict,
                       flatten_params, flax_to_state_dict,
                       generator_to_flax, generator_to_state_dict,
@@ -15,9 +16,13 @@ from .generation import beam_generate, greedy_generate
 from .lora import LoRAParams, count_lora_params, init_lora, merge_lora
 from .mapping import (MappingMLP, TransformerMapping,
                       TransformerMappingLayer, VisionMapping)
+from .reranker import (CrossEncoderReranker, RerankerConfig,
+                       RerankerTokenizer,
+                       convert_hf_electra_reranker_params,
+                       convert_hf_seqcls_bert_params)
 from .rag import (GeneratorInputBuilder, get_retrieval_labels, most_frequent,
                   rag_loss_components, select_answers_by_joint_score)
-from .t5 import T5Config, T5Model, shift_right
+from .t5 import T5Config, T5Model, convert_hf_t5_params, shift_right
 from .transformer import (EncoderConfig, EncoderLayer, MlpBlock,
                           MultiHeadAttention, TransformerEncoder,
                           attention_bias_from_mask, gelu, quick_gelu)
@@ -42,8 +47,12 @@ __all__ = ["BertConfig", "BertModel", "Blip2Config", "Blip2T5",
            "VisionMapping", "GeneratorInputBuilder", "get_retrieval_labels",
            "most_frequent", "rag_loss_components",
            "select_answers_by_joint_score", "T5Config", "T5Model",
-           "shift_right", "EncoderConfig", "EncoderLayer",
+           "shift_right", "convert_hf_t5_params", "convert_hf_blip2_params",
+           "EncoderConfig", "EncoderLayer",
            "MlpBlock", "MultiHeadAttention", "TransformerEncoder",
            "attention_bias_from_mask", "gelu", "quick_gelu",
            "CLIPVisionModel", "ViTConfig", "clip_preprocess",
-           "convert_hf_clip_vision_params"]
+           "convert_hf_clip_vision_params", "CrossEncoderReranker",
+           "RerankerConfig", "RerankerTokenizer",
+           "convert_hf_electra_reranker_params",
+           "convert_hf_seqcls_bert_params"]

@@ -19,7 +19,8 @@ T5 language tower):
 The patch embedding keeps a Conv2d's (out, in, kh, kw) weight and runs as
 a patch unfold and one matmul (each patch in (kh, kw, channel) order), so
 cuDNN's TF32 setting cannot change its numbers. The JAX parameters come
-across through models/convert.py.
+across through models/convert.py; convert_hf_blip2_params reads an HF
+state_dict.
 """
 
 from __future__ import annotations
@@ -301,3 +302,76 @@ class Blip2T5(nn.Module):
     def decode_step(self, token_ids, enc, enc_mask, caches):
         return self.language_model.decode_step(token_ids, enc, enc_mask,
                                                caches)
+
+
+# ---------------------------------------------------------------------------
+# HF conversion
+# ---------------------------------------------------------------------------
+
+def convert_hf_blip2_params(state_dict: dict,
+                            cfg: Blip2Config) -> dict[str, torch.Tensor]:
+    """An HF Blip2ForConditionalGeneration state_dict (T5 language model)
+    -> the port's Blip2T5 state_dict: the key names the JAX package's
+    convert_hf_blip2_params reads (:273). The vision tower (the patch
+    convolution's OIHW weight kept; the class and position embeddings and
+    the query tokens without their leading 1s), the Q-Former (cross-
+    attention on every cross_attention_frequency-th layer),
+    language_projection, and the T5 under `language_model.`
+    (convert_hf_t5_params)."""
+    from .convert_flmr import _t
+    from .t5 import convert_hf_t5_params
+
+    def g(name):
+        return _t(state_dict[name])
+
+    v, qc = cfg.vision, cfg.qformer
+    sd = {"vision_model.patch_embedding.weight":
+          g("vision_model.embeddings.patch_embedding.weight"),
+          "vision_model.patch_embedding.bias":
+          g("vision_model.embeddings.patch_embedding.bias"),
+          "vision_model.class_embedding":
+          g("vision_model.embeddings.class_embedding").reshape(-1),
+          "vision_model.position_embedding":
+          g("vision_model.embeddings.position_embedding").reshape(
+              -1, v.hidden_size),
+          "query_tokens": g("query_tokens").reshape(cfg.num_query_tokens,
+                                                    qc.hidden_size)}
+
+    def copy(hf: str, ours: str, bias: bool = True):
+        sd[f"{ours}.weight"] = g(f"{hf}.weight")
+        if bias:
+            sd[f"{ours}.bias"] = g(f"{hf}.bias")
+
+    copy("vision_model.post_layernorm", "vision_model.post_layernorm")
+    for i in range(v.num_layers):
+        hf, ours = f"vision_model.encoder.layers.{i}", \
+            f"vision_model.layers.{i}"
+        copy(f"{hf}.layer_norm1", f"{ours}.ln1")
+        copy(f"{hf}.self_attn.qkv", f"{ours}.qkv", bias=v.qkv_bias)
+        copy(f"{hf}.self_attn.projection", f"{ours}.projection")
+        copy(f"{hf}.layer_norm2", f"{ours}.ln2")
+        copy(f"{hf}.mlp.fc1", f"{ours}.fc1")
+        copy(f"{hf}.mlp.fc2", f"{ours}.fc2")
+    copy("qformer.layernorm", "qformer.layernorm")
+    for i in range(qc.num_layers):
+        hf, ours = f"qformer.encoder.layer.{i}", f"qformer.layers.{i}"
+        parts = [("attention", "attention"), ("intermediate_query.dense",
+                                              "intermediate_query"),
+                 ("output_query.dense", "output_query"),
+                 ("output_query.LayerNorm", "output_ln"),
+                 ("attention.output.LayerNorm", "attention_ln")]
+        if i % qc.cross_attention_frequency == 0:
+            parts += [("crossattention", "crossattention"),
+                      ("crossattention.output.LayerNorm",
+                       "crossattention_ln")]
+        for src, dst in parts:
+            if src in ("attention", "crossattention"):
+                for w in ("query", "key", "value"):
+                    copy(f"{hf}.{src}.attention.{w}", f"{ours}.{dst}.{w}")
+                copy(f"{hf}.{src}.output.dense", f"{ours}.{dst}.output")
+            else:
+                copy(f"{hf}.{src}", f"{ours}.{dst}")
+    copy("language_projection", "language_projection")
+    lm = convert_hf_t5_params(state_dict, cfg.t5, prefix="language_model.")
+    sd.update({f"language_model.{k}": t for k, t in lm.items()})
+    return sd

@@ -21,7 +21,8 @@ Linear layers keep the JAX module names: ``q``/``k``/``v``/``o`` of
 (d_model -> heads * d_kv) and back, ``wi``/``wi_0``/``wi_1``/``wo``; the
 stacks are the ModuleLists ``encoder`` and ``decoder`` (the JAX package's
 ``encoder_<i>``/``decoder_<i>``). models/convert.py carries the JAX
-parameters across. ``reset_parameters`` draws weights at the scales of the
+parameters across, and ``convert_hf_t5_params`` reads an HF state_dict
+into this module's. ``reset_parameters`` draws weights at the scales of the
 flax initializers (lecun-normal kernels, embeddings of std d^-1/2) from a
 generator on the modules' device.
 
@@ -416,3 +417,56 @@ def shift_right(labels: torch.Tensor, decoder_start_token_id: int,
     shifted[:, 0] = decoder_start_token_id
     return torch.where(shifted == ignore_index,
                        torch.full_like(shifted, pad_token_id), shifted)
+
+
+# ---------------------------------------------------------------------------
+# HF conversion
+# ---------------------------------------------------------------------------
+
+def convert_hf_t5_params(state_dict: dict, cfg: T5Config,
+                         prefix: str = "") -> dict[str, torch.Tensor]:
+    """An HF T5ForConditionalGeneration state_dict (its keys under
+    `prefix`) -> the port's T5Model state_dict: the key names the JAX
+    package's convert_hf_t5_params reads (:341). nn.Linear keeps HF's (out,
+    in) weights; the relative-position table is taken where HF has it (the
+    first block of each stack); gated-GELU reads wi_0 / wi_1; lm_head only
+    when the embeddings are untied (a tied head reads `shared`)."""
+    from .convert_flmr import _t
+
+    def g(name):
+        return _t(state_dict[prefix + name])
+
+    sd = {"shared.weight": g("shared.weight"),
+          "encoder_final_ln.weight": g("encoder.final_layer_norm.weight"),
+          "decoder_final_ln.weight": g("decoder.final_layer_norm.weight")}
+    if not cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = g("lm_head.weight")
+    ff = (("wi_0", "wi_1", "wo") if cfg.feed_forward_proj == "gated-gelu"
+          else ("wi", "wo"))
+
+    def attn(hf: str, ours: str):
+        for w in ("q", "k", "v", "o"):
+            sd[f"{ours}.{w}.weight"] = g(f"{hf}.{w}.weight")
+        rb = f"{hf}.relative_attention_bias.weight"
+        if prefix + rb in state_dict:
+            sd[f"{ours}.relative_attention_bias.weight"] = g(rb)
+
+    for stack, n, sub in (("encoder", cfg.num_layers,
+                           (("SelfAttention", "self_attn", "ln1"),
+                            ("DenseReluDense", "ff", "ln2"))),
+                          ("decoder", cfg.n_dec,
+                           (("SelfAttention", "self_attn", "ln1"),
+                            ("EncDecAttention", "cross_attn", "ln_cross"),
+                            ("DenseReluDense", "ff", "ln2")))):
+        for i in range(n):
+            for j, (hf_name, ours, ln) in enumerate(sub):
+                hf = f"{stack}.block.{i}.layer.{j}"
+                mine = f"{stack}.{i}.{ours}"
+                if ours == "ff":
+                    for w in ff:
+                        sd[f"{mine}.{w}.weight"] = g(
+                            f"{hf}.DenseReluDense.{w}.weight")
+                else:
+                    attn(f"{hf}.{hf_name}", mine)
+                sd[f"{stack}.{i}.{ln}.weight"] = g(f"{hf}.layer_norm.weight")
+    return sd

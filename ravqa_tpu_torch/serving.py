@@ -12,9 +12,11 @@ _MicroBatchServer, RetrievalServer, VQAServer, make_http_server).
   at submit(); the dispatcher stacks arrays and runs device code. The query
   embeddings stay on the device between encode and search; only the (B, k)
   results come back to the host.
-- Batches run at their own size. The JAX server pads each batch to a
-  compiled shape bucket; eager PyTorch compiles nothing per shape, so
-  padding would only add work.
+- Batch buckets: each dispatch is padded to the smallest of
+  ServeConfig.buckets() that holds it (powers of two up to max_batch by
+  default, or `batch_buckets`), with copies of its first request, whose
+  results are dropped; as the JAX server does. The shapes a dispatch can
+  take are then few and fixed; warm_up runs each of them once.
 """
 
 from __future__ import annotations
@@ -37,6 +39,23 @@ class ServeConfig:
     k: int = 10                # top-k passages per query
     max_queue: int = 0         # bounded request queue; 0 = unbounded. When
     #   full, submit() raises ServerOverloaded immediately
+    batch_buckets: Optional[tuple] = None
+    #   the batch sizes a dispatch is padded to: the smallest bucket that
+    #   holds it. None -> powers of two up to max_batch (1, 2, 4, ...,
+    #   max_batch); (max_batch,) pads every dispatch to max_batch
+
+    def buckets(self) -> tuple:
+        if self.batch_buckets:
+            bs = tuple(sorted(set(int(b) for b in self.batch_buckets)))
+            assert bs[-1] >= self.max_batch, \
+                "largest bucket must cover max_batch"
+            return bs
+        out, b = [], 1
+        while b < self.max_batch:
+            out.append(b)
+            b *= 2
+        out.append(self.max_batch)
+        return tuple(out)
 
 
 class ServerOverloaded(RuntimeError):
@@ -59,11 +78,14 @@ class VQAResult:
 
 class _MicroBatchServer:
     """Bounded-window micro-batching dispatcher; subclasses implement
-    `_dispatch(batch)` where batch is a list of (payload..., future)."""
+    `_dispatch(batch)` where batch is a list of (payload..., future).
+    `sizes` records each dispatch's (requests, padded size)."""
 
     def __init__(self, config: Optional[ServeConfig] = None):
         self.cfg = config if config is not None else ServeConfig()
         self._q: queue.Queue = queue.Queue(maxsize=self.cfg.max_queue)
+        self._buckets = self.cfg.buckets()
+        self.sizes: list[tuple[int, int]] = []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -76,6 +98,21 @@ class _MicroBatchServer:
             raise ServerOverloaded(
                 f"request queue full ({self.cfg.max_queue})")
         return fut
+
+    def _bucket(self, n: int) -> int:
+        """The smallest bucket that holds n requests."""
+        for b in self._buckets:
+            if b >= n:
+                return b
+        return self._buckets[-1]
+
+    def _padded(self, batch: list) -> list:
+        """The batch padded to its bucket with copies of its first row
+        (their results are dropped); records (n, padded size)."""
+        n = len(batch)
+        size = self._bucket(n)
+        self.sizes.append((n, size))
+        return batch + [batch[0]] * (size - n)
 
     def stop(self):
         self._stop.set()
@@ -201,22 +238,24 @@ class RetrievalServer(_MicroBatchServer):
 
     @torch.inference_mode()
     def warm_up(self) -> None:
-        """Run one zero query through encode and search, so the first
-        request does not pay for the kernel build and library set-up."""
+        """Run a blank query through encode and search at each bucket
+        size, so the first requests do not pay for the kernel build and
+        library set-up."""
         ids, mask = self.qt.tensorize([""])
         feats = (np.zeros((self.image_feature_dim,), np.float32)
                  if self.image_feature_dim else None)
         pixels = (np.zeros(self.pixel_shape, np.float32)
                   if self.pixel_shape is not None else None)
-        q = self.encode([(np.asarray(ids)[0], np.asarray(mask)[0], feats,
-                          pixels)])
-        self.searcher.search_device(q, self.cfg.k)[0].cpu()
+        row = (np.asarray(ids)[0], np.asarray(mask)[0], feats, pixels)
+        for size in self._buckets:
+            q = self.encode([row] * size)
+            self.searcher.search_device(q, self.cfg.k)[0].cpu()
 
     # -- dispatcher ---------------------------------------------------------
     @torch.inference_mode()
     def _dispatch(self, batch):
         self.dispatches += 1
-        q = self.encode(batch)
+        q = self.encode(self._padded(batch))
         scores, rows = self.searcher.search_device(q, self.cfg.k)
         scores = scores.cpu().numpy()
         pids = self.searcher.index.pids[rows.cpu().numpy()]
@@ -300,20 +339,23 @@ class VQAServer(_MicroBatchServer):
         return out
 
     def warm_up(self) -> None:
-        """Answer one blank question, so that the first request does not
-        pay for the kernel build and library set-up."""
+        """Answer a blank question at each bucket size, so that the first
+        requests do not pay for the kernel build and library set-up."""
         ids, mask = self.qt.tensorize([""])
         feats = (np.zeros((self.image_feature_dim,), np.float32)
                  if self.image_feature_dim else None)
         pixels = (np.zeros(self.pixel_shape, np.float32)
                   if self.pixel_shape is not None else None)
-        self.ex.generate(self.gen_batch([("", np.asarray(ids)[0],
-                                          np.asarray(mask)[0], feats,
-                                          pixels, None)]))
+        row = ("", np.asarray(ids)[0], np.asarray(mask)[0], feats, pixels,
+               None)
+        for size in self._buckets:
+            self.ex.generate(self.gen_batch([row] * size))
 
     def _dispatch(self, batch):
         self.dispatches += 1
-        out = self.ex.generate(self.gen_batch(batch))
+        # whole request rows pad the batch: question, ids, image and the
+        # static-retrieval key alike
+        out = self.ex.generate(self.gen_batch(self._padded(batch)))
         for i, (*_, fut) in enumerate(batch):
             fut.set_result(VQAResult(
                 answer=out["predictions"][i],

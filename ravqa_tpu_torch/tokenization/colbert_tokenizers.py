@@ -17,8 +17,10 @@ position 1 <- [D] marker ('[unused1]'), pad to doc_maxlen.
 The base tokenizer can be a WordPieceTokenizer or any HF tokenizer
 exposing encode(text, add_special_tokens=False) and *_token_id attributes.
 
-The port's own copy of ravqa_tpu/tokenization/colbert_tokenizers.py;
-tests/test_torch_host.py holds the two byte-equal.
+The port's own copy of ravqa_tpu/tokenization/colbert_tokenizers.py; a
+base with encode_batch (the port's WordPiece) encodes a batch at once,
+natively where the C++ library built. tests/test_torch_host.py holds the
+two byte-equal on both routes.
 """
 
 from __future__ import annotations
@@ -41,6 +43,16 @@ def _marker_id(base, token: str, default: int) -> int:
     return default
 
 
+def _bodies(base, texts: Sequence[str], maxlen: int) -> list:
+    """Each text's first maxlen token ids (a row keeps at most maxlen - 2 of
+    them): through the base's encode_batch where it has one (the port's
+    WordPiece, native where built; the same ids), else encode per text."""
+    if hasattr(base, "encode_batch"):
+        ids, lens = base.encode_batch(list(texts), maxlen)
+        return [row[:n].tolist() for row, n in zip(ids, lens)]
+    return [base.encode(t, add_special_tokens=False) for t in texts]
+
+
 @dataclasses.dataclass
 class QueryTokenizer:
     base: object
@@ -60,8 +72,8 @@ class QueryTokenizer:
         b = len(texts)
         ids = np.full((b, self.query_maxlen), self.pad_id, np.int32)
         mask = np.zeros((b, self.query_maxlen), np.int32)
-        for i, text in enumerate(texts):
-            body = self.base.encode(text, add_special_tokens=False)
+        for i, body in enumerate(_bodies(self.base, texts,
+                                         self.query_maxlen)):
             # [CLS] [Q] body [SEP], truncated to query_maxlen
             row = [self.cls_id, self.q_marker_id] + list(body) + [self.sep_id]
             row = row[:self.query_maxlen]
@@ -93,8 +105,7 @@ class DocTokenizer:
         b = len(texts)
         ids = np.full((b, self.doc_maxlen), self.pad_id, np.int32)
         mask = np.zeros((b, self.doc_maxlen), np.int32)
-        for i, text in enumerate(texts):
-            body = self.base.encode(text, add_special_tokens=False)
+        for i, body in enumerate(_bodies(self.base, texts, self.doc_maxlen)):
             row = [self.cls_id, self.d_marker_id] + list(body) + [self.sep_id]
             row = row[:self.doc_maxlen]
             if len(row) == self.doc_maxlen and row[-1] != self.sep_id:

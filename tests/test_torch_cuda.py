@@ -1644,3 +1644,100 @@ def test_vit_features_node_on_cuda_matches_cpu():
     w = out["cpu"]
     assert out["cuda"].shape == w.shape == (3, 4, 64)
     assert np.abs(out["cuda"] - w).max() <= 1e-4 * np.abs(w).max()
+
+
+# -- text-retrieval training: K1 at Ld=180, the rerankers, a triples step ----
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_maxsim_split_route_at_the_triples_shape(negative):
+    """K1 on a float32 index at the triples evaluation's shape (the ColBERT
+    text defaults Lq=32, Ld=180; B=64) against its plain version."""
+    q, tok, mask = make((64, 32, 1031, 180, 128), torch.float32,
+                        torch.float32, negative=negative)
+    before = maxsim.maxsim_search.split_launches
+    got = maxsim.maxsim_search(q, tok, mask,
+                               planes=maxsim.split_index_bf16(tok))
+    torch.cuda.synchronize()
+    assert maxsim.maxsim_search.split_launches == before + 1
+    _close(got, maxsim.maxsim_search_torch(q, tok, mask), 32)
+
+
+@pytest.mark.parametrize("head,emb", [("pooler_classifier", 64),
+                                      ("linear_cls", 32)])
+def test_reranker_on_cuda_matches_cpu(head, emb):
+    """CrossEncoderReranker (both heads; ELECTRA's factorised embeddings)
+    at tiny width on the card and on the CPU from one state dict, padded
+    rows and an all-pad row included: scores within 1e-5 of their scale;
+    the Scorer's length-sorted batches give the plain forward's scores."""
+    from ravqa_tpu_torch.models import (CrossEncoderReranker,
+                                        RerankerConfig, RerankerTokenizer)
+    from ravqa_tpu_torch.models.flmr import init_normal_
+    from ravqa_tpu_torch.retrieval import Scorer
+    from ravqa_tpu_torch.tokenization import (WordPieceTokenizer,
+                                              make_tiny_vocab)
+    words = ["cat", "dog", "sun", "sky", "tree", "fish", "what", "is"]
+    tok = WordPieceTokenizer(make_tiny_vocab(words))
+    cfg = RerankerConfig.tiny(vocab_size=tok.vocab_size + 8, head=head,
+                              embedding_size=emb)
+    cpu = CrossEncoderReranker(cfg)
+    with torch.no_grad():
+        init_normal_(cpu, torch.Generator().manual_seed(0))
+    card = CrossEncoderReranker(cfg).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    qs = [" ".join(rng.choice(words, int(rng.integers(1, 6))))
+          for _ in range(9)]
+    ps = [" ".join(rng.choice(words, int(rng.integers(2, 30))))
+          for _ in range(9)]
+    rt = RerankerTokenizer(tok, 32)
+    ids, mask, tt = (torch.from_numpy(x).long() for x in rt.tensorize(qs,
+                                                                      ps))
+    mask[-1] = 0
+    with torch.no_grad():
+        want = cpu(ids, mask, tt)
+        got = card(ids.cuda(), mask.cuda(), tt.cuda())
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * scale)
+    scores = Scorer(card, rt, bsize=4).score_pairs(qs[:8], ps[:8])
+    np.testing.assert_allclose(scores, want[:8].numpy(), rtol=0,
+                               atol=1e-5 * scale)
+
+
+def test_triples_train_step_on_cuda_matches_cpu():
+    """TriplesExecutor.train_step (nway 3, in-batch negatives, KL
+    distillation against teacher scores) at tiny width on the card and on
+    the CPU from one state dict: the loss, its parts and the grad norm to
+    rtol 1e-5; parameters after the Adam update within 2 lr."""
+    from ravqa_tpu_torch.executors import TrainConfig
+    from ravqa_tpu_torch.executors.triples_executor import TriplesExecutor
+    from ravqa_tpu_torch.models import FLMRModelConfig, FLMRRetriever
+    from ravqa_tpu_torch.tokenization import (DocTokenizer, QueryTokenizer,
+                                              WordPieceTokenizer,
+                                              make_tiny_vocab)
+    words = ["cat", "dog", "sun", "sky", "tree", "fish", "what", "is"]
+    tok = WordPieceTokenizer(make_tiny_vocab(words))
+    cfg = FLMRModelConfig.tiny(nway=3, query_mode="text_only")
+    rng = np.random.default_rng(0)
+    raw = {"queries": [" ".join(rng.choice(words, 4)) for _ in range(3)],
+           "docs": [" ".join(rng.choice(words, 9)) for _ in range(9)],
+           "target_scores": rng.normal(size=(3, 3)).astype(np.float32)}
+    lr = 1e-3
+    ex = {}
+    for dev in ("cuda", "cpu"):
+        model = FLMRRetriever(cfg)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        ex[dev] = TriplesExecutor(model, TrainConfig(lr=lr), device=dev,
+                                  quiet=True, distill_weight=1.0,
+                                  query_tokenizer=QueryTokenizer(tok, 8),
+                                  doc_tokenizer=DocTokenizer(tok, 12))
+    m = {dev: e.train_step(e.make_batch(raw)) for dev, e in ex.items()}
+    assert m["cuda"]["loss"].device.type == "cuda"
+    for key in ("loss", "grad_norm", "nway_loss", "ib_loss", "distill_kl"):
+        torch.testing.assert_close(m["cuda"][key].cpu(), m["cpu"][key],
+                                   rtol=1e-5, atol=1e-6)
+    want = ex["cpu"].model.state_dict()
+    for n, p in ex["cuda"].model.named_parameters():
+        assert p.device.type == "cuda"
+        torch.testing.assert_close(p.detach().cpu(), want[n], rtol=0,
+                                   atol=2 * lr)

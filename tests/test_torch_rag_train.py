@@ -493,19 +493,101 @@ def _jax_params(jex):
 
 
 def _assert_grads_close(got, want, where):
-    """Each grad of `got` (the trainable parameters') elementwise within
-    rtol 1e-4 and ATOL_GRAD of the largest grad of its part of the model
-    (the LoRA's grads are ~100x the retriever's)."""
+    """Each grad of `got` (the trainable parameters'; tensors or arrays)
+    elementwise within rtol 1e-4 and ATOL_GRAD of the largest grad of its
+    part of the model in `want` (the LoRA's grads are ~100x the
+    retriever's)."""
     want = {k: np.asarray(want[k], np.float64) for k in got}
     scale = {part: max(np.abs(v).max() for k, v in want.items()
                        if k.startswith(part))
              for part in ("lora", "retriever")}
     for name, g in got.items():
         part = "lora" if name.startswith("lora") else "retriever"
-        np.testing.assert_allclose(g.detach().double().numpy(), want[name],
-                                   rtol=1e-4,
+        g = g.detach().double().numpy() if torch.is_tensor(g) \
+            else np.asarray(g, np.float64)
+        np.testing.assert_allclose(g, want[name], rtol=1e-4,
                                    atol=ATOL_GRAD[part] * scale[part],
                                    err_msg=f"{where} {name}")
+
+
+def _assert_grads_close_to_a_side(got, sides, where):
+    """_assert_grads_close against one of the float64 run's `sides` (one
+    for each side of the ReLU kinks within float32's reach): the first is
+    the float64 run's own. `got` may hold more (JAX's frozen grads)."""
+    got = {k: got[k] for k in sides[0]}
+    for want in sides[1:]:
+        try:
+            return _assert_grads_close(got, want, where)
+        except AssertionError:
+            pass
+    _assert_grads_close(got, sides[0], where)
+
+
+# a T5 ReLU input within this fraction of its call's largest |input| of 0
+# is a kink that float32 rounding can put on either side (64 ulp)
+NEAR_KINK = 2.0 ** -17
+
+
+def _float64_grads(t64, batch):
+    """The trainable grads of the float64 reference executor t64 (its
+    generator and LoRA in float64; the retriever float32) on `batch`: one
+    dict for each side of every ReLU input of the generator's T5 (relu
+    feed-forward) within NEAR_KINK of 0, the float64 run's own side first.
+    At such an input the loss has a kink and the gradient a jump, so a
+    float32 run (either package's) may take either side. In the blip2-exact
+    case, the answers some hash seeds pick make a first update that puts
+    one such input at 5.7e-7 at step 3, and JAX's float32 LoRA grads of
+    the T5 encoder, jitted or not, land on the other side: up to 24x
+    ATOL_GRAD from the float64 run's own, which central differences of
+    the float64 loss confirm (the port's float32 lands on its side)."""
+    import itertools
+
+    from ravqa_tpu_torch.models.t5 import T5FF
+    b64 = t64.make_train_batch(batch)
+    orig = T5FF.forward
+    calls, forced = [], {}
+
+    def forward(self, x):
+        if self.gated:
+            return orig(self, x)
+        pre = self.wi(x)
+        i = len(calls)
+        calls.append(pre.detach())
+        pos = pre > 0
+        if i in forced:
+            pos = pos.clone()
+            idx, side = forced[i]
+            pos.view(-1)[idx] = side
+        return self.wo(torch.where(pos, pre, torch.zeros_like(pre)))
+
+    T5FF.forward = forward
+    try:
+        sides = [_port_grads(t64, b64)]
+        # a kink's copies (one input value in one call: a passage or a
+        # blank row repeated in the batch) take one side together
+        kinks: dict = {}
+        for i, pre in enumerate(calls):
+            flat = pre.view(-1)
+            near = flat.abs() <= NEAR_KINK * flat.abs().max()
+            for j in torch.nonzero(near).view(-1).tolist():
+                kinks.setdefault((i, float(flat[j])), []).append(j)
+        assert len(kinks) <= 6, f"{len(kinks)} ReLU kinks"
+        for flip in itertools.product((False, True), repeat=len(kinks)):
+            if not any(flip):
+                continue
+            by_call: dict = {}
+            for ((i, v), js), f in zip(kinks.items(), flip):
+                by_call.setdefault(i, ([], []))
+                by_call[i][0].extend(js)
+                by_call[i][1].extend([(v > 0) != f] * len(js))
+            forced.clear()
+            forced.update({i: (torch.tensor(js), torch.tensor(ss))
+                           for i, (js, ss) in by_call.items()})
+            calls.clear()
+            sides.append(_port_grads(t64, b64))
+    finally:
+        T5FF.forward = orig
+    return sides
 
 
 TRAIN_CASES = {
@@ -531,6 +613,10 @@ def test_train_step_rag_matches_jax(world, case):
     rag_cfg, static = _set_retrieval(world, jex, kind, retrieval, flags)
     tex = _port_executor(world, kind, rag_cfg, static,
                          params=jax.device_get(jex.state.params))
+    t64 = _port_executor(world, kind, rag_cfg, static,
+                         params=jax.device_get(jex.state.params))
+    t64.model.generator.double()
+    t64.model.lora.double()
     lrs = {"lora": TRAIN["lr"], "retriever": TRAIN["retriever_lr"]}
     for step, idxs in enumerate(([0, 1, 2, 3], [4, 5, 6, 7],
                                  [8, 9, 10, 11], [2, 5, 8, 11])):
@@ -539,8 +625,15 @@ def test_train_step_rag_matches_jax(world, case):
                   jex.make_train_batch(batch).items()}
         tbatch = tex.make_train_batch(batch)
         jm, jgrads = _jax_train_step(jex, jbatch)
-        _assert_grads_close(_port_grads(tex, tbatch),
-                            _jax_grads(jex, jgrads), f"step {step}")
+        # both packages' float32 grads against the float64 run (on a side
+        # of any ReLU kink within float32's reach); the answers' frequency
+        # ties break by Python's salted set order in both packages, so the
+        # data, and with them the kinks, change from process to process
+        sides = _float64_grads(t64, batch)
+        _assert_grads_close_to_a_side(_port_grads(tex, tbatch), sides,
+                                      f"step {step} port")
+        _assert_grads_close_to_a_side(_jax_grads(jex, jgrads), sides,
+                                      f"step {step} JAX")
         tm = tex.train_step(tbatch)
         for key in ("loss", "nll_loss", "rag_loss", "additional_loss",
                     "grad_norm"):
@@ -558,6 +651,9 @@ def test_train_step_rag_matches_jax(world, case):
             # the optimizer keeps its own state), so its grads compare as
             # tightly as the first's
             tex.load_params_tree(jax.device_get(jex.state.params))
+            t64.load_params_tree(jax.device_get(jex.state.params))
+            t64.model.generator.double()
+            t64.model.lora.double()
     assert tex.optimizer.updates == 2
     assert any(float(e["lora_b"].detach().abs().max()) > 0
                for e in tex.lora.values())

@@ -300,6 +300,128 @@ def test_bounded_queue_sheds_and_stop_fails_pending():
         assert f.done()                           # left pending
 
 
+BUCKET_CASES = [dict(max_batch=1), dict(max_batch=5), dict(max_batch=8),
+                dict(max_batch=32), dict(max_batch=33),
+                dict(max_batch=8, batch_buckets=(8,)),
+                dict(max_batch=8, batch_buckets=(3, 8, 3, 16)),
+                dict(max_batch=32, batch_buckets=[1, 4, 16, 32])]
+
+
+@pytest.mark.parametrize("case", range(len(BUCKET_CASES)))
+def test_buckets_match_jax(case):
+    """ServeConfig.buckets() and the bucket each batch size pads to, as
+    the JAX server's; a largest bucket below max_batch is refused by
+    both."""
+    from ravqa_tpu import serving as jax_serving
+    kw = BUCKET_CASES[case]
+    got = ServeConfig(**kw).buckets()
+    assert got == jax_serving.ServeConfig(**kw).buckets()
+    ex = _SlowExecutor()
+    ex.release.set()
+    server = RetrievalServer(ex, _StubSearcher(), _Tok(),
+                             config=ServeConfig(**kw))
+    try:
+        for n in range(1, kw["max_batch"] + 1):
+            want = min(b for b in got if b >= n)
+            assert server._bucket(n) == want
+            assert len(server._padded(list(range(n)))) == want
+    finally:
+        server.stop()
+    for mod in (jax_serving, sys.modules[ServeConfig.__module__]):
+        with pytest.raises(AssertionError):
+            mod.ServeConfig(max_batch=9, batch_buckets=(4, 8)).buckets()
+
+
+def test_padded_dispatch_matches_unpadded_search(servers):
+    """A dispatch of 3 runs at bucket 4 with a copy of its first request;
+    the 3 answers are the unpadded search's (tie-aware, the file's
+    tolerance), and the server records (3, 4). Live requests are
+    dispatched at bucket sizes only."""
+    _, tserver, items = servers
+    qt = tserver.qt
+    rows = []
+    for it in items[:3]:
+        ids, mask = qt.tensorize([it["question"]])
+        rows.append((ids[0], mask[0], np.asarray(it["image_features"],
+                                                 np.float32), None))
+    n0 = len(tserver.sizes)
+    padded = tserver._padded(rows)
+    assert tserver.sizes[n0:] == [(3, 4)] and len(padded) == 4
+    assert padded[3] is rows[0]
+    with torch.inference_mode():
+        ps, pr = tserver.searcher.search_device(tserver.encode(padded), 10)
+        us, ur = tserver.searcher.search_device(tserver.encode(rows), 10)
+    assert ps.shape == (4, 10)
+    lq = qt.query_maxlen + tserver.ex.model.cfg.prefix_len
+    tol = dict(rtol=1e-4, atol=1e-4 * lq)
+    pids = tserver.searcher.index.pids
+    for i in range(3):
+        _tie_aware(pids[pr[i].numpy()], ps[i].numpy(),
+                   pids[ur[i].numpy()], us[i].numpy(), tol)
+    texts = [it["question"] for it in items[:5]]
+    got = tserver.search_batch(texts, np.stack(
+        [it["image_features"] for it in items[:5]]))
+    assert len(got) == 5
+    buckets = tserver.cfg.buckets()
+    assert all(size in buckets and n <= size
+               for n, size in tserver.sizes)
+
+
+class _StubRag:
+    """A RagExecutor stand-in: generate answers each row with its question
+    and keeps the batches it was given."""
+
+    def __init__(self):
+        self.batches = []
+
+    def generate(self, batch):
+        self.batches.append(batch)
+        n = len(batch["questions"])
+        return {"predictions": [f"{q}|{i}" for q, i in zip(
+                    batch["questions"], batch["question_ids"])],
+                "doc_scores": np.arange(n * 2, dtype=np.float32).reshape(
+                    n, 2),
+                "retrieved_contents": [[q] for q in batch["questions"]]}
+
+
+def test_vqa_server_pads_whole_rows():
+    """VQAServer pads a dispatch to its bucket with copies of the first
+    request's whole row (question, ids, image features, pixels and the
+    static-retrieval key) and answers the real requests only; warm_up
+    runs each bucket once."""
+    from ravqa_tpu_torch.serving import VQAServer
+    ex = _StubRag()
+    server = VQAServer(ex, _Tok(), image_feature_dim=3, pixel_shape=(2, 2, 3),
+                       config=ServeConfig(max_batch=8, max_wait_ms=500.0))
+    try:
+        server.warm_up()
+        assert [len(b["questions"]) for b in ex.batches] == [1, 2, 4, 8]
+        ex.batches.clear()
+        futs = [server.submit(f"q{i}", np.full(3, i, np.float32),
+                              np.full((2, 2, 3), i, np.float32),
+                              question_id=str(i)) for i in range(3)]
+        answers = [f.result(timeout=30) for f in futs]
+    finally:
+        server.stop()
+    got = [a.answer for a in answers]
+    assert got == ["q0|0", "q1|1", "q2|2"]
+    sent = [b for b in ex.batches]
+    rows = sum(len(b["questions"]) for b in sent)
+    assert all(len(b["questions"]) in (1, 2, 4, 8) for b in sent)
+    assert rows >= 3
+    for b in sent:
+        n = len(b["questions"])
+        real = [i for i, q in enumerate(b["questions"])
+                if i == 0 or q != b["questions"][0]]
+        for i in range(len(real), n):
+            assert b["questions"][i] == b["questions"][0]
+            assert b["question_ids"][i] == b["question_ids"][0]
+            np.testing.assert_array_equal(b["image_features"][i],
+                                          b["image_features"][0])
+            np.testing.assert_array_equal(b["pixel_values"][i],
+                                          b["pixel_values"][0])
+
+
 def test_submit_refuses_images_the_server_does_not_take():
     """A request whose image features have another width, or that sends
     pixels to a server without a ViT, fails at submit() and never reaches
@@ -337,13 +459,19 @@ def test_serve_slice_imports_no_jax(tmp_path):
     (the VinVL detector and the Oscar captioner at tiny widths over a
     synthetic OK-VQA world through the extraction scripts' loops, then
     train and test on a tiny cut of configs/okvqa/flmr_with_roi.json, the
-    test with --use_dummy_data), in one process: nothing of the JAX
-    package (ravqa_tpu) or of jax/jaxlib/flax loads."""
+    test with --use_dummy_data), and text-retrieval training
+    (Collection/Queries/Triples from a ranking, the cross-encoder Scorer's
+    distillation_scores.json, KD triples, TriplesExecutor.train_on_triples
+    under the profiler's trace, its evaluation through
+    evaluate_msmarco_ranking, the BEM fallback; the HF T5/BLIP-2
+    converters imported), in one process: nothing of the JAX package
+    (ravqa_tpu) or of jax/jaxlib/flax loads."""
     code = (
         "import sys, numpy as np\n"
         "from ravqa_tpu_torch.config import apply_overrides, load_config\n"
         "from ravqa_tpu_torch.main import build_pipeline, build_server, main\n"
         "import ravqa_tpu_torch.profile_serve\n"
+        "import ravqa_tpu_torch.scripts.profiler_trace_loss\n"
         "import ravqa_tpu_torch.ops.residual\n"
         "import ravqa_tpu_torch.ops.stage2\n"
         "import ravqa_tpu_torch.scripts.exp_residual_stage2\n"
@@ -447,6 +575,69 @@ def test_serve_slice_imports_no_jax(tmp_path):
         "assert main(roi[:2] + ['--mode', 'train'] + roi[2:]) == 0\n"
         "assert main(roi[:2] + ['--mode', 'test', '--use_dummy_data']\n"
         "            + roi[2:]) == 0\n"
+        "from ravqa_tpu_torch.data.colbert_data import (Collection,\n"
+        "    Queries, Triples, create_triples_from_ranking)\n"
+        "from ravqa_tpu_torch.executors.triples_executor import "
+        "TriplesExecutor\n"
+        "from ravqa_tpu_torch.metrics import (evqa_accuracy, mrr_at_k,\n"
+        "    success_at_k, initialize_bem_scoring_function)\n"
+        "from ravqa_tpu_torch.metrics.retrieval_metrics import (\n"
+        "    evaluate_msmarco_ranking, save_ranking_tsv)\n"
+        "from ravqa_tpu_torch.models import (CrossEncoderReranker,\n"
+        "    FLMRModelConfig, FLMRRetriever, RerankerConfig,\n"
+        "    RerankerTokenizer, convert_hf_blip2_params,\n"
+        "    convert_hf_t5_params)\n"
+        "from ravqa_tpu_torch.retrieval import (Scorer,\n"
+        "    kd_triples_from_scores, load_distillation_scores)\n"
+        "from ravqa_tpu_torch.utils import (StepTimer, annotate,\n"
+        "    device_memory_stats, trace)\n"
+        "import torch\n"
+        "tok = data['tokenizer']\n"
+        "col = Collection(list(corpus.contents), list(corpus.ids))\n"
+        "qs = Queries({str(i): it['question'] for i, it in\n"
+        "              enumerate(data['train'].items)})\n"
+        "ranked = [list(corpus.ids[:6])] * len(qs)\n"
+        "rows = create_triples_from_ranking(ranked, [[corpus.ids[0]]] *\n"
+        "                                   len(qs), list(qs.qid2text))\n"
+        "rr = CrossEncoderReranker(RerankerConfig.tiny(\n"
+        "    vocab_size=tok.vocab_size + 8, head='pooler_classifier'))\n"
+        "sc = Scorer(rr, RerankerTokenizer(tok, 32), bsize=8)\n"
+        f"dpath = {str(tmp_path / 'distillation_scores.json')!r}\n"
+        "sc.score_ranking([r[0] for r in rows for _ in r[1:]],\n"
+        "                 [p for r in rows for p in r[1:]], qs.qid2text,\n"
+        "                 dict(zip(col.pids, col.passages)), dpath)\n"
+        "kd = Triples(kd_triples_from_scores(load_distillation_scores(\n"
+        "    dpath), nway=2))\n"
+        "fm = FLMRRetriever(FLMRModelConfig.tiny(\n"
+        "    bert=BertConfig.tiny(vocab_size=tok.vocab_size + 8),\n"
+        "    query_mode='text_only', dim=16, nway=2))\n"
+        "tx = TriplesExecutor(fm, TrainConfig(lr=1e-3), device='cpu',\n"
+        "    quiet=True, distill_weight=1.0,\n"
+        "    query_tokenizer=data['query_tokenizer'],\n"
+        "    doc_tokenizer=data['doc_tokenizer'])\n"
+        "timer = StepTimer()\n"
+        f"with trace({str(tmp_path / 'trace')!r}), annotate('step'):\n"
+        "    m = tx.train_on_triples(kd, qs, col, bsize=2, steps=2)\n"
+        "    timer.tick(torch.ones(()))\n"
+        "assert np.isfinite(m['distill_kl']) and tx.step == 2\n"
+        "assert device_memory_stats() == [{'device': 'cpu'}]\n"
+        "r = tx.evaluate_retrieval(query_eval_batches(data['test']),\n"
+        "    corpus_doc_batches(corpus, data['doc_tokenizer']), corpus.ids,\n"
+        "    pos_item_ids=[it['pos_item_ids'] for it in data['test'].items])\n"
+        "got = r['_retrieved_pids']\n"
+        "pos = [it['pos_item_ids'] for it in data['test'].items]\n"
+        f"rank = {str(tmp_path / 'ranking.tsv')!r}\n"
+        "save_ranking_tsv(rank, range(len(got)), got,\n"
+        "                 [[0.0] * len(g) for g in got])\n"
+        f"qrels = {str(tmp_path / 'qrels.tsv')!r}\n"
+        "with open(qrels, 'w') as f:\n"
+        "    for i, ps in enumerate(pos):\n"
+        "        f.writelines(f'{i} 0 {p} 1' + chr(10) for p in ps)\n"
+        "e = evaluate_msmarco_ranking(rank, qrels)\n"
+        "assert abs(e['mrr@10'] - mrr_at_k(got, pos, 10)) < 1e-12\n"
+        "assert 0 <= success_at_k(got, pos, 5) <= 1\n"
+        "fb = initialize_bem_scoring_function()\n"
+        "assert evqa_accuracy(['a cat'], [['cat']], ['q'], fb) == 1.0\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('ravqa_tpu', 'jax', 'jaxlib', 'flax')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -478,6 +669,41 @@ def test_profile_serve_needs_a_gpu():
         pytest.skip("checks the refusal on a machine without a GPU")
     with pytest.raises(SystemExit, match="CUDA GPU"):
         main([CONFIG])
+
+
+def test_profile_serve_counts_device_events():
+    """_device_events' sums, kernel count and launch count of a Chrome
+    trace, leaving out the burn-in's spin kernels but counting their
+    launches."""
+    from ravqa_tpu_torch.profile_serve import BURN_IN_KERNEL, _device_events
+
+    events = [
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel"},
+        {"cat": "kernel", "name": "spin_kernel(long)", "dur": 5.0},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel"},
+        {"cat": "cuda_driver", "name": "cuLaunchKernelEx"},
+        {"cat": "kernel", "name": "maxsim_kernel", "dur": 1500.0},
+        {"cat": "kernel", "name": "maxsim_kernel", "dur": 500.0},
+        {"cat": "cuda_runtime", "name": "cudaMemcpyAsync"},
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoH", "dur": 250.0},
+        {"cat": "cpu_op", "name": "aten::mm", "dur": 9.0}]
+
+    class Prof:
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": events}, f)
+
+    out, kernels, launches = _device_events(Prof(), BURN_IN_KERNEL)
+    assert out == {"maxsim_kernel": [2.0, 2], "Memcpy DtoH": [0.25, 1]}
+    assert (kernels, launches) == (2, 3)
+
+
+def test_profiler_trace_loss_needs_a_gpu():
+    from ravqa_tpu_torch.scripts.profiler_trace_loss import main
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a GPU")
+    with pytest.raises(SystemExit, match="CUDA device"):
+        main(["--seconds", "1"])
 
 
 @pytest.mark.parametrize("argv", [
