@@ -83,8 +83,10 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. the compressed serve slice: phase 7's index copied into an int8 index
      served in exact mode (K5) and a residual one (factored 64 x 128,
      nbits 2) served hierarchical fast (K3, K4, K6), each behind
-     RetrievalServer; 32 requests (int8: its plain search on the CPU
-     takes ~1 s a query) and 64 from 4 threads, every answer checked
+     RetrievalServer; 16 requests (int8: its plain search on the CPU
+     takes ~0.7 s a query; 32 before phase 22 needed the room) and 64 from 4
+     threads, every
+     answer checked
      against the same search run by the plain versions on a CPU copy of
      the compressed index, on the query embeddings each dispatch searched
      (as in 7); each kernel launches at least once per dispatch;
@@ -124,8 +126,9 @@ Phases, in order; any failure raises and the script exits non-zero:
  14. the training slice: `main --mode train` in-process on
      configs/synthetic_flmr_base_train.json (configs/okvqa/flmr_base.json's
      widths: BERT-base, B=30, nway 5 with in-batch negatives, lr 1e-5 and
-     1e-4 for the mapping network; 24 steps, a validation at 12 and 24 over
-     16,384 passages indexed on the card), then `--mode eval` from the
+     1e-4 for the mapping network; 12 steps (TRAIN_CUT; 24 before phase 22),
+     a validation at 12 over 16,384 passages indexed on the card), then
+     `--mode eval` from the
      checkpoint it wrote, in exact mode and with
      model_config.search_mode=hierarchical. Gates: every loss finite; K1 on
      the float32 index's split route in every exact evaluation and K2/K3
@@ -138,7 +141,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      versions' search of a CPU copy for 16 (both tie-aware top-10, 1e-3);
      the eval from the checkpoint reproduces the final validation's recall@K
      and precision@K; params.msgpack decodes with the port's reader.
-     Prints the step's ms (median of steps 3-24) and steps/s, padded
+     Prints the step's ms (median of steps 3-12) and steps/s, padded
      query+doc positions/s and attended (attention-mask) tokens/s, peak
      max_memory_allocated and the evaluations' seconds (corpus encode,
      search), each beside the card's name and power limit.
@@ -170,8 +173,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      retrieval through K1-f32 over 16,384 passages, then BLIP-2 with EVA
      ViT-g/14, the 12-layer Q-Former and Flan-T5-XL at their published
      widths, LoRA rank 8 merged, 5 passages, 5 beams, 512 + 32 encoder
-     tokens, 10 decoded tokens; random weights drawn on the card), 16
-     requests from 4 closed-loop clients, then 3 bursts of 8, each request
+     tokens, 10 decoded tokens; random weights drawn on the card), 8
+     requests from 4 closed-loop clients, then 2 bursts of 8 (16 and 3
+     before phase 22 needed the room), each request
      with seeded 768-d features and its own seeded 224 x 224 image. Gates:
      every request answered with 5 finite doc_scores and 5 passages;
      K1-f32 launched once per dispatch on the split route (counts set to
@@ -270,7 +274,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      4,096 passages, 256 train and 64 test questions with 224 x 224
      images, each with its instruction), one train_step card vs CPU (phase
      13's tolerances), then train_m2kr for 24 steps of 8 at temperature 4
-     with evaluate_m2kr at 12 and 24. Gates: per-task losses finite; the
+     with evaluate_m2kr at 24 (at 12 and 24 before phase 22). Gates: per-task
+     losses finite; the
      sampled task names equal numpy default_rng(seed)'s draws; the ViT
      bit-identical without grads; each task evaluation's ranking against a
      plain search (as in 18); K1-f32 once per task evaluation (6; counts
@@ -285,8 +290,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      maskrcnn state dict) writes predictions.tsv; the Oscar-base
      captioner writes the caption JSON; then `main --mode train` on
      configs/synthetic_flmr_roi_train.json (OCR on the objects, ROI crops,
-     the CLIP ViT-B/32 over every image and ROI, 24 steps of B = 30, a
-     validation) and `--mode test`. Gates: the detector card vs CPU on one
+     the CLIP ViT-B/32 over every image and ROI, 12 steps of B = 30 (24
+     before phase 22), a validation) and `--mode test`. Gates: the detector card
+     vs CPU on one
      image (feature map, RPN outputs, box logits on fixed proposals: 1e-4
      of their scale; the selection redone on the CPU from the card's
      tensors equal; proposals and detections exact but for near-ties);
@@ -310,7 +316,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      x 384, 12 heads) scores them through Scorer.score_ranking into
      distillation_scores.json, read back by load_distillation_scores and
      turned into nway-8 rows by kd_triples_from_scores;
-     TriplesExecutor.train_on_triples takes 24 steps of 16 queries
+     TriplesExecutor.train_on_triples takes 12 steps of 16 queries (24
+     before phase 22)
      (in-batch negatives, distillation weight 1); the dev queries are
      evaluated through K1-f32 (B=64, Lq=32, N=16,384, Ld=180): MRR@10 and
      success@{5,10,50}, the ranking TSV scored by
@@ -325,9 +332,44 @@ Phases, in order; any failure raises and the script exits non-zero:
      distillation_scores.json round trip exact; evaluate_msmarco_ranking's
      MRR@10 equal to mrr_at_k's; a torch.profiler trace of two steps
      naming their annotate span. Prints the step ms (median of steps
-     3-24; train_step alone beside it), queries/s trained and peak memory
+     3-12; train_step alone beside it), queries/s trained and peak memory
      (device_memory_stats), the teacher's pairs/s, each evaluation's
      encode and search seconds, K1-f32 beside its bound, the metrics.
+ 22. sharded search and data parallelism on one card (sharded_slice). The
+     ranks share cuda:0, so they join a gloo group (NCCL refuses two
+     ranks on one GPU), whose collectives copy through the host. (a)
+     phase 7's index (saved with save_index after phase 10, float32, dim
+     128, Ld 220, 16,384 passages) loaded a quarter a rank by 4 ranks
+     (load_index with the mesh), 32 of its served queries searched
+     exact (K1-f32), hierarchical fast (K2 on the int8 block codes as
+     bf16, K4), hierarchical reference (K2), int8 exact (K5) and residual
+     hierarchical fast (factored 64 x 128, nbits 2: K2, K4, K6): each
+     against the same sharded search by the plain versions on CPU copies
+     of the shards (the merge over gloo on the host; 8 queries,
+     tie-aware at 1e-3), the exact one also against the unsharded K1-f32
+     top-10; every listed kernel launched on every rank (counts set to 0
+     just before the search, read just after); ms per batch of 32 beside
+     the single-device search's. (b) the exact search over an NCCL group
+     of one against the single-device one. (c) main --mode serve
+     --num_devices 4 on the exact config (corpus cut to 4,096 passages),
+     32 requests from 4 HTTP clients, each answer against the
+     single-device server's (tie-aware at 1e-3); SIGTERM ends every rank.
+     (d) main --mode train --num_devices 2 on
+     configs/synthetic_flmr_base_train.json (B=30 global, nway 5, in-batch
+     negatives across the ranks; corpus cut to 4,096, 4 steps): the first
+     step at phase 13's tolerances against the single-device step on the
+     same global batch, its loss and grad norm against the full batch's
+     forward and backward, its grads and update against the one-device
+     step whose towers run over the ranks' halves (a 15-row batch rounds
+     the embeddings apart, flipping near-ties of MaxSim's max), the
+     ranks' parameters equal by checksum after every step, the step ms;
+     --mode test on its checkpoint over 2 ranks (sharded index, K1-f32 in
+     each shard) against the single-device test's recall/precision@K.
+     (e) one FSDP step of 2 ranks on the DDP run's first batch against
+     that DDP step (loss rtol 1e-5, Adam's moments 1e-6, rank 0 holding
+     about half of them), and entry.dryrun_multichip(4, "cuda") (its
+     fast-preset search through K4 on shards of 2 blocks, which miss the
+     TPU stage-1 lane rule) beside (c), while (c)'s servers start.
 Every phase prints its seconds. The line before the last is the kernels'
 JSON record: each kernel's launches on its path, its error against its
 plain version, its time and its plain version's, and its bound, the least
@@ -374,6 +416,9 @@ TOWER_ATOL = 1e-4
 # them by ~1e-5, and 1e-3 leaves room without hiding a wrong max or slot
 SWEEP_ATOL = 1e-3
 K = 10
+# phase 14's depth: 12 steps and one validation (24 and two before phase
+# 22 needed the room)
+TRAIN_CUT = ["train.total_steps=12"]
 
 
 _PHASE_START = [time.perf_counter()]
@@ -438,10 +483,16 @@ def bound(nbytes, ops, kind):
 
 def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd, ops=None):
     """Time a kernel's wrapper and its plain version (median of 10, CUDA
-    events) and keep them, its error and its bound in out[kernel]: under
+    events; the plain version's of 3 when it takes over 100 ms) and keep
+    them, its error and its bound in out[kernel]: under
     "shapes" for each shape, and the first shape's at the top. `ops`, the
     function's operations, adds the rate reached (tera_ops_per_s)."""
-    ms, plain_ms = time_ms(fn), time_ms(plain_fn)
+    # a plain version slower than 100 ms a call: the median of 3 (its
+    # time is information; a long median would cost the run its room)
+    ms = time_ms(fn)
+    plain_ms = time_ms(plain_fn, iters=3, warmup=1)
+    if plain_ms < 100:
+        plain_ms = time_ms(plain_fn)
     o = out[kernel]
     o["err"] = max(o["err"], err)
     o["shapes"][shape] = {"ms": ms, "plain_ms": plain_ms, **bnd}
@@ -1105,7 +1156,7 @@ def hier_serve_slice(maxsim):
     recall = _recall(rows, exact)
     print(f"recall@10 vs exact search (random weights, not gated): "
           f"{recall:.4f}", flush=True)
-    return launches, dispatches, recall, err, (data, server, index)
+    return launches, dispatches, recall, err, (data, server, index, q)
 
 
 def random_records(g, n, ld, dim, nbits, n_cent):
@@ -1380,6 +1431,7 @@ def compressed_serve_slice(maxsim, data, server, index):
     residual copy (factored 64 x 128, nbits 2) served hierarchical fast
     (K3, K4, K6), each behind RetrievalServer. Returns {slice: {"launches",
     "dispatches", "err", "search_ms_b32"}}."""
+    import torch
     from ravqa_tpu_torch.ops import quant, residual
     from ravqa_tpu_torch.retrieval import LateInteractionSearcher
     from ravqa_tpu_torch.serving import RetrievalServer
@@ -1397,7 +1449,7 @@ def compressed_serve_slice(maxsim, data, server, index):
     # requests keep the phase inside the run's time
     for name, idx, kw, wrappers, n in (
             ("int8 exact", i8, dict(mode="exact"),
-             [quant.maxsim_search_int8], 32),
+             [quant.maxsim_search_int8], 16),
             ("residual hierarchical fast", res,
              dict(mode="hierarchical", preset="fast"),
              [maxsim.coarse_sweep_int8, maxsim.stage1_sweep,
@@ -1416,7 +1468,9 @@ def compressed_serve_slice(maxsim, data, server, index):
             raise AssertionError(f"{name}: launches {launches} for "
                                  f"{dispatches} dispatches")
         q, _, err = check_served(srv, idx, record, scores, pids)
-        ms = time_ms(lambda: srv.searcher.search_device(q[:32], K))
+        # a batch of 32 of the served queries (the int8 leg serves 16)
+        q32 = q[torch.arange(32, device=q.device) % len(q)]
+        ms = time_ms(lambda: srv.searcher.search_device(q32, K))
         print(f"search alone: {ms:.3f} ms per batch of 32", flush=True)
         out[name] = {"launches": dict(zip((w.__name__ for w in wrappers),
                                           launches)),
@@ -2014,10 +2068,10 @@ def training_slice(config_path, smi, device="cuda"):
     memory and the evaluations' seconds beside the card's name and power
     limit."""
     import tempfile
-    from ravqa_tpu_torch.main import load_config
+    from ravqa_tpu_torch.main import apply_overrides, load_config
     from ravqa_tpu_torch.models import read_flax_msgpack
     from ravqa_tpu_torch.ops import maxsim
-    cfg = load_config(config_path)
+    cfg = apply_overrides(load_config(config_path), TRAIN_CUT)
     tc, pc = cfg.train, cfg.data_pipeline.loaders.setup_kwargs
     out = {}
 
@@ -2029,7 +2083,8 @@ def training_slice(config_path, smi, device="cuda"):
                                      prefix=".chip_smoke_train_") as tmp:
         common = ["--config", config_path, "--device", device, "--log_dir",
                   tmp, "--experiment_name", "train"]
-        rec = drive(common + ["--mode", "train"], "train")
+        rec = drive(common + ["--mode", "train", "--opts"] + TRAIN_CUT,
+                    "train")
         steps = rec.steps
         losses = [s[1] for s in steps]
         if len(steps) != tc.total_steps or not np.all(np.isfinite(
@@ -2719,7 +2774,7 @@ def rag_serve_slice(maxsim, k1, smi):
     maxsim.maxsim_search.split_launches = 0
     d0 = server.dispatches
     try:
-        results, lat, rates = drive_vqa(server, data)
+        results, lat, rates = drive_vqa(server, data, n=8, bursts=2)
         launches = maxsim.maxsim_search.launches
         split = maxsim.maxsim_search.split_launches
         dispatches = server.dispatches - d0
@@ -3617,7 +3672,9 @@ def dpr_on_wit(data, smi):
 # ---------------------------------------------------------------------------
 
 M2KR_TASKS = ("okvqa", "wit", "infoseek")
-M2KR_STEPS, M2KR_BATCH, M2KR_VAL_EVERY, M2KR_SEED = 24, 8, 12, 0
+# one evaluation round at step 24 (two, at 12 and 24, before phase 22
+# needed the room)
+M2KR_STEPS, M2KR_BATCH, M2KR_VAL_EVERY, M2KR_SEED = 24, 8, 24, 0
 
 
 def _m2kr_world(cfg, seed):
@@ -3639,8 +3696,9 @@ def m2kr_slice(maxsim, k1, smi):
     BERT-base towers, the mapping and the transformer mapping train)
     trained by train_m2kr over three M2KR tasks (okvqa, wit, infoseek:
     SyntheticOKVQA worlds of seeds 0-2, each with its DEFAULT_INSTRUCTIONS
-    prompt), 24 steps of 8 at temperature 4 with evaluate_m2kr every 12
-    (two rounds of 3 indexes and 3 K1 launches). Gates: one train_step
+    prompt), 24 steps of 8 at temperature 4 with evaluate_m2kr every
+    M2KR_VAL_EVERY (one round of 3 indexes and 3 K1 launches). Gates: one
+    train_step
     card vs CPU first (executor_step_vs_cpu); every per-task loss finite;
     the sampled task names equal numpy default_rng(seed)'s draws over the
     mixture weights; the ViT bit-identical and without grads; each task's
@@ -3805,7 +3863,9 @@ def m2kr_slice(maxsim, k1, smi):
 # ---------------------------------------------------------------------------
 
 ROI_CONFIG = os.path.join(HERE, "configs", "synthetic_flmr_roi_train.json")
+# 12 steps (24 before phase 22 needed the room)
 ROI_IMAGES, ROI_TRAIN_Q, ROI_TEST_Q, ROI_PASSAGES = 128, 256, 64, 16384
+ROI_CUT = ["train.total_steps=12", "train.val_every=12"]
 LQ_ROI = 352          # 32 text + (1 global + 9 ROI) x 32 mapping tokens
 DET_CANVAS = (1024, 1024)
 DET_CPU_CANVAS = (1024, 1024)      # the card-vs-CPU image's canvas
@@ -4184,7 +4244,7 @@ def roi_slice(maxsim, k1, smi):
     Oscar captioner (roi_captioning) writes the caption JSON; then `main
     --mode train` on configs/synthetic_flmr_roi_train.json (OCR attached to
     the objects, ROI crops, the CLIP ViT-B/32 over every image and its <= 9
-    ROIs on the card, 24 steps of B = 30 with nway 5, one validation) and
+    ROIs on the card, 12 steps of B = 30 with nway 5, one validation) and
     `--mode test` from its checkpoint. Gates: every loss finite; K1-f32
     once in each exact evaluation, at Lq = 352, all on the split route;
     the evaluation's ranking against a plain search (check_eval_search);
@@ -4216,7 +4276,8 @@ def roi_slice(maxsim, k1, smi):
         out["captioner"] = roi_captioning(p, smi)
         cache_path = os.path.join(tmp, "vit_features.npz")
         opts = config_opts(p) + [
-            f"data_pipeline.features.setup_kwargs.cache_path={cache_path}"]
+            f"data_pipeline.features.setup_kwargs.cache_path={cache_path}"
+        ] + ROI_CUT
         cfg = apply_overrides(load_config(ROI_CONFIG), opts)
         tc = cfg.train
         common = ["--config", ROI_CONFIG, "--device", "cuda", "--log_dir",
@@ -4336,7 +4397,8 @@ def roi_slice(maxsim, k1, smi):
 
 TRIPLES_PASSAGES, TRIPLES_TRAIN_Q, TRIPLES_TEST_Q = 16384, 256, 64
 TRIPLES_TOPICS = 2048
-TRIPLES_STEPS, TRIPLES_BSIZE, TRIPLES_NWAY = 24, 16, 8
+# 12 steps (24 before phase 22 needed the room)
+TRIPLES_STEPS, TRIPLES_BSIZE, TRIPLES_NWAY = 12, 16, 8
 TEACHER_DEPTH = 32         # the teacher scores each train query's top 32
 QUERY_MAXLEN, DOC_MAXLEN = 32, 180      # the ColBERT text defaults
 SCORE_RTOL = 1e-4          # a forward card vs CPU, of the scores' scale
@@ -4595,7 +4657,7 @@ def triples_slice(maxsim, k1, smi):
             if len(logged) != TRIPLES_STEPS or not all(
                     np.all(np.isfinite(v)) for v in series.values()):
                 raise AssertionError(f"{len(logged)} steps; {series}")
-            ms = [t * 1e3 for t in timer.times[3:]]       # steps 3-24
+            ms = [t * 1e3 for t in timer.times[3:]]       # steps 3 on
             # train_step alone (the recorder's, to the card's finish),
             # without Triples.batches and make_batch's tokenization
             alone = [x[0] * 1e3 for x in rec.steps[2:]]
@@ -4744,6 +4806,667 @@ def triples_slice(maxsim, k1, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: sharded search and data parallelism on one card
+# ---------------------------------------------------------------------------
+# Every multi-rank run here puts its ranks on the one card (cuda:0), so
+# they join a gloo group (NCCL refuses two ranks on one GPU) whose
+# collectives copy through the host; (b) is an NCCL group of one.
+
+SHARDS = 4
+# mode: (searcher kwargs, index kind, the kernel wrappers it launches)
+SHARD_MODES = {
+    "exact": (dict(mode="exact"), "f32", ("maxsim_search",)),
+    "hierarchical fast": (dict(mode="hierarchical", preset="fast"), "f32",
+                          ("coarse_sweep", "stage1_sweep")),
+    "hierarchical reference": (dict(mode="hierarchical",
+                                    preset="reference"), "f32",
+                               ("coarse_sweep",)),
+    "int8 exact": (dict(mode="exact"), "int8", ("maxsim_search_int8",)),
+    "residual hierarchical fast": (dict(mode="hierarchical", preset="fast"),
+                                   "residual",
+                                   ("coarse_sweep", "stage1_sweep",
+                                    "maxsim_residual")),
+}
+SHARD_CPU_QUERIES = 8
+SERVE_CUT = ["data_pipeline.raw.setup_kwargs.n_docs=4096"]
+DDP_OPTS = ["data_pipeline.raw.setup_kwargs.n_docs=4096",
+            "train.total_steps=4", "train.val_every=0", "train.log_every=1"]
+
+
+def _wrappers():
+    from ravqa_tpu_torch.ops import maxsim, quant, residual
+    return {"maxsim_search": maxsim.maxsim_search,
+            "coarse_sweep": maxsim.coarse_sweep,
+            "coarse_sweep_int8": maxsim.coarse_sweep_int8,
+            "stage1_sweep": maxsim.stage1_sweep,
+            "maxsim_search_int8": quant.maxsim_search_int8,
+            "maxsim_residual": residual.maxsim_residual}
+
+
+def _tf32_off():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _trunc_cpu_copy(index):
+    """A CPU copy of an exact-mode shard without the token columns past
+    the last one any doc's mask keeps (exact_cpu_copy's trick, for float
+    and int8 tokens)."""
+    mask = index.mask.cpu()
+    ld = int(mask.bool().any(dim=0).nonzero().max()) + 1
+    cut = {f: getattr(index, f)[:, :ld].contiguous().cpu()
+           for f in ("tokens", "mask", "scales")
+           if getattr(index, f) is not None}
+    return dataclasses.replace(cpu_copy(dataclasses.replace(
+        index, tokens=None, scales=None)), **cut)
+
+
+def shard_search_rank(index_dir, q_np, ref, hier_serve):
+    """One rank of phase 22 (a): its quarter of the saved index, each
+    mode's sharded search of the 32 queries on the card (the counts set to
+    0 just before and read just after), the same sharded search by the
+    plain versions on a CPU copy of the rank's shard (the merge on the
+    host, over gloo) for the first SHARD_CPU_QUERIES queries, ms per
+    batch. Returns {mode: {launches, ms, err, bad}}."""
+    import torch
+    import torch.distributed as dist
+    from ravqa_tpu_torch.ops import maxsim
+    from ravqa_tpu_torch.parallel import barrier, local_device, make_mesh
+    from ravqa_tpu_torch.retrieval import LateInteractionSearcher, load_index
+    _tf32_off()
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    maxsim.build_kernels()
+    dev = local_device()
+    mesh = make_mesh({"index": SHARDS}, "cuda")
+    base = load_index(index_dir, torch.float32, mesh, "index", device=dev)
+    base.build_summaries(n_summary=hier_serve["n_summary"])
+    base.build_block_summaries(block_size=hier_serve["block_size"])
+    kinds = {"f32": base,
+             "int8": dataclasses.replace(base, meta=dict(base.meta))
+             .quantize_int8(),
+             "residual": dataclasses.replace(base, meta=dict(base.meta))
+             .quantize_residual((64, 128), 2, mesh, "index")}
+    q = torch.from_numpy(q_np).to(dev)
+    wrappers = _wrappers()
+    out = {"setup_s": time.perf_counter() - t0}
+    for mode, (kw, kind, names) in SHARD_MODES.items():
+        t1 = time.perf_counter()
+        idx = kinds[kind]
+        s = LateInteractionSearcher(idx, mesh, "index", **kw)
+        s.search_device(q, K)                    # warm: planes, copies
+        torch.cuda.synchronize()
+        barrier()
+        for w in wrappers.values():
+            w.launches = 0
+        scores, rows = s.search_device(q, K)
+        torch.cuda.synchronize()
+        launches = {n: wrappers[n].launches for n in names}
+        ms = time_ms(lambda: s.search_device(q, K), iters=5, warmup=1)
+        cpu_idx = (_trunc_cpu_copy(idx) if kw["mode"] == "exact"
+                   else cpu_copy(idx))
+        cpu = LateInteractionSearcher(cpu_idx, mesh, "index",
+                                      use_pallas=True, **kw)
+        want_s, want_r = cpu.search_device(q[:SHARD_CPU_QUERIES].cpu(), K)
+        got_s, got_r = scores.cpu().numpy(), rows.cpu().numpy()
+        want_s, want_r = want_s.numpy(), want_r.numpy()
+        bad = [i for i in range(len(want_s)) if not _tie_aware(
+            got_r[i], got_s[i], want_r[i], want_s[i], ATOL)]
+        err = float(np.abs(got_s[:len(want_s)] - want_s).max())
+        res = {"launches": launches, "ms": ms, "err": err, "bad": bad,
+               "cuts": s._search_fn(K).cuts,
+               "seconds": time.perf_counter() - t1}
+        if mode == "exact":
+            # against the unsharded K1-f32 search of phase 7's index
+            res["bad_vs_unsharded"] = [
+                i for i in range(len(got_s)) if not _tie_aware(
+                    got_r[i], got_s[i], ref["rows"][i], ref["scores"][i],
+                    ATOL)]
+            res["err_vs_unsharded"] = float(np.abs(got_s
+                                                   - ref["scores"]).max())
+        out[mode] = res
+        dist.barrier()
+    return out
+
+
+def nccl_one_rank(index, q_np, ref):
+    """Phase 22 (b): the exact sharded search of phase 7's index over an
+    NCCL group of one, in this process (joined through a fresh file://
+    rendezvous and left again)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from ravqa_tpu_torch.parallel import init_rank, make_mesh, mesh
+    from ravqa_tpu_torch.retrieval import LateInteractionSearcher
+    store = tempfile.mkdtemp(prefix=".chip_smoke_shard_nccl_", dir=HERE)
+    init_rank(0, 1, "cuda", "file://" + os.path.join(store, "store"),
+              timeout=120)
+    try:
+        one = make_mesh({"index": 1}, "cuda")
+        sharded = dataclasses.replace(index, mesh=one, axis="index")
+        scores, rows = LateInteractionSearcher(
+            sharded, one, "index").search_device(
+            torch.from_numpy(q_np).to(index.device), K)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        mesh._RANK_DEVICE = None
+        import shutil
+        shutil.rmtree(store, ignore_errors=True)
+    got_s, got_r = scores.cpu().numpy(), rows.cpu().numpy()
+    bad = [i for i in range(len(got_s)) if not _tie_aware(
+        got_r[i], got_s[i], ref["rows"][i], ref["scores"][i], ATOL)]
+    return {"backend": backend,
+            "err": float(np.abs(got_s - ref["scores"]).max()), "bad": bad}
+
+
+def _sums(model):
+    import torch
+    return torch.stack([p.detach().double().sum()
+                        for p in model.parameters()])
+
+
+def ddp_rank(argv, log_dir):
+    """Phase 22 (d) and (e), on 2 ranks: main --mode train --num_devices 2
+    (the first step held on rank 0 to the single-device step on the same
+    global batch: _ddp_vs_single; the ranks' parameters compared by
+    checksum after every step), --mode test on its checkpoint over the 2
+    ranks (a sharded index) against the single-device test on rank 0;
+    then one FSDP step on the first global batch against that DDP step.
+    Each part's seconds in "seconds"."""
+    import torch
+    import torch.distributed as dist
+    from ravqa_tpu_torch import main as M
+    from ravqa_tpu_torch.executors import FLMRExecutor
+    from ravqa_tpu_torch.ops import maxsim
+    from ravqa_tpu_torch.parallel import all_gather, local_device
+    _tf32_off()
+    maxsim.build_kernels()
+    rank, dev = dist.get_rank(), local_device()
+    rec = {"step_ms": [], "ranks_equal": []}
+    first_step = {}
+    orig = FLMRExecutor.train_step
+
+    def step(self, batch):
+        if self.mesh is None:                  # _ddp_vs_single's reference
+            return orig(self, batch)
+        first = self.step == 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = orig(self, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        sums = all_gather(_sums(self.model), self.dp_group)
+        rec["ranks_equal"].append(bool((sums == sums[0]).all()))
+        if first:
+            first_step.update(batch=batch, loss=float(m["loss"]),
+                              moments=_moments(self))
+            if rank == 0:
+                rec.update(_ddp_vs_single(self, batch, m, argv))
+            dist.barrier()
+        return m
+
+    FLMRExecutor.train_step = step
+    secs = rec["seconds"] = {}
+    t0 = time.perf_counter()
+    try:
+        M.main(argv + ["--mode", "train", "--num_devices", "2", "--opts"]
+               + DDP_OPTS)
+    finally:
+        FLMRExecutor.train_step = orig
+    secs["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    maxsim.maxsim_search.launches = 0
+    M.main(argv + ["--mode", "test", "--num_devices", "2", "--opts"]
+           + DDP_OPTS[:1])
+    rec["test_launches"] = maxsim.maxsim_search.launches
+    dist.barrier()
+    secs["test_sharded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if rank == 0:
+        with open(os.path.join(log_dir, "d", "test_metrics.json")) as f:
+            rec["test_sharded"] = json.load(f)
+        M.main(argv + ["--mode", "test", "--opts"] + DDP_OPTS[:1])
+        with open(os.path.join(log_dir, "d", "test_metrics.json")) as f:
+            rec["test_single"] = json.load(f)
+    dist.barrier()
+    secs["test_single"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec.update(_fsdp_vs_ddp(argv, dev, first_step))
+    secs["fsdp"] = time.perf_counter() - t0
+    return rec
+
+
+def _moments(ex):
+    """Adam's moments of every trainable parameter, whole, on the host."""
+    from ravqa_tpu_torch.parallel import full_tensor
+    state = ex.optimizer.adamw.state
+    return [full_tensor(state[p][k]).to("cpu", copy=True)
+            for p in ex.optimizer.trainable for k in ("exp_avg",
+                                                       "exp_avg_sq")]
+
+
+def _split_forward_step(ex, batch, halves=2):
+    """One single-device step whose towers encode the batch in the DDP
+    ranks' halves (the questions and their docs), the loss (FLMRRetriever
+    .forward's: nway plus in-batch negatives over every doc) on the whole
+    batch: the DDP step's arithmetic on one device. Returns its loss."""
+    import torch
+    from ravqa_tpu_torch.ops.losses import in_batch_negative_loss, nway_ce_loss
+    inp = ex._inputs(batch)
+    m, cfg = ex.model, ex.model.cfg
+    b = len(inp["query_input_ids"])
+    qs, ds, dms = [], [], []
+    for r in range(halves):
+        q_rows = slice(r * b // halves, (r + 1) * b // halves)
+        d_rows = slice(q_rows.start * cfg.nway, q_rows.stop * cfg.nway)
+        qs.append(m.query(inp["query_input_ids"][q_rows],
+                          inp["query_attention_mask"][q_rows],
+                          inp["image_features"][q_rows]))
+        d, dm = m.doc(inp["doc_input_ids"][d_rows],
+                      inp["doc_attention_mask"][d_rows])
+        ds.append(d)
+        dms.append(dm)
+    q, d, dm = torch.cat(qs), torch.cat(ds), torch.cat(dms)
+    ex.model.zero_grad(set_to_none=True)
+    nway, _ = nway_ce_loss(q, d, dm, cfg.nway)
+    ib, _ = in_batch_negative_loss(q, d, dm, cfg.nway)
+    loss = nway + ib
+    loss.backward()
+    ex.optimizer.step()
+    return float(loss)
+
+
+def _ddp_vs_single(ex, batch, m, argv):
+    """Rank 0: the DDP step just taken against one executor built from the
+    same initial weights. Its forward and backward on the whole global
+    batch give the single-device train_step's loss and grad norm. Then one
+    step whose towers encode the batch in the DDP ranks' halves
+    (_split_forward_step) holds the grads and the update at phase 13's
+    tolerances: a batch of 15 rows rounds the embeddings apart from one of
+    30 by ~1e-7, enough to flip a near-tie of MaxSim's max over doc
+    tokens, which moves the grads of the query side (the mapping network's
+    most) by far more than rounding (7.3e-4 of a grad measured), so the
+    full batch's grads are no reference for them."""
+    import copy
+    from ravqa_tpu_torch import main as M
+    from ravqa_tpu_torch.executors.base import global_norm
+    cfg = M.apply_overrides(M.load_config(argv[1]), DDP_OPTS)
+    ref = M.build_executor(cfg, ex.device)
+    before = {n: p.detach().cpu().clone()
+              for n, p in ref.model.named_parameters()}
+    ref.model.zero_grad(set_to_none=True)
+    loss, _ = ref.loss_fn(batch, ref.generator)
+    loss.backward()
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "loss_single": float(loss), "grad_norm_single": float(global_norm(
+               [p.grad for p in ref.model.parameters()
+                if p.grad is not None]))}
+    del loss
+    out["loss_halves"] = _split_forward_step(ref, batch)
+    cpu = copy.deepcopy(ref.model).cpu()          # (deepcopy drops grads)
+    for p, c in zip(ref.model.parameters(), cpu.parameters()):
+        c.grad = None if p.grad is None else p.grad.detach().cpu()
+    lr = {n: (ref.train_cfg.mapping_lr
+              if n.startswith("vision_projection")
+              and ref.train_cfg.mapping_lr is not None
+              else ref.train_cfg.lr) for n in before}
+    del ref
+    g_err, g_name, _ = grad_agreement(ex.model, cpu)
+    worst, _, n_sig, _, far = update_agreement(ex.model, cpu, before, lr.get)
+    out.update({"grad_rel_err": g_err, "grad_worst": g_name,
+                "update_err_lr": worst, "update_coords": n_sig,
+                "coords_past_1e-3_lr": far})
+    return out
+
+
+def _fsdp_vs_ddp(argv, dev, first_step):
+    """One FSDP step of a fresh executor on the DDP run's first global
+    batch against that DDP step: the losses, Adam's moments (gathered
+    whole) and the share of the moments this rank holds."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from ravqa_tpu_torch import main as M
+    from ravqa_tpu_torch.parallel import make_mesh
+    cfg = M.apply_overrides(M.load_config(argv[1]), DDP_OPTS)
+    cfg.train.param_sharding = "fsdp"
+    ex = M.build_executor(cfg, dev, mesh=make_mesh({"data": 2}, "cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = ex.train_step(first_step["batch"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    held = total = 0
+    for p in ex.optimizer.trainable:
+        for k in ("exp_avg", "exp_avg_sq"):
+            t = ex.optimizer.adamw.state[p][k]
+            held += (t.to_local() if isinstance(t, DTensor) else t).numel()
+            total += t.numel()
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(_moments(ex), first_step["moments"]))
+    return {"fsdp": {"loss_replicated": first_step["loss"],
+                     "loss_fsdp": float(m["loss"]),
+                     "moments_max_abs_err": err,
+                     "moment_share": held / total, "ms_fsdp": ms}}
+
+
+def _http_search(port, item):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/search",
+        data=json.dumps({"query": item["question"], "image_features": [
+            float(x) for x in item["image_features"]]}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def start_mesh_server(tmp):
+    """Phase 22 (c)'s server: main --mode serve --num_devices 4 in a
+    process of its own (rank 0's HTTP server, ranks 1-3 searching their
+    shards), started ahead so it comes up during (b). Returns (the
+    process, its port, its log file)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log = open(os.path.join(tmp, "serve.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ravqa_tpu_torch.main", "--config", CONFIG,
+         "--mode", "serve", "--num_devices", str(SHARDS), "--device", "cuda",
+         "--host", "127.0.0.1", "--port", str(port), "--log_dir", tmp,
+         "--opts"] + SERVE_CUT, cwd=HERE, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, port, log
+
+
+def stop_mesh_server(started):
+    """SIGTERM to the server's launching process, which kills its ranks
+    (SIGKILL to its session after 60 s). Returns its log."""
+    import signal
+    proc, _, log = started
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(60)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(30)
+    log.seek(0)
+    text = log.read()
+    log.close()
+    return text
+
+
+def mesh_serve(started):
+    """Phase 22 (c): 32 requests from 4 clients to the 4-rank server
+    (start_mesh_server), each answer against the single-device server's
+    answer to the same request; SIGTERM then ends every rank."""
+    import urllib.request
+    from ravqa_tpu_torch.main import (apply_overrides, build_pipeline,
+                                      build_server, load_config)
+    proc, port, log = started
+    try:
+        cfg = apply_overrides(load_config(CONFIG), SERVE_CUT)
+        data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
+                                            explode=True)
+        single = build_server(cfg, data, "cuda")
+        items = data["train"].items + data["test"].items
+        reqs = [items[i % len(items)] for i in range(32)]
+        futs = [single.submit(r["question"], **_features(i, r))
+                for i, r in enumerate(reqs)]
+        want = [f.result(300) for f in futs]
+        single.stop()
+        t0 = time.perf_counter()
+        while True:
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                       timeout=2)
+                break
+            except OSError:
+                if proc.poll() is not None or \
+                        time.perf_counter() - t0 > 400:
+                    log.seek(0)
+                    raise AssertionError("the 4-rank server did not start:\n"
+                                         + log.read()[-4000:])
+                time.sleep(1.0)
+        ready_s = time.perf_counter() - t0
+        got = [None] * len(reqs)
+
+        def client(ids):
+            for i in ids:
+                got[i] = _http_search(port, reqs[i])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(range(c, 32, 4),))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+    finally:
+        text = stop_mesh_server(started)
+    if None in got:
+        raise AssertionError("not every request to the 4-rank server was "
+                             "answered")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if not _tie_aware(
+        np.asarray(g["pids"]), np.asarray(g["scores"]), w.pids, w.scores,
+        ATOL)]
+    err = max(float(np.abs(np.asarray(g["scores"]) - w.scores).max())
+              for g, w in zip(got, want))
+    # (the ranks write to one log; lines of two ranks may run together)
+    import re
+    ranks = sorted(set(re.findall(r"\[rank \d+/\d+\] backend \w+ device "
+                                  r"[\w:]+", text)))
+    print("\n".join(ranks), flush=True)
+    print(f"4-rank server (corpus cut to 4,096 passages): ready "
+          f"{ready_s:.1f} s after the single-device server's answers, 32 "
+          f"requests from 4 clients in {wall:.2f} s; answers vs the "
+          f"single-device server: max|score err| {err:.3g}, {len(bad)} of "
+          f"32 differ", flush=True)
+    if bad or len(ranks) != SHARDS or any(
+            "backend gloo device cuda:0" not in line for line in ranks):
+        raise AssertionError(f"4-rank serving: answers {bad} differ, or the "
+                             f"ranks were not gloo on cuda:0: {ranks}")
+    return {"err": err, "requests": 32, "wall_s": wall, "ready_s": ready_s}
+
+
+def shard_prep(maxsim, server, index, q, tmp):
+    """After phase 10, while phase 7's index is on the card: save it and 32
+    of its served queries' embeddings for phase 22, and take the single-
+    device references: the unsharded exact (K1-f32) top-10 and each mode's
+    ms per batch of 32 on the whole index."""
+    import torch
+    from ravqa_tpu_torch.retrieval import LateInteractionSearcher, save_index
+    t0 = time.perf_counter()
+    save_index(index, os.path.join(tmp, "index"))
+    q32 = q[:32].contiguous()
+    np.save(os.path.join(tmp, "q.npy"), q32.cpu().numpy())
+    exact = LateInteractionSearcher(index)
+    scores, rows = exact.search_device(q32, K)
+    ref = {"scores": scores.cpu().numpy(), "rows": rows.cpu().numpy()}
+    single_ms = {"exact": time_ms(lambda: exact.search_device(q32, K)),
+                 "hierarchical fast": time_ms(
+                     lambda: server.searcher.search_device(q32, K))}
+    ref_hier = LateInteractionSearcher(index, mode="hierarchical",
+                                       preset="reference")
+    single_ms["hierarchical reference"] = time_ms(
+        lambda: ref_hier.search_device(q32, K))
+    print(f"phase 22's inputs: phase 7's index saved, the unsharded "
+          f"references taken in {time.perf_counter() - t0:.1f} s; single-"
+          f"device ms per batch of 32: {single_ms}", flush=True)
+    return ref, single_ms
+
+
+def sharded_slice(tmp, index, ref, single_ms, comp_serve, smi):
+    """Phase 22: (a) the sharded search of phase 7's index over 4 gloo
+    ranks on the card in 5 modes; (b) the exact search over an NCCL group
+    of one; (c) main --mode serve --num_devices 4; (d) main --mode train
+    and --mode test --num_devices 2 at BERT-base width; (e) one FSDP step
+    against the replicated one, and entry.dryrun_multichip(4, "cuda"),
+    run beside (c)."""
+    from ravqa_tpu_torch.entry import dryrun_multichip
+    from ravqa_tpu_torch.main import load_config
+    from ravqa_tpu_torch.parallel import launch
+    out = {"card": smi}
+    timings = {}
+    hier = load_config(HIER_CONFIG).serve
+    q = np.load(os.path.join(tmp, "q.npy"))
+    index_dir = os.path.join(tmp, "index")
+
+    t0 = time.perf_counter()
+    ranks = launch(shard_search_rank, SHARDS, index_dir, q, ref,
+                   {"n_summary": hier.n_summary,
+                    "block_size": hier.block_size},
+                   device="cuda", timeout=300, join_timeout=600, threads=2)
+    timings["a"] = time.perf_counter() - t0
+    print(f"(22 a: {timings['a']:.1f} s)", flush=True)
+    single_ms["int8 exact"] = comp_serve["int8 exact"]["search_ms_b32"]
+    single_ms["residual hierarchical fast"] = \
+        comp_serve["residual hierarchical fast"]["search_ms_b32"]
+    out["modes"] = {}
+    print(f"4 ranks up, phase 7's index loaded and its int8 and residual "
+          f"copies made in {ranks[0]['setup_s']:.1f} s", flush=True)
+    for mode, (_, _, names) in SHARD_MODES.items():
+        per = [r[mode] for r in ranks]
+        launches = [p["launches"] for p in per]
+        res = {"launches_per_rank": launches, "ms_b32": per[0]["ms"],
+               "single_device_ms_b32": single_ms[mode],
+               "err": max(p["err"] for p in per),
+               "bad": per[0]["bad"], "cuts": per[0]["cuts"]}
+        print(f"{mode}: {per[0]['ms']:.3f} ms per batch of 32 over "
+              f"{SHARDS} ranks (single device {single_ms[mode]:.3f}); "
+              f"launches per rank {launches}; vs the plain versions on CPU "
+              f"copies of the shards: max|score err| {res['err']:.3g}, "
+              f"{len(res['bad'])} of {SHARD_CPU_QUERIES} differ; cuts "
+              f"{per[0]['cuts']}; {per[0]['seconds']:.1f} s with the CPU "
+              f"check", flush=True)
+        if res["bad"] or any(min(v.values()) < 1 for v in launches) or any(
+                set(v) != set(names) for v in launches):
+            raise AssertionError(f"sharded {mode}: {res}")
+        if mode == "exact":
+            res["err_vs_unsharded"] = per[0]["err_vs_unsharded"]
+            print(f"exact top-10 vs the unsharded K1-f32 search: max|score "
+                  f"err| {res['err_vs_unsharded']:.3g}, "
+                  f"{len(per[0]['bad_vs_unsharded'])} of 32 differ",
+                  flush=True)
+            if per[0]["bad_vs_unsharded"]:
+                raise AssertionError("sharded exact search differs from "
+                                     "the unsharded one")
+        out["modes"][mode] = res
+
+    t0 = time.perf_counter()
+    server = start_mesh_server(tmp)
+    try:
+        nccl = nccl_one_rank(index, q, ref)
+    except BaseException:
+        stop_mesh_server(server)
+        raise
+    timings["b"] = time.perf_counter() - t0
+    print(f"(22 b: {timings['b']:.1f} s)", flush=True)
+    print(f"one-rank {nccl['backend']} group, exact: max|score err| vs "
+          f"the single-device search {nccl['err']:.3g}, "
+          f"{len(nccl['bad'])} of 32 differ", flush=True)
+    if nccl["backend"] != "nccl" or nccl["bad"]:
+        stop_mesh_server(server)
+        raise AssertionError(f"one-rank NCCL search: {nccl}")
+    out["nccl_one_rank"] = nccl
+
+    # (e)'s dry run in a thread beside (c): its ranks start while (c)'s
+    # servers do (nothing of either is timed against the other)
+    dry = {}
+
+    def dry_run():
+        t1 = time.perf_counter()
+        try:
+            dry["out"] = dryrun_multichip(SHARDS, "cuda")
+        except BaseException as e:                   # noqa: BLE001
+            dry["error"] = e
+        dry["seconds"] = time.perf_counter() - t1
+
+    t0 = time.perf_counter()
+    dry_thread = threading.Thread(target=dry_run)
+    dry_thread.start()
+    try:
+        out["serve"] = mesh_serve(server)
+    finally:
+        dry_thread.join()
+    timings["c_and_dryrun"] = time.perf_counter() - t0
+    timings["dryrun"] = dry["seconds"]
+    print(f"(22 c and the dry run beside it: {timings['c_and_dryrun']:.1f} "
+          f"s; the dry run {dry['seconds']:.1f} s)", flush=True)
+    if "error" in dry:
+        raise dry["error"]
+    dry = dry["out"]
+    print(f"dry run: K4 launched {dry['fast_k4_launches']} times on rank 0 "
+          f"in the fast-preset search of its 2-block shards", flush=True)
+    if dry["fast_k4_launches"] < 1:
+        raise AssertionError("the dry run's fast-preset search did not "
+                             "launch K4")
+    out["dryrun"] = {"loss": dry["loss"],
+                     "tp_max_abs_err": dry["tp_max_abs_err"],
+                     "fast_k4_launches": dry["fast_k4_launches"]}
+
+    t0 = time.perf_counter()
+    argv = ["--config", TRAIN_CONFIG, "--device", "cuda", "--log_dir", tmp,
+            "--experiment_name", "d"]
+    d = launch(ddp_rank, 2, argv, tmp, device="cuda", timeout=600,
+               join_timeout=900, threads=2)
+    timings["d_e"] = time.perf_counter() - t0
+    print(f"(22 d_e: {timings['d_e']:.1f} s)", flush=True)
+    r0 = d[0]
+    steps = r0["step_ms"]
+    print(f"DDP, 2 ranks, B=30 global: step ms {[round(x, 1) for x in steps]}"
+          f" (median of steps 2-4 {np.median(steps[1:]):.1f}); loss "
+          f"{r0['loss']:.6f} vs one device {r0['loss_single']:.6f}, grad "
+          f"norm {r0['grad_norm']:.6f} vs {r0['grad_norm_single']:.6f}; vs "
+          f"the one-device step with its towers over the ranks' halves: "
+          f"worst grad {r0['grad_rel_err']:.3g} ({r0['grad_worst']}), the "
+          f"update past 2 ulp {r0['update_err_lr']:.3g} lr on "
+          f"{r0['update_coords']} coordinates; ranks equal after every step "
+          f"{[r['ranks_equal'] for r in d]}; parts' seconds "
+          f"{ {k: round(v, 1) for k, v in r0['seconds'].items()} }",
+          flush=True)
+    keys = [k for k in r0["test_single"]
+            if k.startswith(("recall_at_", "precision_at_"))]
+    test_diff = {k: (r0["test_sharded"][k], r0["test_single"][k])
+                 for k in keys if r0["test_sharded"][k]
+                 != r0["test_single"][k]}
+    print(f"--mode test over 2 ranks (sharded index, K1-f32 launched "
+          f"{[r['test_launches'] for r in d]} times per rank): "
+          f"{ {k: r0['test_sharded'][k] for k in keys} }; differs from one "
+          f"device on {test_diff}", flush=True)
+    fs = r0["fsdp"]
+    print(f"FSDP vs the DDP step on its first batch, 2 ranks: loss "
+          f"{fs['loss_fsdp']:.6f} vs {fs['loss_replicated']:.6f}, moments "
+          f"max|err| {fs['moments_max_abs_err']:.3g}, rank 0 holds "
+          f"{fs['moment_share']:.3f} of the moments; step ms "
+          f"{fs['ms_fsdp']:.1f} (DDP's first {steps[0]:.1f})", flush=True)
+    # phase 13's tolerances: the loss and grad norm against the full-batch
+    # step, the grads and the update against the step over the halves
+    ok = (abs(r0["loss"] - r0["loss_single"]) <= 1e-4 * abs(
+        r0["loss_single"]) and abs(r0["grad_norm"] - r0["grad_norm_single"])
+        <= 1e-4 * r0["grad_norm_single"]
+        and r0["grad_rel_err"] <= GRAD_RTOL and r0["update_coords"] > 0
+        and r0["update_err_lr"] <= 1e-3
+        and all(all(r["ranks_equal"]) for r in d) and not test_diff
+        and min(r["test_launches"] for r in d) >= 1
+        and abs(fs["loss_fsdp"] - fs["loss_replicated"])
+        <= 1e-5 * abs(fs["loss_replicated"])
+        and fs["moments_max_abs_err"] <= 1e-6
+        and fs["moment_share"] < 0.6)
+    if not ok:
+        raise AssertionError(f"data-parallel training disagrees: {r0}")
+    out["ddp"] = {k: v for k, v in r0.items() if k != "fsdp"}
+    out["fsdp"] = fs
+
+    out["seconds"] = timings
+    print(f"phase 22 parts' seconds: {timings}", flush=True)
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4816,7 +5539,15 @@ def main():
     phase("9 the 1M legs")
     legs_1m, launches_1m = one_million_legs(maxsim)
     phase("10 compressed serve slice")
-    comp_serve = compressed_serve_slice(maxsim, *served)
+    comp_serve = compressed_serve_slice(maxsim, *served[:3])
+    # phase 22 reads phase 7's index and queries from a directory of the
+    # checkout (gitignored), deleted at its end
+    import shutil
+    import tempfile
+    shard_tmp = tempfile.mkdtemp(prefix=".chip_smoke_shard_", dir=HERE)
+    shard_ref, single_ms = shard_prep(maxsim, served[1], served[2],
+                                      served[3], shard_tmp)
+    shard_index = served[2]                  # phase 22 (b) searches it
     del served
     phase("11 X1, X2, X3 vs plain")
     stage2_k = stage2_kernels()
@@ -4848,6 +5579,13 @@ def main():
           "teacher's distillation scores, TriplesExecutor with KL "
           "distillation, evaluation through K1-f32 at Ld=180")
     triples = triples_slice(maxsim, k1, smi)
+    phase("22 sharded search and data parallelism on one card (4 and 2 "
+          "gloo ranks on cuda:0, a one-rank NCCL group)")
+    try:
+        sharded = sharded_slice(shard_tmp, shard_index, shard_ref, single_ms,
+                                comp_serve, smi)
+    finally:
+        shutil.rmtree(shard_tmp, ignore_errors=True)
     phase("report")
 
     def entry(name, source, replaces, launches, measured):
@@ -4959,6 +5697,20 @@ def main():
                                 "v_record_perq runs them")
     kernels["X1"]["f32_bound_ms"] = stage2_k["X1"]["shapes"][
         next(iter(stage2_k["X1"]["shapes"]))]["f32_bound_ms"]
+    # phase 22: each kernel's launches on every rank of the 4-rank sharded
+    # searches, one search each (K3 is not on a sharded path: the shards'
+    # int8 stage 0 runs K2 on bf16 codes, as the JAX mesh program's)
+    for key, mode, wrapper in (
+            ("K1-f32", "exact", "maxsim_search"),
+            ("K2", "hierarchical fast", "coarse_sweep"),
+            ("K2", "hierarchical reference", "coarse_sweep"),
+            ("K2", "residual hierarchical fast", "coarse_sweep"),
+            ("K4", "hierarchical fast", "stage1_sweep"),
+            ("K4", "residual hierarchical fast", "stage1_sweep"),
+            ("K5", "int8 exact", "maxsim_search_int8"),
+            ("K6", "residual hierarchical fast", "maxsim_residual")):
+        kernels[key].setdefault("launches_sharded", {})[mode] = [
+            r[wrapper] for r in sharded["modes"][mode]["launches_per_rank"]]
     for k in kernels.values():
         # no single PyTorch call computes any of these functions
         k["library_ms"] = None
@@ -4980,7 +5732,8 @@ def main():
                       "wit_pretrain": wit,
                       "m2kr": m2kr_run,
                       "roi": roi,
-                      "triples": triples}, default=str), flush=True)
+                      "triples": triples,
+                      "sharded": sharded}, default=str), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

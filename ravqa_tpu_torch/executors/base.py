@@ -1,8 +1,9 @@
 """Training executor core: the train config, the learning-rate schedule,
 AdamW with parameter groups, clipping, accumulation and freeze masks,
-metric logging, the training loop and checkpoints.
+metric logging, the training loop and checkpoints, on one device or data
+parallel over a mesh's "data" axis.
 
-Port of ravqa_tpu/executors/base.py on one device. The JAX package builds
+Port of ravqa_tpu/executors/base.py. The JAX package builds
 an optax chain (clip_by_global_norm -> adamw, per-group learning rates by
 multi_transform, optax.MultiSteps accumulation, masked freezing) and jits
 one train step; here ``Optimizer`` does the same arithmetic around
@@ -23,6 +24,25 @@ torch.optim.AdamW and ``BaseExecutor.train_step`` runs eagerly:
   term reaches gets a zero grad, as it does under jax.grad, so Adam's
   count and weight decay still apply to it.
 
+Data parallelism (`mesh`, JAX base.py:215-330): one process per rank of
+the mesh's "data" axis, every rank given the same global batch.
+train_step takes the rank's dim-0 slice (parallel.shard_batch, JAX's
+P("data") order) and reports the global loss (the ranks' mean) and the
+global grad norm. The model's in-batch negatives span the ranks
+(negatives_group; ops.losses), so the step's loss and gradient are those
+of JAX's mesh step on the global batch.
+- param_sharding "replicated" is DDP: every rank holds the parameters and
+  Adam's moments, and after backward one all_reduce of a flat buffer of
+  the grads averages them over the ranks;
+- "fsdp" is FSDP2's fully_shard: each parameter of at least
+  fsdp_min_size elements is sharded on the dim parallel.fsdp_sharding
+  picks (the JAX rule), the smaller ones stay replicated (their grads
+  all-reduced as under DDP), and Adam's moments shard like their
+  parameters (ZeRO-3, JAX :259-267). The grad norm and clipping sum the
+  shards' squares over the ranks, so they see whole parameters. Where the
+  group is gloo's and the parameters are on the card (ranks sharing one
+  GPU), FSDP's all-gather and reduce-scatter go through the host.
+
 A checkpoint directory holds params.msgpack (flax's format: the JAX
 package's load_params and load_checkpoint read it), step.json, and the
 port's optimizer.pt and rng.pt. Those two names differ from the JAX
@@ -33,6 +53,7 @@ starts afresh and "ckpt_opt_state_missing" is logged.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -48,6 +69,9 @@ from torch import nn
 from ..models.convert import load_params, save_params
 from ..models.transformer import MultiHeadAttention
 from ..parallel import trainable_mask
+from ..parallel.mesh import (all_reduce, axis_group, axis_rank, broadcast,
+                             full_tensor, mesh_axis_size, rank_zero,
+                             shard_batch)
 
 # a checkpoint directory's params file, in the order load_checkpoint looks
 CHECKPOINT_FILES = ("params.msgpack", "params.npz")
@@ -127,9 +151,31 @@ def make_schedule(cfg: TrainConfig, lr: float) -> Callable[[int], float]:
     raise ValueError(cfg.schedule)
 
 
+def _is_sharded(t: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(t, DTensor) and any(isinstance(p, Shard)
+                                          for p in t.placements)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every element squared (optax.global_norm)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    """sqrt of the sum of every element squared (optax.global_norm). FSDP's
+    sharded grads (DTensors) count whole: their shards' squares are summed
+    over the ranks."""
+    tensors = list(tensors)
+    sharded = [t for t in tensors if _is_sharded(t)]
+    total = sum(_local(t).float().square().sum() for t in tensors
+                if not _is_sharded(t))
+    if sharded:
+        part = sum(t.to_local().float().square().sum() for t in sharded)
+        part = all_reduce(part.detach().clone().reshape(1),
+                          group=sharded[0].device_mesh.get_group())[0]
+        total = total + part
+    return torch.sqrt(torch.as_tensor(total))
 
 
 def _group(cfg: TrainConfig, name: str) -> str:
@@ -164,10 +210,14 @@ class Optimizer:
         self.schedules = [make_schedule(cfg, lrs[g]) for g in order]
         self.adamw = None
         if self.trainable:
+            # FSDP's sharded (DTensor) parameters beside replicated plain
+            # ones: the multi-tensor (foreach) update refuses the mix
+            mixed = any(_is_sharded(p) for p in self.trainable)
             self.adamw = torch.optim.AdamW(
                 [{"params": groups[g], "lr": 0.0} for g in order],
                 betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
-                weight_decay=cfg.weight_decay)
+                weight_decay=cfg.weight_decay,
+                **({"foreach": False} if mixed else {}))
         self.every = max(cfg.accumulate_grad_batches, 1)
         self.micro = 0       # micro-steps in the open accumulation window
         self.updates = 0     # updates made: the schedule's and Adam's count
@@ -192,8 +242,14 @@ class Optimizer:
         if self.cfg.grad_clip > 0 and grads:
             norm = global_norm(grads)
             keep = norm < self.cfg.grad_clip
-            grads = [torch.where(keep, g, g / norm * self.cfg.grad_clip)
-                     for g in grads]
+            if any(_is_sharded(g) for g in grads):
+                # DTensor arithmetic takes Python scalars, not tensors
+                if not bool(keep):
+                    c = float(self.cfg.grad_clip)
+                    grads = [g / float(norm) * c for g in grads]
+            else:
+                grads = [torch.where(keep, g, g / norm * self.cfg.grad_clip)
+                         for g in grads]
         if self.adamw is not None:
             for p, g in zip(self.trainable, grads):
                 p.grad = g
@@ -304,6 +360,85 @@ def _num_heads(model: nn.Module) -> dict[str, int]:
     return out
 
 
+def _full_tensors(obj):
+    """A state tree with each DTensor gathered whole (a collective)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(obj, DTensor):
+        return full_tensor(obj)
+    if isinstance(obj, dict):
+        return {k: _full_tensors(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_full_tensors(v) for v in obj)
+    return obj
+
+
+def _shard_as(full, like):
+    """A whole tensor as `like` holds it: this rank's shard of a sharded
+    DTensor (the even chunk FSDP keeps), else unchanged."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(like, DTensor) or not isinstance(full, torch.Tensor) \
+            or full.shape != like.shape:
+        return full
+    local = full
+    for mesh_dim, pl in enumerate(like.placements):
+        if isinstance(pl, Shard):
+            n = like.device_mesh.size(mesh_dim)
+            r = like.device_mesh.get_local_rank(mesh_dim)
+            local = local.chunk(n, pl.dim)[r]
+    return DTensor.from_local(local.contiguous(), like.device_mesh,
+                              like.placements, run_check=False)
+
+
+def _load_full(model: nn.Module, state: dict) -> None:
+    """load_state_dict(strict) of whole tensors, into FSDP's shards where
+    the model is sharded."""
+    from torch.distributed.tensor import DTensor
+    own = model.state_dict()
+    if set(own) != set(state) or not any(isinstance(t, DTensor)
+                                         for t in own.values()):
+        model.load_state_dict(state, strict=True)
+        return
+    with torch.no_grad():
+        for k, t in own.items():
+            if tuple(state[k].shape) != tuple(t.shape):
+                raise ValueError(f"{k}: checkpoint shape "
+                                 f"{tuple(state[k].shape)}, model "
+                                 f"{tuple(t.shape)}")
+            src = _shard_as(state[k].to(device=t.device, dtype=t.dtype), t)
+            _local(t).copy_(_local(src))
+
+
+def _host_comms():
+    """FSDP2 all-gather and reduce-scatter that copy CUDA tensors through
+    the host, for a gloo group over ranks sharing a card."""
+    from torch.distributed.fsdp._fully_shard._fsdp_api import (
+        AllGather, ReduceScatter)
+    from ..parallel.mesh import _all_gather_single
+
+    class HostAllGather(AllGather):
+        def allocate(self, size, *, dtype, device):
+            return torch.empty(*size, dtype=dtype, device=device)
+
+        def __call__(self, output_tensor, input_tensor, group,
+                     async_op=False):
+            out = output_tensor.new_empty(output_tensor.shape, device="cpu")
+            _all_gather_single(out, input_tensor.cpu(), group=group)
+            output_tensor.copy_(out)
+
+    class HostReduceScatter(ReduceScatter):
+        def allocate(self, size, *, dtype, device):
+            return torch.empty(*size, dtype=dtype, device=device)
+
+        def __call__(self, output_tensor, input_tensor, group, op,
+                     async_op=False):
+            out = output_tensor.new_empty(output_tensor.shape, device="cpu")
+            torch.distributed.reduce_scatter_tensor(
+                out, input_tensor.cpu(), op=op, group=group)
+            output_tensor.copy_(out)
+
+    return HostAllGather(), HostReduceScatter()
+
+
 class BaseExecutor:
     """Owns the model (on `device`), the optimizer, the step count and a
     CPU generator for dropout seeds.
@@ -312,14 +447,25 @@ class BaseExecutor:
     The parameters that the train config's freeze flags freeze get
     requires_grad False. inference_only=True builds no optimizer (a server
     never reads Adam's moments; the constructor calls
-    prepare_for_serving); train_step then raises."""
+    prepare_for_serving); train_step then raises. mesh, param_sharding
+    ("replicated" or "fsdp") and fsdp_min_size: data parallelism over the
+    mesh's "data" axis (module docstring); every rank builds the same
+    model (the same seed), which the constructor checks."""
+
+    # False: loss_fn's loss is a mean over the rank's rows, so the
+    # data-parallel step averages grads and metrics over the ranks; True:
+    # it is the rank's share of the global batch's loss (a sum over the
+    # ranks gives it), so they are summed
+    loss_is_sum = False
 
     def __init__(self, model: nn.Module,
                  train_cfg: Optional[TrainConfig] = None, device=None,
                  log_dir: Optional[str] = None, seed: int = 0,
                  quiet: bool = False,
                  logger_backends: Sequence[str] = ("jsonl",),
-                 inference_only: bool = False):
+                 inference_only: bool = False, mesh=None,
+                 param_sharding: str = "replicated",
+                 fsdp_min_size: int = 2 ** 18):
         self.device = torch.device(
             device if device is not None
             else next(model.parameters()).device)
@@ -329,15 +475,115 @@ class BaseExecutor:
                 self.model, self.train_cfg.modules).items():
             if not trainable:
                 self.model.get_parameter(name).requires_grad_(False)
+        if param_sharding not in ("replicated", "fsdp"):
+            raise ValueError(f"param_sharding {param_sharding!r}: "
+                             "'replicated' or 'fsdp'")
+        self.mesh, self.param_sharding = mesh, param_sharding
+        self.dp_group, self._replicated = None, None
+        if mesh is not None:
+            self._data_parallel(fsdp_min_size)
         self.optimizer, self.inference_only = None, False
         if inference_only:
             self.prepare_for_serving()
         else:
             self.optimizer = make_optimizer(self.train_cfg, self.model)
-        self.logger = MetricsLogger(log_dir, quiet=quiet,
+        # on a mesh rank 0 logs (the ranks' metrics are the same)
+        self.logger = MetricsLogger(log_dir if rank_zero() else None,
+                                    quiet=quiet or not rank_zero(),
                                     backends=logger_backends)
         self.generator = torch.Generator().manual_seed(seed)
         self.step = 0
+
+    # -- data parallelism ----------------------------------------------------
+    def _data_parallel(self, fsdp_min_size: int) -> None:
+        self.dp_group = axis_group(self.mesh, "data")
+        self.dp_size = mesh_axis_size(self.mesh, "data")
+        self.dp_rank = axis_rank(self.mesh, "data")
+        if hasattr(self.model, "negatives_group"):
+            self.model.negatives_group = self.dp_group
+        # every rank must start from the same parameters
+        sums = torch.stack([p.detach().double().sum()
+                            for p in self.model.parameters()])
+        ref = broadcast(sums.clone(), torch.distributed.get_global_rank(
+            self.dp_group, 0), group=self.dp_group)
+        if not torch.equal(ref, sums):
+            raise ValueError("the data-parallel ranks built different "
+                             "parameters: build the model from one seed")
+        if self.param_sharding == "replicated":
+            return
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+        from ..parallel import fsdp_sharding
+        plan = fsdp_sharding(self.model, self.mesh, "data", fsdp_min_size,
+                             _num_heads(self.model))
+        dims = {p: plan[n] for n, p in self.model.named_parameters()}
+        ignored = {p for p, d in dims.items() if d is None}
+        sub = self.mesh["data"] if len(self.mesh.mesh_dim_names) > 1 \
+            else self.mesh
+        fully_shard(self.model, mesh=sub,
+                    shard_placement_fn=lambda p: Shard(dims[p]),
+                    ignored_params=ignored or None)
+        self._replicated = {n for n, d in plan.items() if d is None}
+        if self.loss_is_sum:
+            self.model.set_gradient_divide_factor(1.0)
+        if self.device.type == "cuda" and \
+                torch.distributed.get_backend(self.dp_group) == "gloo":
+            ag, rs = _host_comms()
+            self.model.set_custom_all_gather(ag)
+            self.model.set_custom_reduce_scatter(rs)
+
+    def _average_replicated_grads(self) -> None:
+        """DDP's gradient average of the replicated parameters (every
+        trainable one under DDP, those under fsdp_min_size under FSDP): one
+        all_reduce of a flat buffer (an unreached parameter counts 0)."""
+        params = [p for n, p in self.model.named_parameters()
+                  if p.requires_grad and (self._replicated is None
+                                          or n in self._replicated)]
+        if not params:
+            return
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        all_reduce(flat, group=self.dp_group)
+        if not self.loss_is_sum:
+            flat /= self.dp_size
+        i = 0
+        for p in params:
+            p.grad = flat[i:i + p.numel()].view_as(p)
+            i += p.numel()
+
+    def _global_mean(self, metrics: dict) -> dict:
+        """The global batch's metrics: the ranks' mean of each scalar
+        metric, or their sum where the loss is a share (loss_is_sum); one
+        all_reduce."""
+        keys = [k for k, v in metrics.items()
+                if isinstance(v, torch.Tensor) and v.numel() == 1]
+        if not keys:
+            return metrics
+        vals = torch.stack([metrics[k].detach().float().reshape(())
+                            for k in keys])
+        all_reduce(vals, group=self.dp_group)
+        if not self.loss_is_sum:
+            vals /= self.dp_size
+        return {**metrics, **{k: vals[i] for i, k in enumerate(keys)}}
+
+    @contextlib.contextmanager
+    def gathered_params(self):
+        """The whole parameters in the model for calls other than forward
+        (encoding, generation): FSDP gathers them only around forward."""
+        if self.mesh is None or self.param_sharding != "fsdp":
+            yield
+            return
+        self.model.unshard()
+        try:
+            yield
+        finally:
+            self.model.reshard()
+
+    def full_state_dict(self) -> dict:
+        """The whole parameters (FSDP's shards gathered; every rank calls
+        this under FSDP), as plain tensors."""
+        return {k: full_tensor(v) for k, v in self.model.state_dict().items()}
 
     # -- to be overridden ---------------------------------------------------
     def loss_fn(self, batch, generator: torch.Generator):
@@ -353,20 +599,28 @@ class BaseExecutor:
         "loss" and "grad_norm", the global norm of every grad of this
         micro-step. Frozen parameters take no grad, so it is the trainable
         parameters' norm; the JAX step's also counts the frozen
-        parameters' grads (ROADMAP.md C21)."""
+        parameters' grads (ROADMAP.md C21). On a mesh, `batch` is the
+        global batch: the rank steps on its slice, and the metrics are the
+        ranks' means (the global loss) and the global grad norm."""
         if self.inference_only:
             raise RuntimeError(
                 "executor is inference_only: no optimizer state; rebuild "
                 "without inference_only to train")
         self.model.zero_grad(set_to_none=True)
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh, "data")
         loss, metrics = self.loss_fn(batch, self.generator)
         loss.backward()
+        if self.mesh is not None:
+            self._average_replicated_grads()
         grad_norm = global_norm([p.grad for p in self.model.parameters()
                                  if p.grad is not None])
         self.optimizer.step()
         self.step += 1
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()
+        if self.mesh is not None:
+            metrics = self._global_mean(metrics)
         metrics["grad_norm"] = grad_norm
         return metrics
 
@@ -429,13 +683,18 @@ class BaseExecutor:
             raise NotImplementedError(
                 f"checkpoint backend {backend!r} is not ported to "
                 "ravqa_tpu_torch (msgpack only)")
+        # on a mesh every rank gathers FSDP's shards; rank 0 writes the
+        # whole parameters and moments, the files a one-device run writes
+        params = self.full_state_dict()
+        opt = (_full_tensors(self.optimizer.state_dict())
+               if self.optimizer is not None else None)
+        if not rank_zero():
+            return
         os.makedirs(path, exist_ok=True)
-        save_params(self.model.state_dict(),
-                    os.path.join(path, "params.msgpack"),
+        save_params(params, os.path.join(path, "params.msgpack"),
                     _num_heads(self.model))
-        if self.optimizer is not None:
-            torch.save(self.optimizer.state_dict(),
-                       os.path.join(path, "optimizer.pt"))
+        if opt is not None:
+            torch.save(opt, os.path.join(path, "optimizer.pt"))
         torch.save(self.generator.get_state(), os.path.join(path, "rng.pt"))
         with open(os.path.join(path, "step.json"), "w") as f:
             json.dump({"step": self.step}, f)
@@ -449,14 +708,14 @@ class BaseExecutor:
         params-only one) starts a fresh optimizer and logs
         "ckpt_opt_state_missing", as the JAX package does."""
         if not os.path.isdir(path):
-            self.model.load_state_dict(load_params(path), strict=True)
+            _load_full(self.model, load_params(path))
             return
         found = [os.path.join(path, f) for f in CHECKPOINT_FILES
                  if os.path.exists(os.path.join(path, f))]
         if not found:
             raise FileNotFoundError(f"{path} holds none of "
                                     f"{CHECKPOINT_FILES}")
-        self.model.load_state_dict(load_params(found[0]), strict=True)
+        _load_full(self.model, load_params(found[0]))
         step_path = os.path.join(path, "step.json")
         if os.path.exists(step_path):
             with open(step_path) as f:
@@ -465,8 +724,17 @@ class BaseExecutor:
             opt_path = os.path.join(path, "optimizer.pt")
             self.optimizer = make_optimizer(self.train_cfg, self.model)
             if os.path.exists(opt_path):
-                self.optimizer.load_state_dict(
-                    torch.load(opt_path, map_location=self.device))
+                state = torch.load(opt_path, map_location=self.device)
+                if self.optimizer.adamw is not None:
+                    st = state["adamw"]["state"]
+                    for i, p in enumerate(self.optimizer.trainable):
+                        st[i] = {k: _shard_as(v, p) for k, v in
+                                 st.get(i, {}).items()}
+                if state.get("acc") is not None:
+                    state["acc"] = [
+                        _shard_as(a, p) for a, p in
+                        zip(state["acc"], self.optimizer.trainable)]
+                self.optimizer.load_state_dict(state)
             else:
                 self.logger.log({"ckpt_opt_state_missing": 1}, self.step)
         rng_path = os.path.join(path, "rng.pt")

@@ -9,6 +9,13 @@ the corpus on the executor's device, searches it and scores pseudo-
 relevance and positive-id Recall/Precision@K (:429-973). An executor built
 with inference_only=True (build_server's) holds no optimizer, so a
 checkpoint loads straight into a serving executor (ROADMAP.md C5).
+
+On a mesh (BaseExecutor's data parallelism) the index is sharded over
+the "data" axis as the JAX executor shards it (flmr_executor.py:85-141):
+each rank encodes its slice of the corpus, builds its shard's summaries,
+with hierarchical block summaries of the largest block size in (64, 32,
+..., 1) that divides the per-shard doc count, and searches it; every rank
+encodes all the queries and gets the merged ranking.
 """
 
 from __future__ import annotations
@@ -69,18 +76,20 @@ class FLMRExecutor(BaseExecutor):
         def opt(x, dtype=torch.float32):
             return None if x is None else self._t(x, dtype)
 
-        return self.model.query(opt(input_ids, torch.long),
-                                opt(attention_mask, None),
-                                opt(image_features), opt(pixel_values),
-                                opt(image_patch_features))
+        with self.gathered_params():
+            return self.model.query(opt(input_ids, torch.long),
+                                    opt(attention_mask, None),
+                                    opt(image_features), opt(pixel_values),
+                                    opt(image_patch_features))
 
     @torch.inference_mode()
     def encode_doc(self, input_ids, attention_mask, skip_mask=None):
         ids = self._t(input_ids, torch.long)
         if skip_mask is None:
             skip_mask = skiplist_mask(ids, self.skip_ids)
-        return self.model.doc(ids, self._t(attention_mask),
-                              self._t(skip_mask, torch.float32))
+        with self.gathered_params():
+            return self.model.doc(ids, self._t(attention_mask),
+                                  self._t(skip_mask, torch.float32))
 
     def _encode_queries(self, batches: Iterable[dict]) -> torch.Tensor:
         return torch.cat([self.encode_query(
@@ -107,7 +116,8 @@ class FLMRExecutor(BaseExecutor):
         return encode_corpus(encode_fn, doc_batches,
                              pad_multiple=pad_multiple, dtype=dtype,
                              pids=pids, device=self.device,
-                             resume_dir=resume_dir)
+                             resume_dir=resume_dir, mesh=self.mesh,
+                             axis="data")
 
     # -- evaluation ----------------------------------------------------------
     def evaluate_retrieval(
@@ -144,10 +154,11 @@ class FLMRExecutor(BaseExecutor):
             index.build_summaries()
         if search_mode == "hierarchical" and index.block_summaries is None:
             bs = max(b for b in (64, 32, 16, 8, 4, 2, 1)
-                     if index.n_pad % b == 0)
+                     if index.n_local % b == 0)
             index.build_block_summaries(block_size=bs)
         searcher = LateInteractionSearcher(
-            index, mode=search_mode, n_candidates=n_candidates,
+            index, self.mesh, "data" if self.mesh is not None else "index",
+            mode=search_mode, n_candidates=n_candidates,
             coarse_query_len=coarse_query_len, coarse_int8=coarse_int8,
             preset=search_preset)
         q = self._encode_queries(query_batches)

@@ -67,6 +67,7 @@ from ..models.rag import (GeneratorInputBuilder, get_retrieval_labels,
                           select_answers_by_joint_score)
 from ..models.t5 import shift_right
 from ..ops.maxsim import maxsim_pair_xla
+from ..parallel.mesh import rank_zero
 from ..retrieval import LateInteractionSearcher, TokenIndex
 from .base import (CHECKPOINT_FILES, BaseExecutor, TrainConfig, _num_heads,
                    make_optimizer)
@@ -110,16 +111,19 @@ class RagConfig:
 def _make_searcher(index: TokenIndex, mesh, rag_cfg: RagConfig):
     """Searcher for live retrieval, honouring rag_cfg.search_mode: the
     pruned modes build the summaries, hierarchical the block summaries of
-    the largest block size in (64, 32, ..., 1) dividing the padded doc
-    count. One device: a mesh raises (ROADMAP.md A4)."""
+    the largest block size in (64, 32, ..., 1) dividing the per-shard doc
+    count. On a mesh the index is sharded over its "data" axis (JAX
+    rag_executor.py:89-104)."""
     mode = rag_cfg.search_mode
     if mode in ("two_stage", "hierarchical") and index.summaries is None:
         index.build_summaries()
     if mode == "hierarchical" and index.block_summaries is None:
-        bs = max(b for b in (64, 32, 16, 8, 4, 2, 1) if index.n_pad % b == 0)
+        bs = max(b for b in (64, 32, 16, 8, 4, 2, 1)
+                 if index.n_local % b == 0)
         index.build_block_summaries(block_size=bs)
     return LateInteractionSearcher(
-        index, mesh=mesh, mode=mode, n_candidates=rag_cfg.n_candidates,
+        index, mesh, "data" if mesh is not None else "index", mode=mode,
+        n_candidates=rag_cfg.n_candidates,
         approx_topk=rag_cfg.approx_topk, approx_recall=rag_cfg.approx_recall,
         centroid_prune=rag_cfg.centroid_prune,
         coarse_query_len=rag_cfg.coarse_query_len,
@@ -151,14 +155,19 @@ class _Method(nn.Module):
 
 
 class RagExecutor(BaseExecutor):
-    """Retrieve-then-generate on one device. retriever: an FLMRRetriever;
-    generator: a T5Model, or a Blip2T5 with rag_cfg.generator_type
-    "blip2"; both carry their weights. With rag_cfg.use_lora, LoRA is
-    initialized (B = 0, A from a CPU generator seeded seed + 1) on the q
+    """Retrieve-then-generate, on one device or a "data" mesh (`mesh`:
+    the index sharded over it, the training data parallel). retriever: an
+    FLMRRetriever; generator: a T5Model, or a Blip2T5 with
+    rag_cfg.generator_type "blip2"; both carry their weights. With
+    rag_cfg.use_lora, LoRA is initialized (B = 0, A from a CPU generator seeded seed + 1) on the q
     and v projections of the generator's self- and cross-attention (the
     JAX executor's targets). passage_ids (the corpus' ids, in index order)
     serve use_gt_docs_for_training. inference_only builds no optimizer and
     no LoRA (see the module docstring)."""
+
+    # on a mesh each rank's loss is its share of the global batch's
+    # (rag_loss_components with the data-parallel group)
+    loss_is_sum = True
 
     def __init__(self, retriever: nn.Module, generator: nn.Module,
                  gen_tokenizer, rag_cfg: RagConfig,
@@ -197,7 +206,8 @@ class RagExecutor(BaseExecutor):
                 train_cfg, modules=tuple(train_cfg.modules)
                 + ("freeze_generator_base",))
         super().__init__(model, train_cfg, device, log_dir, seed,
-                         quiet=quiet, inference_only=inference_only)
+                         quiet=quiet, inference_only=inference_only,
+                         mesh=mesh)
         self._set_index(index)
         self._call = _Method(generator)
 
@@ -348,10 +358,13 @@ class RagExecutor(BaseExecutor):
     def save_checkpoint(self, path: str, backend: str = "msgpack"):
         """params.msgpack (the JAX package's format: its RagExecutor loads
         it), step.json, and the port's optimizer.pt (while the executor
-        trains) and rng.pt."""
+        trains) and rng.pt; on a mesh, from rank 0 (the ranks hold the
+        same weights)."""
         if backend != "msgpack":
             raise NotImplementedError(f"checkpoint backend {backend!r} is "
                                       "not ported (msgpack only)")
+        if not rank_zero():
+            return
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "params.msgpack"), "wb") as f:
             f.write(write_flax_msgpack(self.params_tree()))
@@ -426,7 +439,7 @@ class RagExecutor(BaseExecutor):
         keep = torch.as_tensor(~dummy, device=dev)
         doc_tokens = self.index.gather_tokens(rows_dev) \
             * keep[..., None, None]
-        doc_masks = self.index.mask[rows_dev].float() * keep[..., None]
+        doc_masks = self.index.gather_mask(rows_dev) * keep[..., None]
         contents = [[self.passage_contents[self.index.pids[r]]
                      if not d else "" for r, d in zip(row, drow)]
                     for row, drow in zip(rows, dummy)]
@@ -513,7 +526,7 @@ class RagExecutor(BaseExecutor):
             retrieval_labels=batch["retrieval_labels"],
             loss_type=cfg.loss_type, rag_loss_weight=cfg.rag_weight,
             additional_loss_weight=cfg.additional_weight,
-            nll_loss_weight=cfg.nll_weight)
+            nll_loss_weight=cfg.nll_weight, group=self.dp_group)
         return out["loss"], {k: v.detach() for k, v in out.items()
                              if k != "loss"}
 

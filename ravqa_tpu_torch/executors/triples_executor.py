@@ -61,7 +61,8 @@ class TriplesExecutor(FLMRExecutor):
         loss, scores = nway_ce_loss(q, d, d_mask, cfg.nway)
         metrics = {"nway_loss": loss.detach()}
         if cfg.use_ib_negatives:
-            ib, _ = in_batch_negative_loss(q, d, d_mask, cfg.nway)
+            ib, _ = in_batch_negative_loss(q, d, d_mask, cfg.nway,
+                                           group=self.model.negatives_group)
             loss = loss + ib
             metrics["ib_loss"] = ib.detach()
         if self.distill_weight > 0 and batch.get("target_scores") is not None:

@@ -43,8 +43,21 @@ and `run_captioning`) trains and evaluates the same way:
 `--device` chooses where the models, the index and the data pipeline's
 ViT live (default "cuda"; pass "cpu" for the plain PyTorch path).
 `--use_dummy_data` sets `use_dummy_data` on every node (LoadOKVQAData
-keeps 20 items a split). `--num_devices` (ROADMAP.md A4) is not ported
-yet.
+keeps 20 items a split).
+
+`--num_devices N` runs the mode over N ranks of a "data" mesh (JAX
+main.py:534-540): N spawned processes (parallel.launch), or, under
+`torchrun --nproc_per_node N -m ravqa_tpu_torch.main ... --num_devices N`,
+torchrun's. Each rank owns a card under NCCL when there are N cards, or
+they share the card (or the CPU with --device cpu) under gloo; the first
+line of each rank names its backend and device. Training is data
+parallel (each rank steps on its slice of every global batch of
+train.batch_size, the in-batch negatives spanning the ranks), the corpus
+index is sharded over the ranks (each encodes its slice) and searched
+collectively, and rank 0 writes the checkpoint, the metrics files and the
+predictions. Serving: rank 0 owns the server, the query tower and the
+HTTP front; the other ranks search their shards for each dispatch
+(serving.MeshSearchFront, serve_shard).
 """
 
 from __future__ import annotations
@@ -61,9 +74,6 @@ import torch
 # load_config is re-exported: callers of the port (chip_smoke.py) load a
 # config through this module
 from .config import Config, apply_overrides, load_config
-
-_NOT_PORTED = "is not ported yet to ravqa_tpu_torch (see ROADMAP.md, Queue A)"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("ravqa_tpu_torch")
@@ -82,7 +92,7 @@ def parse_args(argv=None):
     p.add_argument("--use_dummy_data", action="store_true",
                    help="truncate the OK-VQA data to 20 items a split")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="data-parallel devices (not ported yet)")
+                   help="ranks of the data-parallel mesh (0: one device)")
     p.add_argument("--device", default="cuda",
                    help="torch device for the model and the index")
     return p.parse_args(argv)
@@ -146,14 +156,17 @@ def _flmr_config_from(mc):
 
 
 def build_executor(cfg: Config, device, log_dir: Optional[str] = None,
-                   quiet: bool = True, inference_only: bool = False):
+                   quiet: bool = True, inference_only: bool = False,
+                   mesh=None):
     """FLMR executor with weights drawn from the config's seed (a CPU
     torch.Generator, so one seed gives the same weights on every device)
     and the trainer configured from `train.*`: an FLMRExecutor, or an
     FLMRVisionPretrainingExecutor when `executor.ExecutorClass` names it
     (the WIT recipe). Any other class raises, where the JAX package's
     builds an FLMRExecutor for it (ROADMAP.md C20). inference_only builds
-    no optimizer (serving)."""
+    no optimizer (serving). mesh: data parallelism over its "data" axis
+    (train.param_sharding "replicated", the default, or "fsdp", with
+    train.fsdp_min_size)."""
     from .executors import (FLMRExecutor, FLMRVisionPretrainingExecutor,
                             TrainConfig)
     from .models import FLMRRetriever
@@ -185,12 +198,15 @@ def build_executor(cfg: Config, device, log_dir: Optional[str] = None,
                          seed=cfg.get("seed", 0), quiet=quiet,
                          logger_backends=tuple(tc.get("logger_backends",
                                                       ["jsonl"])),
-                         inference_only=inference_only)
+                         inference_only=inference_only, mesh=mesh,
+                         param_sharding=tc.get("param_sharding",
+                                               "replicated"),
+                         fsdp_min_size=tc.get("fsdp_min_size", 2 ** 18))
 
 
 def build_rag_executor(cfg: Config, data, device,
                        log_dir: Optional[str] = None, quiet: bool = True,
-                       inference_only: bool = False):
+                       inference_only: bool = False, mesh=None):
     """RAVQA / RAVQA-v2 executor from a config (executor.ExecutorClass
     RagExecutor): the FLMR retriever (weights from a CPU generator of the
     config's seed, as build_executor's), the corpus index encoded on
@@ -205,7 +221,8 @@ def build_rag_executor(cfg: Config, data, device,
     retriever_lr, weight_decay, schedule, warmup_steps, total_steps,
     accumulate_grad_batches; the model's module flags) into its
     TrainConfig. inference_only builds no optimizer and no LoRA
-    (serving, evaluation)."""
+    (serving, evaluation). mesh: the index sharded over its "data" axis
+    (JAX main.py:181-184) and the training data parallel."""
     from .data import corpus_doc_batches
     from .executors import FLMRExecutor, RagConfig, RagExecutor, TrainConfig
     from .executors.rag_executor import \
@@ -239,8 +256,8 @@ def build_rag_executor(cfg: Config, data, device,
     generator.reset_parameters(
         torch.Generator(device=device).manual_seed(seed + 1))
     corpus = data["passages"]["full_passages"]
-    index = FLMRExecutor(retriever, device=device,
-                         inference_only=True).build_index(
+    index = FLMRExecutor(retriever, device=device, inference_only=True,
+                         mesh=mesh).build_index(
         corpus_doc_batches(corpus, data["doc_tokenizer"], batch_size=64))
     rag_keys = {f.name for f in dataclasses.fields(RagConfig)}
     rag_kwargs = {k: v for k, v in mc.get("rag", {}).items()
@@ -283,10 +300,11 @@ def build_rag_executor(cfg: Config, data, device,
                        passage_ids=corpus.ids,
                        static_retrieval=static_map, device=device,
                        log_dir=log_dir, seed=seed, quiet=quiet,
-                       inference_only=inference_only)
+                       inference_only=inference_only, mesh=mesh)
 
 
-def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
+def build_server(cfg: Config, data, device, log_dir: Optional[str] = None,
+                 mesh=None):
     """RetrievalServer from a config: encode the corpus into an index on
     `device`, build the searcher, wrap both in the micro-batcher. A RAG
     config gives a VQAServer instead (build_rag_executor; the checkpoint
@@ -301,10 +319,15 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     `serve.*` keys set the micro-batching parameters (batch_buckets among
     them) and the searcher's
     knobs (n_candidates, approx_topk, approx_recall, coarse_int8,
-    centroid_prune, coarse_query_len, stage1_kernel, preset)."""
+    centroid_prune, coarse_query_len, stage1_kernel, preset). mesh: the
+    index sharded over its "data" axis; rank 0 gets the server (its
+    searcher a serving.MeshSearchFront), another rank its shard's
+    searcher for serving.serve_shard."""
     from .data import corpus_doc_batches
+    from .parallel import rank_zero
     from .retrieval import LateInteractionSearcher
-    from .serving import RetrievalServer, ServeConfig, VQAServer
+    from .serving import (MeshSearchFront, RetrievalServer, ServeConfig,
+                          VQAServer)
 
     sv = cfg.get("serve", Config())
     bb = sv.get("batch_buckets")
@@ -315,13 +338,20 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
                      batch_buckets=tuple(bb) if bb else None)
     mc = cfg.model_config
     rag = _is_rag(cfg)
-    ex = (build_rag_executor(cfg, data, device, log_dir, inference_only=True)
-          if rag else build_executor(cfg, device, inference_only=True))
+    ex = (build_rag_executor(cfg, data, device, log_dir, inference_only=True,
+                             mesh=mesh)
+          if rag else build_executor(cfg, device, inference_only=True,
+                                     mesh=mesh))
     if not _load_checkpoint(ex, cfg, log_dir):
         print("serve: no checkpoint found (set train.load_model_path) "
               "— serving randomly initialized weights", flush=True)
     if rag:
         ex.prepare_for_serving()
+        if mesh is not None:
+            if not rank_zero():
+                return ex.searcher
+            ex.searcher = MeshSearchFront(ex.searcher)
+            ex.index = ex.searcher.index
         vis = (ex.model.generator.cfg.vision
                if ex.rag_cfg.generator_type == "blip2" else None)
         server = VQAServer(
@@ -341,7 +371,7 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
     if mode == "hierarchical":
         index.build_block_summaries(block_size=sv.get("block_size", 64))
     searcher = LateInteractionSearcher(
-        index, mode=mode,
+        index, mesh, "data" if mesh is not None else "index", mode=mode,
         n_candidates=sv.get("n_candidates"),
         approx_topk=sv.get("approx_topk"),
         approx_recall=sv.get("approx_recall", 0.95),
@@ -350,6 +380,10 @@ def build_server(cfg: Config, data, device, log_dir: Optional[str] = None):
         coarse_query_len=sv.get("coarse_query_len"),
         stage1_kernel=sv.get("stage1_kernel"),
         preset=sv.get("preset", "reference"))
+    if mesh is not None:
+        if not rank_zero():
+            return searcher
+        searcher = MeshSearchFront(searcher)
     # an in-graph ViT takes raw pixels per request, of the size of the
     # ViT the model was built with
     vit = ex.model.cfg.vit if ex.model.cfg.in_graph_vision else None
@@ -461,6 +495,9 @@ def run_eval(cfg, ex, data, log_dir: str, split: str = "valid") -> dict:
         add_null_document="add_null_document" in mc.get("modules", []))
     metrics = {k: v for k, v in m.items() if not k.startswith("_")}
     ex.logger.log(metrics, ex.step, prefix=f"{split}/")
+    from .parallel import rank_zero
+    if not rank_zero():
+        return metrics              # the ranks' results are the same
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, f"{split}_metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)
@@ -547,20 +584,24 @@ def run_rag_eval(cfg, ex, data, log_dir: str, split: str = "test") -> dict:
     metrics = {"exact_match": exact_match(preds, answers),
                "vqa_accuracy": vqa_accuracy(preds, answers)}
     ex.logger.log(metrics, ex.step, prefix=f"{split}/")
+    from .parallel import rank_zero
+    if not rank_zero():
+        return metrics
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, f"{split}_rag_metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)
     return metrics
 
 
-def run_rag_train(cfg, args, data, log_dir: str) -> int:
+def run_rag_train(cfg, args, data, log_dir: str, mesh=None) -> int:
     """Joint RAG training: `train.total_steps` micro-batches of
     `train.batch_size` questions, each retrieved live with the current
     retriever (so no batch is prepared ahead), validating every
     `train.val_every` through run_rag_eval, then <log_dir>/ckpt.
     `train.load_model_path` starts from a checkpoint."""
     tc = cfg.get("train", Config())
-    ex = build_rag_executor(cfg, data, args.device, log_dir, quiet=False)
+    ex = build_rag_executor(cfg, data, args.device, log_dir, quiet=False,
+                            mesh=mesh)
     if tc.get("load_model_path"):
         ex.load_checkpoint(tc.get("load_model_path"))
     raw = rag_batches(data["train"], tc.get("batch_size", 8),
@@ -577,28 +618,34 @@ def run_rag_train(cfg, args, data, log_dir: str) -> int:
     return 0
 
 
-def run_rag_test(cfg, args, data, log_dir: str) -> int:
+def run_rag_test(cfg, args, data, log_dir: str, mesh=None) -> int:
     """Evaluate the checkpoint (train.load_model_path, else <log_dir>/ckpt)
     on the test split (--mode test) or the valid split (--mode eval). The
     JAX package's RAG test mode evaluates the executor as built, without
     the checkpoint (ROADMAP.md C17)."""
     ex = build_rag_executor(cfg, data, args.device, log_dir, quiet=False,
-                            inference_only=True)
+                            inference_only=True, mesh=mesh)
     if not _load_checkpoint(ex, cfg, log_dir):
         print(f"{args.mode}: no checkpoint found — evaluating randomly "
               "initialized weights", flush=True)
     metrics = run_rag_eval(cfg, ex, data, log_dir,
                            "test" if args.mode == "test" else "valid")
-    print(json.dumps(metrics, indent=2))
+    _print_rank0(metrics)
     return 0
 
 
-def run_train(cfg, args, data, log_dir: str) -> int:
+def _print_rank0(metrics: dict) -> None:
+    from .parallel import rank_zero
+    if rank_zero():
+        print(json.dumps(metrics, indent=2))
+
+
+def run_train(cfg, args, data, log_dir: str, mesh=None) -> int:
     """Train `train.total_steps` micro-steps (the remaining ones when
     `train.auto_resume` finds <log_dir>/ckpt), validating every
     `train.val_every`, then save <log_dir>/ckpt."""
     tc = cfg.get("train", Config())
-    ex = build_executor(cfg, args.device, log_dir, quiet=False)
+    ex = build_executor(cfg, args.device, log_dir, quiet=False, mesh=mesh)
     explicit = tc.get("load_model_path")
     auto = os.path.join(log_dir, "ckpt")
     steps = tc.get("total_steps", 100)
@@ -625,23 +672,27 @@ def run_train(cfg, args, data, log_dir: str) -> int:
     return 0
 
 
-def run_test(cfg, args, data, log_dir: str) -> int:
+def run_test(cfg, args, data, log_dir: str, mesh=None) -> int:
     """Evaluate the checkpoint (train.load_model_path, else <log_dir>/ckpt)
     on the test split (--mode test) or the valid split (--mode eval)."""
     ex = build_executor(cfg, args.device, log_dir, quiet=False,
-                        inference_only=True)
+                        inference_only=True, mesh=mesh)
     if not _load_checkpoint(ex, cfg, log_dir):
         print(f"{args.mode}: no checkpoint found — evaluating randomly "
               "initialized weights", flush=True)
     split = "test" if args.mode == "test" else "valid"
     metrics = run_eval(cfg, ex, data, log_dir, split)
-    print(json.dumps(metrics, indent=2))
+    _print_rank0(metrics)
     return 0
 
 
-def run_serve(cfg, args, data, log_dir: str) -> int:
-    from .serving import VQAServer, make_http_server
-    server = build_server(cfg, data, args.device, log_dir)
+def run_serve(cfg, args, data, log_dir: str, mesh=None) -> int:
+    from .parallel import rank_zero
+    from .serving import VQAServer, make_http_server, serve_shard
+    server = build_server(cfg, data, args.device, log_dir, mesh)
+    if mesh is not None and not rank_zero():
+        serve_shard(server)          # this rank's searcher, until shutdown
+        return 0
     httpd = make_http_server(server, args.host, args.port)
     what = (("VQAServer", "/answer") if isinstance(server, VQAServer)
             else ("RetrievalServer", "/search"))
@@ -655,11 +706,25 @@ def run_serve(cfg, args, data, log_dir: str) -> int:
     finally:
         httpd.server_close()
         server.stop()
+        if mesh is not None:            # end the other ranks' loops
+            (server.ex if isinstance(server, VQAServer)
+             else server).searcher.shutdown()
     return 0
 
 
 def main(argv=None):
     args = parse_args(argv)
+    import torch.distributed as dist
+    if args.num_devices and not dist.is_initialized():
+        # one process per rank (or torchrun's), each running this main
+        import signal
+        import sys
+        from .parallel import launch
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+        return launch(main, args.num_devices,
+                      list(sys.argv[1:] if argv is None else argv),
+                      device=args.device, timeout=600.0, join_timeout=None,
+                      threads=0)[0]
     cfg = apply_overrides(load_config(args.config), args.opts)
     if args.modules:
         cfg.model_config.modules = list(cfg.model_config.get("modules", [])) \
@@ -668,24 +733,40 @@ def main(argv=None):
         for node in cfg.data_pipeline.values():
             if isinstance(node, dict) and "setup_kwargs" in node:
                 node.setup_kwargs["use_dummy_data"] = True
+    mesh = None
     if args.num_devices:
-        raise NotImplementedError(f"--num_devices {_NOT_PORTED}: A4")
+        from .parallel import barrier, local_device, make_mesh
+        mesh = make_mesh({"data": args.num_devices})
+        args.device = str(local_device())
     log_dir = os.path.join(args.log_dir, args.experiment_name)
     os.makedirs(log_dir, exist_ok=True)
-    data = build_pipeline(cfg, os.path.join(log_dir, "cache"),
-                          args.device).get_data(
-        cfg.data_pipeline_output_node, explode=True)
+
+    def get_data():
+        return build_pipeline(cfg, os.path.join(log_dir, "cache"),
+                              args.device).get_data(
+            cfg.data_pipeline_output_node, explode=True)
+
+    cached = any(isinstance(n, dict) and n.get("cache")
+                 for n in cfg.data_pipeline.values())
+    if mesh is None or not cached:
+        data = get_data()
+    else:
+        # rank 0 fills the pipeline's cache first; the others read it
+        rank = dist.get_rank()
+        data = get_data() if rank == 0 else None
+        barrier()
+        data = data if rank == 0 else get_data()
     if args.mode == "prepare_data":
         print("prepare_data done:", list(data))
         return 0
     if args.mode == "serve":
-        return run_serve(cfg, args, data, log_dir)
+        return run_serve(cfg, args, data, log_dir, mesh)
     if _is_rag(cfg):
         return (run_rag_train if args.mode == "train" else run_rag_test)(
-            cfg, args, data, log_dir)
+            cfg, args, data, log_dir, mesh)
     if args.mode == "train":
-        return run_train(cfg, args, data, log_dir)
-    return run_test(cfg, args, data, log_dir)
+        return run_train(cfg, args, data, log_dir, mesh)
+    return run_test(cfg, args, data, log_dir, mesh)
 
 
 if __name__ == "__main__":

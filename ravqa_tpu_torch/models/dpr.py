@@ -35,6 +35,10 @@ class DPRModelConfig:
 
 
 class DPRRetriever(nn.Module):
+    # the data-parallel process group whose ranks' items join the in-batch
+    # negatives (set by a data-parallel executor; ops.losses)
+    negatives_group = None
+
     def __init__(self, cfg: DPRModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -76,6 +80,7 @@ class DPRRetriever(nn.Module):
                               deterministic, generator)
         d = self.encode_item(item_input_ids, item_attention_mask,
                              deterministic, generator)
-        loss, scores = dpr_in_batch_loss(q.float(), d.float(), self.cfg.nway)
+        loss, scores = dpr_in_batch_loss(q.float(), d.float(), self.cfg.nway,
+                                         self.negatives_group)
         return {"loss": loss, "scores": scores, "query_emb": q,
                 "item_emb": d}

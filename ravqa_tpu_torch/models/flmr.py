@@ -127,6 +127,10 @@ def skiplist_mask(input_ids: torch.Tensor, skip_ids: Optional[Sequence[int]],
 
 
 class FLMRRetriever(nn.Module):
+    # the data-parallel process group whose ranks' docs join the in-batch
+    # negatives (set by a data-parallel executor; ops.losses)
+    negatives_group = None
+
     def __init__(self, cfg: FLMRModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -289,7 +293,8 @@ class FLMRRetriever(nn.Module):
         if cfg.use_ib_negatives:
             ib, _ = in_batch_negative_loss(
                 q, d, d_mask, cfg.nway, block_n=cfg.ib_block_n,
-                compute_dtype=torch.bfloat16 if cfg.ib_score_bf16 else None)
+                compute_dtype=torch.bfloat16 if cfg.ib_score_bf16 else None,
+                group=self.negatives_group)
             out["ib_loss"] = ib
             out["loss"] = nway_loss + ib
         return out

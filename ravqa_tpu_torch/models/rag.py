@@ -61,6 +61,13 @@ def _merged_and_ignore(loss_type: str, pred_ok: torch.Tensor,
     raise ValueError(loss_type)
 
 
+def _global_count(n: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return n
+    from ..parallel.mesh import all_reduce
+    return all_reduce(n.detach().clone(), group=group)
+
+
 def rag_loss_components(seq_logits: torch.Tensor, doc_scores: torch.Tensor,
                         target: torch.Tensor,
                         retrieval_labels: Optional[torch.Tensor] = None,
@@ -68,12 +75,19 @@ def rag_loss_components(seq_logits: torch.Tensor, doc_scores: torch.Tensor,
                         rag_loss_weight: float = 1.0,
                         additional_loss_weight: float = 1.0,
                         nll_loss_weight: float = 1.0,
-                        ignore_index: int = -100) -> dict:
+                        ignore_index: int = -100, group=None) -> dict:
     """seq_logits (B * n_docs, T, V); doc_scores (B, n_docs); target
     (B * n_docs, T) with ignore_index padding; retrieval_labels (B,
     n_docs) 1/0. Returns {"nll_loss", "rag_loss", "additional_loss",
     "loss"}, scalars; "loss" is the weighted sum. The softmaxes run in
-    float32 (float64 inputs stay float64: a reference run)."""
+    float32 (float64 inputs stay float64: a reference run).
+
+    group: a data-parallel group whose ranks hold the other rows of the
+    global batch. The NLL and the retrieval loss are means over counts of
+    the whole batch (non-pad tokens, nonzero BCE terms) and the RAG loss a
+    sum, so each rank divides by the global counts (summed over the
+    group) and returns its share: the shares sum to the global batch's
+    losses (the executor sums the grads, BaseExecutor.loss_is_sum)."""
     b, n_docs = doc_scores.shape
     t, v = seq_logits.shape[1], seq_logits.shape[-1]
     seq_logprobs = torch.log_softmax(upcast(seq_logits), -1).reshape(
@@ -88,7 +102,7 @@ def rag_loss_components(seq_logits: torch.Tensor, doc_scores: torch.Tensor,
 
     out = {}
     # the mean NLL over non-pad tokens (the reference's reduce_loss path)
-    denom = (~pad_mask).sum().clamp_min(1)
+    denom = _global_count((~pad_mask).sum(), group).clamp_min(1)
     out["nll_loss"] = nll_loss = -ll.sum() / denom
 
     # RAG-sequence: the doc log-prob at the first token (T5: no BOS)
@@ -108,7 +122,7 @@ def rag_loss_components(seq_logits: torch.Tensor, doc_scores: torch.Tensor,
         bce = -(merged * torch.log(p + eps)
                 + (1 - merged) * torch.log(1 - p + eps))
         bce = torch.where(ignore, 0.0, bce)
-        nz = (bce != 0).sum()
+        nz = _global_count((bce != 0).sum(), group)
         additional = torch.where(nz > 0, bce.sum() / nz.clamp_min(1), 0.0)
     out["additional_loss"] = additional
     out["loss"] = (nll_loss_weight * nll_loss + rag_loss_weight * rag_loss

@@ -177,7 +177,8 @@ class T5Attention(nn.Module):
                          device=device) if has_relative_bias else None)
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:
-        return x.reshape(*x.shape[:2], self.cfg.num_heads, self.cfg.d_kv)
+        # a tensor-parallel rank (parallel.tp) holds a slice of the heads
+        return x.reshape(*x.shape[:2], -1, self.cfg.d_kv)
 
     def project_kv(self, src: torch.Tensor) -> tuple:
         """(B, T, D) -> this layer's keys and values, (B, T, H, d_kv)."""
@@ -229,7 +230,11 @@ class T5Attention(nn.Module):
             offset = decode_cache["index"] if decode_cache is not None else 0
             position_bias = self.position_bias(tq, tk, offset, x.device)
         if position_bias is not None:
-            logits = logits + position_bias
+            # the bias covers every head; a tensor-parallel rank adds its
+            # heads' slice (tp_heads, set by parallel.apply_tp)
+            tp = getattr(self, "tp_heads", None)
+            logits = logits + (position_bias if tp is None
+                               else position_bias[:, tp])
         if mask_bias is not None:
             logits = logits + mask_bias
         if decode_cache is not None:

@@ -83,10 +83,12 @@ class MultiHeadAttention(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, h = x.shape
-        nh = self.num_heads
-        hd = h // nh
+        hd = h // self.num_heads
         src = x if kv is None else kv.to(x.dtype)
-        q = self.query(x).view(b, t, nh, hd)
+        q = self.query(x)
+        # a tensor-parallel rank (parallel.tp) holds a slice of the heads
+        nh = q.shape[-1] // hd
+        q = q.view(b, t, nh, hd)
         k = self.key(src).view(b, src.shape[1], nh, hd)
         v = self.value(src).view(b, src.shape[1], nh, hd)
         logits = upcast(torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5,
@@ -96,7 +98,7 @@ class MultiHeadAttention(nn.Module):
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         probs = dropout(probs, self.dropout_rate, generator)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out(ctx.reshape(b, t, h))
+        return self.out(ctx.reshape(b, t, nh * hd))
 
 
 class MlpBlock(nn.Module):

@@ -76,10 +76,13 @@ def _numpy(x) -> np.ndarray:
 
 
 def _sample_split(tokens, mask, sample: int, heldout: int, seed: int,
-                  device=None):
+                  device=None, gather=None):
     """Disjoint (train, heldout) float32 samples of the valid tokens, with
     the JAX package's numpy picks (same seed, same rows). Only the picked
-    rows are read, so a large device-resident index is never copied."""
+    rows are read, so a large device-resident index is never copied.
+    gather: rows of the flat (N * Ld, dim) token array -> their float32
+    tokens, in place of reading `tokens` (a sharded index assembles the
+    global picks across its ranks)."""
     valid = np.flatnonzero(_numpy(mask).reshape(-1) > 0)
     rng = np.random.default_rng(seed)
     take = min(sample + heldout, len(valid))
@@ -87,6 +90,9 @@ def _sample_split(tokens, mask, sample: int, heldout: int, seed: int,
     # split is ever empty
     heldout = max(1, min(heldout, take // 2))
     rows = valid[rng.choice(len(valid), take, replace=False)]
+    if gather is not None:
+        picked = gather(rows).to(device)
+        return picked[:take - heldout], picked[take - heldout:]
     dim = tokens.shape[-1]
     if isinstance(tokens, torch.Tensor):
         flat = tokens.reshape(-1, dim)
@@ -188,12 +194,13 @@ def _device_of(tokens, device):
 def train_codec(tokens, mask, n_centroids: int = 256, nbits: int = 2,
                 iters: int = 8, sample: int = 2 ** 16,
                 heldout: int = 2 ** 14, seed: int = 0,
-                device=None) -> ResidualCodec:
+                device=None, gather=None) -> ResidualCodec:
     """Flat codec: spherical k-means on a token sample (numpy picks from
     `seed`), bucket quantiles on the held-out residuals. Runs on `device`
-    (default: the tokens' device)."""
+    (default: the tokens' device). gather: see _sample_split."""
     dev = _device_of(tokens, device)
-    train, held = _sample_split(tokens, mask, sample, heldout, seed, dev)
+    train, held = _sample_split(tokens, mask, sample, heldout, seed, dev,
+                                gather)
     cent = _kmeans(train, n_centroids, iters)
     cutoffs, weights = _fit_buckets(held - cent[_assign(held, cent)], nbits)
     return ResidualCodec(centroids=cent, bucket_cutoffs=cutoffs,
@@ -204,19 +211,21 @@ def train_codec_factored(tokens, mask, k_coarse: int = 64,
                          k_fine: int = 128, nbits: int = 2, iters: int = 8,
                          refine_iters: int = 4, sample: int = 2 ** 16,
                          heldout: int = 2 ** 14, seed: int = 0,
-                         device=None) -> ResidualCodec:
+                         device=None, gather=None) -> ResidualCodec:
     """Factored additive codec: K = k_coarse * k_fine effective centroids,
     centroid[h * k_fine + l] = coarse[h] + fine[l]. Spherical k-means
     coarse, l2 k-means fine on the residuals, then `refine_iters` rounds
     under the greedy assignment (assign_factored). k_fine must be a power
-    of two and K <= 65536 (records store uint16 codes)."""
+    of two and K <= 65536 (records store uint16 codes). gather: see
+    _sample_split."""
     if k_fine & (k_fine - 1):
         raise ValueError(f"k_fine must be a power of two; got {k_fine}")
     if k_coarse * k_fine > 65536:
         raise ValueError(f"k_coarse * k_fine = {k_coarse * k_fine} exceeds "
                          "the uint16 code range of the packed records")
     dev = _device_of(tokens, device)
-    train, held = _sample_split(tokens, mask, sample, heldout, seed, dev)
+    train, held = _sample_split(tokens, mask, sample, heldout, seed, dev,
+                                gather)
     coarse = _kmeans(train, k_coarse, iters)
     fine = _kmeans_l2(train - coarse[_assign(train, coarse)], k_fine, iters)
     coarse, fine = _refine_factored(train, coarse, fine, refine_iters)

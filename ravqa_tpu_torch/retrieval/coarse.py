@@ -287,6 +287,7 @@ def hierarchical_search(q: torch.Tensor, tokens: Optional[torch.Tensor],
                         approx_recall: float = 0.95,
                         block_summ_t: Optional[torch.Tensor] = None,
                         block_summ_t_scale: Optional[torch.Tensor] = None,
+                        block_summ_scale: Optional[torch.Tensor] = None,
                         summ_int8: Optional[torch.Tensor] = None,
                         summ_scale: Optional[torch.Tensor] = None,
                         summ_rows: Optional[torch.Tensor] = None,
@@ -297,8 +298,12 @@ def hierarchical_search(q: torch.Tensor, tokens: Optional[torch.Tensor],
     Stage 0 scores the (NB, Sb, dim) block summaries densely: through
     ops.maxsim.coarse_sweep (K2, or K3 with `block_summ_t_scale`) when the
     slot-major padded copy `block_summ_t` is given, else with the plain
-    einsum; fully padded blocks score -9999. The top `n_blocks` blocks go
-    to stage 1, which scores their docs' summaries, per query: with
+    einsum; fully padded blocks score -9999. With `block_summ_scale` (the
+    JAX mesh program's int8 stage 0, search.py:571-585), `block_summ_t`
+    holds int8 block-summary codes as bfloat16 (exact): K2 sweeps them
+    against the bf16-cast query, as the JAX program's bf16 einsum does,
+    and the positive per-block scale multiplies each sum after the max.
+    The top `n_blocks` blocks go to stage 1, which scores their docs' summaries, per query: with
     `summ_rows` (stage1_rows layout, bfloat16 or int8 with `summ_scale`)
     through ops.maxsim.stage1_sweep (K4); with `summ_int8` + `summ_scale`
     (doc-major int8 copy) or the float `summaries` in plain PyTorch. Docs
@@ -335,7 +340,11 @@ def hierarchical_search(q: torch.Tensor, tokens: Optional[torch.Tensor],
     qc = q if coarse_query_len is None else q[:, :coarse_query_len]
 
     # stage 0: dense over block summaries; fully padded blocks out
-    if block_summ_t is not None:
+    if block_summ_scale is not None:
+        s0 = (coarse_sweep(qc, block_summ_t)[:, :nb]
+              * block_summ_scale[None, :]).masked_fill(~blk_valid[None, :],
+                                                       NEG_INF)
+    elif block_summ_t is not None:
         v = torch.zeros(block_summ_t.shape[1], dtype=torch.int8,
                         device=blk_valid.device)
         v[:nb] = blk_valid

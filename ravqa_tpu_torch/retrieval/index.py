@@ -1,6 +1,7 @@
-"""Device-resident late-interaction token index.
+"""Device-resident late-interaction token index, on one device or sharded
+over a mesh axis.
 
-Port of ravqa_tpu/retrieval/index.py for one device:
+Port of ravqa_tpu/retrieval/index.py:
 
     tokens:          (N_pad, Ld, dim)     float32, bfloat16 or int8; None
                                           on a residual index
@@ -17,10 +18,21 @@ Port of ravqa_tpu/retrieval/index.py for one device:
 Save format (save_index / load_index): the JAX package's index.npz plus
 metadata.json, so an index saved by either package loads in the other.
 The functions keep the JAX package's argument positions, `mesh` and
-`axis` included; sharding (a given mesh raises NotImplementedError) is not
-ported (ROADMAP.md, Queue A: A4).
-A float32 index searched exactly on the card also keeps its bf16 planes
-(token_planes), made on first use and never saved.
+`axis` included. A float32 index searched exactly on the card also keeps
+its bf16 planes (token_planes), made on first use and never saved.
+
+Sharding (a `mesh`, parallel.make_mesh, and its `axis`): the JAX index's
+arrays are sharded over dim 0 (P(axis)); here each rank's TokenIndex
+holds its own rows, [r * n_local, (r + 1) * n_local) of the padded index
+at its position r on the axis, while `pids` stays the global table and
+`n_pad` the global padded count. The padded count is a multiple of
+pad_multiple * nshards (JAX's rule), the per-doc and per-block arrays
+(summaries, block summaries, int8 scales, residual records) are built
+from the local rows, block_size must divide n_local, and the residual
+codec is trained on the JAX package's global token sample (rank 0 trains,
+every rank gets the same tables). load_index reads only the rank's rows,
+encode_corpus encodes only the rank's slice of the corpus, and save_index
+gathers the shards and writes from rank 0.
 """
 
 from __future__ import annotations
@@ -29,23 +41,20 @@ import dataclasses
 import json
 import os
 import weakref
-from typing import Callable, Iterable, Optional, Sequence
+import zipfile
+from typing import Any, Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
-_NO_SHARDING = ("is not ported yet: ravqa_tpu_torch keeps an index on one "
-                "device (see ROADMAP.md, Queue A: A4)")
-
-
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"sharded {what} {_NO_SHARDING}")
+from ..parallel.mesh import (all_gather, all_reduce, axis_group, axis_rank,
+                             broadcast_object, mesh_axis_size, rank_zero)
 
 
 @dataclasses.dataclass
 class TokenIndex:
-    """A late-interaction token index on one device."""
+    """A late-interaction token index: on one device, or this rank's
+    shard of an index sharded over `axis` of `mesh`."""
     tokens: Optional[torch.Tensor]  # (N_pad, Ld, dim); None when residual
     mask: torch.Tensor         # (N_pad, Ld) int8
     pids: np.ndarray           # (N_pad,) int64 passage ids; -1 = pad
@@ -66,15 +75,19 @@ class TokenIndex:
     codec_coarse: Optional[torch.Tensor] = None     # (k_coarse, dim)
     codec_fine: Optional[torch.Tensor] = None       # (k_fine, dim)
     nbits: int = 0
+    mesh: Any = None           # the DeviceMesh the index is sharded over
+    axis: Any = "index"        # its mesh axis (or a tuple of axes)
 
-    def build_summaries(self, n_summary: int = 8,
-                        iters: int = 4) -> "TokenIndex":
+    def build_summaries(self, n_summary: int = 8, iters: int = 4,
+                        mesh=None, axis: str = "index") -> "TokenIndex":
         """Attach per-doc summary vectors (coarse.summarize_docs) for
         two-stage and hierarchical search, in the tokens' dtype; bfloat16
         for an int8 index, whose k-means runs on the raw codes (as the JAX
         package's). A residual index has no tokens: build summaries before
-        quantize_residual()."""
+        quantize_residual(). A sharded index summarizes its own rows
+        (`mesh` and `axis`, the JAX signature's, must be its own)."""
         from .coarse import summarize_docs
+        self._check_mesh(mesh, axis)
         if self.tokens is None:
             raise ValueError("a residual index has no tokens to summarize: "
                              "build_summaries() before quantize_residual()")
@@ -87,16 +100,23 @@ class TokenIndex:
 
     def build_block_summaries(self, block_size: int = 64,
                               n_block_summary: int = 4,
-                              iters: int = 4) -> "TokenIndex":
+                              iters: int = 4, mesh=None,
+                              axis: str = "index") -> "TokenIndex":
         """Second summary level for hierarchical search, over blocks of
         `block_size` consecutive docs. For best recall, build the index
-        with cluster-ordered docs (coarse.cluster_order)."""
+        with cluster-ordered docs (coarse.cluster_order). A sharded index
+        summarizes its own blocks: block_size must divide n_local, so no
+        block spans two shards."""
         from .coarse import block_summaries
+        self._check_mesh(mesh, axis)
         if self.summaries is None:
             raise ValueError("build_summaries() first")
         if self.n_pad % block_size:
             raise ValueError(f"block_size {block_size} must divide the "
                              f"padded doc count {self.n_pad}")
+        if self.n_local % block_size:
+            raise ValueError(f"block_size {block_size} must divide the "
+                             f"per-shard doc count {self.n_local}")
         self.block_summaries = block_summaries(
             self.summaries, block_size=block_size,
             n_block_summary=n_block_summary,
@@ -133,27 +153,47 @@ class TokenIndex:
         ops.residual.ResidualCodec to compress with instead (then
         n_centroids, nbits, seed, sample and heldout are ignored).
         Training and compression run on the index's device, in doc
-        blocks written straight into the record rows."""
-        from ..ops.residual import (compress_blocks, pack_records,
-                                    record_bytes, train_codec,
+        blocks written straight into the record rows. A sharded index
+        trains on the global sample the JAX package draws from the whole
+        token array (rank 0 trains on it and broadcasts the tables) and
+        compresses its own rows."""
+        from ..ops.residual import (_sample_split, compress_blocks,
+                                    pack_records, record_bytes, train_codec,
                                     train_codec_factored)
-        _no_mesh(mesh, "residual compression")
+        self._check_mesh(mesh, axis)
         if self.tokens is None:
             raise ValueError("the index is already residual-compressed")
         if self.summaries is None:
             raise ValueError("build_summaries() before quantize_residual()")
         dev = self.device
-        if codec is None and isinstance(n_centroids, (tuple, list)):
+        tokens, mask, gather = self.tokens, self.mask, None
+        trains = True
+        if self.mesh is not None and codec is None:
+            mask = self._gathered(self.mask)
+            gather = self._sample_rows
+            trains = self.shard_rank == 0
+            if not trains:
+                # take part in assembling the sample; rank 0 trains on it
+                _sample_split(tokens, mask, sample, heldout, seed, dev,
+                              gather)
+        if trains and codec is None and isinstance(n_centroids,
+                                                   (tuple, list)):
             k1, k2 = n_centroids
-            codec = train_codec_factored(self.tokens, self.mask, k_coarse=k1,
+            codec = train_codec_factored(tokens, mask, k_coarse=k1,
                                          k_fine=k2, nbits=nbits, seed=seed,
                                          sample=sample, heldout=heldout,
-                                         device=dev)
-        elif codec is None:
-            codec = train_codec(self.tokens, self.mask,
+                                         device=dev, gather=gather)
+        elif trains and codec is None:
+            codec = train_codec(tokens, mask,
                                 n_centroids=n_centroids, nbits=nbits,
                                 seed=seed, sample=sample, heldout=heldout,
-                                device=dev)
+                                device=dev, gather=gather)
+        if self.mesh is not None:
+            # rank 0's tables on every rank, whether trained or given
+            group = axis_group(self.mesh, self.axis)
+            codec = broadcast_object(
+                _to_cpu(codec) if self.shard_rank == 0 else None,
+                torch.distributed.get_global_rank(group, 0), group)
         if codec.centroids.shape[0] > 65536:
             raise ValueError("records store uint16 centroid codes (at most "
                              "65536 centroids)")
@@ -161,6 +201,7 @@ class TokenIndex:
             f.name: getattr(codec, f.name).to(dev)
             for f in dataclasses.fields(codec)
             if isinstance(getattr(codec, f.name), torch.Tensor)})
+
         n, ld, dim = self.tokens.shape
         records = torch.empty((n, record_bytes(ld, dim, codec.nbits)),
                               dtype=torch.uint8, device=dev)
@@ -195,7 +236,29 @@ class TokenIndex:
         """Token embeddings of the given padded-index rows, (..., Ld, dim)
         float32: the stored values (an int8 index's raw codes, as the JAX
         package returns them), or a residual index's reconstruction times
-        its normalizing scale."""
+        its normalizing scale. On a sharded index the rows are global and
+        every rank of the axis gets them all (each fills its own rows; a
+        sum over the axis assembles them)."""
+        if self.mesh is not None:
+            return self._gather_global(rows, self._gather_tokens_local)
+        return self._gather_tokens_local(rows)
+
+    def gather_mask(self, rows: torch.Tensor) -> torch.Tensor:
+        """The token masks of the given (global) padded-index rows, float32,
+        (..., Ld)."""
+        if self.mesh is not None:
+            return self._gather_global(rows, lambda r: self.mask[r].float())
+        return self.mask[rows].float()
+
+    def _gather_global(self, rows: torch.Tensor, take) -> torch.Tensor:
+        lo = self.shard_rank * self.n_local
+        own = (rows >= lo) & (rows < lo + self.n_local)
+        out = take(torch.where(own, rows - lo, 0))
+        out = out * own.reshape(own.shape + (1,) * (out.dim() - own.dim()))
+        return all_reduce(out.contiguous(),
+                          group=axis_group(self.mesh, self.axis))
+
+    def _gather_tokens_local(self, rows: torch.Tensor) -> torch.Tensor:
         if self.tokens is not None:
             return self.tokens[rows].float()
         from ..ops.residual import decompress, split_records
@@ -210,14 +273,55 @@ class TokenIndex:
         from ..ops.residual import split_records
         return split_records(self.records, self.doc_maxlen)
 
+    # -- sharding ----------------------------------------------------------
+    @property
+    def n_shards(self) -> int:
+        return 1 if self.mesh is None else mesh_axis_size(self.mesh,
+                                                          self.axis)
+
+    @property
+    def shard_rank(self) -> int:
+        return 0 if self.mesh is None else axis_rank(self.mesh, self.axis)
+
+    @property
+    def n_local(self) -> int:
+        """The rows this index (shard) holds."""
+        return self.mask.shape[0]
+
+    def _check_mesh(self, mesh, axis) -> None:
+        if mesh is not None and (mesh is not self.mesh or axis != self.axis):
+            raise ValueError("a sharded index is built with its mesh "
+                             "(build_index_from_embeddings, encode_corpus "
+                             "or load_index with `mesh`); its later steps "
+                             "take that mesh and axis or none")
+
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """The global array of a per-doc shard, on every rank."""
+        g = all_gather(t, axis_group(self.mesh, self.axis))
+        return g.reshape(-1, *t.shape[1:])
+
+    def _sample_rows(self, rows: np.ndarray) -> torch.Tensor:
+        """Flat (N_pad * Ld) token rows of the global index -> their
+        float32 tokens on every rank: each rank fills the rows it holds and
+        a sum over the axis assembles them (rows are unique)."""
+        ld, dim = self.tokens.shape[1], self.tokens.shape[2]
+        lo = self.shard_rank * self.n_local * ld
+        mine = (rows >= lo) & (rows < lo + self.n_local * ld)
+        out = torch.zeros((len(rows), dim), dtype=torch.float32,
+                          device=self.device)
+        sel = torch.from_numpy(np.flatnonzero(mine)).to(self.device)
+        loc = torch.from_numpy(rows[mine] - lo).to(self.device)
+        out[sel] = self.tokens.reshape(-1, dim)[loc].float()
+        return all_reduce(out, group=axis_group(self.mesh, self.axis))
+
     @property
     def device(self) -> torch.device:
         return self.mask.device
 
     @property
     def n_pad(self) -> int:
-        return (self.tokens if self.tokens is not None
-                else self.records).shape[0]
+        """The padded doc count of the whole index (every shard's rows)."""
+        return self.n_local * self.n_shards
 
     @property
     def doc_maxlen(self) -> int:
@@ -228,6 +332,13 @@ class TokenIndex:
         if self.tokens is not None:
             return self.tokens.shape[2]
         return self.codec_centroids.shape[1]
+
+
+def _to_cpu(codec):
+    return dataclasses.replace(codec, **{
+        f.name: getattr(codec, f.name).cpu()
+        for f in dataclasses.fields(codec)
+        if isinstance(getattr(codec, f.name), torch.Tensor)})
 
 
 def pad_to(n: int, multiple: int) -> int:
@@ -251,8 +362,10 @@ def build_index_from_embeddings(
     (padded to the longest); embeddings must already be L2-normalized.
     masks: the matching validity masks. N is padded to a multiple of
     `pad_multiple` with masked docs whose pid is -1. device: where the index
-    lives (None: where `embs` is, the CPU for numpy input)."""
-    _no_mesh(mesh, "index")
+    lives (None: where `embs` is, the CPU for numpy input). mesh: every
+    rank passes the whole corpus and keeps its shard of the rows over
+    `axis`; the padded count is then a multiple of pad_multiple * nshards,
+    as the JAX package pads it."""
     if isinstance(embs, (list, tuple)):
         n = len(embs)
         ld = max(e.shape[0] for e in embs)
@@ -269,19 +382,44 @@ def build_index_from_embeddings(
         n, ld, dim = tok.shape
     if device is None:
         device = tok.device
-    tok = tok.to(device=device, dtype=dtype)
-    msk = msk.to(device=device).to(torch.int8)
     pids = (np.arange(n, dtype=np.int64) if pids is None
             else np.asarray(pids, np.int64))
+    n_pad = padded_count(n, pad_multiple, mesh, axis)
+    lo, hi = 0, n_pad
+    if mesh is not None:
+        n_local = n_pad // mesh_axis_size(mesh, axis)
+        lo = axis_rank(mesh, axis) * n_local
+        hi = lo + n_local
+    tok = tok[lo:min(hi, n)].to(device=device, dtype=dtype)
+    msk = msk[lo:min(hi, n)].to(device=device).to(torch.int8)
+    return _padded_index(tok, msk, pids, n, n_pad, hi - lo, ld, dim,
+                         mesh, axis)
 
+
+def padded_count(n: int, pad_multiple: int, mesh=None,
+                 axis="index") -> int:
+    """The padded doc count: a multiple of pad_multiple, and of
+    pad_multiple * nshards on a mesh (the JAX package's rule)."""
     n_pad = pad_to(max(n, 1), pad_multiple)
+    if mesh is not None:
+        n_pad = pad_to(n_pad, pad_multiple * mesh_axis_size(mesh, axis))
+    return n_pad
+
+
+def _padded_index(tok, msk, pids, n, n_pad, n_rows, ld, dim, mesh,
+                  axis) -> TokenIndex:
+    """A TokenIndex of `tok`/`msk` (the real docs of these rows) padded
+    with masked rows to n_rows, the global pids padded with -1 to n_pad."""
+    short = n_rows - tok.shape[0]
+    if short:
+        tok = torch.cat([tok, tok.new_zeros((short, ld, dim))])
+        msk = torch.cat([msk, msk.new_zeros((short, ld))])
     if n_pad != n:
-        tok = torch.cat([tok, tok.new_zeros((n_pad - n, ld, dim))])
-        msk = torch.cat([msk, msk.new_zeros((n_pad - n, ld))])
         pids = np.concatenate([pids, np.full((n_pad - n,), -1, np.int64)])
     return TokenIndex(tokens=tok.contiguous(), mask=msk.contiguous(),
                       pids=pids, num_docs=n,
-                      meta={"doc_maxlen": ld, "dim": dim})
+                      meta={"doc_maxlen": ld, "dim": dim}, mesh=mesh,
+                      axis=axis)
 
 
 def encode_corpus(
@@ -292,6 +430,8 @@ def encode_corpus(
     pids: Optional[Sequence[int]] = None,
     device=None,
     resume_dir: Optional[str] = None,
+    mesh=None,
+    axis: str = "index",
 ) -> TokenIndex:
     """Encode a corpus into a TokenIndex.
 
@@ -304,7 +444,16 @@ def encode_corpus(
     as chunk_{i}.npz (the JAX package's files, so either package resumes
     the other's), and a restarted build skips the chunks already on disk
     (the reference's indexing `resume` mode). A chunk is written to a
-    temporary name and renamed, so a crash never leaves a truncated one."""
+    temporary name and renamed, so a crash never leaves a truncated one.
+
+    mesh: each rank encodes only the docs of its own rows over `axis` (the
+    batches are read once to count the corpus, and each batch's
+    overlap with the rank's rows is encoded); a rank's resume chunks are
+    chunk_{i}.shard{r}of{n}.npz."""
+    if mesh is not None:
+        return _encode_corpus_sharded(doc_encode_fn, list(batches),
+                                      pad_multiple, dtype, pids, device,
+                                      resume_dir, mesh, axis)
     embs, msks = [], []
     if resume_dir:
         os.makedirs(resume_dir, exist_ok=True)
@@ -317,11 +466,7 @@ def encode_corpus(
             if device is not None:
                 d, m = d.to(device), m.to(device)
         else:
-            d, m = doc_encode_fn(batch)
-            if chunk:
-                tmp = chunk + ".tmp.npz"
-                np.savez(tmp, d=_np(d, torch.float32), m=_np(m, torch.int8))
-                os.replace(tmp, chunk)
+            d, m = _encode_chunk(doc_encode_fn, batch, chunk)
         embs.append(d.to(dtype))
         msks.append(m.to(torch.int8))
     tok = torch.cat(embs)
@@ -329,6 +474,71 @@ def encode_corpus(
     return build_index_from_embeddings(tok, torch.cat(msks), pids=pids,
                                        pad_multiple=pad_multiple, dtype=dtype,
                                        device=device)
+
+
+def _encode_chunk(doc_encode_fn, batch, chunk: Optional[str]):
+    """Encode one batch, writing its resume chunk (temporary name, then
+    renamed) when `chunk` names one."""
+    d, m = doc_encode_fn(batch)
+    if chunk:
+        tmp = chunk + ".tmp.npz"
+        np.savez(tmp, d=_np(d, torch.float32), m=_np(m, torch.int8))
+        os.replace(tmp, chunk)
+    return d, m
+
+
+def _batch_len(batch: dict) -> int:
+    return len(next(v for v in batch.values()
+                    if isinstance(v, (np.ndarray, torch.Tensor, list))))
+
+
+def _slice_batch(batch: dict, a: int, b: int) -> dict:
+    """Rows [a, b) of every per-row value of a batch."""
+    n = _batch_len(batch)
+    return {k: v[a:b] if isinstance(v, (np.ndarray, torch.Tensor, list))
+            and len(v) == n else v for k, v in batch.items()}
+
+
+def _encode_corpus_sharded(doc_encode_fn, batches, pad_multiple, dtype, pids,
+                           device, resume_dir, mesh, axis) -> TokenIndex:
+    sizes = [_batch_len(b) for b in batches]
+    n = sum(sizes)
+    n_pad = padded_count(n, pad_multiple, mesh, axis)
+    ns = mesh_axis_size(mesh, axis)
+    r = axis_rank(mesh, axis)
+    n_local = n_pad // ns
+    lo, hi = r * n_local, (r + 1) * n_local
+    if resume_dir:
+        os.makedirs(resume_dir, exist_ok=True)
+    embs, msks, start = [], [], 0
+    for i, (batch, size) in enumerate(zip(batches, sizes)):
+        a, b = max(lo - start, 0), min(hi - start, size)
+        start += size
+        if a >= b:
+            continue
+        chunk = (os.path.join(resume_dir, f"chunk_{i}.shard{r}of{ns}.npz")
+                 if resume_dir else None)
+        if chunk and os.path.exists(chunk):
+            with np.load(chunk) as z:
+                d, m = torch.from_numpy(z["d"]), torch.from_numpy(z["m"])
+            if device is not None:
+                d, m = d.to(device), m.to(device)
+        else:
+            d, m = _encode_chunk(doc_encode_fn, _slice_batch(batch, a, b),
+                                 chunk)
+        embs.append(d.to(dtype))
+        msks.append(m.to(torch.int8))
+    if not embs:
+        # a rank of padding only: one doc's encoding gives the shapes
+        d, m = doc_encode_fn(_slice_batch(batches[0], 0, 1))
+        embs, msks = [d[:0].to(dtype)], [m[:0].to(torch.int8)]
+    tok, msk = torch.cat(embs), torch.cat(msks)
+    if device is not None:
+        tok, msk = tok.to(device), msk.to(device)
+    pids = (np.arange(n, dtype=np.int64) if pids is None
+            else np.asarray(pids, np.int64))
+    return _padded_index(tok, msk, pids, n, n_pad, n_local, tok.shape[1],
+                         tok.shape[2], mesh, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +565,16 @@ def save_index(index: TokenIndex, path: str) -> None:
     """Write index.npz and metadata.json under `path`, in the JAX package's
     format: float tokens as float32, int8 tokens as int8, float32 or
     bf16 (as uint16 bits) scales; a residual index stores its records,
-    codec tables and summaries."""
+    codec tables and summaries. A sharded index is gathered over its axis
+    (every rank calls this) and rank 0 writes the whole index."""
+    if index.mesh is not None:
+        full = dataclasses.replace(index, mesh=None, **{
+            f: index._gathered(getattr(index, f))
+            for f in ("tokens", "mask", "scales", "records", "summaries")
+            if getattr(index, f) is not None})
+        if rank_zero():
+            save_index(full, path)
+        return
     os.makedirs(path, exist_ok=True)
     if index.scales is None:
         scales_np, scales_dtype = np.zeros((0,)), "float32"
@@ -395,25 +614,28 @@ def load_index(path: str, dtype: torch.dtype = torch.bfloat16, mesh=None,
     `device` (default CPU). Float tokens and a residual index's summaries
     come back in `dtype`. A residual save with the legacy separate
     codes / residuals / scales arrays is repacked into record rows; one
-    with a bit-pack layout other than planar is refused."""
+    with a bit-pack layout other than planar is refused. mesh: each rank
+    reads only its rows over `axis` of the per-doc arrays (pids and the
+    codec tables whole)."""
     from ..ops.residual import pack_records
-    _no_mesh(mesh, "index")
     with open(os.path.join(path, "metadata.json")) as f:
         meta = json.load(f)
-    z = np.load(os.path.join(path, "index.npz"))
+    npz = os.path.join(path, "index.npz")
+    z = np.load(npz)
+    rows = _shard_reader(npz, z, mesh, axis)
     quantized = meta.pop("quantized", False)
     nbits = meta.pop("nbits", 0)
     scales_dtype = meta.pop("scales_dtype", "float32")
-    mask = torch.from_numpy(z["mask"]).to(torch.int8)
+    mask = torch.from_numpy(rows("mask")).to(torch.int8)
     if not quantized:
         scales = None
     elif scales_dtype == "bfloat16":
-        raw = z["scales"]
+        raw = rows("scales")
         if raw.dtype != np.uint16:        # npz may keep a void view
             raw = raw.view(np.uint16)
         scales = _from_bf16_bits(raw)
     else:
-        scales = torch.from_numpy(z["scales"]).float()
+        scales = torch.from_numpy(rows("scales")).float()
 
     def dev(t):
         return None if t is None else t.to(device)
@@ -431,9 +653,9 @@ def load_index(path: str, dtype: torch.dtype = torch.bfloat16, mesh=None,
                 "onto the wrong dims). Re-build the index with "
                 "quantize_residual().")
         if "records" in z.files:
-            records = torch.from_numpy(z["records"])
+            records = torch.from_numpy(rows("records"))
         else:
-            codes = z["codes"]
+            codes = rows("codes")
             if codes.size and int(codes.max()) >= 65536:
                 raise ValueError(
                     f"legacy residual index at {path} uses "
@@ -442,18 +664,49 @@ def load_index(path: str, dtype: torch.dtype = torch.bfloat16, mesh=None,
             if scales is None:
                 scales = torch.ones(codes.shape, dtype=torch.bfloat16)
             records = pack_records(torch.from_numpy(codes.astype(np.int32)),
-                                   scales, torch.from_numpy(z["residuals"]))
+                                   scales, torch.from_numpy(rows("residuals")))
         return TokenIndex(
             tokens=None, mask=dev(mask), pids=z["pids"],
             num_docs=meta.pop("num_docs"), meta=meta,
-            summaries=torch.from_numpy(z["summaries"]).to(device=device,
-                                                          dtype=dtype),
+            summaries=torch.from_numpy(rows("summaries")).to(device=device,
+                                                              dtype=dtype),
             records=dev(records), codec_centroids=opt("codec_centroids"),
             codec_weights=opt("codec_weights"),
             codec_coarse=opt("codec_coarse"), codec_fine=opt("codec_fine"),
-            nbits=nbits)
-    tokens = torch.from_numpy(z["tokens"]).to(
+            nbits=nbits, mesh=mesh, axis=axis)
+    tokens = torch.from_numpy(rows("tokens")).to(
         torch.int8 if quantized else dtype)
     return TokenIndex(tokens=dev(tokens), mask=dev(mask), pids=z["pids"],
                       num_docs=meta.pop("num_docs"), meta=meta,
-                      scales=dev(scales))
+                      scales=dev(scales), mesh=mesh, axis=axis)
+
+
+def _shard_reader(npz: str, z, mesh, axis):
+    """name -> the array, or on a mesh this rank's rows of it, read from
+    the uncompressed .npy member without loading the other rows."""
+    if mesh is None:
+        return lambda name: z[name]
+    n_pad = z["pids"].shape[0]
+    ns = mesh_axis_size(mesh, axis)
+    if n_pad % ns:
+        raise ValueError(f"the saved index's {n_pad} rows do not divide "
+                         f"over {ns} shards: build it with the mesh, or "
+                         "pad it to a multiple of the shard count")
+    n_local = n_pad // ns
+    lo = axis_rank(mesh, axis) * n_local
+
+    def rows(name):
+        with zipfile.ZipFile(npz) as zf, zf.open(name + ".npy") as f:
+            version = np.lib.format.read_magic(f)
+            read_header = (np.lib.format.read_array_header_1_0
+                           if version == (1, 0)
+                           else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read_header(f)
+            if fortran or len(shape) == 0 or shape[0] != n_pad:
+                return z[name][lo:lo + n_local] if len(shape) else z[name]
+            row = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+            f.seek(f.tell() + lo * row)
+            buf = f.read(n_local * row)
+        return np.frombuffer(buf, dtype).reshape(
+            (n_local,) + tuple(shape[1:])).copy()
+    return rows

@@ -1,6 +1,7 @@
-"""Late-interaction search over a TokenIndex on one device.
+"""Late-interaction search over a TokenIndex, on one device or sharded
+over a mesh axis.
 
-Port of ravqa_tpu/retrieval/search.py for one device: ``mode="exact"``
+Port of ravqa_tpu/retrieval/search.py: ``mode="exact"``
 scores the query batch against every doc and takes the top-k;
 ``"two_stage"`` and ``"hierarchical"`` prune with summary vectors first
 (retrieval.coarse). A float index searches exactly through
@@ -16,6 +17,21 @@ the sweeps, the int8 exact search and the residual fine stage through the
 hand-written kernels on a CUDA index (their plain versions on a CPU
 index); False runs the XLA route's math in plain PyTorch, on a CPU index
 only. None means True on a CUDA index.
+
+Sharded search (``mesh``; make_sharded_search, the JAX package's
+search.py:75-382): each rank holds its shard of an index built or loaded
+with the mesh, and every rank calls search() with the same queries. A
+shard searches its rows through the single-device code with JAX's
+per-shard cuts (k_local, c_local, cp_local, b_local; on the card the same
+kernels as a single-device search), its rows are offset to global rows,
+and the shards' (B, k_local) scores and rows are all-gathered and cut to
+the top k of their shard-major concatenation. One stage differs from the
+single-device program, as in the JAX package: a hierarchical search with
+int8 pruning summaries runs stage 0 on an int8 copy of the block
+summaries with per-block scales (JAX :571-585), swept by K2 as bfloat16
+codes against the bf16-cast query (the JAX program's bf16 einsum; K3 would
+quantize the query to int8, another function) with the scale applied
+after the sum.
 """
 
 from __future__ import annotations
@@ -30,12 +46,12 @@ from ..ops.maxsim import maxsim_search, stage1_rows
 from ..ops.quant import (maxsim_search_int8, maxsim_search_int8_torch,
                          quantize_queries_int8, quantize_summaries_int8,
                          quantize_summaries_t_int8)
+from ..parallel.mesh import (all_gather, axis_group, axis_rank,
+                             mesh_axis_size)
 from .coarse import (block_summaries_t, doc_validity, hierarchical_search,
                      two_stage_search)
 from .index import TokenIndex
 
-_NOT_PORTED = ("is not ported yet: ravqa_tpu_torch searches an index on "
-               "one device (see ROADMAP.md, Queue A: A10)")
 _MODES = ("exact", "two_stage", "hierarchical")
 
 
@@ -69,6 +85,123 @@ def _stage1_lane_rule(block_size: int) -> int:
     return 128 // math.gcd(block_size, 128)
 
 
+def make_sharded_search(mesh, n_pad: int, *, k: int, axis="index",
+                        use_pallas: bool = False, two_stage: bool = False,
+                        n_candidates: int = 1024,
+                        hierarchical: bool = False,
+                        n_blocks: Optional[int] = None,
+                        block_size: int = 64,
+                        coarse_query_len: Optional[int] = None,
+                        residual_nbits: int = 0, group_size: int = 0,
+                        centroid_prune: int = 0,
+                        use_summ_rows: bool = False,
+                        stage1_tile_b: int = 8):
+    """The collective search over `mesh` (JAX search.py:75-382). Returns
+    fn(q, **shard) -> (scores (B, k), global padded-index rows (B, k)),
+    the same on every rank of `axis`: q (B, Lq, dim) the same on each,
+    `shard` this rank's arrays, by the names of
+    LateInteractionSearcher.shard_arrays() (tokens, mask, summaries,
+    block_summaries, scales, the residual codec's records, centroids,
+    bucket_weights, codec_coarse, codec_fine, and the kernel copies
+    summ_t, summ_t_scale, summ_scale, block_summ_t, block_summ_t_scale,
+    block_summ_scale, planes, doc_valid). The per-shard cuts are JAX's:
+    k_local = min(k, n_local) results, c_local = n_candidates / nshards
+    candidates (at least k_local), cp_local centroid-pruned ones, and
+    b_local = n_blocks / nshards blocks, covering k_local docs and, with
+    the stage-1 kernel's rows (use_summ_rows), aligned to the TPU kernel's
+    lane rule 128 / gcd(bs, 128). Where no aligned count covers k_local
+    docs (JAX's rows_fallback, which then runs its plain stage 1 over the
+    unaligned b_local blocks), the shard keeps the rows and K4 (its plain
+    version on a CPU shard) sweeps those same b_local blocks: K4 takes any
+    block count, so no shard on the card leaves the kernel. Where the JAX
+    function
+    takes a flag for each optional array (quantized, use_summ_t, ...),
+    this one reads the arrays passed; its TPU knobs (tile_d, approx_topk,
+    approx_recall) are left out: every cut is an exact top-k."""
+    nshards = mesh_axis_size(mesh, axis)
+    group = axis_group(mesh, axis)
+    rank = axis_rank(mesh, axis)
+    n_local = n_pad // nshards
+    k_local = min(k, n_local)
+    c_local = min(max(n_candidates // nshards, k_local), n_local)
+    cp_local = min(max(centroid_prune // nshards, k_local), c_local) \
+        if centroid_prune else 0
+    if cp_local >= c_local:
+        cp_local = 0
+    rows_fallback = False
+    b_local = 0
+    if hierarchical:
+        nb_local = n_local // block_size
+        if n_blocks is None:
+            n_blocks = max(n_candidates // 2, nshards)
+        b_need = -(-k_local // block_size)
+        b_local = min(max(n_blocks // nshards, b_need, 1), nb_local)
+        if use_summ_rows:
+            req = _stage1_lane_rule(block_size)
+            b_aligned = min(-(-b_local // req) * req,
+                            (nb_local // req) * req)
+            if nb_local >= req and b_aligned >= b_need:
+                if b_aligned < b_local:
+                    warnings.warn(
+                        f"stage-1 kernel alignment reduced the per-shard "
+                        f"block cut {b_local} -> {b_aligned} of {nb_local} "
+                        f"blocks (multiple-of-{req} constraint): a recall "
+                        "knob you set was narrowed; pass stage1_kernel="
+                        "False to keep it exact", stacklevel=3)
+                b_local = b_aligned
+            else:
+                rows_fallback = True
+        c_local = min(c_local, b_local * block_size)
+
+    def merge(s, i):
+        i = i + rank * n_local
+        b = s.shape[0]
+        s_cat = all_gather(s.contiguous(), group).transpose(0, 1).reshape(
+            b, nshards * k_local)
+        i_cat = all_gather(i.contiguous(), group).transpose(0, 1).reshape(
+            b, nshards * k_local)
+        s_top, sel = torch.topk(s_cat, min(k, nshards * k_local), dim=1)
+        return s_top, torch.gather(i_cat, 1, sel)
+
+    def fn(q, *, mask, tokens=None, summaries=None, block_summaries=None,
+           scales=None, records=None, centroids=None, bucket_weights=None,
+           codec_coarse=None, codec_fine=None, summ_t=None,
+           summ_t_scale=None, summ_int8=None, summ_scale=None,
+           summ_rows=None, block_summ_t=None, block_summ_t_scale=None,
+           block_summ_scale=None, planes=None, doc_valid=None):
+        fine = dict(scales=scales, records=records, centroids=centroids,
+                    bucket_weights=bucket_weights, nbits=residual_nbits,
+                    use_pallas_residual=use_pallas, centroid_prune=cp_local,
+                    codec_coarse=codec_coarse, codec_fine=codec_fine)
+        if hierarchical:
+            s, i = hierarchical_search(
+                q, tokens, mask, block_summ=block_summaries, k=k_local,
+                n_blocks=b_local, n_candidates=c_local,
+                block_size=block_size, coarse_query_len=coarse_query_len,
+                group_size=group_size, block_summ_t=block_summ_t,
+                block_summ_t_scale=block_summ_t_scale,
+                block_summ_scale=block_summ_scale,
+                stage1_tile_b=stage1_tile_b, doc_valid=doc_valid,
+                summaries=summaries, summ_int8=summ_int8,
+                summ_scale=summ_scale, summ_rows=summ_rows, **fine)
+        elif two_stage:
+            s, i = two_stage_search(
+                q, tokens, mask, summaries, k=k_local,
+                n_candidates=c_local, coarse_query_len=coarse_query_len,
+                use_pallas_coarse=use_pallas, group_size=group_size,
+                summaries_t=summ_t, summaries_t_scale=summ_t_scale,
+                doc_valid=doc_valid, **fine)
+        else:
+            s, i = search_single_device(q, tokens, mask, scales, k=k_local,
+                                        use_pallas=use_pallas, planes=planes)
+        return merge(s, i)
+
+    fn.cuts = dict(k_local=k_local, c_local=c_local, cp_local=cp_local,
+                   b_local=b_local, rows_fallback=rows_fallback,
+                   n_local=n_local)
+    return fn
+
+
 class LateInteractionSearcher:
     """Searcher over a TokenIndex: mode dispatch, presets and pid mapping.
 
@@ -83,8 +216,12 @@ class LateInteractionSearcher:
     an exact top-k. ``group_size`` sets the fine stage's query-group
     chunk. ``centroid_prune`` sets a residual index's centroid-only cut
     (resolve_centroid_prune). The arguments keep the JAX searcher's
-    positions; a ``mesh`` (sharded search over its ``axis``) raises
-    NotImplementedError."""
+    positions. ``mesh``: a sharded search over its ``axis``
+    (make_sharded_search) of an index built or loaded with that mesh and
+    axis; every rank of the axis builds the searcher and calls search()
+    with the same queries, and the preset counts (resolve_candidates,
+    resolve_blocks) are global, scaled by the shard count as the JAX
+    searcher scales them."""
 
     def __init__(self, index: TokenIndex, mesh=None, axis: str = "index",
                  use_pallas: Optional[bool] = None,
@@ -100,15 +237,22 @@ class LateInteractionSearcher:
                  stage1_kernel: Optional[bool] = None,
                  preset: str = "reference",
                  stage1_tile_b: int = 8):
-        del axis, tile_d, approx_topk, approx_recall
+        del tile_d, approx_topk, approx_recall
         if preset not in ("reference", "fast"):
             raise ValueError(f"unknown preset {preset!r} "
                              "(expected 'reference' or 'fast')")
         if mode not in _MODES:
             raise ValueError(f"unknown search mode {mode!r} "
                              f"(expected one of {_MODES})")
-        if mesh is not None:
-            raise NotImplementedError(f"sharded search {_NOT_PORTED}")
+        if mesh is not None and (index.mesh is not mesh
+                                 or index.axis != axis):
+            raise ValueError("a sharded search needs the index built or "
+                             "loaded with the same mesh and axis "
+                             "(build_index_from_embeddings, encode_corpus, "
+                             "load_index)")
+        if mesh is None and index.mesh is not None:
+            raise ValueError("a sharded index is searched with its mesh: "
+                             "pass mesh= and axis=")
         if index.tokens is None and mode == "exact":
             raise ValueError("a residual-compressed index has no "
                              "full-precision tokens; use a pruned search "
@@ -127,6 +271,7 @@ class LateInteractionSearcher:
             raise ValueError("call index.build_summaries()"
                              ".build_block_summaries() first")
         self.index = index
+        self.mesh, self.axis = mesh, axis
         self.mode = mode
         self.preset = preset
         self.use_pallas = use_pallas
@@ -148,10 +293,14 @@ class LateInteractionSearcher:
                 if stage1_kernel:
                     # on a CPU index an implicit preset keeps the JAX
                     # searcher's plain stage 1 where the lane rule cannot
-                    # be met (tiny indexes); a CUDA index always runs K4
+                    # be met (tiny indexes; on a mesh, JAX :445-467's
+                    # test of each shard); a CUDA index, sharded or not,
+                    # always runs K4, which takes any block count
                     bs = index.block_size
-                    stage1_kernel = index.n_pad % bs == 0 and (
-                        on_cuda or index.n_pad // bs >= _stage1_lane_rule(bs))
+                    ns = index.n_shards
+                    stage1_kernel = index.n_pad % (ns * bs) == 0 and (
+                        on_cuda
+                        or index.n_pad // ns // bs >= _stage1_lane_rule(bs))
         self.coarse_int8 = coarse_int8 = bool(coarse_int8)
         stage1_kernel = bool(stage1_kernel)
         self._doc_valid = doc_validity(index.mask) if mode != "exact" \
@@ -169,8 +318,15 @@ class LateInteractionSearcher:
                 self._summ_t = st.to(torch.bfloat16).contiguous()
         # hierarchical stage 0: the block summaries' slot-major copy,
         # zero-padded to a multiple of 1024 blocks
-        self._bsum_t = self._bsum_t_scale = None
-        if mode == "hierarchical" and use_pallas:
+        self._bsum_t = self._bsum_t_scale = self._bsum_i8_scale = None
+        if mode == "hierarchical" and coarse_int8 and mesh is not None:
+            # a shard's int8 stage 0 (JAX's use_bsum_i8): per-block int8
+            # codes, swept by K2 as bf16 codes, the scales after the sum
+            bi8, self._bsum_i8_scale = quantize_summaries_int8(
+                index.block_summaries)
+            self._bsum_t = block_summaries_t(bi8.to(torch.bfloat16),
+                                             pad_multiple=1)
+        elif mode == "hierarchical" and use_pallas:
             bsum = index.block_summaries
             if coarse_int8:
                 self._bsum_t, self._bsum_t_scale = quantize_summaries_t_int8(
@@ -198,7 +354,8 @@ class LateInteractionSearcher:
                     self._summ_i8 = self._summ_i8_scale = None
         if coarse_int8 and self._summ_t_scale is None \
                 and self._bsum_t_scale is None and self._summ_i8 is None \
-                and self._summ_rows_scale is None:
+                and self._summ_rows_scale is None \
+                and self._bsum_i8_scale is None:
             warnings.warn(
                 "coarse_int8=True had no effect: the int8 paths exist on the "
                 "kernel route's two_stage coarse sweep and the hierarchical "
@@ -208,23 +365,27 @@ class LateInteractionSearcher:
     def resolve_candidates(self, k: int) -> int:
         """Candidate count: explicit, else the preset's rule (reference:
         1024 up to k = 100 and max(4k, 4096) above, the reference's ndocs
-        rule; fast: max(256, 4k))."""
+        rule; fast: max(256, 4k) per shard, times the shard count, as the
+        sharded program divides it by the shard count)."""
         if self.n_candidates is not None:
             return self.n_candidates
         if self.preset == "fast":
-            return max(256, 4 * k)
+            return max(256, 4 * k) * self.index.n_shards
         return 1024 if k <= 100 else max(4 * k, 4096)
 
     def resolve_blocks(self, k: int) -> int:
         """Selected-block count of hierarchical search: explicit, else the
         preset's rule (reference: half the candidates; fast: enough blocks
-        to cover the candidates and k, at least 32)."""
+        to cover each shard's candidates and k docs, at least 32 a shard,
+        times the shard count)."""
         if self.n_blocks is not None:
             return self.n_blocks
         c = self.resolve_candidates(k)
         if self.preset == "fast":
             bs = self.index.block_size
-            return max(32, -(-c // bs), -(-min(k, self.index.n_pad) // bs))
+            ns = self.index.n_shards
+            k_local = min(k, self.index.n_pad // ns)
+            return max(32, -(-c // (bs * ns)), -(-k_local // bs)) * ns
         return max(c // 2, 1)
 
     def resolve_centroid_prune(self, k: int, n_candidates: int) -> int:
@@ -292,10 +453,60 @@ class LateInteractionSearcher:
             stage1_tile_b=self.stage1_tile_b, doc_valid=self._doc_valid,
             **self._fine_kwargs(k, n_cand))
 
+    def _search_fn(self, k: int):
+        fns = self.__dict__.setdefault("_sharded_fns", {})
+        if k not in fns:
+            idx = self.index
+            fns[k] = make_sharded_search(
+                self.mesh, idx.n_pad, k=k, axis=self.axis,
+                use_pallas=self.use_pallas,
+                two_stage=self.mode == "two_stage",
+                n_candidates=self.resolve_candidates(k),
+                hierarchical=self.mode == "hierarchical",
+                n_blocks=(self.resolve_blocks(k)
+                          if self.mode == "hierarchical" else self.n_blocks),
+                block_size=idx.block_size,
+                coarse_query_len=self.coarse_query_len,
+                residual_nbits=idx.nbits, group_size=self.group_size,
+                centroid_prune=self.resolve_centroid_prune(
+                    k, self.resolve_candidates(k)),
+                use_summ_rows=self._summ_rows is not None,
+                stage1_tile_b=self.stage1_tile_b)
+        return fns[k]
+
+    def shard_arrays(self) -> dict:
+        """This rank's arrays, as the function of make_sharded_search
+        takes them."""
+        idx = self.index
+        planes = None
+        if self.mode == "exact" and idx.scales is None \
+                and idx.device.type == "cuda" \
+                and idx.tokens.dtype == torch.float32:
+            planes = idx.token_planes()       # made once, on first search
+        summ_scale = (self._summ_rows_scale if self._summ_rows is not None
+                      else self._summ_i8_scale)
+        return dict(
+            tokens=idx.tokens, mask=idx.mask,
+            summaries=(idx.summaries if self._summ_i8 is None
+                       and self._summ_rows is None else None),
+            block_summaries=idx.block_summaries, scales=idx.scales,
+            records=idx.records, centroids=idx.codec_centroids,
+            bucket_weights=idx.codec_weights,
+            codec_coarse=idx.codec_coarse, codec_fine=idx.codec_fine,
+            summ_t=self._summ_t, summ_t_scale=self._summ_t_scale,
+            summ_int8=self._summ_i8, summ_scale=summ_scale,
+            summ_rows=self._summ_rows, block_summ_t=self._bsum_t,
+            block_summ_t_scale=self._bsum_t_scale,
+            block_summ_scale=self._bsum_i8_scale, planes=planes,
+            doc_valid=self._doc_valid)
+
     def search_device(self, q: torch.Tensor, k: int):
         """(B, Lq, dim) on the index's device -> (scores (B, k), padded-index
-        rows (B, k)), both left on the device."""
+        rows (B, k)), both left on the device; on a mesh the rows are the
+        global index's and every rank gets the merged result."""
         idx = self.index
+        if self.mesh is not None:
+            return self._search_fn(k)(q, **self.shard_arrays())
         if self.mode == "hierarchical":
             return self._hierarchical(q, k)
         if self.mode == "two_stage":

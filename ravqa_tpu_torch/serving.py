@@ -17,6 +17,11 @@ _MicroBatchServer, RetrievalServer, VQAServer, make_http_server).
   default, or `batch_buckets`), with copies of its first request, whose
   results are dropped; as the JAX server does. The shapes a dispatch can
   take are then few and fixed; warm_up runs each of them once.
+- A sharded index (main.py --num_devices): rank 0 owns the server and the
+  query tower; its searcher is a MeshSearchFront, which broadcasts each
+  dispatch's (B, Lq, dim) query embeddings (and a RAG dispatch's doc
+  gathers) to the other ranks, where serve_shard runs the same collective
+  search over their shards until the front's shutdown() message.
 """
 
 from __future__ import annotations
@@ -361,6 +366,72 @@ class VQAServer(_MicroBatchServer):
                 answer=out["predictions"][i],
                 doc_scores=np.asarray(out["doc_scores"])[i],
                 passages=out["retrieved_contents"][i]))
+
+
+class _IndexFront:
+    """Rank 0's view of a sharded index for the server: attributes of the
+    rank's shard, and the (collective) doc gathers broadcast to the
+    worker ranks first."""
+
+    def __init__(self, front: "MeshSearchFront"):
+        self._front = front
+
+    def __getattr__(self, name):
+        return getattr(self._front.searcher.index, name)
+
+    def gather_tokens(self, rows: torch.Tensor) -> torch.Tensor:
+        return self._front._call("gather_tokens", rows)
+
+    def gather_mask(self, rows: torch.Tensor) -> torch.Tensor:
+        return self._front._call("gather_mask", rows)
+
+
+class MeshSearchFront:
+    """The searcher of rank 0's server over a sharded index: each call is
+    broadcast (a pickled message: the operation and its CPU tensors) to
+    the ranks running serve_shard, then run here, so every rank joins the
+    same collective. search_device returns the merged top-k, as the
+    sharded searcher does on every rank."""
+
+    def __init__(self, searcher):
+        self.searcher = searcher
+        self.index = _IndexFront(self)
+        self.mesh = searcher.mesh
+
+    def _call(self, op: str, *tensors, **kw):
+        from .parallel.mesh import broadcast_object
+        broadcast_object((op, tuple(t.cpu() for t in tensors), kw), 0)
+        return _run(self.searcher, op, tensors, kw)
+
+    def search_device(self, q: torch.Tensor, k: int):
+        return self._call("search_device", q, k=k)
+
+    def shutdown(self) -> None:
+        """End the worker ranks' serve_shard loops."""
+        from .parallel.mesh import broadcast_object
+        broadcast_object(("stop", (), {}), 0)
+
+
+def _run(searcher, op: str, tensors, kw):
+    if op == "search_device":
+        return searcher.search_device(*tensors, **kw)
+    return getattr(searcher.index, op)(*tensors, **kw)
+
+
+def serve_shard(searcher) -> int:
+    """A worker rank's loop: run each message rank 0's MeshSearchFront
+    broadcasts on this rank's shard, until its shutdown. Returns the
+    number of messages run."""
+    from .parallel.mesh import broadcast_object
+    dev = searcher.index.device
+    n = 0
+    while True:
+        op, tensors, kw = broadcast_object(None, 0)
+        if op == "stop":
+            return n
+        with torch.inference_mode():
+            _run(searcher, op, tuple(t.to(dev) for t in tensors), kw)
+        n += 1
 
 
 def _checked(value, shape: Optional[tuple],

@@ -1741,3 +1741,93 @@ def test_triples_train_step_on_cuda_matches_cpu():
         assert p.device.type == "cuda"
         torch.testing.assert_close(p.detach().cpu(), want[n], rtol=0,
                                    atol=2 * lr)
+
+
+# -- sharded search and data parallelism: ranks sharing the card -------------
+# The ranks join a gloo group on cuda:0 (NCCL refuses two ranks on one GPU);
+# the same run on as many CPU ranks (the plain versions) is the reference.
+
+def _clustered(n=512, ld=24, dim=128, topics=8, b=8, lq=16, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(
+            np.float32)
+    centers = unit(rng.normal(size=(topics, dim)))
+    embs = unit(centers[np.sort(rng.integers(topics, size=n))][:, None]
+                + 0.35 * rng.normal(size=(n, ld, dim)))
+    masks = np.ones((n, ld), np.float32)
+    masks[:, -4:] = rng.random((n, 4)) > 0.5
+    q = unit(embs[rng.integers(n, size=b), :lq]
+             + 0.1 * rng.normal(size=(b, lq, dim)))
+    return embs * masks[..., None], masks, q
+
+
+@pytest.mark.parametrize("n_docs", [512, 384])
+def test_sharded_searches_on_one_card_match_cpu_ranks(n_docs):
+    """4 ranks on cuda:0 against 4 CPU ranks. At 512 docs a shard's 4
+    blocks of 32 meet the TPU stage-1 lane rule (4 blocks); at 384 its 3
+    do not: the CPU shard runs JAX's plain stage 1 over them, the CUDA
+    shard K4 over the same blocks. The fast preset's search launches K4
+    on every CUDA rank either way."""
+    import _torch_ranks
+    from ravqa_tpu_torch.parallel import launch
+    embs, masks, q = _clustered(n=n_docs)
+    pids = np.arange(len(embs))
+    specs = [("exact", "f32", dict(use_pallas=True), 10),
+             ("exact_int8", "int8", dict(use_pallas=True), 10),
+             ("hier_fast", "f32", dict(mode="hierarchical", preset="fast",
+                                       use_pallas=True), 10),
+             ("two_stage", "f32", dict(mode="two_stage", n_candidates=64,
+                                       use_pallas=True), 10)]
+    runs = {dev: launch(_torch_ranks.search_rank, 4, specs, embs, masks,
+                        pids, q, {}, 32, device=dev, timeout=120,
+                        join_timeout=300)
+            for dev in ("cuda", "cpu")}
+    lq = q.shape[1]
+    for name, *_ in specs:
+        gs, gp, _ = runs["cuda"][0][name]
+        ws, wp, _ = runs["cpu"][0][name]
+        np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-4 * lq,
+                                   err_msg=name)
+        for b in range(len(gs)):
+            hi = ws[b] > ws[b, -1] + 1e-4 * lq
+            assert set(wp[b][hi]) <= set(gp[b]), (name, b)
+    for r in runs["cuda"]:
+        assert r["hier_fast"][2]["rows"] and r["hier_fast"][2]["k4"] >= 1
+    assert runs["cpu"][0]["hier_fast"][2]["rows"] == (n_docs == 512)
+
+
+@pytest.mark.parametrize("sharding", ["replicated", "fsdp"])
+def test_data_parallel_step_on_one_card_matches_cpu_ranks(sharding):
+    """A 2-rank FLMR step on cuda:0 (FSDP's all-gather and reduce-scatter
+    through the host) against the same on 2 CPU ranks: loss, grad norm and
+    grads at tests/test_torch_train.py's tolerances."""
+    import dataclasses
+    import _torch_ranks
+    from ravqa_tpu_torch.models import FLMRModelConfig, FLMRRetriever
+    from ravqa_tpu_torch.parallel import launch
+    cfg = FLMRModelConfig.tiny(nway=2, use_ib_negatives=True)
+    model = FLMRRetriever(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    cfg_kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    cfg_kw["bert"] = dataclasses.asdict(cfg.bert)
+    rng = np.random.default_rng(0)
+    batch = dict(
+        query_input_ids=rng.integers(5, 512, (8, 8)).astype(np.int32),
+        query_attention_mask=np.ones((8, 8), np.int32),
+        image_features=rng.normal(size=(8, cfg.vision_dim)).astype(
+            np.float32),
+        doc_input_ids=rng.integers(5, 512, (16, 10)).astype(np.int32),
+        doc_attention_mask=np.ones((16, 10), np.int32))
+    got, want = (launch(_torch_ranks.train_rank, 2, cfg_kw, state, [batch],
+                        1e-3, sharding, 1024, device=dev, timeout=120,
+                        join_timeout=300)[0] for dev in ("cuda", "cpu"))
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(got["metrics"][0][key],
+                                   want["metrics"][0][key], rtol=1e-4)
+    scale = max(np.abs(g).max() for g in want["grads"].values())
+    for name, g in want["grads"].items():
+        np.testing.assert_allclose(got["grads"][name], g, rtol=1e-4,
+                                   atol=1e-5 * scale, err_msg=name)

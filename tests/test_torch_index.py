@@ -354,16 +354,37 @@ def test_positional_calls_bind_as_in_jax(tmp_path):
 
 
 def test_a_given_mesh_raises_until_sharding_is_ported(tmp_path):
-    embs, masks, _ = corpus(seed=7, n=32)
-    _, t = both(embs, masks, None)
+    """The four calls this test once saw refuse a mesh now take one, at
+    the JAX argument positions: on 2 gloo ranks, load_index(path, dtype,
+    mesh) reads each rank's rows, build_index_from_embeddings(..., mesh)
+    keeps them, quantize_residual(16, 2, mesh) trains on the global sample
+    (the same records as one device), and LateInteractionSearcher(index,
+    mesh, "index") searches like the JAX package's sharded searcher. A
+    mesh that is not the index's still raises."""
+    import jax
+    import _torch_ranks
+    from ravqa_tpu.parallel import make_mesh as jax_make_mesh
+    from ravqa_tpu_torch.parallel import launch
+    embs, masks, q = corpus(seed=7, n=32)
+    _, t = both(embs, masks, None, summaries=False)
     save_index(t, str(tmp_path))
-    mesh = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LateInteractionSearcher(t, mesh, "index")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_index(str(tmp_path), torch.float32, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.quantize_residual(16, 2, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_index_from_embeddings(embs, masks, None, 8, torch.float32,
-                                    mesh)
+    ranks = launch(_torch_ranks.positional_mesh_rank, 2, str(tmp_path),
+                   embs, masks, q, timeout=60, join_timeout=120)
+    mesh = jax_make_mesh({"index": 2}, jax.devices()[:2])
+    j = jax_index.build_index_from_embeddings(embs, masks, None, 8,
+                                              jnp.float32, mesh, "index")
+    want = jax_search.LateInteractionSearcher(
+        j, mesh, "index", False, approx_topk=False).search(q, 5)
+    one = build_index_from_embeddings(embs, masks, pad_multiple=8,
+                                      dtype=torch.float32)
+    one.build_summaries(n_summary=2)
+    one.quantize_residual(16, 2, None, "index", 1)
+    for r, got in enumerate(ranks):
+        rows = slice(16 * r, 16 * (r + 1))
+        np.testing.assert_array_equal(got["loaded"], t.tokens.numpy()[rows])
+        np.testing.assert_array_equal(got["built"], t.tokens.numpy()[rows])
+        np.testing.assert_array_equal(got["records"],
+                                      one.records.numpy()[rows])
+        assert_search_equal(got["search"], want, q.shape[1])
+    with pytest.raises(ValueError, match="same mesh"):
+        LateInteractionSearcher(t, object(), "index")

@@ -115,10 +115,19 @@ def test_encode_corpus_matches_one_shot_build():
 
 
 def test_unported_modes_raise():
+    """A mesh is searched with an index sharded over it (the sharded
+    search itself: tests/test_torch_sharded_search.py); a mesh the index
+    was not built with raises, as does a sharded index without its mesh."""
     embs, masks = _corpus(n=8)
     idx = build_index_from_embeddings(embs, masks, pad_multiple=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="same mesh and axis"):
         LateInteractionSearcher(idx, mesh=object())
+    import dataclasses
+    sharded = dataclasses.replace(idx, mesh=object())
+    with pytest.raises(ValueError, match="searched with its mesh"):
+        LateInteractionSearcher(sharded)
+    with pytest.raises(ValueError, match="same mesh and axis"):
+        LateInteractionSearcher(sharded, sharded.mesh, axis="data")
     # TPU knobs are accepted as no-ops
     LateInteractionSearcher(idx, use_pallas=True, tile_d=16,
                             approx_topk=True, approx_recall=0.9,

@@ -455,7 +455,9 @@ def test_serve_slice_imports_no_jax(tmp_path):
     and BLIP-2, one answer; then a RAG train step on the same cut), WIT
     pretraining (train, then test, on a tiny cut of
     configs/synthetic_flmr_wit_pretrain.json over a synthetic WIT dump),
-    evaluate_m2kr and a DPR train step and evaluation, and FLMR with ROIs
+    evaluate_m2kr and a DPR train step and evaluation, the parallel layer
+    and the multi-rank dry run (entry.dryrun_multichip on 4 CPU ranks,
+    which imports nothing of jax either), and FLMR with ROIs
     (the VinVL detector and the Oscar captioner at tiny widths over a
     synthetic OK-VQA world through the extraction scripts' loops, then
     train and test on a tiny cut of configs/okvqa/flmr_with_roi.json, the
@@ -477,6 +479,9 @@ def test_serve_slice_imports_no_jax(tmp_path):
         "import ravqa_tpu_torch.scripts.exp_residual_stage2\n"
         "import ravqa_tpu_torch.entry\n"
         "import ravqa_tpu_torch.models.convert_flmr\n"
+        "import ravqa_tpu_torch.parallel.tp\n"
+        "from ravqa_tpu_torch.entry import dryrun_multichip\n"
+        "assert dryrun_multichip(4, 'cpu')['exact'].shape == (8, 3)\n"
         f"args = ['--config', {CONFIG!r}, '--device', 'cpu',\n"
         f"        '--log_dir', {str(tmp_path)!r}]\n"
         "assert main(args + ['--mode', 'train', '--opts',\n"
@@ -711,16 +716,22 @@ def test_profiler_trace_loss_needs_a_gpu():
     ["--config", CONFIG, "--mode", "train", "--opts",
      "executor.ExecutorClass=DPRExecutor"],
 ])
-def test_unported_modes_raise(argv):
-    """Data parallelism (A4) is not ported yet. --use_dummy_data is
-    (tests/test_torch_okvqa_data.py::test_use_dummy_data_keeps_20_items),
-    RAG training and evaluation (test_rag_train_test_eval_modes), and RAG
-    serving (test_rag_configs_serve). An executor class that main.py does
-    not build raises (the JAX package's builds an FLMRExecutor for it:
+def test_unported_modes_raise(argv, tmp_path):
+    """--num_devices 2 now trains over 2 gloo ranks (the data-parallel
+    CLI against one device: tests/test_torch_ddp.py): it writes the
+    checkpoint from rank 0. An executor class that main.py does not build
+    still raises (the JAX package's builds an FLMRExecutor for it:
     ROADMAP.md C20)."""
     from ravqa_tpu_torch.main import main
+    args = argv + ["--device", "cpu", "--log_dir", str(tmp_path)]
+    if "--num_devices" in argv:
+        assert main(args + ["--opts", "train.total_steps=2",
+                            "train.val_every=2"]) == 0
+        assert os.path.exists(tmp_path / "default" / "ckpt" /
+                              "params.msgpack")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(argv + ["--device", "cpu"])
+        main(args)
 
 
 @pytest.fixture(scope="module")
