@@ -127,8 +127,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      configs/synthetic_flmr_base_train.json (configs/okvqa/flmr_base.json's
      widths: BERT-base, B=30, nway 5 with in-batch negatives, lr 1e-5 and
      1e-4 for the mapping network; 12 steps (TRAIN_CUT; 24 before phase 22),
-     a validation at 12 over 16,384 passages indexed on the card), then
-     `--mode eval` from the
+     a validation at 12 over the config's 16,384 passages indexed on the
+     card), then `--mode eval` from the
      checkpoint it wrote, in exact mode and with
      model_config.search_mode=hierarchical. Gates: every loss finite; K1 on
      the float32 index's split route in every exact evaluation and K2/K3
@@ -141,18 +141,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      versions' search of a CPU copy for 16 (both tie-aware top-10, 1e-3);
      the eval from the checkpoint reproduces the final validation's recall@K
      and precision@K; params.msgpack decodes with the port's reader.
+     The resume gate: after step RESUME_AT (6) the run writes its
+     checkpoint in the JAX package's two formats (msgpack files and the
+     orbax backend); a fresh executor loads each (one for each format),
+     its whole state then hashing to the state saved, bit for bit, and
+     trains on the run's later batches to step 12, its step and optimizer
+     updates 12; its losses within rtol 1e-4 of the uninterrupted run's;
+     its parameters within 1e-3 of that run's movement since step 6 in
+     the whole model's 2-norm and each tensor within 0.1 of its movement
+     or of 6 lr (the run-to-run difference printed); its exact evaluation
+     launches K1-f32 (counted) and reproduces the run's recall@K and its
+     final validation's top-10 for every query (tie-aware, 1e-3). A
+     control resumed with a fresh optimizer must fail those bounds. The
+     JAX package's committed checkpoint
+     (tests/fixtures/jax_checkpoint: orbax in OCDBT with zstd chunks,
+     read through the system libzstd, and msgpack) decodes to its digest
+     and loads into an executor on the card.
      Prints the step's ms (median of steps 3-12) and steps/s, padded
      query+doc positions/s and attended (attention-mask) tokens/s, peak
-     max_memory_allocated and the evaluations' seconds (corpus encode,
-     search), each beside the card's name and power limit.
+     max_memory_allocated, the evaluations' seconds (corpus encode,
+     search) and the checkpoints' bytes and save and load seconds, each
+     beside the card's name and power limit.
  15. the PreFLMR serve slices: build_server on
      configs/synthetic_preflmr_vitl_serve.json (exact) and
      configs/synthetic_preflmr_vitl_serve_hier.json (hierarchical fast):
      PreFLMR_ViT-L's query tower at its published widths (CLIP ViT-L/14,
      24 x 1024, in the graph; the separate BERT-base question encoder; the
      mapping MLP; the 1-layer 768-wide transformer mapping over the 256
-     patches), random weights from the seed, 16,384 passages encoded on
-     the card; a query of 32 + 32 + 256 = 320 tokens. Each: three bursts of
+     patches), random weights from the seed, 4,096 of the config's 16,384
+     passages (SERVE_CUT) encoded on the card; a query of 32 + 32 + 256 = 320 tokens. Each: three bursts of
      128 requests, then 64 requests from 4 threads, each request with its
      own seeded 224 x 224 x 3 image; every answer against the plain
      versions' search on the query embeddings its dispatch searched (the
@@ -170,7 +187,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      card's name and power limit.
  16. the RAVQA-v2 answer serve: build_server on
      configs/synthetic_rag_blip2_serve.json (a VQAServer: FLMR-base live
-     retrieval through K1-f32 over 16,384 passages, then BLIP-2 with EVA
+     retrieval through K1-f32 over 4,096 of the config's 16,384 passages
+     (SERVE_CUT), then BLIP-2 with EVA
      ViT-g/14, the 12-layer Q-Former and Flan-T5-XL at their published
      widths, LoRA rank 8 merged, 5 passages, 5 beams, 512 + 32 encoder
      tokens, 10 decoded tokens; random weights drawn on the card), 8
@@ -205,7 +223,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      3.94e9 base frozen; Approach6 with loss weights nll 1 / rag 0 /
      additional 0; freeze_question_encoder and force_existence; batch 8 x
      accumulation 4, lr 6e-4, retriever_lr 1e-4, weight decay 0.05, linear;
-     FLMR-base live retrieval through K1-f32 over 16,384 passages).
+     FLMR-base live retrieval through K1-f32 over 4,096 of the config's
+     16,384 passages, SERVE_CUT).
      (a) one optimizer step (4 micro-batches of 8 questions) through fit:
      every loss finite; K1-f32 launched exactly once per micro-batch, on the
      split route (counts set to 0 just before, read just after); every
@@ -245,16 +264,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      and the refresh's seconds and the phase's, beside the card's name and
      power limit.
  18. WIT mapping-network pretraining: a synthetic WIT dump in the real
-     formats (ravqa_tpu_torch.scripts.synthetic_wit: 15,360 train and
+     formats (ravqa_tpu_torch.scripts.synthetic_wit: 3,072 train and
      1,024 test rows, one passage each, 768-d features by image_url)
      written into a .chip_smoke_wit_* directory, then `main --mode train`
      (32 steps of 8, one validation) and `--mode test` from its
      checkpoint, in-process, on configs/synthetic_flmr_wit_pretrain.json
      (configs/wit/flmr_wit_pretraining.json at its widths: BERT-base
      frozen, vision-only queries of the mapping network's 32 tokens,
-     16,384 passages). Gates: every loss finite; only vision_projection
-     moves (the checkpoint against the seed's weights; Adam's state for it
-     alone); the test run reads the wit node from the node cache
+     4,096 passages). Gates: every loss finite; only vision_projection
+     moves (the checkpoint against the seed's weights; Adam's moments in
+     opt_state.msgpack for it alone); the test run reads the wit node from the node cache
      (LoadWITData runs once); K1-f32 on the split route in each
      evaluation (counts set to 0 just before each run, read just after);
      the evaluation's ranking against a plain search (16 queries on a CPU
@@ -283,7 +302,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      Prints the step ms, questions/s trained, peak memory, each
      evaluation's seconds and K1 at Lq = 320, N = 4,096 beside its bound.
  20. FLMR with ROIs from raw images (roi_slice): a synthetic OK-VQA world
-     (128 images of 480 x 640, 256 + 64 questions, 16,384 GoogleSearch
+     (128 images of 480 x 640, 256 + 64 questions, 4,096 GoogleSearch
      passages across the 112724 boundary, OCR JSONs); the VinVL detector
      at vinvl_x152c4 width and depth (ResNeXt-152 C4, batch 8 on a 1,024^2
      canvas, weights through convert_vinvl_params from a synthetic
@@ -307,7 +326,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      seconds (corpus encode, K1) and K1 at Lq = 352 beside its bound.
  21. ColBERT-style text-retrieval training (triples_slice): a synthetic
      MS MARCO-style world in the reference's formats (collection.tsv of
-     16,384 passages, a third titled; 256 train and 64 dev queries;
+     4,096 passages, a third titled; 256 train and 64 dev queries;
      qrels) read back by Collection / Queries; an FLMR text-only student
      at BERT-base width (dim 128, query_maxlen 32, doc_maxlen 180) ranks
      the train queries through K1-f32; create_triples_from_ranking gives
@@ -319,7 +338,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      TriplesExecutor.train_on_triples takes 12 steps of 16 queries (24
      before phase 22)
      (in-batch negatives, distillation weight 1); the dev queries are
-     evaluated through K1-f32 (B=64, Lq=32, N=16,384, Ld=180): MRR@10 and
+     evaluated through K1-f32 (B=64, Lq=32, N=4,096, Ld=180): MRR@10 and
      success@{5,10,50}, the ranking TSV scored by
      evaluate_msmarco_ranking. Gates: every loss and distill_kl finite;
      K1-f32 once per evaluation, on the split route (counts set to 0 just
@@ -419,6 +438,26 @@ K = 10
 # phase 14's depth: 12 steps and one validation (24 and two before phase
 # 22 needed the room)
 TRAIN_CUT = ["train.total_steps=12"]
+# phases 15-17 and 22 over 4,096 of their configs' 16,384 passages (15-17
+# since phase 14's resume gate needed the room)
+SERVE_CUT = ["data_pipeline.raw.setup_kwargs.n_docs=4096"]
+# phase 14's resume gate: the run's checkpoints after this step. A resumed
+# run's losses within phase 13's rtol of the uninterrupted run's; its
+# parameters within RESUME_NORM_SHARE of that run's movement since the
+# checkpoint in the 2-norm of the whole model, and each tensor within
+# RESUME_SHARE of its own movement or of its group's lr a step over those
+# steps, whichever is larger (_moved_share). On the H100 at 700 W, resumed runs measured
+# 2.5e-5 and 2.9e-5 of the whole model's movement (the card's backward is
+# not deterministic run to run), a fresh optimizer 1.4; a key bias, whose
+# gradient is rounding alone, moves less than lr in 6 steps, and two runs
+# may differ by all of its movement
+RESUME_AT = 6
+RESUME_LOSS_RTOL = 1e-4
+RESUME_NORM_SHARE = 1e-3
+RESUME_SHARE = 0.1
+# the JAX package's checkpoint committed for phase 14 (its orbax/ in
+# OCDBT with zstd chunks, its msgpack files, digest.json)
+JAX_FIXTURE = os.path.join(HERE, "tests", "fixtures", "jax_checkpoint")
 
 
 _PHASE_START = [time.perf_counter()]
@@ -697,11 +736,12 @@ def encode_requests(server, data, reqs):
         return server.ex.encode_query(ids, mask, feats)
 
 
-def start_server(config_path, device):
-    """build_server from a config, as the entry point does. Returns (data,
-    server, index)."""
-    from ravqa_tpu_torch.main import build_pipeline, build_server, load_config
-    cfg = load_config(config_path)
+def start_server(config_path, device, opts=()):
+    """build_server from a config and its `opts` overrides, as the entry
+    point does. Returns (data, server, index)."""
+    from ravqa_tpu_torch.main import (apply_overrides, build_pipeline,
+                                      build_server, load_config)
+    cfg = apply_overrides(load_config(config_path), list(opts))
     t0 = time.perf_counter()
     data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
                                         explode=True)
@@ -1833,11 +1873,12 @@ class _Recorder:
     each search's query embeddings, answers and searcher. restore() puts
     the methods back."""
 
-    def __init__(self, device):
+    def __init__(self, device, on_step=None):
         import torch
         from ravqa_tpu_torch.executors import FLMRExecutor
         from ravqa_tpu_torch.retrieval import LateInteractionSearcher
         self.steps, self.encodes, self.searches, self.evals = [], [], [], []
+        self.on_step = on_step
         self.peak_after_2 = None
         self._orig = [(FLMRExecutor, "train_step"),
                       (FLMRExecutor, "build_index"),
@@ -1870,6 +1911,8 @@ class _Recorder:
                               attended))
             if len(rec.steps) == 2 and torch.device(device).type == "cuda":
                 rec.peak_after_2 = torch.cuda.max_memory_allocated()
+            if rec.on_step is not None:         # outside the step's time
+                rec.on_step(self, batch, len(rec.steps))
             return m
 
         def searched(self, q, k):
@@ -1898,11 +1941,12 @@ class _Recorder:
             setattr(cls, name, fn)
 
 
-def _drive_main(maxsim, argv, key, device="cuda"):
-    """main(argv) in-process under a _Recorder, with the counts of K1-K4
-    set to 0 just before and read just after ("K1 split": the float32
-    index's route). Returns (the recorder, {wall_s, launches, encode_s,
-    search_s, eval_s, peak_bytes on the card})."""
+def _drive_main(maxsim, argv, key, device="cuda", on_step=None):
+    """main(argv) in-process under a _Recorder (on_step(executor, batch,
+    n) after the n-th train step), with the counts of K1-K4 set to 0 just
+    before and read just after ("K1 split": the float32 index's route).
+    Returns (the recorder, {wall_s, launches, encode_s, search_s, eval_s,
+    peak_bytes on the card})."""
     import torch
     from ravqa_tpu_torch.main import main as port_main
     counted = (maxsim.maxsim_search, maxsim.coarse_sweep,
@@ -1910,7 +1954,7 @@ def _drive_main(maxsim, argv, key, device="cuda"):
     for w in counted:
         w.launches = 0
     maxsim.maxsim_search.split_launches = 0
-    rec = _Recorder(device)
+    rec = _Recorder(device, on_step)
     card = torch.device(device).type == "cuda"
     if card:
         torch.cuda.empty_cache()
@@ -2052,6 +2096,295 @@ def check_hier_eval(search, n_check=16):
                             "err": err0}}, err
 
 
+def _dir_bytes(path, names=None):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files
+               if names is None or (root == path and f in names))
+
+
+def tree_digest(tree):
+    """The tests' sha256 of a checkpoint tree (tests/_ckpt_digest.py)."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from _ckpt_digest import tree_digest as digest
+    return digest(tree)
+
+
+def resume_saver(ck, device, kept):
+    """An on_step hook for phase 14's training run: after step RESUME_AT
+    the executor's checkpoint in the JAX package's two formats
+    (save_checkpoint's msgpack files in `ck`, its orbax backend in
+    ck/orbax), each save timed, the digest of the state they hold and a
+    copy of the parameters; then a copy of every later step's batch.
+    kept["ex"] is the run's executor."""
+    import torch
+
+    def on_step(ex, batch, n):
+        kept["ex"] = ex
+        if n == RESUME_AT:
+            for fmt in ("msgpack", "orbax"):
+                _sync(device)
+                t0 = time.perf_counter()
+                ex.save_checkpoint(ck, backend=fmt)
+                kept.setdefault("save_s", {})[fmt] = \
+                    time.perf_counter() - t0
+            kept["digest"] = tree_digest(ex.checkpoint_state())
+            kept["params"] = {k: v.detach().clone()
+                              for k, v in ex.model.state_dict().items()}
+        elif n > RESUME_AT:
+            kept.setdefault("batches", []).append(
+                {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in batch.items()})
+    return on_step
+
+
+def _moved_share(sd, want, start, floor):
+    """How far parameters `sd` lie from the uninterrupted run's `want`, as
+    a share of how far that run moved them from `start` (the parameters
+    at the checkpoint): for each tensor, max |sd - want| / max(max |want -
+    start|, floor[name]); for the whole model, |sd - want| / |want -
+    start| in the 2-norm. Returns {"worst": the three worst tensors as
+    (share, name, max |diff|, max |move|), "norm": the model's share}."""
+    rows, d2, m2 = [], 0.0, 0.0
+    for k, w in want.items():
+        diff, move = (sd[k] - w).double(), (w - start[k]).double()
+        d, m = float(diff.abs().max()), float(move.abs().max())
+        d2 += float((diff * diff).sum())
+        m2 += float((move * move).sum())
+        rows.append((d / max(m, floor[k]), k, d, m))
+    rows.sort(key=lambda x: -x[0])
+    return {"worst": rows[:3], "norm": (d2 / m2) ** 0.5}
+
+
+def _share_fails(share):
+    return share["norm"] > RESUME_NORM_SHARE or \
+        share["worst"][0][0] > RESUME_SHARE
+
+
+def resume_gate(cfg, kept, final, val, losses, ck, tmp, smi, maxsim,
+                device="cuda"):
+    """Phase 14's resume gate. A fresh executor on the card loads the
+    run's msgpack checkpoint after step RESUME_AT, another its orbax
+    checkpoint; right after the load each one's state (parameters, the
+    optimizer's moments and counts, the key, the step) must hash to the
+    state saved, bit for bit. Each then trains on the run's later batches:
+    its step and optimizer updates must reach the last step, its losses
+    equal the uninterrupted run's `losses` at rtol RESUME_LOSS_RTOL, and
+    its parameters lie within RESUME_NORM_SHARE and RESUME_SHARE of that
+    run's movement since the checkpoint (_moved_share). Each one's exact
+    evaluation (K1-f32 on the split route, counted) must reproduce the
+    run's final recall@K and its top-K of the final validation's `val`
+    (pids, scores) for every query (tie-aware, ATOL). A control then
+    reloads the msgpack checkpoint into the first executor and trains on
+    with a fresh optimizer (Adam's moments at zero): its parameters must
+    fail the bounds, else the gate could not tell a lost optimizer state
+    from a kept one. Prints the checkpoints' bytes and save and load
+    seconds beside the card's name and power limit."""
+    import torch
+    from ravqa_tpu_torch.executors.base import _group, make_optimizer
+    from ravqa_tpu_torch.main import build_executor, build_pipeline, run_eval
+    whole = kept.pop("ex")
+    steps = cfg.train.total_steps
+    if whole.step != steps or len(kept["batches"]) != steps - RESUME_AT:
+        raise AssertionError(f"the run took {whole.step} steps, "
+                             f"{len(kept['batches'])} kept after the "
+                             "checkpoint")
+    want = {k: v.detach() for k, v in whole.model.state_dict().items()}
+    start = kept.pop("params")
+    tc = whole.train_cfg
+    lrs = {"base": tc.lr, "mapping": tc.mapping_lr,
+           "retriever": tc.retriever_lr}
+    # Adam moves a coordinate whose gradient keeps its sign by about lr a
+    # step
+    floor = {k: lrs[_group(tc, k)] * (steps - RESUME_AT) for k in want}
+    want_losses = losses[RESUME_AT:]
+    files = ("params.msgpack", "opt_state.msgpack", "rng.msgpack",
+             "step.json")
+    res = {"resume_at": RESUME_AT, "save_s": kept.pop("save_s"),
+           "bytes": {"msgpack": _dir_bytes(ck, files),
+                     "orbax": _dir_bytes(os.path.join(ck, "orbax"))},
+           "load_s": {}, "share": {}, "loss_rel_err": {}, "eval": {},
+           "limits": {"norm_share": RESUME_NORM_SHARE,
+                      "tensor_share": RESUME_SHARE,
+                      "loss_rtol": RESUME_LOSS_RTOL}}
+    t_gate = time.perf_counter()
+    data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
+                                        explode=True)
+    res["pipeline_s"] = time.perf_counter() - t_gate
+    want_p, want_s = val
+
+    def resume(fmt, load, ex=None):
+        control = ex is not None
+        if ex is None:
+            ex = build_executor(cfg, device, None, quiet=True)
+        _sync(device)
+        t0 = time.perf_counter()
+        getattr(ex, load)(ck)
+        _sync(device)
+        if not control:
+            res["load_s"][fmt] = time.perf_counter() - t0
+        if ex.step != RESUME_AT or ex.optimizer.updates != RESUME_AT or any(
+                "ckpt_opt_state_missing" in r for r in ex.logger.history):
+            raise AssertionError(f"{fmt}: resumed at step {ex.step}, "
+                                 f"{ex.optimizer.updates} updates")
+        if tree_digest(ex.checkpoint_state()) != kept["digest"]:
+            raise AssertionError(f"{fmt}: the loaded state differs from "
+                                 f"the state saved at step {RESUME_AT}")
+        if control:
+            ex.optimizer = make_optimizer(ex.train_cfg, ex.model)
+        got = [float(ex.train_step(b)["loss"]) for b in kept["batches"]]
+        updates = steps - RESUME_AT if control else steps
+        if ex.step != steps or ex.optimizer.updates != updates:
+            raise AssertionError(f"{fmt}: step {ex.step}, "
+                                 f"{ex.optimizer.updates} updates after "
+                                 f"{len(got)} steps")
+        sd = {k: v.detach().clone() for k, v in ex.model.state_dict().items()}
+        res["share"][fmt] = _moved_share(sd, want, start, floor)
+        res["loss_rel_err"][fmt] = max(abs(g - w) / abs(w)
+                                       for g, w in zip(got, want_losses))
+        return ex, sd
+
+    def evaluate(fmt, ex):
+        maxsim.maxsim_search.launches = 0
+        maxsim.maxsim_search.split_launches = 0
+        t0 = time.perf_counter()
+        rec = _Recorder(device)
+        try:
+            m = _recall_precision(run_eval(cfg, ex, data, os.path.join(
+                tmp, f"resume_{fmt}"), "valid"))
+        finally:
+            rec.restore()
+        n = maxsim.maxsim_search.launches
+        if n < 1 or maxsim.maxsim_search.split_launches != n:
+            raise AssertionError(f"{fmt}-resumed eval launched K1 {n} "
+                                 f"times ({maxsim.maxsim_search.split_launches}"
+                                 " split)")
+        if len(rec.searches) != 1:
+            raise AssertionError(f"{fmt}-resumed eval searched "
+                                 f"{len(rec.searches)} times")
+        got_p = np.asarray(rec.searches[0]["pids"])[:, :K]
+        got_s = np.asarray(rec.searches[0]["scores"])[:, :K]
+        if got_p.shape != want_p.shape:
+            raise AssertionError(f"{fmt}-resumed eval: top-{K} of shape "
+                                 f"{got_p.shape}, the run's {want_p.shape}")
+        differ = [i for i in range(len(want_p)) if not _tie_aware(
+            got_p[i], got_s[i], want_p[i], want_s[i], ATOL)]
+        err = float(np.abs(got_s - want_s).max())
+        recall = {k: v for k, v in final.items()
+                  if k.startswith("recall_at_")}
+        if differ or {k: m[k] for k in recall} != recall:
+            raise AssertionError(
+                f"{fmt}-resumed eval: {m} vs the uninterrupted run's "
+                f"{final}; top-{K} of queries {differ[:8]} differ (max "
+                f"|score diff| {err:.3g})")
+        res["eval"][fmt] = {"launches": n, "metrics": m, "score_diff": err,
+                            "seconds": time.perf_counter() - t0}
+
+    sds, first = {}, None
+    for fmt, load in (("msgpack", "load_checkpoint"),
+                      ("orbax", "load_checkpoint_orbax")):
+        ex, sds[fmt] = resume(fmt, load)
+        evaluate(fmt, ex)
+        if first is None:
+            first = ex
+        else:
+            del ex
+    resume("control", "load_checkpoint", first)
+    del first
+    res["run_to_run"] = max(float((sds["msgpack"][k] - sds["orbax"][k])
+                                  .abs().max()) for k in want)
+    res["max_abs_diff"] = {fmt: max(float((sd[k] - w).abs().max())
+                                    for k, w in want.items())
+                           for fmt, sd in sds.items()}
+    res["gate_s"] = time.perf_counter() - t_gate
+    print(f"{smi}: resumed at step {RESUME_AT} to {steps} from each "
+          f"format, the loaded state's digest equal to the saved one; "
+          f"parameters vs the uninterrupted run max |diff| "
+          f"{res['max_abs_diff']}, the two resumed runs apart by "
+          f"{res['run_to_run']:.3g}", flush=True)
+    for f, sh in res["share"].items():
+        print(f"  {f}: the whole model's distance from the uninterrupted "
+              f"run {sh['norm']:.4g} of that run's movement since step "
+              f"{RESUME_AT} (2-norm, limit {RESUME_NORM_SHARE}); the worst "
+              f"tensors' share of their movement or of {steps - RESUME_AT} "
+              f"lr (limit {RESUME_SHARE}): " + ", ".join(
+                  f"{k} {r:.4g} ({d:.3g} of {m:.3g})"
+                  for r, k, d, m in sh["worst"])
+              + f"; the losses of steps {RESUME_AT + 1}-{steps} max rel "
+              f"err {res['loss_rel_err'][f]:.3g} (limit "
+              f"{RESUME_LOSS_RTOL})", flush=True)
+    for fmt in ("msgpack", "orbax"):
+        print(f"{smi}: {fmt} checkpoint {res['bytes'][fmt]:,} bytes, save "
+              f"{res['save_s'][fmt]:.2f} s, load {res['load_s'][fmt]:.2f} "
+              f"s", flush=True)
+    ev = res["eval"]
+    diffs = {f: float(f"{e['score_diff']:.3g}") for f, e in ev.items()}
+    print(f"{smi}: resumed evaluations K1-f32 launches "
+          f"{ {f: e['launches'] for f, e in ev.items()} }, "
+          f"{ {f: round(e['seconds'], 1) for f, e in ev.items()} } s; "
+          f"recall@K equal to the run's, top-{K} of all {len(want_p)} "
+          f"queries vs its final validation's tie-aware within {ATOL} (max "
+          f"|score diff| {diffs}); the gate {res['gate_s']:.1f} s (the "
+          f"pipeline {res['pipeline_s']:.1f} s)", flush=True)
+    bad = [f for f in sds if _share_fails(res["share"][f])
+           or res["loss_rel_err"][f] > RESUME_LOSS_RTOL]
+    if bad:
+        raise AssertionError(f"the {bad} resumed runs differ from the "
+                             "uninterrupted run")
+    if not _share_fails(res["share"]["control"]):
+        raise AssertionError("a resume with a fresh optimizer passes the "
+                             "gate: it cannot tell a lost optimizer state")
+    del sds, want, whole, start
+    kept.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
+def jax_fixture_on_card(device="cuda"):
+    """The JAX package's committed checkpoint (tests/fixtures/
+    jax_checkpoint: a tiny FLMR retriever after 3 steps of an
+    accumulation-2, clipped, linear-decay optimizer) read through the
+    port: orbax/ (OCDBT, zstd chunks through the system libzstd) and the
+    msgpack files decode to the committed digest, and an executor on the
+    card resumes from each form to the same digest."""
+    from ravqa_tpu_torch.executors import TrainConfig, orbax_io
+    from ravqa_tpu_torch.executors.base import BaseExecutor
+    from ravqa_tpu_torch.models import (BertConfig, FLMRModelConfig,
+                                        FLMRRetriever, read_flax_msgpack)
+    with open(os.path.join(JAX_FIXTURE, "digest.json")) as f:
+        meta = json.load(f)
+    t0 = time.perf_counter()
+    trees = {"orbax": orbax_io.load(os.path.join(JAX_FIXTURE, "orbax"))}
+    with open(os.path.join(JAX_FIXTURE, "step.json")) as f:
+        step = np.asarray(json.load(f)["step"], np.int32)
+    msg = {"step": step}
+    for name in ("params", "opt_state", "rng"):
+        with open(os.path.join(JAX_FIXTURE, f"{name}.msgpack"), "rb") as f:
+            msg[name] = read_flax_msgpack(f.read())
+    trees["msgpack"] = msg
+    out = {"read_s": time.perf_counter() - t0}
+    for fmt, tree in trees.items():
+        if tree_digest(tree) != meta["digest"]:
+            raise AssertionError(f"the JAX fixture's {fmt} form decodes to "
+                                 "other values than its digest")
+    for load in ("load_checkpoint", "load_checkpoint_orbax"):
+        ex = BaseExecutor(
+            FLMRRetriever(FLMRModelConfig.tiny(
+                bert=BertConfig.tiny(**meta["bert"]), **meta["flmr"])),
+            TrainConfig(**meta["train"]), device=device, quiet=True)
+        getattr(ex, load)(JAX_FIXTURE)
+        if ex.step != meta["steps"] or \
+                tree_digest(ex.checkpoint_state()) != meta["digest"]:
+            raise AssertionError(f"{load} of the JAX fixture on the card "
+                                 "does not hold its values")
+    print(f"JAX fixture ({JAX_FIXTURE}): orbax (OCDBT, zstd through "
+          f"libzstd) and msgpack decoded to its digest in "
+          f"{out['read_s']:.2f} s; loaded by an executor on {device} in "
+          f"both forms", flush=True)
+    return out
+
+
 def training_slice(config_path, smi, device="cuda"):
     """Phase 14: `main --mode train` in-process on the BERT-base training
     config (validation in the middle and at the end, then ckpt/), then
@@ -2075,16 +2408,17 @@ def training_slice(config_path, smi, device="cuda"):
     tc, pc = cfg.train, cfg.data_pipeline.loaders.setup_kwargs
     out = {}
 
-    def drive(argv, key):
-        rec, out[key] = _drive_main(maxsim, argv, key, device)
+    def drive(argv, key, on_step=None):
+        rec, out[key] = _drive_main(maxsim, argv, key, device, on_step)
         return rec
 
     with tempfile.TemporaryDirectory(dir=HERE,
                                      prefix=".chip_smoke_train_") as tmp:
         common = ["--config", config_path, "--device", device, "--log_dir",
                   tmp, "--experiment_name", "train"]
+        kept, ck = {}, os.path.join(tmp, f"step_{RESUME_AT}")
         rec = drive(common + ["--mode", "train", "--opts"] + TRAIN_CUT,
-                    "train")
+                    "train", resume_saver(ck, device, kept))
         steps = rec.steps
         losses = [s[1] for s in steps]
         if len(steps) != tc.total_steps or not np.all(np.isfinite(
@@ -2142,6 +2476,13 @@ def training_slice(config_path, smi, device="cuda"):
             raise AssertionError("params.msgpack holds non-finite values")
         print(f"params.msgpack: {n_leaves} arrays decoded by "
               f"models.read_flax_msgpack", flush=True)
+        val = rec.searches[-1]
+        val = (np.asarray(val["pids"])[:, :K],
+               np.asarray(val["scores"])[:, :K])
+        del rec
+        out["resume"] = resume_gate(cfg, kept, final, val, losses, ck, tmp,
+                                    smi, maxsim, device)
+        out["jax_fixture"] = jax_fixture_on_card(device)
 
         rec = drive(common + ["--mode", "eval"], "eval exact")
         ev = out["eval exact"]
@@ -2253,7 +2594,7 @@ def preflmr_sweeps(maxsim, sweeps, s, q):
 def preflmr_slice(config_path, maxsim, k1, sweeps, smi):
     """One PreFLMR serve slice (phase 15): build_server on the config (the
     published ViT-L/14 and BERT-base widths, random weights from the seed,
-    16,384 passages encoded on the card), three bursts of 128 requests,
+    4,096 passages encoded on the card), three bursts of 128 requests,
     then 64 requests from 4 threads, each with its own seeded 224 x 224 x 3
     image; every answer against the plain versions' search on the query
     embeddings its dispatch searched; K1-f32 (exact) or K3 and K4
@@ -2266,7 +2607,7 @@ def preflmr_slice(config_path, maxsim, k1, sweeps, smi):
     import torch
     f32 = torch.float32
     torch.cuda.reset_peak_memory_stats()
-    data, server, index = start_server(config_path, "cuda")
+    data, server, index = start_server(config_path, "cuda", SERVE_CUT)
     s, ex = server.searcher, server.ex
     mc = ex.model.cfg
     lq = (data["query_tokenizer"].query_maxlen + mc.prefix_len
@@ -2740,12 +3081,13 @@ def rag_serve_slice(maxsim, k1, smi):
     """The RAVQA-v2 answer serve (phase 16). Returns the phase's numbers
     (launches of K1-f32 under "launches")."""
     import torch
-    from ravqa_tpu_torch.main import build_pipeline, build_server, load_config
+    from ravqa_tpu_torch.main import (apply_overrides, build_pipeline,
+                                      build_server, load_config)
     from ravqa_tpu_torch.profile_serve import vqa_request, vqa_stages
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = load_config(RAG_CONFIG)
+    cfg = apply_overrides(load_config(RAG_CONFIG), SERVE_CUT)
     data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
                                         explode=True)
     server = build_server(cfg, data, "cuda")
@@ -3135,15 +3477,16 @@ def rag_train_slice(maxsim, smi):
     from ravqa_tpu_torch.data import corpus_doc_batches
     from ravqa_tpu_torch.executors import FLMRExecutor, refresh_index
     from ravqa_tpu_torch.executors.base import make_optimizer
-    from ravqa_tpu_torch.main import (build_pipeline, build_rag_executor,
-                                      load_config, rag_batches,
-                                      rag_eval_batches, run_rag_eval)
+    from ravqa_tpu_torch.main import (apply_overrides, build_pipeline,
+                                      build_rag_executor, load_config,
+                                      rag_batches, rag_eval_batches,
+                                      run_rag_eval)
     from ravqa_tpu_torch.profile_train import RagStageTimer
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = load_config(RAG_TRAIN_CONFIG)
+    cfg = apply_overrides(load_config(RAG_TRAIN_CONFIG), SERVE_CUT)
     data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
                                         explode=True)
     ex = build_rag_executor(cfg, data, "cuda", quiet=True)
@@ -3422,14 +3765,16 @@ def rag_train_slice(maxsim, smi):
 # phase 18: WIT mapping-network pretraining (and DPR on the same corpus)
 # ---------------------------------------------------------------------------
 
-WIT_TRAIN_ROWS, WIT_TEST_ROWS = 15360, 1024
+# 3,072 train rows: 4,096 passages with the test rows (15,360 and 16,384
+# before phase 14's resume gate needed the room)
+WIT_TRAIN_ROWS, WIT_TEST_ROWS = 3072, 1024
 
 
 def wit_pretrain_slice(maxsim, k1, smi):
     """Phase 18: `main --mode train`, then `--mode test` from its
     checkpoint, in-process on configs/synthetic_flmr_wit_pretrain.json at
     its widths over a synthetic WIT dump written into a .chip_smoke_wit_*
-    directory (ravqa_tpu_torch.scripts.synthetic_wit: 15,360 train and
+    directory (ravqa_tpu_torch.scripts.synthetic_wit: 3,072 train and
     1,024 test rows, one passage each, 768-d features by image_url). Gates:
     every loss finite; only vision_projection moves (the checkpoint
     against the seed's weights: the BERT tower and the linear
@@ -3448,7 +3793,7 @@ def wit_pretrain_slice(maxsim, k1, smi):
     from ravqa_tpu_torch.data import TRANSFORM_REGISTRY, query_eval_batches
     from ravqa_tpu_torch.main import (build_executor, build_pipeline,
                                       load_config)
-    from ravqa_tpu_torch.models import load_params
+    from ravqa_tpu_torch.models import load_params, read_flax_msgpack
     from ravqa_tpu_torch.scripts.synthetic_wit import write_synthetic_wit
     out = {}
     with tempfile.TemporaryDirectory(dir=HERE,
@@ -3541,9 +3886,19 @@ def wit_pretrain_slice(maxsim, k1, smi):
                             for n in moved):
             raise AssertionError(f"WIT pretraining moved {moved}")
         n_mapping = sum(1 for n in start if n.startswith("vision_projection"))
-        opt = torch.load(os.path.join(ckpt, "optimizer.pt"),
-                         map_location="cpu", weights_only=False)
-        if len(opt["adamw"]["state"]) != n_mapping:
+        # the optax tree's Adam moments (mu): frozen leaves are {}
+        with open(os.path.join(ckpt, "opt_state.msgpack"), "rb") as f:
+            opt = read_flax_msgpack(f.read())
+
+        def moments(node, path=()):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    yield from moments(v, path + (k,))
+            elif "mu" in path:
+                yield path[path.index("mu") + 1:]
+        held = list(moments(opt))
+        if len(held) != n_mapping or any(p[0] != "vision_projection"
+                                         for p in held):
             raise AssertionError("optimizer state beyond the mapping network")
         # the vision-only query tower, card vs CPU, on the trained weights
         data = build_pipeline(cfg).get_data(cfg.data_pipeline_output_node,
@@ -3864,7 +4219,8 @@ def m2kr_slice(maxsim, k1, smi):
 
 ROI_CONFIG = os.path.join(HERE, "configs", "synthetic_flmr_roi_train.json")
 # 12 steps (24 before phase 22 needed the room)
-ROI_IMAGES, ROI_TRAIN_Q, ROI_TEST_Q, ROI_PASSAGES = 128, 256, 64, 16384
+# 4,096 passages (16,384 before phase 14's resume gate needed the room)
+ROI_IMAGES, ROI_TRAIN_Q, ROI_TEST_Q, ROI_PASSAGES = 128, 256, 64, 4096
 ROI_CUT = ["train.total_steps=12", "train.val_every=12"]
 LQ_ROI = 352          # 32 text + (1 global + 9 ROI) x 32 mapping tokens
 DET_CANVAS = (1024, 1024)
@@ -4239,7 +4595,7 @@ def roi_slice(maxsim, k1, smi):
     """Phase 20: the FLMR-with-ROI user path from raw images. A synthetic
     OK-VQA world from the seed (scripts/synthetic_okvqa.py: 128 RGB images
     of 480 x 640, 256 train and 64 test questions, a GoogleSearch CSV of
-    16,384 passages across the 112724 boundary, annotations and OCR
+    4,096 passages across the 112724 boundary, annotations and OCR
     JSONs); the VinVL detector (roi_detection) writes predictions.tsv; the
     Oscar captioner (roi_captioning) writes the caption JSON; then `main
     --mode train` on configs/synthetic_flmr_roi_train.json (OCR attached to
@@ -4395,8 +4751,10 @@ def roi_slice(maxsim, k1, smi):
 # phase 21: ColBERT-style text-retrieval training with distillation
 # ---------------------------------------------------------------------------
 
-TRIPLES_PASSAGES, TRIPLES_TRAIN_Q, TRIPLES_TEST_Q = 16384, 256, 64
-TRIPLES_TOPICS = 2048
+# 4,096 passages in 512 topics (16,384 in 2,048 before phase 14's resume
+# gate needed the room)
+TRIPLES_PASSAGES, TRIPLES_TRAIN_Q, TRIPLES_TEST_Q = 4096, 256, 64
+TRIPLES_TOPICS = 512
 # 12 steps (24 before phase 22 needed the room)
 TRIPLES_STEPS, TRIPLES_BSIZE, TRIPLES_NWAY = 12, 16, 8
 TEACHER_DEPTH = 32         # the teacher scores each train query's top 32
@@ -4498,7 +4856,7 @@ def triples_slice(maxsim, k1, smi):
     kd_triples_from_scores, nway 8); TriplesExecutor.train_on_triples
     takes TRIPLES_STEPS steps (bsize 16, in-batch negatives, distillation
     weight 1); the dev queries are evaluated through K1-f32 (B=64, Lq=32,
-    N=16,384, Ld=180), MRR@10 and success@K computed, the ranking written
+    N=4,096, Ld=180), MRR@10 and success@K computed, the ranking written
     as TSV and scored by evaluate_msmarco_ranking. Gates: in the module's
     docstring, phase 21. Returns the phase's numbers."""
     import gc
@@ -4829,7 +5187,6 @@ SHARD_MODES = {
                                     "maxsim_residual")),
 }
 SHARD_CPU_QUERIES = 8
-SERVE_CUT = ["data_pipeline.raw.setup_kwargs.n_docs=4096"]
 DDP_OPTS = ["data_pipeline.raw.setup_kwargs.n_docs=4096",
             "train.total_steps=4", "train.val_every=0", "train.log_every=1"]
 
@@ -5612,10 +5969,14 @@ def main():
     kernels["K1"]["launches_1m"] = launches_1m["exact bf16 (K1)"]["K1"]
     kernels["K1-f32"]["launches_note"] = (
         "phase 4, the exact serve slice; launches_train_eval: phase 14's "
-        "validations during training and its exact eval from the "
-        "checkpoint, all on the split route")
+        "validations during training, its exact eval from the checkpoint "
+        "and the resume gate's evaluation of each resumed run, all on the "
+        "split route")
     kernels["K1-f32"]["launches_train_eval"] = {
         k: train_slice[k]["launches"]["K1"] for k in ("train", "eval exact")}
+    kernels["K1-f32"]["launches_train_eval"]["resumed"] = {
+        fmt: e["launches"]
+        for fmt, e in train_slice["resume"]["eval"].items()}
     kernels["K1-f32"]["f32_bound_ms"] = k1["K1-f32"]["shapes"][
         next(iter(k1["K1-f32"]["shapes"]))]["f32_bound_ms"]
     kernels["K1-f32"]["launches_preflmr_serve"] = \

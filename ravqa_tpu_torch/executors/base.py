@@ -43,12 +43,13 @@ of JAX's mesh step on the global batch.
   group is gloo's and the parameters are on the card (ranks sharing one
   GPU), FSDP's all-gather and reduce-scatter go through the host.
 
-A checkpoint directory holds params.msgpack (flax's format: the JAX
-package's load_params and load_checkpoint read it), step.json, and the
-port's optimizer.pt and rng.pt. Those two names differ from the JAX
-package's opt_state.msgpack and rng.msgpack, which hold optax trees, so
-each package loads the other's checkpoint as params-only: the optimizer
-starts afresh and "ckpt_opt_state_missing" is logged.
+A checkpoint is the JAX package's: a directory with params.msgpack,
+opt_state.msgpack (make_optimizer's optax state tree, opt_state.py),
+rng.msgpack (the threefry key the steps split, utils/prng.py) and
+step.json, or with backend "orbax" the JAX package's orbax directory
+(orbax_io.py). Each package resumes the other's run where it stopped:
+Adam's moments, the schedule's position, an open accumulation window and
+the key.
 """
 
 from __future__ import annotations
@@ -66,12 +67,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.convert import load_params, save_params
+from ..models.convert import (flax_to_state_dict, read_flax_msgpack,
+                              read_params_tree, save_flax_msgpack,
+                              state_dict_to_flax)
 from ..models.transformer import MultiHeadAttention
 from ..parallel import trainable_mask
 from ..parallel.mesh import (all_reduce, axis_group, axis_rank, broadcast,
                              full_tensor, mesh_axis_size, rank_zero,
                              shard_batch)
+from ..utils.prng import prng_key, split
+from . import orbax_io
+from .opt_state import load_optax_tree, moments, to_optax_tree
 
 # a checkpoint directory's params file, in the order load_checkpoint looks
 CHECKPOINT_FILES = ("params.msgpack", "params.npz")
@@ -199,14 +205,17 @@ class Optimizer:
     def __init__(self, cfg: TrainConfig, model: nn.Module):
         self.cfg = cfg
         mask = trainable_mask(model, cfg.modules)
+        # JAX masks the chain only where a flag freezes a parameter
+        self.masked = not all(mask.values())
         groups: dict[str, list] = {}
         for name, p in model.named_parameters():
             if mask[name]:
-                groups.setdefault(_group(cfg, name), []).append(p)
+                groups.setdefault(_group(cfg, name), []).append((name, p))
         lrs = {"base": cfg.lr, "mapping": cfg.mapping_lr,
                "retriever": cfg.retriever_lr}
         order = [g for g in ("base", "mapping", "retriever") if g in groups]
-        self.trainable = [p for g in order for p in groups[g]]
+        self.names = [n for g in order for n, _ in groups[g]]
+        self.trainable = [p for g in order for _, p in groups[g]]
         self.schedules = [make_schedule(cfg, lrs[g]) for g in order]
         self.adamw = None
         if self.trainable:
@@ -214,7 +223,8 @@ class Optimizer:
             # ones: the multi-tensor (foreach) update refuses the mix
             mixed = any(_is_sharded(p) for p in self.trainable)
             self.adamw = torch.optim.AdamW(
-                [{"params": groups[g], "lr": 0.0} for g in order],
+                [{"params": [p for _, p in groups[g]], "lr": 0.0}
+                 for g in order],
                 betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
                 weight_decay=cfg.weight_decay,
                 **({"foreach": False} if mixed else {}))
@@ -259,21 +269,6 @@ class Optimizer:
             self.adamw.step()
         self.updates += 1
         return True
-
-    def state_dict(self) -> dict:
-        return {"adamw": (self.adamw.state_dict()
-                          if self.adamw is not None else None),
-                "micro": self.micro, "updates": self.updates,
-                "acc": self.acc}
-
-    def load_state_dict(self, state: dict) -> None:
-        if self.adamw is not None:
-            self.adamw.load_state_dict(state["adamw"])
-        self.micro = state["micro"]
-        self.updates = state["updates"]
-        if self.acc is not None:
-            for a, saved in zip(self.acc, state["acc"]):
-                a.copy_(saved)
 
 
 def make_optimizer(cfg: TrainConfig, model: nn.Module) -> Optimizer:
@@ -440,8 +435,10 @@ def _host_comms():
 
 
 class BaseExecutor:
-    """Owns the model (on `device`), the optimizer, the step count and a
-    CPU generator for dropout seeds.
+    """Owns the model (on `device`), the optimizer, the step count, the
+    JAX package's PRNG key (`rng_key`, PRNGKey(seed), split once a step)
+    and a CPU generator for dropout, seeded each step from that step's
+    subkey.
 
     Subclasses define loss_fn(batch, generator) -> (loss, metrics dict).
     The parameters that the train config's freeze flags freeze get
@@ -491,7 +488,8 @@ class BaseExecutor:
         self.logger = MetricsLogger(log_dir if rank_zero() else None,
                                     quiet=quiet or not rank_zero(),
                                     backends=logger_backends)
-        self.generator = torch.Generator().manual_seed(seed)
+        self.rng_key = prng_key(seed)
+        self.generator = torch.Generator()
         self.step = 0
 
     # -- data parallelism ----------------------------------------------------
@@ -609,6 +607,9 @@ class BaseExecutor:
         self.model.zero_grad(set_to_none=True)
         if self.mesh is not None:
             batch = shard_batch(batch, self.mesh, "data")
+        # the JAX step's `rng, sub = jax.random.split(state.rng)`
+        self.rng_key, sub = split(self.rng_key)
+        self.generator.manual_seed(int(sub[0]) << 32 | int(sub[1]))
         loss, metrics = self.loss_fn(batch, self.generator)
         loss.backward()
         if self.mesh is not None:
@@ -674,69 +675,124 @@ class BaseExecutor:
         self.inference_only = True
 
     # -- checkpoints ----------------------------------------------------------
-    def save_checkpoint(self, path: str, backend: str = "msgpack"):
-        """params.msgpack (flax's format), step.json, optimizer.pt (the
-        optimizer's state, when there is an optimizer) and rng.pt (the
-        dropout generator's state). backend "orbax" is the JAX package's
-        sharded format and is not ported."""
-        if backend != "msgpack":
-            raise NotImplementedError(
-                f"checkpoint backend {backend!r} is not ported to "
-                "ravqa_tpu_torch (msgpack only)")
-        # on a mesh every rank gathers FSDP's shards; rank 0 writes the
-        # whole parameters and moments, the files a one-device run writes
-        params = self.full_state_dict()
-        opt = (_full_tensors(self.optimizer.state_dict())
+    def _named_params(self) -> dict:
+        """{parameter name: whole tensor} (every rank calls this under
+        FSDP: the shards are gathered)."""
+        return self.full_state_dict()
+
+    def _to_flax(self, values: dict) -> dict:
+        """{parameter name: tensor} (any subset, parameter-shaped) -> the
+        JAX package's params tree of those leaves. Parameters, Adam's
+        moments and accumulators all go through it."""
+        return state_dict_to_flax(values, _num_heads(self.model))
+
+    def _from_flax(self, tree: dict) -> dict:
+        """The inverse of _to_flax; {} leaves (optax's MaskedNode) drop."""
+        return flax_to_state_dict(tree)
+
+    def load_params_tree(self, tree: dict) -> None:
+        """Load a JAX params tree into the model (strict)."""
+        _load_full(self.model, self._from_flax(tree))
+
+    def checkpoint_state(self) -> Optional[dict]:
+        """The trees the JAX package checkpoints: {"params", "opt_state"
+        ({} without an optimizer, as the JAX package's serving executor
+        writes it), "rng", "step"}, as numpy; None on a rank other than 0
+        (every rank calls it)."""
+        named = self._named_params()
+        mom = (_full_tensors(moments(self.optimizer))
                if self.optimizer is not None else None)
         if not rank_zero():
+            return None
+        params = self._to_flax(named)
+        return {"params": params,
+                "opt_state": ({} if mom is None else to_optax_tree(
+                    self.optimizer, mom, self._to_flax, params)),
+                "rng": self.rng_key.copy(),
+                "step": np.asarray(self.step, np.int32)}
+
+    def save_checkpoint(self, path: str, backend: str = "msgpack"):
+        """The JAX package's checkpoint of this executor: backend
+        "msgpack" writes params.msgpack, opt_state.msgpack, rng.msgpack
+        and step.json into `path`; "orbax" writes `path`/orbax
+        (orbax_io.save). On a mesh rank 0 writes the whole parameters and
+        moments."""
+        if backend not in ("msgpack", "orbax"):
+            raise ValueError(f"checkpoint backend {backend!r}: 'msgpack' "
+                             "or 'orbax'")
+        state = self.checkpoint_state()
+        if state is None:
+            return
+        if backend == "orbax":
+            orbax_io.save(os.path.join(path, "orbax"), state)
             return
         os.makedirs(path, exist_ok=True)
-        save_params(params, os.path.join(path, "params.msgpack"),
-                    _num_heads(self.model))
-        if opt is not None:
-            torch.save(opt, os.path.join(path, "optimizer.pt"))
-        torch.save(self.generator.get_state(), os.path.join(path, "rng.pt"))
+        for name in ("params", "opt_state", "rng"):
+            save_flax_msgpack(os.path.join(path, f"{name}.msgpack"),
+                              state[name])
         with open(os.path.join(path, "step.json"), "w") as f:
             json.dump({"step": self.step}, f)
 
+    def _restore(self, step: int, opt_state: Optional[dict],
+                 rng) -> None:
+        """The step, the optimizer (a fresh one, then `opt_state` where
+        given; where None or empty, as a serving executor writes it,
+        "ckpt_opt_state_missing" is logged, as the JAX package does) and
+        the key (kept where None)."""
+        self.step = int(step)
+        if self.optimizer is not None:
+            self.optimizer = make_optimizer(self.train_cfg, self.model)
+            if opt_state:
+                load_optax_tree(
+                    self.optimizer, opt_state, self._from_flax,
+                    lambda t, p: _shard_as(
+                        t.to(device=p.device, dtype=p.dtype), p))
+            else:
+                self.logger.log({"ckpt_opt_state_missing": 1}, self.step)
+        if rng is not None:
+            self.rng_key = np.asarray(rng, np.uint32).reshape(2).copy()
+
     def load_checkpoint(self, path: str) -> None:
-        """Load a params file (flax msgpack or a flattened-key .npz;
-        models.convert.load_params) into the model, or a checkpoint
-        directory: its params.msgpack (else params.npz), step.json,
-        optimizer.pt and rng.pt where present. A training executor whose
-        directory lacks optimizer.pt (a JAX package checkpoint, or a
-        params-only one) starts a fresh optimizer and logs
-        "ckpt_opt_state_missing", as the JAX package does."""
+        """Load a params file (flax msgpack or a flattened-key .npz) into
+        the model, or a checkpoint directory (the JAX package's or
+        save_checkpoint's): its params.msgpack (else params.npz),
+        step.json, opt_state.msgpack and rng.msgpack. An inference_only
+        executor reads no optimizer state."""
         if not os.path.isdir(path):
-            _load_full(self.model, load_params(path))
+            self.load_params_tree(read_params_tree(path))
             return
         found = [os.path.join(path, f) for f in CHECKPOINT_FILES
                  if os.path.exists(os.path.join(path, f))]
         if not found:
             raise FileNotFoundError(f"{path} holds none of "
                                     f"{CHECKPOINT_FILES}")
-        _load_full(self.model, load_params(found[0]))
-        step_path = os.path.join(path, "step.json")
-        if os.path.exists(step_path):
-            with open(step_path) as f:
-                self.step = int(json.load(f)["step"])
-        if self.optimizer is not None:
-            opt_path = os.path.join(path, "optimizer.pt")
-            self.optimizer = make_optimizer(self.train_cfg, self.model)
-            if os.path.exists(opt_path):
-                state = torch.load(opt_path, map_location=self.device)
-                if self.optimizer.adamw is not None:
-                    st = state["adamw"]["state"]
-                    for i, p in enumerate(self.optimizer.trainable):
-                        st[i] = {k: _shard_as(v, p) for k, v in
-                                 st.get(i, {}).items()}
-                if state.get("acc") is not None:
-                    state["acc"] = [
-                        _shard_as(a, p) for a, p in
-                        zip(state["acc"], self.optimizer.trainable)]
-                self.optimizer.load_state_dict(state)
-            else:
-                self.logger.log({"ckpt_opt_state_missing": 1}, self.step)
-        rng_path = os.path.join(path, "rng.pt")
-        if os.path.exists(rng_path):
-            self.generator.set_state(torch.load(rng_path))
+        self.load_params_tree(read_params_tree(found[0]))
+
+        def read(name):
+            p = os.path.join(path, name)
+            if not os.path.exists(p):
+                return None
+            with open(p, "rb") as f:
+                return read_flax_msgpack(f.read())
+        step = self.step
+        if os.path.exists(os.path.join(path, "step.json")):
+            with open(os.path.join(path, "step.json")) as f:
+                step = json.load(f)["step"]
+        self._restore(step, (read("opt_state.msgpack")
+                             if self.optimizer is not None else None),
+                      read("rng.msgpack"))
+
+    def load_checkpoint_orbax(self, path: str) -> None:
+        """Load `path`/orbax (the JAX package's save_checkpoint(backend=
+        "orbax") or this one's). Whether it holds the optimizer's state
+        is read from its metadata: a checkpoint without one (params and
+        step only) loads with a fresh optimizer and the key kept; a
+        failed read of one that has it raises."""
+        p = os.path.join(path, "orbax")
+        skip = () if self.optimizer is not None else ("opt_state",)
+        tree = orbax_io.load(p, skip=skip)
+        self.load_params_tree(tree["params"])
+        full = "opt_state" in tree                  # None where skipped
+        self._restore(int(np.asarray(tree["step"])),
+                      tree.get("opt_state") if full else None,
+                      tree.get("rng") if full else None)

@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -58,8 +57,7 @@ import torch
 from torch import nn
 
 from ..models.convert import (generator_to_flax, lora_to_flax,
-                              rag_params_to_torch, read_params_tree,
-                              state_dict_to_flax, write_flax_msgpack)
+                              rag_params_to_torch, state_dict_to_flax)
 from ..models.generation import beam_generate, greedy_generate
 from ..models.lora import LoRAParams, init_lora, lora_delta, merge_lora
 from ..models.rag import (GeneratorInputBuilder, get_retrieval_labels,
@@ -67,10 +65,8 @@ from ..models.rag import (GeneratorInputBuilder, get_retrieval_labels,
                           select_answers_by_joint_score)
 from ..models.t5 import shift_right
 from ..ops.maxsim import maxsim_pair_xla
-from ..parallel.mesh import rank_zero
 from ..retrieval import LateInteractionSearcher, TokenIndex
-from .base import (CHECKPOINT_FILES, BaseExecutor, TrainConfig, _num_heads,
-                   make_optimizer)
+from .base import BaseExecutor, TrainConfig, _num_heads, make_optimizer
 
 LORA_TARGETS = ("self_attn/q", "self_attn/v", "cross_attn/q", "cross_attn/v")
 
@@ -314,66 +310,44 @@ class RagExecutor(BaseExecutor):
             self._lora_premerged = False
             self.prepare_for_serving()
 
-    def load_checkpoint(self, path: str) -> None:
-        """A params file (flax msgpack or flattened-key .npz), or a
-        checkpoint directory written by the JAX RagExecutor or by
-        save_checkpoint: its params.msgpack / params.npz, step.json, and
-        where present the port's optimizer.pt (a training executor without
-        it starts a fresh optimizer and logs "ckpt_opt_state_missing", as
-        BaseExecutor.load_checkpoint) and rng.pt."""
-        if not os.path.isdir(path):
-            self.load_params_tree(read_params_tree(path))
-            return
-        found = [os.path.join(path, f) for f in CHECKPOINT_FILES
-                 if os.path.exists(os.path.join(path, f))]
-        if not found:
-            raise FileNotFoundError(f"{path} holds none of "
-                                    f"{CHECKPOINT_FILES}")
-        self.load_params_tree(read_params_tree(found[0]))
-        step_path = os.path.join(path, "step.json")
-        if os.path.exists(step_path):
-            with open(step_path) as f:
-                self.step = int(json.load(f)["step"])
-        if self.optimizer is not None:
-            opt_path = os.path.join(path, "optimizer.pt")
-            if os.path.exists(opt_path):
-                self.optimizer.load_state_dict(
-                    torch.load(opt_path, map_location=self.device))
+    def _named_params(self) -> dict:
+        return dict(self.model.named_parameters())
+
+    def _to_flax(self, values: dict) -> dict:
+        """{parameter name: tensor} (retriever.*, generator.*,
+        lora.adapters.*; any subset) -> the JAX RagExecutor's tree of
+        those leaves: {"retriever", "generator"}, the generator split into
+        {"base", "lora"} while the LoRA is not merged."""
+        sub = {"retriever": {}, "generator": {}}
+        lora: dict = {}
+        for key, t in values.items():
+            top, _, rest = key.partition(".")
+            if top == "lora":
+                name, leaf = rest.removeprefix("adapters.").rsplit(".", 1)
+                lora.setdefault(name.replace("/", "."), {})[leaf] = t
             else:
-                self.logger.log({"ckpt_opt_state_missing": 1}, self.step)
-        rng_path = os.path.join(path, "rng.pt")
-        if os.path.exists(rng_path):
-            self.generator.set_state(torch.load(rng_path))
+                sub[top][rest] = t
+        gen = generator_to_flax(self.model.generator, sub["generator"])
+        if self.lora is not None:
+            gen = {"base": gen, "lora": lora_to_flax(lora)}
+        return {"retriever": state_dict_to_flax(
+                    sub["retriever"], _num_heads(self.model.retriever)),
+                "generator": gen}
+
+    def _from_flax(self, tree: dict) -> dict:
+        retriever_sd, generator_sd, lora = rag_params_to_torch(
+            {"retriever": tree.get("retriever", {}),
+             "generator": tree.get("generator", {})})
+        out = {f"retriever.{k}": t for k, t in retriever_sd.items()}
+        out.update({f"generator.{k}": t for k, t in generator_sd.items()})
+        for name, entry in (lora or {}).items():
+            for leaf, t in entry.items():
+                out[f"lora.adapters.{name.replace('.', '/')}.{leaf}"] = t
+        return out
 
     def params_tree(self) -> dict:
         """The JAX RagExecutor's params tree of this executor's weights."""
-        gen = generator_to_flax(self.model.generator)
-        if self.lora is not None:
-            gen = {"base": gen, "lora": lora_to_flax(self.lora)}
-        return {"retriever": state_dict_to_flax(
-                    self.model.retriever.state_dict(),
-                    _num_heads(self.model.retriever)),
-                "generator": gen}
-
-    def save_checkpoint(self, path: str, backend: str = "msgpack"):
-        """params.msgpack (the JAX package's format: its RagExecutor loads
-        it), step.json, and the port's optimizer.pt (while the executor
-        trains) and rng.pt; on a mesh, from rank 0 (the ranks hold the
-        same weights)."""
-        if backend != "msgpack":
-            raise NotImplementedError(f"checkpoint backend {backend!r} is "
-                                      "not ported (msgpack only)")
-        if not rank_zero():
-            return
-        os.makedirs(path, exist_ok=True)
-        with open(os.path.join(path, "params.msgpack"), "wb") as f:
-            f.write(write_flax_msgpack(self.params_tree()))
-        if self.optimizer is not None:
-            torch.save(self.optimizer.state_dict(),
-                       os.path.join(path, "optimizer.pt"))
-        torch.save(self.generator.get_state(), os.path.join(path, "rng.pt"))
-        with open(os.path.join(path, "step.json"), "w") as f:
-            json.dump({"step": self.step}, f)
+        return self._to_flax(self._named_params())
 
     # -- retrieval ------------------------------------------------------------
     def encode_query(self, batch) -> torch.Tensor:

@@ -51,6 +51,7 @@ import math
 import re
 import struct
 import zipfile
+from typing import Optional
 
 import numpy as np
 import torch
@@ -86,19 +87,20 @@ def _torch_key(path: list[str]) -> str:
     return ".".join(parts + [_LEAF[path[-1]]])
 
 
-def _torch_value(path: list[str], a: np.ndarray) -> np.ndarray:
+def _torch_value(path: list[str], a: np.ndarray) -> torch.Tensor:
+    t = torch.from_numpy(a if a.flags.writeable else a.copy())
     leaf, parent = path[-1], path[-2] if len(path) > 1 else ""
     if leaf == "kernel":
-        if a.ndim == 4:                           # (kh, kw, in, out) conv
-            a = a.reshape(-1, a.shape[-1])
-        elif a.ndim == 3 and parent == "out":     # (heads, head_dim, hidden)
-            a = a.reshape(-1, a.shape[-1])
-        elif a.ndim == 3:                         # (hidden, heads, head_dim)
-            a = a.reshape(a.shape[0], -1)
-        return a.T
+        if t.ndim == 4:                           # (kh, kw, in, out) conv
+            t = t.reshape(-1, t.shape[-1])
+        elif t.ndim == 3 and parent == "out":     # (heads, head_dim, hidden)
+            t = t.reshape(-1, t.shape[-1])
+        elif t.ndim == 3:                         # (hidden, heads, head_dim)
+            t = t.reshape(t.shape[0], -1)
+        return t.T.contiguous()
     if leaf == "bias":
-        return a.reshape(-1)
-    return a
+        return t.reshape(-1)
+    return t
 
 
 def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
@@ -109,8 +111,8 @@ def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
     sd = {}
     for key, value in flat.items():
         path = key.split("/")
-        sd[_torch_key(path)] = torch.tensor(
-            _torch_value(path, np.asarray(value, np.float32)))
+        sd[_torch_key(path)] = _torch_value(
+            path, np.asarray(value, np.float32))
     return sd
 
 
@@ -153,7 +155,9 @@ def state_dict_to_flax(state_dict: dict, num_heads: dict[str, int]) -> dict:
     ViT-L's 16 heads beside BERT's 12)."""
     tree: dict = {}
     for key, t in state_dict.items():
-        a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+        # transposes and head splits on the tensor's own device, then one
+        # copy to the host
+        a = t.detach().to(torch.float32)
         path = _flax_path(key, t)
         parent, leaf = path[-2], path[-1]
         attention = len(path) > 2 and path[-3] in _ATTENTION_BLOCKS \
@@ -174,7 +178,7 @@ def state_dict_to_flax(state_dict: dict, num_heads: dict[str, int]) -> dict:
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(a)
+        node[leaf] = a.contiguous().cpu().numpy()
     return tree
 
 
@@ -249,10 +253,13 @@ def generator_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def generator_to_flax(model: torch.nn.Module) -> dict:
+def generator_to_flax(model: torch.nn.Module,
+                      values: Optional[dict] = None) -> dict:
     """The inverse of generator_to_state_dict: a T5Model's or Blip2T5's
     parameters -> the JAX package's params tree (float32 numpy), the
-    attention kernels split by the T5 config's heads."""
+    attention kernels split by the T5 config's heads. values: {parameter
+    name: tensor of its shape} (Adam's moments, say) to write in place of
+    the parameters, only those leaves."""
     from .t5 import T5Attention
     nn = torch.nn
     modules = dict(model.named_modules())
@@ -261,7 +268,11 @@ def generator_to_flax(model: torch.nn.Module) -> dict:
         path = _gen_flax_path(name)
         parent = modules.get(name.rpartition(".")[0])
         for pname, p in m.named_parameters(recurse=False):
-            a = p.detach().to(device="cpu", dtype=torch.float32).numpy()
+            if values is not None:
+                p = values.get(f"{name}.{pname}" if name else pname)
+                if p is None:
+                    continue
+            a = p.detach().to(torch.float32)
             leaf = pname
             if isinstance(m, nn.Linear) and pname == "weight":
                 leaf, a = "kernel", a.T
@@ -270,7 +281,7 @@ def generator_to_flax(model: torch.nn.Module) -> dict:
                     a = (a.reshape(h, d, -1) if path[-1] == "o"
                          else a.reshape(a.shape[0], h, d))
             elif isinstance(m, nn.Conv2d) and pname == "weight":
-                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+                leaf, a = "kernel", a.permute(2, 3, 1, 0)
             elif isinstance(m, nn.LayerNorm) and pname == "weight":
                 leaf = "scale"
             elif isinstance(m, nn.Embedding):
@@ -278,7 +289,7 @@ def generator_to_flax(model: torch.nn.Module) -> dict:
             node = tree
             for part in path:
                 node = node.setdefault(part, {})
-            node[leaf] = np.ascontiguousarray(a)
+            node[leaf] = a.contiguous().cpu().numpy()
     return tree
 
 
@@ -305,8 +316,8 @@ def lora_to_flax(lora: dict) -> dict:
         for part in _gen_flax_path(name.rpartition(".")[0]):
             node = node.setdefault(part, {})
         for leaf, t in entry.items():
-            node[leaf] = t.detach().to(device="cpu",
-                                       dtype=torch.float32).numpy()
+            node[leaf] = t.detach().to(torch.float32).contiguous().cpu() \
+                .numpy()
     return tree
 
 
@@ -451,19 +462,26 @@ class _Reader:
 
     def ext(self, n: int) -> np.ndarray:
         code = self.unpack("b")
-        payload = self.bin(n)
+        payload = _Reader(self.take(n))
         if code != 1:
             raise ValueError(f"msgpack ext type {code} is not a flax "
                              f"ndarray (ext type 1)")
-        shape, dtype, buf = _Reader(payload).value()
+        if payload.unpack("B") != 0x93:
+            raise ValueError("msgpack ext type 1 is not a flax ndarray")
+        shape, dtype = payload.value(), payload.value()
+        size = payload.unpack("B")
+        if size not in (0xC4, 0xC5, 0xC6):
+            raise ValueError("a flax ndarray's data is not msgpack bin")
+        buf = payload.take(payload.unpack({0xC4: "B", 0xC5: "H",
+                                           0xC6: "I"}[size]))
         if isinstance(dtype, bytes):
             dtype = dtype.decode("ascii")
         if dtype == "bfloat16":                # bf16 bits -> float32
             bits = np.frombuffer(buf, np.uint16).astype(np.uint32) << 16
             arr = bits.view(np.float32)
         else:
-            arr = np.frombuffer(buf, np.dtype(dtype))
-        return arr.reshape(shape).copy()
+            arr = np.frombuffer(buf, np.dtype(dtype)).copy()
+        return arr.reshape(shape)
 
 
 def read_flax_msgpack(data: bytes):
@@ -476,13 +494,21 @@ def read_flax_msgpack(data: bytes):
     return out
 
 
+class FieldDict(dict):
+    """A dict that write_flax_msgpack writes in its own key order: a
+    namedtuple's state dict, which flax writes in field order (it writes
+    a dict's keys sorted, as jax.tree.map leaves them)."""
+
+
 class _Writer:
     """msgpack encoder for what flax.serialization.to_bytes writes of a
     params tree: str-keyed maps, str, ints (an array's shape) and ndarrays
     as ext type 1 holding the msgpack array (shape, dtype name, C-order
-    bytes). Anything else raises TypeError."""
+    bytes). Anything else raises TypeError. The encoding is `parts`:
+    small headers and each array's own buffer, not copied."""
 
     def __init__(self):
+        self.parts: list = []
         self.out = bytearray()
 
     def head(self, n: int, fix: int, fix_max: int, codes) -> None:
@@ -498,7 +524,8 @@ class _Writer:
     def value(self, v) -> None:
         if isinstance(v, dict):
             self.head(len(v), 0x80, 15, ((0xDE, "H"), (0xDF, "I")))
-            for k in sorted(v, key=str):           # flax sorts keys too
+            for k in (list(v) if isinstance(v, FieldDict)
+                      else sorted(v, key=str)):
                 self.value(str(k))
                 self.value(v[k])
         elif isinstance(v, str):
@@ -516,13 +543,24 @@ class _Writer:
         elif isinstance(v, (int, np.integer)) and not isinstance(v, bool):
             self.int(int(v))
         elif isinstance(v, np.ndarray):
-            inner = _Writer()
-            inner.value([list(v.shape), v.dtype.name,
-                         np.ascontiguousarray(v).tobytes()])
-            self.ext(1, bytes(inner.out))
+            self.array(v)
         else:
             raise TypeError(f"cannot write {type(v).__name__} as a flax "
                             f"params leaf")
+
+    def array(self, v: np.ndarray) -> None:
+        """ext 1 of [shape, dtype name, bin of the C-order bytes]."""
+        data = memoryview(np.ascontiguousarray(v).reshape(-1)
+                          .view(np.uint8))
+        inner = _Writer()
+        inner.value([list(v.shape), v.dtype.name])
+        inner.out[0] = 0x93                     # a 3-array: the bytes last
+        inner.head(len(data), 0, -1, ((0xC4, "B"), (0xC5, "H"),
+                                      (0xC6, "I")))
+        self.ext_head(1, len(inner.out) + len(data))
+        self.out += inner.out
+        self.parts += [bytes(self.out), data]
+        self.out = bytearray()
 
     def int(self, v: int) -> None:
         if 0 <= v <= 0x7F:
@@ -544,24 +582,36 @@ class _Writer:
                     return
             raise ValueError(f"int {v} does not fit msgpack")
 
-    def ext(self, code: int, payload: bytes) -> None:
-        n = len(payload)
+    def ext_head(self, code: int, n: int) -> None:
         fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
         if n in fixed:
             self.out += struct.pack(">Bb", fixed[n], code)
         else:
             self.head(n, 0, -1, ((0xC7, "B"), (0xC8, "H"), (0xC9, "I")))
             self.out += struct.pack(">b", code)
-        self.out += payload
+
+    def done(self) -> list:
+        return self.parts + [bytes(self.out)]
 
 
 def write_flax_msgpack(tree: dict) -> bytes:
-    """Encode a params tree (nested str-keyed dicts with ndarray leaves) as
+    """Encode a params or optimizer-state tree (nested str-keyed dicts with
+    ndarray leaves; a FieldDict in its key order, other dicts sorted) as
     flax.serialization.to_bytes does, without flax or msgpack. Arrays over
     1 GB, which flax writes in chunks, are not supported."""
     w = _Writer()
     w.value(tree)
-    return bytes(w.out)
+    return b"".join(w.done())
+
+
+def save_flax_msgpack(path: str, tree: dict) -> None:
+    """write_flax_msgpack(tree) into the file `path`, the arrays written
+    from their own buffers."""
+    w = _Writer()
+    w.value(tree)
+    with open(path, "wb") as f:
+        for part in w.done():
+            f.write(part)
 
 
 def save_params(state_dict: dict, path: str,
@@ -570,9 +620,7 @@ def save_params(state_dict: dict, path: str,
     JAX package's load_params reads."""
     import os
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    data = write_flax_msgpack(state_dict_to_flax(state_dict, num_heads))
-    with open(path, "wb") as f:
-        f.write(data)
+    save_flax_msgpack(path, state_dict_to_flax(state_dict, num_heads))
 
 
 def read_params_tree(path: str) -> dict:

@@ -5,7 +5,10 @@ opt_state.msgpack, rng.msgpack and step.json) and `save_params` (one flax
 msgpack file) write `model.init` parameters; the port's executor loads
 both, from the file and from the directory, through its own msgpack
 decoder (models/convert.py: no flax, no msgpack package), and `build_server`
-finds `<log_dir>/ckpt/params.msgpack` on its own.
+finds `<log_dir>/ckpt/params.msgpack` on its own. The port writes the same
+four files, which the JAX executor loads whole; the optimizer's state and
+the orbax backend are held to the JAX package's in
+tests/test_torch_opt_state.py.
 
 Tolerance on query embeddings: atol 1e-5, rtol 1e-4, as
 tests/test_torch_models.py (float32 on both sides, reductions ordered
@@ -14,6 +17,7 @@ differently by XLA and PyTorch).
 
 import json
 import os
+import shutil
 import struct
 
 import jax
@@ -124,15 +128,34 @@ def test_msgpack_reader_matches_msgpack():
 
 
 def test_msgpack_reader_decodes_flax_arrays():
+    """flax's arrays (float32, int32, bf16), the optimizer state's int32
+    scalars, the key's uint32 pair and empty maps (optax's MaskedNode and
+    EmptyState) read back; write_flax_msgpack writes flax's bytes for
+    them, a FieldDict in its own order as flax writes a namedtuple."""
     from flax import serialization
+    from ravqa_tpu_torch.models.convert import FieldDict, write_flax_msgpack
     tree = {"a": np.arange(6, dtype=np.float32).reshape(2, 3),
             "b": {"c": np.array([1, -2], np.int32),
-                  "d": jax.numpy.asarray([1.5, -2.25], jax.numpy.bfloat16)}}
-    got = read_flax_msgpack(serialization.to_bytes(tree))
+                  "d": jax.numpy.asarray([1.5, -2.25], jax.numpy.bfloat16)},
+            "e": {"count": np.asarray(3, np.int32),
+                  "key": np.array([0, 5], np.uint32), "masked": {}}}
+    data = serialization.to_bytes(tree)
+    got = read_flax_msgpack(data)
     np.testing.assert_array_equal(got["a"], tree["a"])
     assert got["a"].dtype == np.float32 and got["a"].shape == (2, 3)
     np.testing.assert_array_equal(got["b"]["c"], tree["b"]["c"])
     np.testing.assert_array_equal(got["b"]["d"], [1.5, -2.25])
+    assert got["e"]["count"].shape == () and got["e"]["count"] == 3
+    assert got["e"]["count"].dtype == np.int32
+    assert got["e"]["key"].dtype == np.uint32 and got["e"]["masked"] == {}
+    assert write_flax_msgpack(jax.tree.map(np.asarray, tree)) == data
+    from optax import MultiStepsState
+    state = MultiStepsState(np.asarray(1, np.int32), np.asarray(2, np.int32),
+                            {}, {"w": np.ones(2, np.float32)}, ())
+    fields = FieldDict((k, serialization.to_state_dict(getattr(state, k)))
+                       for k in state._fields)
+    assert list(fields) != sorted(fields)
+    assert write_flax_msgpack(fields) == serialization.to_bytes(state)
 
 
 def test_msgpack_reader_rejects_what_flax_params_do_not_use():
@@ -184,8 +207,10 @@ def _state(ex):
 def test_port_checkpoint_loads_in_jax(saved, port_world, tmp_path):
     """params.msgpack from the port's save_checkpoint decodes with the JAX
     package's load_params on a model.init template: the same tree, the
-    port's values; the JAX executor loads the directory as a params-only
-    checkpoint (its optimizer afresh, ckpt_opt_state_missing logged)."""
+    port's values; the JAX executor of the same train config loads the
+    whole directory, its optimizer's state and key included
+    (tests/test_torch_opt_state.py holds those to JAX's values)."""
+    from ravqa_tpu.config import apply_overrides as jax_overrides
     from ravqa_tpu.executors.base import load_params as jax_load_params
     from ravqa_tpu_torch.models import flax_to_state_dict
     cfg, batches = port_world
@@ -194,7 +219,7 @@ def test_port_checkpoint_loads_in_jax(saved, port_world, tmp_path):
     ex.train_step(batches[1])
     ex.save_checkpoint(str(tmp_path / "ck"))
     assert sorted(os.listdir(tmp_path / "ck")) == [
-        "optimizer.pt", "params.msgpack", "rng.pt", "step.json"]
+        "opt_state.msgpack", "params.msgpack", "rng.msgpack", "step.json"]
     template = jax.device_get(saved["ex"].state.params)
     tree = jax_load_params(template,
                            str(tmp_path / "ck" / "params.msgpack"))
@@ -205,14 +230,18 @@ def test_port_checkpoint_loads_in_jax(saved, port_world, tmp_path):
     for k, v in ex.model.state_dict().items():
         np.testing.assert_array_equal(got[k].numpy(), v.numpy())
     from ravqa_tpu import main as jax_main
-    jcfg = jax_load_config(CONFIG)
+    jcfg = jax_overrides(jax_load_config(CONFIG), RESUME_OPTS)
     jdata = jax_main.build_pipeline(jcfg, cache_dir=None).get_data(
         jcfg.data_pipeline_output_node, explode=True)
     jex = jax_main.build_executor(jcfg, jdata, None, str(tmp_path / "j"),
                                   quiet=True)
     jex.load_checkpoint(str(tmp_path / "ck"))
     assert int(jex.state.step) == 2
-    assert any(r.get("ckpt_opt_state_missing") for r in jex.logger.history)
+    assert not any(r.get("ckpt_opt_state_missing")
+                   for r in jex.logger.history)
+    np.testing.assert_array_equal(np.asarray(jex.state.rng), ex.rng_key)
+    mini = jax.device_get(jex.state.opt_state).mini_step
+    assert int(mini) == ex.optimizer.micro == 0
     np.testing.assert_array_equal(
         np.asarray(jex.state.params["linear"]["kernel"]),
         ex.model.linear.weight.detach().numpy().T)
@@ -256,23 +285,25 @@ def test_resume_parity(port_world, tmp_path, split):
 
 def test_params_only_checkpoint_loads_with_fresh_optimizer(port_world,
                                                           saved, tmp_path):
-    """A directory without optimizer.pt (a params-only checkpoint, or the
-    JAX package's, whose opt_state.msgpack holds an optax tree) loads its
-    params and step; the optimizer starts afresh and
-    ckpt_opt_state_missing is logged, as the JAX package does."""
+    """A directory without opt_state.msgpack (a params-only checkpoint,
+    the port's or the JAX package's) loads its params and step; the
+    optimizer starts afresh and ckpt_opt_state_missing is logged, as the
+    JAX package does."""
     cfg, batches = port_world
     ex = _trainer(cfg)
     ex.train_step(batches[0])
     ex.save_checkpoint(str(tmp_path / "ck"))
-    os.remove(tmp_path / "ck" / "optimizer.pt")
+    os.remove(tmp_path / "ck" / "opt_state.msgpack")
     ex2 = _trainer(cfg)
     ex2.load_checkpoint(str(tmp_path / "ck"))
     assert ex2.step == 1 and ex2.optimizer.updates == 0
     assert [r["ckpt_opt_state_missing"] for r in ex2.logger.history
             if "ckpt_opt_state_missing" in r] == [1]
     ex2.train_step(batches[1])                      # trains on from there
+    shutil.copytree(saved["ckpt"], tmp_path / "jax")  # the JAX checkpoint
+    os.remove(tmp_path / "jax" / "opt_state.msgpack")
     ex3 = _trainer(cfg)
-    ex3.load_checkpoint(saved["ckpt"])             # the JAX checkpoint
+    ex3.load_checkpoint(str(tmp_path / "jax"))
     with open(os.path.join(saved["ckpt"], "step.json")) as f:
         assert ex3.step == json.load(f)["step"]
     assert any(r.get("ckpt_opt_state_missing") for r in ex3.logger.history)
@@ -296,12 +327,6 @@ def test_serving_executor_loads_a_training_checkpoint(port_world, tmp_path):
     assert not srv.logger.history
     for k, v in ex.model.state_dict().items():
         assert torch.equal(srv.model.state_dict()[k], v)
-
-
-def test_orbax_backend_is_not_ported(port_world, tmp_path):
-    ex = _trainer(port_world[0])
-    with pytest.raises(NotImplementedError, match="orbax"):
-        ex.save_checkpoint(str(tmp_path / "ck"), backend="orbax")
 
 
 class _FakeExecutor:

@@ -114,7 +114,7 @@ def test_train_then_eval_cli(worlds, tmp_path):
                           "train.val_every=3", "train.log_every=2"]) == 0
     exp = os.path.join(log, "run")
     assert sorted(os.listdir(os.path.join(exp, "ckpt"))) == [
-        "optimizer.pt", "params.msgpack", "rng.pt", "step.json"]
+        "opt_state.msgpack", "params.msgpack", "rng.msgpack", "step.json"]
     for f in ("valid_metrics.json", "valid_predictions.json",
               "valid_prediction_table.jsonl", "metrics.jsonl"):
         assert os.path.exists(os.path.join(exp, f)), f

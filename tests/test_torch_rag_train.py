@@ -845,9 +845,9 @@ def test_run_rag_eval_matches_jax(world, tmp_path):
 
 def test_port_trained_checkpoint_loads_into_jax(world, tmp_path):
     """A port executor trained two updates (LoRA B nonzero) saves its
-    checkpoint; the JAX RagExecutor loads it (params.msgpack, step.json)
-    and generates the same answers; a fresh port executor loads it too,
-    the optimizer's state included."""
+    checkpoint; the JAX RagExecutor loads it (params, the optimizer's
+    state, the key and the step) and generates the same answers; a fresh
+    port executor loads it too, the optimizer's state included."""
     jex = _jax_executor(world, "t5")
     rag_cfg, _ = _set_retrieval(world, jex, "t5", "exact", {})
     tex = _port_executor(world, "t5", rag_cfg,
@@ -858,9 +858,15 @@ def test_port_trained_checkpoint_loads_into_jax(world, tmp_path):
                for e in tex.lora.values())
     tex.save_checkpoint(str(tmp_path / "ckpt"))
     assert sorted(os.listdir(tmp_path / "ckpt")) == [
-        "optimizer.pt", "params.msgpack", "rng.pt", "step.json"]
+        "opt_state.msgpack", "params.msgpack", "rng.msgpack", "step.json"]
+    logged = len(jex.logger.history)
     jex.load_checkpoint(str(tmp_path / "ckpt"))
     assert int(jex.state.step) == 4
+    assert not any("ckpt_opt_state_missing" in r
+                   for r in jex.logger.history[logged:])
+    np.testing.assert_array_equal(np.asarray(jex.state.rng), tex.rng_key)
+    assert int(jax.device_get(jex.state.opt_state)[1].inner_state
+               .gradient_step) == 2
     batch = _batch(world, [11, 1, 6], "t5")
     want, got = jex.generate(batch), tex.generate(batch)
     assert got["predictions"] == want["predictions"]

@@ -443,6 +443,10 @@ def test_submit_refuses_images_the_server_does_not_take():
         server.stop()
 
 
+JAX_ORBAX_FIXTURE = os.path.join(REPO, "tests", "fixtures", "jax_checkpoint",
+                                 "orbax")
+
+
 def test_serve_slice_imports_no_jax(tmp_path):
     """The exact and the hierarchical serve slices, the PreFLMR serve slice
     (in-graph ViT and transformer mapping, a tiny cut of
@@ -466,8 +470,11 @@ def test_serve_slice_imports_no_jax(tmp_path):
     distillation_scores.json, KD triples, TriplesExecutor.train_on_triples
     under the profiler's trace, its evaluation through
     evaluate_msmarco_ranking, the BEM fallback; the HF T5/BLIP-2
-    converters imported), in one process: nothing of the JAX package
-    (ravqa_tpu) or of jax/jaxlib/flax loads."""
+    converters imported), and the orbax checkpoints (the committed JAX
+    fixture read through the port's OCDBT and zstd reader, an executor's
+    orbax checkpoint written and loaded), in one process: nothing of the
+    JAX package (ravqa_tpu) or of jax/jaxlib/flax/orbax/tensorstore/
+    zstandard/msgpack loads."""
     code = (
         "import sys, numpy as np\n"
         "from ravqa_tpu_torch.config import apply_overrides, load_config\n"
@@ -643,8 +650,16 @@ def test_serve_slice_imports_no_jax(tmp_path):
         "assert 0 <= success_at_k(got, pos, 5) <= 1\n"
         "fb = initialize_bem_scoring_function()\n"
         "assert evqa_accuracy(['a cat'], [['cat']], ['q'], fb) == 1.0\n"
+        "from ravqa_tpu_torch.executors import orbax_io\n"
+        f"fx = orbax_io.load({JAX_ORBAX_FIXTURE!r})\n"
+        "assert fx['step'] == 3 and 'opt_state' in fx\n"
+        f"ck = {str(tmp_path / 'orbax_ck')!r}\n"
+        "ex = build_executor(load_config(" + repr(CONFIG) + "), 'cpu')\n"
+        "ex.save_checkpoint(ck, backend='orbax')\n"
+        "ex.load_checkpoint_orbax(ck)\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('ravqa_tpu', 'jax', 'jaxlib', 'flax')))\n")
+        "             ('ravqa_tpu', 'jax', 'jaxlib', 'flax', 'orbax',\n"
+        "              'tensorstore', 'zstandard', 'msgpack')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
@@ -759,7 +774,8 @@ def test_rag_train_test_eval_modes(rag_trained, mode, capsys):
     run = rag_trained / "r"
     if mode == "train":
         assert sorted(os.listdir(run / "ckpt")) == [
-            "optimizer.pt", "params.msgpack", "rng.pt", "step.json"]
+            "opt_state.msgpack", "params.msgpack", "rng.msgpack",
+            "step.json"]
         assert json.load(open(run / "ckpt" / "step.json")) == {"step": 3}
         logged = [json.loads(line) for line in open(run / "metrics.jsonl")]
         train = [r for r in logged if "train/loss" in r]
