@@ -75,6 +75,7 @@ from ..parallel import trainable_mask
 from ..parallel.mesh import (all_reduce, axis_group, axis_rank, broadcast,
                              full_tensor, mesh_axis_size, rank_zero,
                              shard_batch)
+from ..utils.profiling import clock_mark, span
 from ..utils.prng import prng_key, split
 from . import orbax_io
 from .opt_state import load_optax_tree, moments, to_optax_tree
@@ -604,19 +605,25 @@ class BaseExecutor:
             raise RuntimeError(
                 "executor is inference_only: no optimizer state; rebuild "
                 "without inference_only to train")
-        self.model.zero_grad(set_to_none=True)
-        if self.mesh is not None:
-            batch = shard_batch(batch, self.mesh, "data")
-        # the JAX step's `rng, sub = jax.random.split(state.rng)`
-        self.rng_key, sub = split(self.rng_key)
-        self.generator.manual_seed(int(sub[0]) << 32 | int(sub[1]))
-        loss, metrics = self.loss_fn(batch, self.generator)
-        loss.backward()
-        if self.mesh is not None:
-            self._average_replicated_grads()
-        grad_norm = global_norm([p.grad for p in self.model.parameters()
-                                 if p.grad is not None])
-        self.optimizer.step()
+        with span("train.step", step=self.step + 1):
+            clock_mark(self.device)
+            self.model.zero_grad(set_to_none=True)
+            if self.mesh is not None:
+                batch = shard_batch(batch, self.mesh, "data")
+            # the JAX step's `rng, sub = jax.random.split(state.rng)`
+            self.rng_key, sub = split(self.rng_key)
+            self.generator.manual_seed(int(sub[0]) << 32 | int(sub[1]))
+            with span("train.forward"):
+                loss, metrics = self.loss_fn(batch, self.generator)
+            with span("train.backward"):
+                loss.backward()
+            if self.mesh is not None:
+                self._average_replicated_grads()
+            with span("train.optimizer"):
+                grad_norm = global_norm([p.grad
+                                         for p in self.model.parameters()
+                                         if p.grad is not None])
+                self.optimizer.step()
         self.step += 1
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()

@@ -29,6 +29,7 @@ from ..metrics import positive_id_scores, pseudo_relevance_scores
 from ..models.flmr import FLMRRetriever, skiplist_mask
 from ..retrieval import LateInteractionSearcher
 from ..retrieval.index import TokenIndex, encode_corpus
+from ..utils.profiling import span
 from .base import CHECKPOINT_FILES, BaseExecutor, TrainConfig
 
 __all__ = ["CHECKPOINT_FILES", "FLMRExecutor"]
@@ -76,11 +77,12 @@ class FLMRExecutor(BaseExecutor):
         def opt(x, dtype=torch.float32):
             return None if x is None else self._t(x, dtype)
 
+        with span("tower.h2d"):
+            args = (opt(input_ids, torch.long), opt(attention_mask, None),
+                    opt(image_features), opt(pixel_values),
+                    opt(image_patch_features))
         with self.gathered_params():
-            return self.model.query(opt(input_ids, torch.long),
-                                    opt(attention_mask, None),
-                                    opt(image_features), opt(pixel_values),
-                                    opt(image_patch_features))
+            return self.model.query(*args)
 
     @torch.inference_mode()
     def encode_doc(self, input_ids, attention_mask, skip_mask=None):

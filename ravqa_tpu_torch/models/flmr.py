@@ -14,6 +14,9 @@
   (`use_transformer_mapping`: one text-conditioned token per vision patch);
   multimodal docs (`multimodal_docs`: doc text plus projected doc-image
   tokens).
+- spans (utils.profiling, while recording is on): tower.query over
+  tower.text, tower.vit and tower.mapping, as the configuration has them;
+  tower.doc.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.losses import in_batch_negative_loss, nway_ce_loss
+from ..utils.profiling import span
 from .bert import BertConfig, BertModel
 from .mapping import TransformerMapping, VisionMapping
 from .vit import CLIPVisionModel, ViTConfig
@@ -205,35 +209,47 @@ class FLMRRetriever(nn.Module):
         choice; the HF PreFLMR release takes the second-to-last layer).
         Returns (B, Lq_total, dim) float32, text | mapping | transformer
         mapping tokens; pad text rows are zero."""
+        with span("tower.query"):
+            return self._query(input_ids, attention_mask, image_features,
+                               pixel_values, image_patch_features,
+                               deterministic, generator)
+
+    def _query(self, input_ids, attention_mask, image_features,
+               pixel_values, image_patch_features, deterministic,
+               generator) -> torch.Tensor:
         cfg = self.cfg
         parts = []
         text_hidden = None
         if cfg.query_mode != "vision_only":
-            text_hidden = self.query_bert(input_ids, attention_mask,
-                                          deterministic=deterministic,
-                                          generator=generator)[0]
-            q = self.linear(text_hidden)
-            # query masking uses an empty skiplist: only pads zeroed
-            # (FLMR.py:80)
-            parts.append(q * (input_ids != cfg.pad_token_id).to(
-                q.dtype)[..., None])
+            with span("tower.text"):
+                text_hidden = self.query_bert(input_ids, attention_mask,
+                                              deterministic=deterministic,
+                                              generator=generator)[0]
+                q = self.linear(text_hidden)
+                # query masking uses an empty skiplist: only pads zeroed
+                # (FLMR.py:80)
+                parts.append(q * (input_ids != cfg.pad_token_id).to(
+                    q.dtype)[..., None])
         if cfg.query_mode != "text_only":
             if image_features is None:
-                if (cfg.use_transformer_mapping
-                        and image_patch_features is None
-                        and pixel_values.dim() == 4):
-                    last_hidden, image_features = self.vision_model(
-                        pixel_values, deterministic, generator)
-                    image_patch_features = last_hidden[:, 1:]
-                else:
-                    image_features = self.encode_images(
-                        pixel_values, deterministic, generator)
-            v = self.vision_projection(image_features)
-            # (B, prefix, dim) or (B, n_roi, prefix, dim) -> (B, n_v, dim)
-            parts.append(v.reshape(v.shape[0], -1, cfg.dim))
-            if cfg.use_transformer_mapping:
-                parts.append(self.transformer_mapping(
-                    image_patch_features, text_hidden, attention_mask))
+                with span("tower.vit"):
+                    if (cfg.use_transformer_mapping
+                            and image_patch_features is None
+                            and pixel_values.dim() == 4):
+                        last_hidden, image_features = self.vision_model(
+                            pixel_values, deterministic, generator)
+                        image_patch_features = last_hidden[:, 1:]
+                    else:
+                        image_features = self.encode_images(
+                            pixel_values, deterministic, generator)
+            with span("tower.mapping"):
+                v = self.vision_projection(image_features)
+                # (B, prefix, dim) or (B, n_roi, prefix, dim) -> (B, n_v,
+                # dim)
+                parts.append(v.reshape(v.shape[0], -1, cfg.dim))
+                if cfg.use_transformer_mapping:
+                    parts.append(self.transformer_mapping(
+                        image_patch_features, text_hidden, attention_mask))
         return l2_normalize(torch.cat(parts, dim=1).float())
 
     def doc(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -247,6 +263,12 @@ class FLMRRetriever(nn.Module):
         skip_mask: optional precomputed skiplist mask; None zeroes pads.
         doc_image_features (B, vision_dim), with multimodal_docs: projected
         to doc_prefix_len more tokens, each unmasked."""
+        with span("tower.doc"):
+            return self._doc(input_ids, attention_mask, skip_mask,
+                             doc_image_features, deterministic, generator)
+
+    def _doc(self, input_ids, attention_mask, skip_mask, doc_image_features,
+             deterministic, generator):
         d = self.linear(self.doc_encoder(input_ids, attention_mask,
                                          deterministic=deterministic,
                                          generator=generator)[0])

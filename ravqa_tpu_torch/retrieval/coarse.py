@@ -27,6 +27,11 @@ centroid-only `centroid_prune` cut.
 
 Every cut is an exact top-k: the JAX package's `approx_topk`
 (lax.approx_max_k) has no counterpart here and is accepted as a no-op.
+
+Spans (utils.profiling, while recording is on): search.stage0 (the block
+or coarse sweep and its cut), search.stage1 (the doc-summary sweep and
+its cut), search.fine (the exact re-score) and search.topk (the final
+top-k), per query group where the stages run in groups.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch.nn.functional as F
 
 from ..ops.maxsim import NEG_INF, coarse_sweep, maxsim_search, stage1_sweep
 from ..ops.residual import decompress, maxsim_residual, split_records
+from ..utils.profiling import span
 
 
 def summarize_docs(tokens: torch.Tensor, mask: torch.Tensor,
@@ -161,36 +167,45 @@ def _fine_stage(q: torch.Tensor, cand: torch.Tensor,
     b = q.shape[0]
     g = _resolve_group(group_size, b)
     if records is not None:
-        cp = min(centroid_prune, cand.shape[1]) if centroid_prune else 0
-        if cp and cp < cand.shape[1]:
-            cand = _centroid_prune(q, cand, records, mask, centroids, cp, g)
-        if use_pallas_residual and (codec_coarse is not None
-                                    or centroids.shape[0] <= 1024):
-            sc = maxsim_residual(q, records, cand, mask, centroids,
-                                 bucket_weights, nbits=nbits,
-                                 coarse=codec_coarse, fine=codec_fine)
-            s, sel = torch.topk(sc, k, dim=1)
-            return s, torch.gather(cand, 1, sel)
+        with span("search.fine"):
+            cp = min(centroid_prune, cand.shape[1]) if centroid_prune else 0
+            if cp and cp < cand.shape[1]:
+                cand = _centroid_prune(q, cand, records, mask, centroids, cp,
+                                       g)
+            fused = use_pallas_residual and (codec_coarse is not None
+                                             or centroids.shape[0] <= 1024)
+            if fused:
+                sc = maxsim_residual(q, records, cand, mask, centroids,
+                                     bucket_weights, nbits=nbits,
+                                     coarse=codec_coarse, fine=codec_fine)
+        if fused:
+            with span("search.topk"):
+                s, sel = torch.topk(sc, k, dim=1)
+                return s, torch.gather(cand, 1, sel)
     qf = q.float()
     top_s, top_r = [], []
     for lo in range(0, b, g):
         cand_i = cand[lo:lo + g]
-        if records is None:
-            sc = _score_group_tokens(qf[lo:lo + g], cand_i, tokens, mask,
-                                     scales)
-        else:
-            codes, scl, packed = split_records(records[cand_i],
-                                               mask.shape[1])
-            tok = decompress(codes, packed, centroids, bucket_weights, nbits)
-            s = torch.einsum("gcld,gqd->gclq", tok.float(),
-                             q[lo:lo + g].to(torch.bfloat16).float())
-            s = (s * scl[..., None]).masked_fill(
-                ~mask[cand_i].bool()[..., None], NEG_INF)
-            sc = s.amax(dim=2).sum(dim=-1)
-        s, sel = torch.topk(sc, k, dim=1)
-        top_s.append(s)
-        top_r.append(torch.gather(cand_i, 1, sel))
-    return torch.cat(top_s), torch.cat(top_r)
+        with span("search.fine"):
+            if records is None:
+                sc = _score_group_tokens(qf[lo:lo + g], cand_i, tokens, mask,
+                                         scales)
+            else:
+                codes, scl, packed = split_records(records[cand_i],
+                                                   mask.shape[1])
+                tok = decompress(codes, packed, centroids, bucket_weights,
+                                 nbits)
+                s = torch.einsum("gcld,gqd->gclq", tok.float(),
+                                 q[lo:lo + g].to(torch.bfloat16).float())
+                s = (s * scl[..., None]).masked_fill(
+                    ~mask[cand_i].bool()[..., None], NEG_INF)
+                sc = s.amax(dim=2).sum(dim=-1)
+        with span("search.topk"):
+            s, sel = torch.topk(sc, k, dim=1)
+            top_s.append(s)
+            top_r.append(torch.gather(cand_i, 1, sel))
+    with span("search.topk"):
+        return torch.cat(top_s), torch.cat(top_r)
 
 
 def doc_validity(mask: torch.Tensor) -> torch.Tensor:
@@ -223,22 +238,23 @@ def two_stage_search(q: torch.Tensor, tokens: Optional[torch.Tensor],
     validity row, computed from `mask` when not given. approx_topk and
     approx_recall are accepted; the cut is exact."""
     del approx_topk, approx_recall
-    if doc_valid is None:
-        doc_valid = doc_validity(mask)
-    qc = q if coarse_query_len is None else q[:, :coarse_query_len]
-    if use_pallas_coarse and summaries_t is not None:
-        approx = coarse_sweep(qc, summaries_t, doc_valid,
-                              dscale=summaries_t_scale)
-    else:
-        if use_pallas_coarse:
-            ones = torch.ones(summaries.shape[:2], dtype=torch.int8,
-                              device=summaries.device)
-            approx = maxsim_search(qc.float().contiguous(),
-                                   summaries.contiguous(), ones)
+    with span("search.stage0"):
+        if doc_valid is None:
+            doc_valid = doc_validity(mask)
+        qc = q if coarse_query_len is None else q[:, :coarse_query_len]
+        if use_pallas_coarse and summaries_t is not None:
+            approx = coarse_sweep(qc, summaries_t, doc_valid,
+                                  dscale=summaries_t_scale)
         else:
-            approx = coarse_scores(qc, summaries)
-        approx = approx.masked_fill(~doc_valid.bool()[None, :], NEG_INF)
-    _, cand = torch.topk(approx, n_candidates, dim=1)
+            if use_pallas_coarse:
+                ones = torch.ones(summaries.shape[:2], dtype=torch.int8,
+                                  device=summaries.device)
+                approx = maxsim_search(qc.float().contiguous(),
+                                       summaries.contiguous(), ones)
+            else:
+                approx = coarse_scores(qc, summaries)
+            approx = approx.masked_fill(~doc_valid.bool()[None, :], NEG_INF)
+        _, cand = torch.topk(approx, n_candidates, dim=1)
     return _fine_stage(q, cand, tokens, mask, k=k, group_size=group_size,
                        **fine)
 
@@ -332,42 +348,47 @@ def hierarchical_search(q: torch.Tensor, tokens: Optional[torch.Tensor],
         summ_blocks = src.reshape(nb, block_size, s, d)
         scale_blocks = (None if summ_scale is None
                         else summ_scale.reshape(nb, block_size))
-    if doc_valid is None:
-        doc_valid = doc_validity(mask)
-    doc_valid_blocks = doc_valid.bool().reshape(nb, block_size)
-    blk_valid = doc_valid_blocks.any(dim=1)                     # (nb,)
     b = q.shape[0]
     qc = q if coarse_query_len is None else q[:, :coarse_query_len]
 
     # stage 0: dense over block summaries; fully padded blocks out
-    if block_summ_scale is not None:
-        s0 = (coarse_sweep(qc, block_summ_t)[:, :nb]
-              * block_summ_scale[None, :]).masked_fill(~blk_valid[None, :],
-                                                       NEG_INF)
-    elif block_summ_t is not None:
-        v = torch.zeros(block_summ_t.shape[1], dtype=torch.int8,
-                        device=blk_valid.device)
-        v[:nb] = blk_valid
-        s0 = coarse_sweep(qc, block_summ_t, v, dscale=block_summ_t_scale)
-    else:
-        s0 = coarse_scores(qc, block_summ).masked_fill(
-            ~blk_valid[None, :], NEG_INF)
-    _, blk = torch.topk(s0, n_blocks, dim=1)                  # (B, n_blocks)
-    # padded stage-0 columns are -9999 and can only surface when n_blocks
-    # exceeds the valid blocks; clamp so the stage-1 gathers stay in range
-    blk = blk.clamp_max(nb - 1)
+    with span("search.stage0"):
+        if doc_valid is None:
+            doc_valid = doc_validity(mask)
+        doc_valid_blocks = doc_valid.bool().reshape(nb, block_size)
+        blk_valid = doc_valid_blocks.any(dim=1)                 # (nb,)
+        if block_summ_scale is not None:
+            s0 = (coarse_sweep(qc, block_summ_t)[:, :nb]
+                  * block_summ_scale[None, :]).masked_fill(
+                      ~blk_valid[None, :], NEG_INF)
+        elif block_summ_t is not None:
+            v = torch.zeros(block_summ_t.shape[1], dtype=torch.int8,
+                            device=blk_valid.device)
+            v[:nb] = blk_valid
+            s0 = coarse_sweep(qc, block_summ_t, v,
+                              dscale=block_summ_t_scale)
+        else:
+            s0 = coarse_scores(qc, block_summ).masked_fill(
+                ~blk_valid[None, :], NEG_INF)
+        _, blk = torch.topk(s0, n_blocks, dim=1)              # (B, n_blocks)
+        # padded stage-0 columns are -9999 and can only surface when
+        # n_blocks exceeds the valid blocks; clamp so the stage-1 gathers
+        # stay in range
+        blk = blk.clamp_max(nb - 1)
 
     def stage1_valid(scores, blk_i):
         valid = doc_valid_blocks[blk_i].reshape(blk_i.shape[0], -1)
         return scores.masked_fill(~valid, NEG_INF)
 
     if summ_rows is not None:
-        approx = stage1_valid(stage1_sweep(qc, summ_rows, blk,
-                                           tile_b=stage1_tile_b,
-                                           dscale=summ_scale), blk)
-        _, loc = torch.topk(approx, n_candidates, dim=1)
-        return _fine_stage(q, _cand_rows(blk, loc, block_size), tokens,
-                           mask, k=k, group_size=group_size, **fine)
+        with span("search.stage1"):
+            approx = stage1_valid(stage1_sweep(qc, summ_rows, blk,
+                                               tile_b=stage1_tile_b,
+                                               dscale=summ_scale), blk)
+            _, loc = torch.topk(approx, n_candidates, dim=1)
+            cand = _cand_rows(blk, loc, block_size)
+        return _fine_stage(q, cand, tokens, mask, k=k,
+                           group_size=group_size, **fine)
 
     # plain stage 1 and the token fine stage, per query group, so the
     # gathered summaries and tokens stay bounded; a residual index collects
@@ -376,36 +397,40 @@ def hierarchical_search(q: torch.Tensor, tokens: Optional[torch.Tensor],
     qf = q.float()
     top_s, top_r, cands = [], [], []
     for lo in range(0, b, g):
-        blk_i = blk[lo:lo + g]
-        qci = qf[lo:lo + g] if coarse_query_len is None \
-            else qf[lo:lo + g, :coarse_query_len]
-        sg = summ_blocks[blk_i]                      # (g, nbl, bs, S, d)
-        if scale_blocks is None:
-            s1 = torch.einsum("gnbsd,gqd->gnbsq", sg.float(), qci)
-            approx = s1.amax(dim=3).sum(dim=-1)
-        else:
-            # int8 stage 1: a bfloat16 dot over the int8 codes (exact
-            # values); the positive per-doc scale commutes with the max
-            # over slots and the sum over query tokens
-            s1 = torch.einsum("gnbsd,gqd->gnbsq",
-                              sg.to(torch.bfloat16).float(),
-                              qci.to(torch.bfloat16).float())
-            approx = s1.amax(dim=3).sum(dim=-1) * scale_blocks[blk_i]
-        approx = stage1_valid(approx.reshape(blk_i.shape[0], -1), blk_i)
-        _, loc = torch.topk(approx, n_candidates, dim=1)
-        cand_i = _cand_rows(blk_i, loc, block_size)
+        with span("search.stage1"):
+            blk_i = blk[lo:lo + g]
+            qci = qf[lo:lo + g] if coarse_query_len is None \
+                else qf[lo:lo + g, :coarse_query_len]
+            sg = summ_blocks[blk_i]                  # (g, nbl, bs, S, d)
+            if scale_blocks is None:
+                s1 = torch.einsum("gnbsd,gqd->gnbsq", sg.float(), qci)
+                approx = s1.amax(dim=3).sum(dim=-1)
+            else:
+                # int8 stage 1: a bfloat16 dot over the int8 codes (exact
+                # values); the positive per-doc scale commutes with the
+                # max over slots and the sum over query tokens
+                s1 = torch.einsum("gnbsd,gqd->gnbsq",
+                                  sg.to(torch.bfloat16).float(),
+                                  qci.to(torch.bfloat16).float())
+                approx = s1.amax(dim=3).sum(dim=-1) * scale_blocks[blk_i]
+            approx = stage1_valid(approx.reshape(blk_i.shape[0], -1), blk_i)
+            _, loc = torch.topk(approx, n_candidates, dim=1)
+            cand_i = _cand_rows(blk_i, loc, block_size)
         if fine.get("records") is not None:
             cands.append(cand_i)
             continue
-        sc = _score_group_tokens(qf[lo:lo + g], cand_i, tokens, mask,
-                                 fine.get("scales"))
-        s, sel = torch.topk(sc, k, dim=1)
-        top_s.append(s)
-        top_r.append(torch.gather(cand_i, 1, sel))
+        with span("search.fine"):
+            sc = _score_group_tokens(qf[lo:lo + g], cand_i, tokens, mask,
+                                     fine.get("scales"))
+        with span("search.topk"):
+            s, sel = torch.topk(sc, k, dim=1)
+            top_s.append(s)
+            top_r.append(torch.gather(cand_i, 1, sel))
     if cands:
         return _fine_stage(q, torch.cat(cands), tokens, mask, k=k,
                            group_size=group_size, **fine)
-    return torch.cat(top_s), torch.cat(top_r)
+    with span("search.topk"):
+        return torch.cat(top_s), torch.cat(top_r)
 
 
 def cluster_order(summaries: torch.Tensor, n_clusters: int = 1024,

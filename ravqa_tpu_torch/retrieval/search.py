@@ -32,6 +32,10 @@ summaries with per-block scales (JAX :571-585), swept by K2 as bfloat16
 codes against the bf16-cast query (the JAX program's bf16 einsum; K3 would
 quantize the query to int8, another function) with the scale applied
 after the sum.
+
+Spans (utils.profiling, while recording is on): search.k1 (the exact
+sweep: K1, or an int8 index's) and search.topk here; the pruned modes'
+stages in retrieval.coarse.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from ..ops.quant import (maxsim_search_int8, maxsim_search_int8_torch,
                          quantize_summaries_t_int8)
 from ..parallel.mesh import (all_gather, axis_group, axis_rank,
                              mesh_axis_size)
+from ..utils.profiling import span
 from .coarse import (block_summaries_t, doc_validity, hierarchical_search,
                      two_stage_search)
 from .index import TokenIndex
@@ -67,14 +72,16 @@ def search_single_device(q: torch.Tensor, tokens: torch.Tensor,
     (`scales` given) runs, with use_pallas, K5 on queries quantized per
     token (ops.maxsim_search_int8), else the float-query XLA route's math
     (maxsim_search_int8_torch), the JAX function's default."""
-    if scales is None:
-        scores = maxsim_search(q, tokens, mask, planes=planes)
-    elif use_pallas:
-        q8, qs = quantize_queries_int8(q.float())
-        scores = maxsim_search_int8(q8, qs, tokens, scales)
-    else:
-        scores = maxsim_search_int8_torch(q, tokens, scales, mask)
-    return torch.topk(scores, k, dim=1)
+    with span("search.k1"):
+        if scales is None:
+            scores = maxsim_search(q, tokens, mask, planes=planes)
+        elif use_pallas:
+            q8, qs = quantize_queries_int8(q.float())
+            scores = maxsim_search_int8(q8, qs, tokens, scales)
+        else:
+            scores = maxsim_search_int8_torch(q, tokens, scales, mask)
+    with span("search.topk"):
+        return torch.topk(scores, k, dim=1)
 
 
 def _stage1_lane_rule(block_size: int) -> int:

@@ -17,6 +17,10 @@ _MicroBatchServer, RetrievalServer, VQAServer, make_http_server).
   default, or `batch_buckets`), with copies of its first request, whose
   results are dropped; as the JAX server does. The shapes a dispatch can
   take are then few and fixed; warm_up runs each of them once.
+- Spans (utils.profiling, while recording is on), on the dispatcher's
+  thread: serve.collect (`n`), and serve.dispatch (`dispatch`, `n`,
+  `padded`, and a clock mark) over serve.stack, the tower's spans, the
+  searcher's and serve.results.
 - A sharded index (main.py --num_devices): rank 0 owns the server and the
   query tower; its searcher is a MeshSearchFront, which broadcasts each
   dispatch's (B, Lq, dim) query embeddings (and a RAG dispatch's doc
@@ -35,6 +39,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from .utils import profiling
+from .utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -136,21 +143,24 @@ class _MicroBatchServer:
     def _collect(self):
         """Block for the first request, then fill up to max_batch within
         the max_wait_ms window."""
-        try:
-            first = self._q.get(timeout=0.1)
-        except queue.Empty:
-            return []
-        batch = [first]
-        deadline = time.perf_counter() + self.cfg.max_wait_ms / 1e3
-        while len(batch) < self.cfg.max_batch:
-            left = deadline - time.perf_counter()
-            if left <= 0:
-                break
+        with span("serve.collect") as s:
             try:
-                batch.append(self._q.get(timeout=left))
+                first = self._q.get(timeout=0.1)
             except queue.Empty:
-                break
-        return batch
+                s.set(n=0)
+                return []
+            batch = [first]
+            deadline = time.perf_counter() + self.cfg.max_wait_ms / 1e3
+            while len(batch) < self.cfg.max_batch:
+                left = deadline - time.perf_counter()
+                if left <= 0:
+                    break
+                try:
+                    batch.append(self._q.get(timeout=left))
+                except queue.Empty:
+                    break
+            s.set(n=len(batch))
+            return batch
 
     def _loop(self):
         while not self._stop.is_set():
@@ -235,11 +245,13 @@ class RetrievalServer(_MicroBatchServer):
     def encode(self, batch) -> torch.Tensor:
         """The query embeddings of (ids, mask, features, pixels, ...)
         rows, on the executor's device."""
-        pixels = self._stack(batch, 3)
-        extra = {} if pixels is None else {"pixel_values": pixels}
-        return self.ex.encode_query(np.stack([b[0] for b in batch]),
-                                    np.stack([b[1] for b in batch]),
-                                    self._stack(batch, 2), **extra)
+        with span("serve.stack"):
+            pixels = self._stack(batch, 3)
+            extra = {} if pixels is None else {"pixel_values": pixels}
+            ids = np.stack([b[0] for b in batch])
+            mask = np.stack([b[1] for b in batch])
+            feats = self._stack(batch, 2)
+        return self.ex.encode_query(ids, mask, feats, **extra)
 
     @torch.inference_mode()
     def warm_up(self) -> None:
@@ -260,16 +272,23 @@ class RetrievalServer(_MicroBatchServer):
     @torch.inference_mode()
     def _dispatch(self, batch):
         self.dispatches += 1
-        q = self.encode(self._padded(batch))
-        scores, rows = self.searcher.search_device(q, self.cfg.k)
-        scores = scores.cpu().numpy()
-        pids = self.searcher.index.pids[rows.cpu().numpy()]
-        for i, (*_, fut) in enumerate(batch):
-            fut.set_result(RetrievalResult(
-                pids=pids[i], scores=scores[i],
-                contents=([self.id2content.get(p, "")
-                           for p in pids[i].tolist()]
-                          if self.id2content is not None else None)))
+        with span("serve.dispatch") as s:
+            if s:
+                profiling.clock_mark(self.ex.device)
+            padded = self._padded(batch)
+            s.set(dispatch=self.dispatches, n=len(batch), padded=len(padded))
+            q = self.encode(padded)
+            scores, rows = self.searcher.search_device(q, self.cfg.k)
+            with span("serve.results"):
+                scores = scores.cpu().numpy()
+                pids = self.searcher.index.pids[rows.cpu().numpy()]
+                for i, (*_, fut) in enumerate(batch):
+                    fut.set_result(RetrievalResult(
+                        pids=pids[i], scores=scores[i],
+                        contents=([self.id2content.get(p, "")
+                                   for p in pids[i].tolist()]
+                                  if self.id2content is not None
+                                  else None)))
 
 
 class VQAServer(_MicroBatchServer):

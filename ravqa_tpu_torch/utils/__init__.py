@@ -1,4 +1,5 @@
-from .profiling import StepTimer, annotate, device_memory_stats, trace
+from .profiling import (StepTimer, annotate, device_memory_stats, enabled,
+                        recording, span, take_spans, trace)
 from .tables import (build_prediction_table, log_prediction_table,
                      save_prediction_table, table_columns)
 
@@ -15,5 +16,6 @@ def set_seed(seed: int):
 
 
 __all__ = ["StepTimer", "annotate", "build_prediction_table",
-           "device_memory_stats", "log_prediction_table",
-           "save_prediction_table", "set_seed", "table_columns", "trace"]
+           "device_memory_stats", "enabled", "log_prediction_table",
+           "recording", "save_prediction_table", "set_seed", "span",
+           "table_columns", "take_spans", "trace"]

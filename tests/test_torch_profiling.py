@@ -1,7 +1,8 @@
 """The port's profiling utilities (ravqa_tpu_torch/utils/profiling.py)
 against the JAX package's (ravqa_tpu/utils/profiling.py): StepTimer's
 summary keys and arithmetic on the same step times, device_memory_stats's
-CPU entry, a Chrome trace naming an annotate span, and the exports."""
+CPU entry, a Chrome trace naming an annotate span and a span of a thread
+that started before the trace, and the exports."""
 
 import json
 import os
@@ -55,6 +56,63 @@ def test_trace_writes_a_chrome_trace_with_the_span(tmp_path):
     with open(os.path.join(log_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "triples_step" for e in events)
+
+
+def test_trace_merges_the_spans_of_a_thread_started_before_it(tmp_path):
+    """A server's dispatcher runs before the profiler starts, which then
+    leaves out its ranges: trace() merges the recorded span into the file,
+    on the dispatcher's thread id, inside the block's anchor range."""
+    import threading
+    go, done = threading.Event(), threading.Event()
+    tid = {}
+
+    def dispatcher():
+        tid["id"] = threading.get_native_id()
+        go.wait(timeout=30)
+        with prof.span("serve.dispatch", n=2):
+            (torch.randn(16, 16) @ torch.randn(16, 16)).sum().item()
+        done.set()
+
+    t = threading.Thread(target=dispatcher, daemon=True)
+    t.start()
+    log_dir = str(tmp_path / "trace")
+    with prof.trace(log_dir):
+        go.set()
+        assert done.wait(timeout=30)
+    t.join(timeout=30)
+    assert not t.is_alive()
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    merged = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["name"] for e in merged] == ["serve.dispatch"]
+    (e,) = merged
+    assert e["ph"] == "X" and e["tid"] == tid["id"]
+    assert e["args"]["n"] == 2 and e["dur"] > 0
+    anchor = next(a for a in events if a.get("name") == prof.TRACE_ANCHOR)
+    assert anchor["ts"] <= e["ts"]
+    assert e["ts"] + e["dur"] <= anchor["ts"] + anchor["dur"]
+    assert prof.take_spans() == []
+
+
+def test_trace_places_spans_by_clock_marks():
+    """The merged spans' offset: each clock mark's query less its host
+    time, the least of them (a query's latency only adds), a stray far
+    below the median left out; without marks the range's anchor."""
+    def mark(us):
+        return {"name": "clock.mark", "start": int(us * 1e3)}
+
+    def call(ts):
+        return {"name": "cudaStreamQuery", "cat": "cuda_runtime", "ts": ts}
+
+    spans = [mark(1_000.0), mark(50_000.0), mark(90_000.0),
+             {"name": "serve.dispatch", "start": 1_000_000}]
+    # true offset 500; lags 3, 1 and 7 us; a stray 400 us early near the
+    # second mark, which a coarse anchor 300 us low pairs with it
+    events = [call(1_503.0), call(50_501.0), call(90_507.0), call(50_100.0)]
+    assert prof.mark_offset(spans, events, 200.0) == pytest.approx(503.0)
+    assert prof.mark_offset(spans, events[:3], 500.0) == pytest.approx(
+        501.0)
+    assert prof.mark_offset(spans[3:], events, 123.0) == 123.0
 
 
 def test_exports_match_jax():
