@@ -520,12 +520,16 @@ def bound(nbytes, ops, kind):
             "bytes": nbytes, "ops": ops, "ops_type": kind}
 
 
-def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd, ops=None):
+def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd, ops=None,
+                  plan=None):
     """Time a kernel's wrapper and its plain version (median of 10, CUDA
     events; the plain version's of 3 when it takes over 100 ms) and keep
     them, its error and its bound in out[kernel]: under
     "shapes" for each shape, and the first shape's at the top. `ops`, the
-    function's operations, adds the rate reached (tera_ops_per_s)."""
+    function's operations, adds the rate reached (tera_ops_per_s); `plan`,
+    an MMA route's ops.maxsim.MmaPlan, its MMA width, the share of the
+    MMA's columns that hold a doc token (column_use) and the units each
+    persistent block walks."""
     # a plain version slower than 100 ms a call: the median of 3 (its
     # time is information; a long median would cost the run its room)
     ms = time_ms(fn)
@@ -537,12 +541,19 @@ def record_kernel(out, kernel, shape, err, fn, plain_fn, bnd, ops=None):
     o["shapes"][shape] = {"ms": ms, "plain_ms": plain_ms, **bnd}
     if ops is not None:
         o["shapes"][shape]["tera_ops_per_s"] = ops / ms / 1e9
+    if plan is not None:
+        o["shapes"][shape].update(width=plan.width,
+                                  column_use=plan.column_use,
+                                  units_per_block=plan.units_per_block)
     for key, v in (("ms", ms), ("plain_ms", plain_ms),
                    ("bound_ms", bnd["bound_ms"]),
                    ("bound_by", bnd["bound_by"])):
         o.setdefault(key, v)                       # the first shape's
     print(f"{kernel} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
+          + ("" if plan is None else
+             f"; MMA width {plan.width}, column_use {plan.column_use:.4f}, "
+             f"{plan.units_per_block} units a block"), flush=True)
 
 
 def device_ms(fn, pattern, launches=1):
@@ -582,6 +593,8 @@ def maxsim_bound(maxsim, q, tok, mask):
         bnd["bound_note"] = (f"bf16 operations of the {products} products "
                              f"of {route.parts} query parts and "
                              f"{route.planes} index planes")
+        # the function's operations counted once, as k1_roofline does
+        bnd["once_bound_ms"] = bound(nbytes, flop, "bf16")["bound_ms"]
     if route.planes > 1:
         bnd["f32_bound_ms"] = bound(nbytes, flop, "f32")["bound_ms"]
     return bnd, flop
@@ -624,7 +637,8 @@ def kernel_shape(out, key, shape, b, lq, n, ld, dim, q_dtype, t_dtype,
     record_kernel(out, key, shape, err,
                   lambda: maxsim.maxsim_search(q, tok, mask, planes=planes),
                   lambda: maxsim.maxsim_search_torch(q, tok, mask), bnd,
-                  ops=flop)
+                  ops=flop,
+                  plan=maxsim.route_plan(q.device, route, b, lq, n, ld, dim))
     print(f"  {out[key]['shapes'][shape]['tera_ops_per_s']:.1f} TFLOP/s"
           + (f"; the CUDA cores' float32 bound {bnd['f32_bound_ms']:.3f} ms"
              if "f32_bound_ms" in bnd else ""), flush=True)
@@ -1219,7 +1233,7 @@ def compressed_kernels():
     """K5 and K6 against their plain versions. Returns {kernel: {"err",
     "ms", "plain_ms", "shapes"}}: ms and plain_ms of the first shape."""
     import torch
-    from ravqa_tpu_torch.ops import quant, residual
+    from ravqa_tpu_torch.ops import maxsim, quant, residual
     g = torch.Generator(device="cuda").manual_seed(2)
     b, lq, dim = 32, 32, 128
     q = _normed(g, b, lq, dim, dtype=torch.float32)
@@ -1259,7 +1273,10 @@ def compressed_kernels():
                       lambda: quant.maxsim_search_int8_q8_torch(q8, qs, t8,
                                                                 ds),
                       bound(_nbytes(q8, qs, t8, ds, got), ops, "int8"),
-                      ops=ops)
+                      ops=ops,
+                      plan=maxsim.launch_plan(q8.device, ld, n, b, lq_k5,
+                                              quant._K5_BLOCK_ROWS,
+                                              dim=dim))
         print(f"  {out['K5']['shapes'][shape]['tera_ops_per_s']:.1f} TOP/s",
               flush=True)
         del t8, ds, got, want

@@ -177,13 +177,13 @@ def maxsim_search_torch(q: torch.Tensor, tokens: torch.Tensor,
 
 # library name -> (CUDA source, {C function: (pointer args, int args)})
 _LIBRARIES = {
-    "ravqa_maxsim_mma": ("maxsim_mma.cu", {"ravqa_maxsim_mma": (4, 12)}),
+    "ravqa_maxsim_mma": ("maxsim_mma.cu", {"ravqa_maxsim_mma": (4, 15)}),
     "ravqa_coarse_sweep": ("coarse_sweep.cu", {
         "ravqa_coarse_sweep": (4, 5), "ravqa_coarse_sweep_bf16": (4, 11),
         "ravqa_coarse_sweep_int8": (6, 11)}),
     "ravqa_stage1_sweep": ("stage1_sweep.cu", {"ravqa_stage1_sweep": (5, 14)}),
     "ravqa_maxsim_int8": ("maxsim_int8.cu", {
-        "ravqa_maxsim_search_int8": (5, 10)}),
+        "ravqa_maxsim_search_int8": (5, 13)}),
     "ravqa_residual_maxsim": ("residual_maxsim.cu", {
         "ravqa_residual_maxsim": (7, 11)}),
     # the stage-2 experiment's scorers (ops/stage2.py): X1, and X2/X3
@@ -236,43 +236,71 @@ def build_kernels() -> dict:
 # The MMA route (csrc/mma_tile.cuh): K1 and K5
 # ---------------------------------------------------------------------------
 
-_TILE_ROWS = 256               # doc tokens (MMA columns) per tile
+_TILE_ROWS = 256               # doc tokens a ring stage holds, most
 _TILE_DOCS = 8                 # docs per tile (per-row maxima in smem)
-_TILES_PER_BLOCK = 16          # most tiles one block sweeps
-# doc tokens per tile by index planes: two planes double a ring stage's
-# bytes, so a split float32 index takes tiles of 128 columns (3 stages of
+_TILES_PER_UNIT = 32           # most tiles in one unit of work
+# doc tokens a ring stage holds, by index planes: two planes double a
+# stage's bytes, so a split float32 index takes stages of 128 rows (3 of
 # 64 KB at dim 128 fit the 227 KB of shared memory)
 TILE_ROWS = {1: _TILE_ROWS, 2: 128}
+# the MMA widths (columns a wgmma, N) the kernels are built for, by query
+# rows per unit row chunk (one m-tile a consumer warpgroup: 128; two:
+# 256), for token rows of more than 64 values; narrower rows take 64
+_MMA_WIDTHS = {128: (64, 96, 112, 128), 256: (64, 112, 128)}
+
+
+def mma_widths(block_rows: int, dim: int) -> tuple:
+    """The MMA widths the kernel of `block_rows` query rows is built for at
+    token rows of `dim` values (csrc/maxsim_mma.cu, csrc/maxsim_int8.cu)."""
+    return _MMA_WIDTHS[block_rows] if dim > 64 else (64,)
 
 
 class MmaPlan(NamedTuple):
-    """How the MMA route tiles a search; the kernels take these ints.
+    """How the MMA route covers a search; the kernels take these ints.
 
     A tile holds `docs_per_tile` whole docs, each padded to `doc_cols`
     columns (Ld rounded up to 8, so an 8-column MMA slab never straddles two
-    docs), or part of one doc longer than 256 tokens, which spans
-    `tiles_per_doc` tiles. A block sweeps `tiles_per_block` consecutive
-    tiles for `queries_per_block` whole queries."""
+    docs), or part of one doc longer than a ring stage, which spans
+    `tiles_per_doc` tiles. A tile goes to the MMA in `chunks` chunks of
+    `width` columns. A unit of work is `queries_per_block` whole queries
+    over `tiles_per_unit` consecutive tiles; unit u is query group
+    u % groups over tile range u // groups, and persistent block x of
+    `blocks` walks units x, x + blocks, ... `column_use` is the share of
+    the MMA's columns that hold a token of a padded doc."""
     docs_per_tile: int
     doc_cols: int
     tiles_per_doc: int
-    tiles_per_block: int
+    tiles_per_unit: int
     queries_per_block: int
+    width: int
+    chunks: int
+    units: int
+    blocks: int
+    column_use: float
+
+    @property
+    def units_per_block(self) -> int:
+        """The most units one persistent block walks."""
+        return -(-self.units // self.blocks)
 
 
 def mma_tile_plan(ld: int, n: int, b: int, lq: int, block_rows: int,
-                  sm_count: int = 132, tile_rows: int = _TILE_ROWS
-                  ) -> MmaPlan:
-    """The MMA route's tiling of N docs of Ld tokens against B queries of
-    Lq tokens, for a kernel whose block holds `block_rows` query rows and
-    whose tiles hold `tile_rows` doc tokens (TILE_ROWS).
+                  sm_count: int = 132, tile_rows: int = _TILE_ROWS,
+                  dim: int = 128) -> MmaPlan:
+    """The MMA route's plan for N docs of Ld tokens against B queries of Lq
+    tokens of `dim` values, for a kernel whose unit row chunk holds
+    `block_rows` query rows and whose ring stages hold `tile_rows` doc
+    tokens (TILE_ROWS).
 
     Doc tile: floor(tile_rows / doc_cols) docs (at most 8) for Ld <=
     tile_rows, else one doc's tokens over ceil(Ld / tile_rows) tiles of
-    equal width. Queries: as many whole queries as fit the block's rows
-    (one query over several row chunks when Lq is longer). Tiles per block:
-    at most 16, fewer when the grid would give the card's `sm_count` SMs
-    less than four blocks each; always whole docs."""
+    equal width. MMA chunks: of the widths the kernel is built for
+    (mma_widths), the width whose chunks cover a tile's columns with the
+    fewest surplus columns, then in the fewest chunks. Queries: as many
+    whole queries as fit the block's rows (one query over several row
+    chunks when Lq is longer). Tiles per unit: at most 32, fewer when the
+    card's `sm_count` SMs would walk less than eight units each; always
+    whole docs. One persistent block an SM, at most one a unit."""
     if ld <= tile_rows:
         tiles_per_doc = 1
         doc_cols = -(-ld // 8) * 8
@@ -281,13 +309,22 @@ def mma_tile_plan(ld: int, n: int, b: int, lq: int, block_rows: int,
         tiles_per_doc = -(-ld // tile_rows)
         doc_cols = -(-ld // (8 * tiles_per_doc)) * 8
         docs_per_tile = 1
+    tile_cols = docs_per_tile * doc_cols
+    width, chunks = min(
+        ((w, -(-tile_cols // w)) for w in mma_widths(block_rows, dim)
+         if -(-tile_cols // w) * w <= tile_rows),
+        key=lambda wc: (wc[0] * wc[1] - tile_cols, wc[1]))
     g = max(1, min(b, block_rows // max(lq, 1)))
     groups = -(-b // g)
     doc_groups = -(-n // docs_per_tile)
-    per_block = min(max(1, _TILES_PER_BLOCK // tiles_per_doc),
-                    max(1, doc_groups * groups // (4 * sm_count)))
-    return MmaPlan(docs_per_tile, doc_cols, tiles_per_doc,
-                   per_block * tiles_per_doc, g)
+    per_unit = min(max(1, _TILES_PER_UNIT // tiles_per_doc),
+                   max(1, doc_groups * groups // (8 * sm_count)))
+    tiles_per_unit = per_unit * tiles_per_doc
+    units = groups * -(-doc_groups * tiles_per_doc // tiles_per_unit)
+    padded = -(-ld // 8) * 8 if tiles_per_doc > 1 else tile_cols
+    column_use = padded / (tiles_per_doc * chunks * width)
+    return MmaPlan(docs_per_tile, doc_cols, tiles_per_doc, tiles_per_unit, g,
+                   width, chunks, units, min(units, sm_count), column_use)
 
 
 def split_query_bf16(q: torch.Tensor, parts: int) -> torch.Tensor:
@@ -362,8 +399,8 @@ def route_products(route: Route) -> int:
                if p + x < top)
 
 
-# query rows per block of the MMA kernels, by query parts (maxsim_mma.cu);
-# K5 (maxsim_int8.cu) holds 256
+# query rows per unit row chunk of the MMA kernels, by query parts
+# (maxsim_mma.cu); K5 (maxsim_int8.cu) holds 256
 MMA_BLOCK_ROWS = {1: 256, 2: 128}
 
 
@@ -372,12 +409,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def launch_plan(device, ld: int, n: int, b: int, lq: int,
-                block_rows: int, tile_rows: int = _TILE_ROWS) -> MmaPlan:
+def launch_plan(device, ld: int, n: int, b: int, lq: int, block_rows: int,
+                tile_rows: int = _TILE_ROWS, dim: int = 128) -> MmaPlan:
     """mma_tile_plan for the card `device` is on."""
     return mma_tile_plan(ld, n, b, lq, block_rows,
                          _sm_count(torch.device(device).index or 0),
-                         tile_rows)
+                         tile_rows, dim)
+
+
+def route_plan(device, route: Route, b: int, lq: int, n: int, ld: int,
+               dim: int) -> MmaPlan:
+    """The plan ``maxsim_search`` launches K1 with on `route`."""
+    return launch_plan(device, ld, n, b, lq, MMA_BLOCK_ROWS[route.parts],
+                       TILE_ROWS[route.planes], dim)
 
 
 def _check_kernel_args(q, tokens, mask):
@@ -409,6 +453,13 @@ def _check_kernel_args(q, tokens, mask):
     for name, t in (("q", q), ("tokens", tokens)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _plan_ints(plan: MmaPlan) -> tuple:
+    """The plan's ints in the order the kernels' C interfaces take them."""
+    return (plan.docs_per_tile, plan.doc_cols, plan.tiles_per_doc,
+            plan.tiles_per_unit, plan.queries_per_block, plan.width,
+            plan.chunks, plan.blocks)
 
 
 def maxsim_search(q: torch.Tensor, tokens: torch.Tensor,
@@ -445,13 +496,10 @@ def maxsim_search(q: torch.Tensor, tokens: torch.Tensor,
         _check_cuda("maxsim_search", tokens=tokens, planes=idx)
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
     qp = split_query_bf16(q, route.parts)
-    plan = launch_plan(q.device, ld, n, b, lq, MMA_BLOCK_ROWS[route.parts],
-                       TILE_ROWS[route.planes])
+    plan = route_plan(q.device, route, b, lq, n, ld, dim)
     _launch("ravqa_maxsim_mma", "ravqa_maxsim_mma", q.device,
             qp.data_ptr(), idx.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            b, lq, n, ld, dim, route.parts, route.planes,
-            plan.docs_per_tile, plan.doc_cols, plan.tiles_per_doc,
-            plan.tiles_per_block, plan.queries_per_block)
+            b, lq, n, ld, dim, route.parts, route.planes, *_plan_ints(plan))
     maxsim_search.launches += 1
     if route.planes > 1:
         maxsim_search.split_launches += 1

@@ -157,7 +157,8 @@ def maxsim_search_int8(q8: torch.Tensor, q_scales: torch.Tensor,
     if q8.device.type != "cuda":
         raise ValueError(f"maxsim_search_int8: unsupported device "
                          f"{q8.device}")
-    from .maxsim import _MAX_DIM, _check_cuda, _launch, launch_plan
+    from .maxsim import (_MAX_DIM, _check_cuda, _launch, _plan_ints,
+                         launch_plan)
     if q8.dim() != 3 or tokens_i8.dim() != 3:
         raise ValueError(f"maxsim_search_int8: expected q8 (B, Lq, dim) and "
                          f"tokens_i8 (N, Ld, dim); got {tuple(q8.shape)}, "
@@ -183,12 +184,11 @@ def maxsim_search_int8(q8: torch.Tensor, q_scales: torch.Tensor,
     _check_cuda("maxsim_search_int8", q8=q8, q_scales=q_scales,
                 tokens_i8=tokens_i8, d_scales=d_scales)
     out = torch.empty((b, n), dtype=torch.float32, device=q8.device)
-    plan = launch_plan(q8.device, ld, n, b, lq, _K5_BLOCK_ROWS)
+    plan = launch_plan(q8.device, ld, n, b, lq, _K5_BLOCK_ROWS, dim=dim)
     _launch("ravqa_maxsim_int8", "ravqa_maxsim_search_int8", q8.device,
             q8.data_ptr(), q_scales.data_ptr(), tokens_i8.data_ptr(),
             d_scales.data_ptr(), out.data_ptr(), b, lq, n, ld, dim,
-            plan.docs_per_tile, plan.doc_cols, plan.tiles_per_doc,
-            plan.tiles_per_block, plan.queries_per_block)
+            *_plan_ints(plan))
     maxsim_search_int8.launches += 1
     return out
 

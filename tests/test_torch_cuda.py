@@ -116,8 +116,11 @@ def test_cuda_searcher_matches_cpu_searcher():
 # -- K1's MMA route (bf16 index: csrc/maxsim_mma.cu) --------------------------
 
 # the serve shapes: Lq=64 over 220-token docs, and 64-token docs (4 per
-# tile) at an N that is a multiple of nothing
-MMA_SERVE_SHAPES = [(32, 64, 203, 220, 128), (32, 32, 16387, 64, 128)]
+# tile) at an N that is a multiple of nothing; 180-token docs (the triples
+# eval's: three 64-column chunks) and 512-token docs (PreFLMR's: two tiles
+# a doc)
+MMA_SERVE_SHAPES = [(32, 64, 203, 220, 128), (32, 32, 16387, 64, 128),
+                    (32, 32, 203, 180, 128), (32, 320, 61, 512, 128)]
 
 
 @pytest.mark.parametrize("shape", MMA_SERVE_SHAPES)
@@ -136,10 +139,17 @@ def test_maxsim_mma_route_at_serve_shapes(shape, q_dtype):
 
 
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
-def test_maxsim_mma_route_repeats_bit_for_bit(q_dtype):
-    q, tok, mask = make(MMA_SERVE_SHAPES[0], q_dtype, torch.bfloat16)
-    a = maxsim.maxsim_search(q, tok, mask)
-    assert torch.equal(a, maxsim.maxsim_search(q, tok, mask))
+@pytest.mark.parametrize("shape", [MMA_SERVE_SHAPES[0], MMA_SERVE_SHAPES[3],
+                                   (2, 64, 4096, 220, 128)])
+def test_maxsim_mma_route_repeats_bit_for_bit(q_dtype, shape):
+    """Every route (the float32 index's too) repeats bit for bit: the
+    persistent blocks' walk and the summers' order are fixed."""
+    for t_dtype in (torch.bfloat16,) + ((torch.float32,)
+                                        if q_dtype == torch.float32 else ()):
+        q, tok, mask = make(shape, q_dtype, t_dtype)
+        a = maxsim.maxsim_search(q, tok, mask)
+        for _ in range(3):
+            assert torch.equal(a, maxsim.maxsim_search(q, tok, mask))
 
 
 def test_maxsim_mma_launches_count_the_bf16_index_route_only():
@@ -161,9 +171,20 @@ def test_maxsim_mma_launches_count_the_bf16_index_route_only():
 
 # the float32 serve's shape at a small N (Ld=220 over two 112-column tiles),
 # 64-token docs (two a tile), N a multiple of nothing, and the PreFLMR
-# query (Lq=320: one query over three 128-row chunks)
+# query (Lq=320: one query over three 128-row chunks); then every caller's
+# geometry: the serve's bucket of 2, RAG's live retrieval (B 8), the
+# training-time exact evaluation (B 192), WIT (Lq 32, B 64 and 1,024),
+# M2KR (Lq 320, N 4,096), ROI (Lq 352: one query over three row chunks,
+# the last part full), the triples (Ld 180: 96-column tiles), PreFLMR's
+# exact search (Ld 512: four tiles a doc) and a shard of the sharded
+# search (N 4,096)
 SPLIT_SHAPES = [(32, 64, 203, 220, 128), (32, 32, 1031, 64, 128),
-                (4, 64, 57, 100, 64), (8, 320, 203, 220, 128)]
+                (4, 64, 57, 100, 64), (8, 320, 203, 220, 128),
+                (2, 64, 203, 220, 128), (8, 64, 1031, 220, 128),
+                (192, 64, 509, 220, 128), (64, 32, 1031, 220, 128),
+                (1024, 32, 67, 220, 128), (64, 320, 4096, 220, 128),
+                (64, 352, 203, 220, 128), (64, 32, 1031, 180, 128),
+                (32, 320, 203, 512, 128), (32, 64, 4096, 220, 128)]
 
 
 @pytest.mark.parametrize("shape", SPLIT_SHAPES)

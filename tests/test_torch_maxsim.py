@@ -256,42 +256,70 @@ def test_two_bf16_parts_hold_the_card_tolerance(shape, negative):
         assert not torch.allclose(rounded, want, rtol=1e-5, atol=1e-4 * lq)
 
 
+def _walk_tiles(plan, n, ld):
+    """Walk the tiles as csrc/mma_tile.cuh does: tile t holds docs
+    (t // tpd) * dpt + d, d < dpt, at columns d * doc_cols + r, rows
+    (t % tpd) * doc_cols + r of each, and goes to the MMA in `chunks`
+    chunks of `width` columns. Returns every (doc, row) an MMA column
+    scores, in order."""
+    dpt, dc, tpd = plan.docs_per_tile, plan.doc_cols, plan.tiles_per_doc
+    seen = []
+    for t in range(-(-n // dpt) * tpd):
+        dg, part = divmod(t, tpd)
+        for col in range(plan.chunks * plan.width):
+            d, r = divmod(col, dc)
+            row = part * dc + r
+            if d < min(dpt, n - dg * dpt) and row < ld:
+                seen.append((dg * dpt + d, row))
+    return seen
+
+
+def _check_plan(plan, ld, n, block_rows, tile_rows):
+    dpt, dc, tpd = plan.docs_per_tile, plan.doc_cols, plan.tiles_per_doc
+    assert dc % 8 == 0 and 8 <= dc * dpt <= tile_rows and dpt <= 8
+    assert plan.tiles_per_unit % tpd == 0 and (tpd == 1 or dpt == 1)
+    assert plan.width % 8 == 0 and plan.chunks >= 1
+    assert dpt * dc <= plan.chunks * plan.width <= tile_rows
+    assert sorted(_walk_tiles(plan, n, ld)) == [
+        (i, r) for i in range(n) for r in range(ld)]
+
+
 @pytest.mark.parametrize("ld", [1, 9, 64, 128, 150, 220, 300])
 @pytest.mark.parametrize("block_rows", [128, 256])
 def test_mma_tile_plan_covers_every_doc_row_once(ld, block_rows):
-    """Walk the tiles as csrc/mma_tile.cuh does: tile t of the grid holds
-    docs (t // tpd) * dpt + d, d < dpt, at columns d * doc_cols + r, rows
-    (t % tpd) * doc_cols + r of each; every (doc, row) is covered once."""
+    """Every (doc, row) of the index is scored by exactly one MMA column,
+    at 64-column chunks and at the widths the kernels are built for."""
     n, b, lq = 37, 9, 32
-    plan = torch_maxsim.mma_tile_plan(ld, n, b, lq, block_rows)
-    dpt, dc, tpd, tpb, g = plan
-    assert dc % 8 == 0 and 8 <= dc * dpt <= 256 and dpt <= 8
-    assert tpb % tpd == 0 and (tpd == 1 or dpt == 1)
-    assert g * lq <= block_rows or g == 1
-    n_tiles = -(-n // dpt) * tpd
-    seen = []
-    for t in range(n_tiles):
-        dg, part = divmod(t, tpd)
-        for d in range(min(dpt, n - dg * dpt)):
-            for r in range(dc):
-                row = part * dc + r
-                if row < ld:
-                    seen.append((dg * dpt + d, row))
-    assert sorted(seen) == [(i, r) for i in range(n) for r in range(ld)]
+    for dim in (64, 128):
+        plan = torch_maxsim.mma_tile_plan(ld, n, b, lq, block_rows, dim=dim)
+        _check_plan(plan, ld, n, block_rows, 256)
+        assert plan.width in torch_maxsim.mma_widths(block_rows, dim)
+        assert plan.queries_per_block * lq <= block_rows \
+            or plan.queries_per_block == 1
 
 
 def test_mma_tile_plan_fills_the_card():
-    """16 tiles per block at the phase-3 shape; fewer when the grid would
-    leave the SMs short of blocks; whole docs per block when a doc spans
-    tiles."""
+    """32 tiles a unit at most; fewer when the card's SMs would walk fewer
+    than eight units each; whole docs per unit when a doc spans tiles; one
+    persistent block an SM, or one a unit when there are fewer units."""
     big = torch_maxsim.mma_tile_plan(128, 16384, 32, 32, 256)
-    assert big == (2, 128, 1, 16, 8)
+    assert big[:5] == (2, 128, 1, 31, 8)
+    assert (big.width, big.chunks, big.blocks) == (128, 2, 132)
+    assert big.units == 4 * -(-8192 // 31) and big.units_per_block == 9
+    narrow = torch_maxsim.mma_tile_plan(128, 16384, 32, 32, 256, dim=64)
+    assert (narrow.width, narrow.chunks) == (64, 4)
     small = torch_maxsim.mma_tile_plan(64, 200, 32, 32, 256)
-    assert small.tiles_per_block == 1
+    assert small.tiles_per_unit == 1 and small.units == 200
+    assert small.blocks == 132 and small.units_per_block == 2
+    few = torch_maxsim.mma_tile_plan(64, 37, 2, 32, 256)
+    assert few.units == few.blocks == 10 and few.units_per_block == 1
     long_docs = torch_maxsim.mma_tile_plan(600, 100000, 32, 32, 256)
-    assert long_docs.tiles_per_doc == 3 and long_docs.tiles_per_block == 15
+    assert long_docs.tiles_per_doc == 3 and long_docs.tiles_per_unit == 30
     assert torch_maxsim.mma_tile_plan(64, 99, 3, 200, 128).queries_per_block \
         == 1
+    serve = torch_maxsim.mma_tile_plan(220, 168320, 32, 64, 128, 132, 128)
+    assert serve[:5] == (1, 112, 2, 32, 2) and serve.blocks == 132
+    assert serve.units == 16 * 168320 * 2 // 32
 
 
 @pytest.mark.parametrize("q_dtype,t_dtype,route", [
@@ -401,23 +429,94 @@ def test_split_index_planes_sum_back_to_the_index(dim):
 
 @pytest.mark.parametrize("ld", [1, 9, 64, 100, 128, 150, 220, 300])
 def test_mma_tile_plan_at_128_columns_covers_every_doc_row_once(ld):
-    """The float32-index route's tiles (TILE_ROWS[2] = 128 columns): the
+    """The float32-index route's ring stages (TILE_ROWS[2] = 128 rows): the
     walk of test_mma_tile_plan_covers_every_doc_row_once; Ld = 220 spans
-    two tiles of 112 columns."""
+    two tiles of 112 columns, one chunk of 112 each."""
     n, b, lq = 37, 9, 64
     tr = torch_maxsim.TILE_ROWS[2]
     plan = torch_maxsim.mma_tile_plan(ld, n, b, lq, 128, tile_rows=tr)
-    dpt, dc, tpd, tpb, g = plan
-    assert dc % 8 == 0 and 8 <= dc * dpt <= tr and dpt <= 8
-    assert tpb % tpd == 0 and (tpd == 1 or dpt == 1)
+    _check_plan(plan, ld, n, 128, tr)
     if ld == 220:
-        assert (tpd, dc) == (2, 112)
-    seen = []
-    for t in range(-(-n // dpt) * tpd):
-        dg, part = divmod(t, tpd)
-        for d in range(min(dpt, n - dg * dpt)):
-            for r in range(dc):
-                row = part * dc + r
-                if row < ld:
-                    seen.append((dg * dpt + d, row))
-    assert sorted(seen) == [(i, r) for i in range(n) for r in range(ld)]
+        assert (plan.tiles_per_doc, plan.doc_cols) == (2, 112)
+        assert (plan.width, plan.chunks, plan.column_use) == (112, 1, 1.0)
+
+
+# every K1 and K5 route: (query rows per unit row chunk, ring stage rows)
+MMA_ROUTES = [(128, 128), (128, 256), (256, 256)]
+
+
+@pytest.mark.parametrize("ld", [180, 220, 512])
+@pytest.mark.parametrize("lq", [32, 64, 320, 352])
+@pytest.mark.parametrize("b", [1, 2, 32, 192])
+@pytest.mark.parametrize("route", MMA_ROUTES)
+def test_mma_persistent_walk_covers_every_unit_once(ld, lq, b, route):
+    """The persistent blocks' walk (block x takes units x, x + blocks, ...;
+    unit u is query group u % groups over tile range u // groups) covers
+    every (query group, tile range) once, the groups every query row once
+    (in row chunks of the block's rows) and the ranges every tile once;
+    each tile's chunks score every doc row once."""
+    block_rows, tile_rows = route
+    n = 301
+    for sm_count in (132, 7):
+        plan = torch_maxsim.mma_tile_plan(ld, n, b, lq, block_rows,
+                                          sm_count, tile_rows)
+        _check_plan(plan, ld, n, block_rows, tile_rows)
+        g, tpu = plan.queries_per_block, plan.tiles_per_unit
+        groups = -(-b // g)
+        n_tiles = -(-n // plan.docs_per_tile) * plan.tiles_per_doc
+        ranges = -(-n_tiles // tpu)
+        assert plan.units == groups * ranges
+        assert plan.blocks == min(plan.units, sm_count)
+        walked = [u for x in range(plan.blocks)
+                  for u in range(x, plan.units, plan.blocks)]
+        assert sorted(walked) == list(range(plan.units))
+        assert max(len(range(x, plan.units, plan.blocks))
+                   for x in range(plan.blocks)) == plan.units_per_block
+        rows, tiles = [], []
+        for u in walked:
+            grp, rng = u % groups, u // groups
+            b0 = grp * g
+            rows_g = min(g, b - b0) * lq
+            if rng == 0:
+                for c0 in range(0, rows_g, block_rows):
+                    rows += range(b0 * lq + c0,
+                                  b0 * lq + min(c0 + block_rows, rows_g))
+            if grp == 0:
+                tiles += range(rng * tpu, min((rng + 1) * tpu, n_tiles))
+        assert sorted(rows) == list(range(b * lq))
+        assert sorted(tiles) == list(range(n_tiles))
+
+
+def _old_column_use(ld, tile_rows):
+    """The share of MMA columns holding a padded doc's token when every tile
+    ran all its tile_rows / 64 chunks of 64 columns (the tiling before the
+    widths were fitted)."""
+    if ld <= tile_rows:
+        dc = -(-ld // 8) * 8
+        return min(8, tile_rows // dc) * dc / tile_rows
+    tpd = -(-ld // tile_rows)
+    return -(-ld // 8) * 8 / (tpd * tile_rows)
+
+
+@pytest.mark.parametrize("ld", [1, 9, 32, 64, 100, 128, 150, 180, 220, 300,
+                                512])
+@pytest.mark.parametrize("route", MMA_ROUTES)
+@pytest.mark.parametrize("dim", [64, 128])
+def test_mma_column_use_is_whole_where_a_width_fits(ld, route, dim):
+    """column_use is 1.0 wherever a width the kernel is built for covers
+    a tile's doc columns exactly and the tiles hold whole padded docs (or
+    equal parts of one), and never below the tiling of 64-column chunks
+    that ran every tile's full width: Ld 220 and 512 on every route."""
+    block_rows, tile_rows = route
+    widths = torch_maxsim.mma_widths(block_rows, dim)
+    plan = torch_maxsim.mma_tile_plan(ld, 1000, 32, 64, block_rows, 132,
+                                      tile_rows, dim)
+    tile_cols = plan.docs_per_tile * plan.doc_cols
+    padded = -(-ld // 8) * 8
+    fits = any(tile_cols % w == 0 and tile_cols <= tile_rows for w in widths)
+    whole = padded == plan.tiles_per_doc * tile_cols
+    if fits and whole:
+        assert plan.column_use == 1.0
+    assert plan.column_use >= _old_column_use(ld, tile_rows)
+    if ld in (220, 512) and dim == 128:
+        assert plan.column_use == 1.0
